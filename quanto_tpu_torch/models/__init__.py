@@ -1,0 +1,1 @@
+"""models of quanto_tpu_torch (see the package docstring)."""

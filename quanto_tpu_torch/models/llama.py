@@ -1,0 +1,267 @@
+"""Llama-family causal LM in PyTorch (RMSNorm + rotary + GQA + SwiGLU MLP).
+
+Counterpart of `quanto_tpu/models/llama.py`, built from `nn.Linear` /
+`nn.Embedding` so that `quanto_tpu_torch.quantize()` swaps the projections for
+`QLinear`s. Module names follow the Hugging Face llama layout
+(`model.layers.N.self_attn.q_proj`, ...), so state dicts and include/exclude
+patterns transfer 1:1 with the JAX package.
+
+The model is built on `device` (CUDA unless the caller passes "cpu") with
+random weights drawn from an explicit `torch.Generator` (normal, std 0.02,
+Llama's `initializer_range` as Hugging Face initializes it); real weights
+come in through `models/loading.py`. Bias, tied-embedding, yarn/dynamic rope
+and Gemma options of the JAX config wait for the models that need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import gqa_attention
+from ..tensor.kv_cache import cache_max_len, kv_read_raw, kv_update
+
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "init_kv_cache", "rope_params"]
+
+
+_INIT_STD = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # HF `rope_scaling`: a dict, or its (key, value) pairs; None for default rope.
+    rope_scaling: Optional[Any] = None
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            object.__setattr__(self, "num_key_value_heads", self.num_attention_heads)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def rope_params(head_dim: int, theta: float, scaling: Optional[Any] = None) -> torch.Tensor:
+    """Per-dim rotary inverse frequencies (float32), computed in numpy from the
+    config: the `default`, `linear` and `llama3` variants of
+    `quanto_tpu/models/llama.py:rope_params` (whose attention scale factor is
+    1 for all three)."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    s = dict(scaling) if scaling else {}
+    rope_type = s.get("rope_type", s.get("type", "default"))
+    factor = float(s.get("factor", 1.0))
+    if rope_type == "default":
+        pass
+    elif rope_type == "linear":
+        inv_freq = inv_freq / factor
+    elif rope_type == "llama3":
+        low_freq_factor = float(s["low_freq_factor"])
+        high_freq_factor = float(s["high_freq_factor"])
+        old_len = float(s["original_max_position_embeddings"])
+        low_freq_wavelen = old_len / low_freq_factor
+        high_freq_wavelen = old_len / high_freq_factor
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = np.where(wavelen > low_freq_wavelen, inv_freq / factor, inv_freq)
+        smooth = (old_len / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+        smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
+        is_medium = (wavelen >= high_freq_wavelen) & (wavelen <= low_freq_wavelen)
+        inv_freq = np.where(is_medium, smoothed, scaled)
+    else:
+        raise ValueError(f"unsupported rope_scaling type: {rope_type!r}")
+    return torch.from_numpy(inv_freq.astype(np.float32))
+
+
+def _rope(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
+    """cos/sin tables [B, T, D] for the positions, HF 'half-rotation' layout,
+    cast to the model dtype."""
+    angles = positions.float()[..., None] * inv_freq
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def _apply_rope(x, cos, sin):
+    # x: [B, T, H, D]; cos/sin: [B, T, D] -> broadcast over heads.
+    return x * cos[:, :, None, :] + _rotate_half(x) * sin[:, :, None, :]
+
+
+def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, device=None):
+    """Float KV cache in the model dtype: per layer a (k, v) tuple of zeros
+    [B, max_len, Hkv, D]."""
+    shape = (batch, max_len, config.num_key_value_heads, config.head_dim)
+    kw = dict(dtype=config.dtype, device=device)
+    return tuple(
+        (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+        for _ in range(config.num_hidden_layers)
+    )
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (out * self.weight.float()).to(x.dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, c: LlamaConfig, **kw):
+        super().__init__()
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.head_dim
+        q_out, kv_out = self.num_heads * self.head_dim, self.num_kv_heads * self.head_dim
+        self.q_proj = nn.Linear(c.hidden_size, q_out, bias=False, **kw)
+        self.k_proj = nn.Linear(c.hidden_size, kv_out, bias=False, **kw)
+        self.v_proj = nn.Linear(c.hidden_size, kv_out, bias=False, **kw)
+        self.o_proj = nn.Linear(q_out, c.hidden_size, bias=False, **kw)
+
+    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None):
+        B, T, _ = x.shape
+        q = self.q_proj(x).view(B, T, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+        new_cache = None
+        if layer_cache is not None:
+            new_cache = kv_update(layer_cache, k, v, cache_pos)
+            k, v = kv_read_raw(new_cache, q.dtype)
+        q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
+        out = gqa_attention(q5, k, v, mask, self.head_dim**-0.5)
+        return self.o_proj(out), new_cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, c: LlamaConfig, **kw):
+        super().__init__()
+        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=False, **kw)
+        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=False, **kw)
+        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=False, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, c: LlamaConfig, **kw):
+        super().__init__()
+        self.self_attn = LlamaAttention(c, **kw)
+        self.mlp = LlamaMLP(c, **kw)
+        self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
+        self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
+
+    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None):
+        h, new_cache = self.self_attn(
+            self.input_layernorm(x), cos, sin, mask, layer_cache, cache_pos
+        )
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, new_cache
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, c: LlamaConfig, **kw):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(c, **kw) for _ in range(c.num_hidden_layers)])
+        self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM head over LlamaModel, HF-compatible module names."""
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.config = config
+        kw = dict(device="meta", dtype=config.dtype)
+        self.model = LlamaModel(config, **kw)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+        inv_freq = rope_params(config.head_dim, config.rope_theta, config.rope_scaling)
+        self.to_empty(device=device)
+        self.register_buffer("inv_freq", inv_freq.to(device), persistent=False)
+        self.requires_grad_(False)
+        self._init_weights(generator or torch.Generator(device=device).manual_seed(0))
+
+    @torch.no_grad()
+    def _init_weights(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, _INIT_STD, generator=generator)
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        cache=None,
+        cache_pos=0,
+        logits_indices=None,
+    ):
+        """Forward pass; returns (logits, cache or None).
+
+        Without a cache: causal self-attention over `input_ids` [B, T]. With a
+        cache: the tokens are written at `cache_pos` (a scalar, or a [B]
+        tensor of per-row positions) and attend to every cache slot up to
+        their position. `logits_indices` (scalar or [B]) computes logits only
+        at those per-row positions ([B, 1, V]): the hidden states are sliced
+        before the lm_head.
+        """
+        B, T = input_ids.shape
+        dev = input_ids.device
+        x = self.model.embed_tokens(input_ids.long())
+        pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
+        positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
+        cos, sin = _rope(positions, self.inv_freq, x.dtype)
+        neg = torch.finfo(torch.float32).min
+        if cache is None:
+            causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+            mask = torch.where(causal, 0.0, neg)[None, None]
+        else:
+            k_pos = torch.arange(cache_max_len(cache[0]), device=dev)[None, None, None, :]
+            mask = torch.where(k_pos <= positions[:, None, :, None], 0.0, neg)
+
+        new_cache = [] if cache is not None else None
+        for i, layer in enumerate(self.model.layers):
+            x, lc = layer(x, cos, sin, mask, cache[i] if cache is not None else None, cache_pos)
+            if cache is not None:
+                new_cache.append(lc)
+
+        x = self.model.norm(x)
+        if logits_indices is not None:
+            idx = torch.as_tensor(logits_indices, device=dev).reshape(-1).expand(B)
+            x = x[torch.arange(B, device=dev), idx][:, None, :]
+        return self.lm_head(x), (tuple(new_cache) if new_cache is not None else None)

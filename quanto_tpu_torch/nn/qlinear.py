@@ -1,0 +1,69 @@
+"""Quantized linear module.
+
+PyTorch counterpart of `quanto_tpu/nn/qlinear.py`: weights always quantized,
+bias never. The weight keeps the torch linear convention
+`[out_features, in_features]`, so per-output-channel (axis 0) scales and the
+generic layout match quanto checkpoints bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..ops.qlinear import qlinear
+from ..tensor.qtype import qtype
+from .qmodule import QModuleMixin, register_qmodule
+
+
+__all__ = ["QLinear"]
+
+
+@register_qmodule(nn.Linear)
+class QLinear(QModuleMixin, nn.Module):
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        *,
+        weights: Optional[Union[str, qtype]] = None,
+        device=None,
+        dtype=None,
+    ):
+        nn.Module.__init__(self)
+        self.in_features = in_features
+        self.out_features = out_features
+        kw = dict(device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.empty((out_features, in_features), **kw), requires_grad=False)
+        self.bias = (
+            nn.Parameter(torch.zeros((out_features,), **kw), requires_grad=False) if bias else None
+        )
+        self._init_quantization(weights, in_features)
+
+    @classmethod
+    def from_module(
+        cls,
+        module: nn.Linear,
+        weights: Optional[Union[str, qtype]] = None,
+    ) -> Optional["QLinear"]:
+        """Build from an `nn.Linear`, sharing its parameters (no copy)."""
+        if weights is None:
+            return None
+        qmodule = cls(
+            module.in_features,
+            module.out_features,
+            bias=module.bias is not None,
+            weights=weights,
+            device="meta",
+            dtype=module.weight.dtype,
+        )
+        qmodule.weight = module.weight
+        if module.bias is not None:
+            qmodule.bias = module.bias
+        return qmodule
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qlinear(x, self.qweight, self.bias)

@@ -1,0 +1,1 @@
+"""ops of quanto_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops/cuda of quanto_tpu_torch (see the package docstring)."""

@@ -1,0 +1,235 @@
+"""Fused int4 group-wise dequant matmul: the Hopper kernels, their plain
+versions and their launch counts.
+
+Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. Two CUDA kernels in
+`quanto_tpu_torch/csrc/qbits_mm.cu` compute
+
+    y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n]
+
+- `qbits_mm_small_m` (M <= `MAX_M`) replaces the TPU decode kernel `_kernel`;
+- `qbits_mm_tiled` (M > `MAX_M`) replaces the TPU prefill kernel `_prefill_kernel`.
+
+The weight is in the Hopper layout of `WeightQBitsHopperArray`: `packed`
+uint8 [N, K/2] with the two codes of byte j at K positions 2j (low nibble) and
+2j + 1 (high nibble), `scale_t`/`shift_t` float32 [G, N].
+
+Each wrapper takes its kernel's plain PyTorch version (`qbits_mm_plain`) when
+x lies on the CPU; on a CUDA tensor it launches the kernel or raises. Each
+wrapper's `launches` attribute counts its kernel launches.
+
+The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
+(`build()`), as a shared library with a plain C interface bound by `ctypes`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+
+__all__ = [
+    "MAX_M",
+    "pack_k_nibbles",
+    "unpack_k_nibbles",
+    "dequantize_k_nibbles",
+    "qbits_mm_plain",
+    "qbits_mm_small_m",
+    "qbits_mm_tiled",
+    "qbits_mm",
+    "build",
+]
+
+# Routing threshold between the two kernels: the JAX package's `_MAX_M`, so
+# each TPU kernel maps to one Hopper kernel.
+MAX_M = 512
+
+_PKG = Path(__file__).resolve().parents[2]
+_SOURCE = _PKG / "csrc" / "qbits_mm.cu"
+_BUILD_DIR = _PKG / "build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def pack_k_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 codes [N, K] in [0, 15] -> the Hopper layout uint8 [N, K/2]:
+    byte j holds code 2j in its low nibble and code 2j + 1 in its high nibble."""
+    codes = codes.to(torch.uint8)
+    return (codes[:, 0::2] | (codes[:, 1::2] << 4)).contiguous()
+
+
+def unpack_k_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_k_nibbles`: uint8 [N, K/2] -> uint8 codes [N, K]."""
+    lo = packed & 0xF
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(packed.shape[0], -1)
+
+
+def dequantize_k_nibbles(
+    packed: torch.Tensor, scale_t: torch.Tensor, shift_t: torch.Tensor, group_size: int
+) -> torch.Tensor:
+    """The Hopper layout dequantized in float32: [N, K], scale * code - shift."""
+    codes = unpack_k_nibbles(packed).float()
+    N, K = codes.shape
+    G = K // group_size
+    w = codes.view(N, G, group_size) * scale_t.t().unsqueeze(-1) - shift_t.t().unsqueeze(-1)
+    return w.view(N, K)
+
+
+def qbits_mm_plain(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale_t: torch.Tensor,
+    shift_t: torch.Tensor,
+    group_size: int,
+) -> torch.Tensor:
+    """Plain version of both kernels: unpack, dequantize in float32,
+    `x.float() @ w.T`, cast to x's dtype. x [M, K] -> [M, N]."""
+    w = dequantize_k_nibbles(packed, scale_t, shift_t, group_size)
+    return (x.float() @ w.t()).to(x.dtype)
+
+
+# --- build ------------------------------------------------------------------
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def build() -> dict:
+    """Compile `csrc/qbits_mm.cu` for sm_90a (once per source content) and
+    load it. Returns {"path", "seconds", "log"}: `seconds` and the compiler's
+    `-Xptxas -v` report `log` are those of this call's build, 0.0 and "" when
+    the library was already built."""
+    global _LIB
+    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = _BUILD_DIR / f"libqbits_mm_{digest}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    if _LIB is None:
+        lib = ctypes.CDLL(str(path))
+        for fn in (lib.qbits_mm_small_m, lib.qbits_mm_tiled):
+            fn.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return {"path": str(path), "seconds": seconds, "log": log}
+
+
+def _lib() -> ctypes.CDLL:
+    if _LIB is None:
+        build()
+    return _LIB
+
+
+# --- wrappers ---------------------------------------------------------------
+
+
+def _check(x, packed, scale_t, shift_t, group_size):
+    """Validate the operands a kernel takes; returns (M, N, K)."""
+    if x.dim() != 2 or packed.dim() != 2 or scale_t.dim() != 2 or shift_t.dim() != 2:
+        raise ValueError("qbits_mm: x, packed, scale_t and shift_t must be 2-D")
+    M, K = x.shape
+    N = packed.shape[0]
+    if packed.shape[1] * 2 != K:
+        raise ValueError(f"qbits_mm: packed {tuple(packed.shape)} does not match K = {K}")
+    if group_size <= 0 or K % group_size or group_size % 64:
+        raise ValueError(f"qbits_mm: group size {group_size} must divide K = {K} and be a multiple of 64")
+    G = K // group_size
+    if tuple(scale_t.shape) != (G, N) or tuple(shift_t.shape) != (G, N):
+        raise ValueError(f"qbits_mm: scale_t/shift_t must be [{G}, {N}]")
+    if N % 128 or M < 1:
+        raise ValueError(f"qbits_mm: N = {N} must be a multiple of 128 and M = {M} >= 1")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qbits_mm: x must be bfloat16 or float32, got {x.dtype}")
+    if packed.dtype != torch.uint8 or scale_t.dtype != torch.float32 or shift_t.dtype != torch.float32:
+        raise TypeError("qbits_mm: packed must be uint8 and scale_t/shift_t float32")
+    return M, N, K
+
+
+def _launch(fn, x, packed, scale_t, shift_t, group_size, M, N, K):
+    tensors = (x, packed, scale_t, shift_t)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("qbits_mm: all operands must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qbits_mm: operands must be contiguous")
+    if x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("qbits_mm: x and packed must be 16-byte aligned")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    rc = fn(
+        x.device.index if x.device.index is not None else torch.cuda.current_device(),
+        x.data_ptr(), packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(),
+        M, N, K, group_size, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"qbits_mm kernel launch failed: cudaError {rc}")
+    return out
+
+
+def qbits_mm_small_m(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
+    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, M <= MAX_M. Replaces
+    `quanto_tpu/ops/pallas/qbits_mm.py:_kernel`."""
+    M, N, K = _check(x, packed, scale_t, shift_t, group_size)
+    if M > MAX_M:
+        raise ValueError(f"qbits_mm_small_m takes M <= {MAX_M}, got {M}")
+    if x.device.type == "cpu":
+        return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
+    out = _launch(_lib().qbits_mm_small_m, x, packed, scale_t, shift_t, group_size, M, N, K)
+    qbits_mm_small_m.launches += 1
+    return out
+
+
+def qbits_mm_tiled(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
+    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, any M (routed at M > MAX_M).
+    Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel`."""
+    M, N, K = _check(x, packed, scale_t, shift_t, group_size)
+    if x.device.type == "cpu":
+        return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
+    out = _launch(_lib().qbits_mm_tiled, x, packed, scale_t, shift_t, group_size, M, N, K)
+    qbits_mm_tiled.launches += 1
+    return out
+
+
+qbits_mm_small_m.launches = 0
+qbits_mm_tiled.launches = 0
+
+
+def qbits_mm(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
+    """y[..., N] = x[..., K] @ deq(W)^T, routed by M = prod(lead dims) as
+    `qbits_matmul_kernel_call` routes (`quanto_tpu/ops/pallas/qbits_mm.py:777`)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    kernel = qbits_mm_small_m if x2.shape[0] <= MAX_M else qbits_mm_tiled
+    out = kernel(x2, packed, scale_t, shift_t, group_size)
+    return out.reshape(*lead, packed.shape[0])
