@@ -5,21 +5,32 @@
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
-2. build: builds the Hopper kernels from `quanto_tpu_torch/csrc` (build seconds
-   and the `-Xptxas -v` report).
+2. build: builds every Hopper kernel source in `quanto_tpu_torch/csrc` into
+   one library (one nvcc per source, in parallel; build seconds and the
+   `-Xptxas -v` report).
 3. kernels vs plain: each kernel against its plain PyTorch version at the
-   main path's shapes (bf16 x, group size 128), with its time, its bound, the
-   plain version's time and, as a yardstick only, `torch.matmul` on the
-   dequantized bf16 weight. Times are CUDA-event medians with the L2 cache
-   flushed before each launch, as the main path finds it.
+   main path's shapes, with its time, its bound, the plain version's time
+   and, as a yardstick only, one PyTorch call computing the same function.
+   int4 matmuls: bf16 x, group size 128, yardstick `torch.matmul` on the
+   dequantized bf16 weight. `flash_decode`: B = 4, Hkv = 8, G = 4, D = 128,
+   bf16 q, caches bf16, qint8, qint4, k8v4 and qint4a of 1088 and 8192 slots,
+   every slot visible; yardstick `scaled_dot_product_attention` (GQA, boolean
+   mask) on the cache dequantized to bf16. Times are CUDA-event medians with
+   the L2 cache flushed before each launch, as the main path finds it.
 4. main path: the Llama-3.1-8B configuration in bf16 (32 layers, full width,
    random weights from a seed), `quantize(weights="qint4")` with the lm_head
    included, `freeze`; B = 4 prompts of 1024 tokens: prefill (last position
    only) and 63 greedy decode steps (64 new tokens) over a bf16 cache of 1088
    slots. Asserts the exact kernel launch counts of that run.
-5. end-to-end numerics: at full width and 2 layers, the prefill's
-   last-position logits from the kernel path against the same forward
-   through the plain versions called explicitly.
+4b. long context, on the same model: a qint4 KV cache of 8192 slots, B = 4
+   prompts of 8128 tokens prefilled in 8 chunks of 1016 (each with the logits
+   of its last position only), then 63 greedy decode steps. Asserts the
+   exact launch counts and prints prefill ms, decode ms/step, tok/s, peak
+   memory, the cache's bytes and the step's byte bound.
+5. end-to-end numerics: at full width and 2 layers, the kernel path against
+   the same forward through the plain versions called explicitly: the
+   prefill's last-position logits (bf16 cache), and one decode step at
+   ragged per-row positions over a qint4 cache.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -33,6 +44,7 @@ import time
 import types
 
 import torch
+import torch.nn.functional as F
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -47,7 +59,20 @@ REPLACES = {
     "qbits_mm_small_m": "quanto_tpu/ops/pallas/qbits_mm.py:180",
     "qbits_mm_tiled": "quanto_tpu/ops/pallas/qbits_mm.py:223",
 }
-SOURCE = "quanto_tpu_torch/csrc/qbits_mm.cu"
+SOURCE = {
+    "qbits_mm_small_m": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_tiled": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "flash_decode": "quanto_tpu_torch/csrc/flash_decode.cu",
+}
+REPLACES["flash_decode"] = (
+    "quanto_tpu/ops/pallas/flash_decode.py:53, quanto_tpu/ops/pallas/flash_decode2.py:44, "
+    "quanto_tpu/ops/pallas/flash_decode3.py:36"
+)
+# flash_decode's phase-3 shapes: (Hkv, G, D) of Llama-3.1-8B, caches and lengths.
+FD_HEADS = (8, 4, 128)
+FD_CACHES = ["bf16", "qint8", "qint4", "k8v4", "qint4a"]
+FD_SLOTS = [1088, 8192]
+FD_SUMMARY = ("qint4", 8192)  # the long-context path's cache
 
 # meta-llama/Llama-3.1-8B config.json.
 LLAMA31_8B = dict(
@@ -69,6 +94,8 @@ LLAMA31_8B = dict(
 )
 B, T, NEW = 4, 1024, 64
 LINEARS_PER_LAYER = 7
+# Long context: the JAX package's headline decode (ctx 8192, qint4 cache).
+LONG_SLOTS, LONG_PROMPT, LONG_CHUNK = 8192, 8128, 1016
 
 
 def log(msg: str) -> None:
@@ -84,13 +111,17 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, flush: torch.Tensor, budget_ms: float = 100.0) -> float:
-    """Median CUDA-event time of fn(), L2 flushed before each launch."""
+    """Median CUDA-event time of fn(), L2 flushed before each launch. A spin
+    of about 0.5 ms on the stream between the flush and the start event keeps
+    the card busy while the host enqueues fn, so the time is the device's and
+    not the wrapper's Python."""
     fn()
     torch.cuda.synchronize()
     times = []
     n = 3
     while len(times) < n:
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -100,6 +131,20 @@ def time_ms(fn, flush: torch.Tensor, budget_ms: float = 100.0) -> float:
         if len(times) == 1:
             n = int(min(30, max(3, budget_ms / max(times[0], 1e-3))))
     return sorted(times)[len(times) // 2]
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call, in µs: `n` calls issued back to back, timed
+    before the card has finished them (their launches queue), so it is what
+    the caller's thread spends in the wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def bound(M: int, N: int, K: int):
@@ -158,6 +203,100 @@ def phase_kernels(K_mod, flush):
     return rows
 
 
+def fd_bound(S: int, k_row: int, v_row: int, per_slot: int):
+    """Least time (ms) of one flash_decode call with every slot visible: each
+    visible slot's K and V rows (`k_row` + `v_row` bytes per head) and
+    per-slot factors (`per_slot` bytes per head) read once, bf16 q read and
+    the output written once; two dots of D per slot and query at the bf16
+    tensor-core rate."""
+    Hkv, G, D = FD_HEADS
+    nbytes = B * S * Hkv * (k_row + v_row + per_slot) + 2 * 2 * B * Hkv * G * D
+    flops = 4 * B * Hkv * G * D * S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fd_cache(kind: str, S: int, g: torch.Generator):
+    """One layer's cache of `kind` with every slot written by `kv_update`
+    from random K (skewed, as RoPE'd K heads are) and V."""
+    from quanto_tpu_torch.tensor.kv_cache import init_quantized_kv_cache, kv_update
+
+    Hkv, _, D = FD_HEADS
+    k = torch.randn((B, S, Hkv, D), device="cuda", generator=g) * 2 + 0.5
+    v = torch.randn((B, S, Hkv, D), device="cuda", generator=g)
+    if kind == "bf16":
+        return (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    layer = init_quantized_kv_cache(1, B, S, Hkv, D, kind, device="cuda")[0]
+    return kv_update(layer, k, v, 0)
+
+
+def phase_flash_decode(flush):
+    """Phase 3, flash_decode: the kernel against its plain version and SDPA."""
+    from quanto_tpu_torch.ops.attention import decode_attention
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+    from quanto_tpu_torch.tensor.kv_cache import kv_read
+
+    Hkv, G, D = FD_HEADS
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for S in FD_SLOTS:
+        for kind in FD_CACHES:
+            cache = fd_cache(kind, S, g)
+            q = torch.randn((B, Hkv, G, D), device="cuda", generator=g).to(torch.bfloat16)
+            pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+            if kind == "bf16":
+                args = (q, *cache, None, None, pos)
+                kw = {}
+                k_row = v_row = 2 * D
+                per_slot = 0
+            else:
+                c = cache
+                args = (q, c._k_data, c._v_data, c._k_scale, c._v_scale, pos)
+                kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+                k_row, v_row = c._k_data[0, 0, 0].numel(), c._v_data[0, 0, 0].numel()
+                per_slot = 8 if c._k_shift is None else 16
+            out = flash_decode(*args, **kw)
+            ref = flash_decode_plain(*args, **kw)
+            # The model's dispatch gives the same result as the direct call.
+            out2 = decode_attention(q.reshape(B, 1, Hkv * G, D), cache, pos)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            cos = cosine(out, ref)
+            if not (cos > 1 - 1e-4 and err <= 1e-2 * ref_max) or not torch.equal(
+                out2.reshape(out.shape), out
+            ):
+                raise RuntimeError(
+                    f"flash_decode {kind} S={S}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})"
+                )
+            # Yardstick: SDPA over the cache dequantized to bf16, q [B, H, 1, D].
+            kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
+            kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+            qs = q.reshape(B, Hkv * G, 1, D)
+            mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+            lib = sdpa().reshape(B, Hkv, G, D)
+            lib_cos = cosine(lib, ref)
+            b_ms, b_by = fd_bound(S, k_row, v_row, per_slot)
+            row = dict(
+                name="flash_decode", cache=kind, S=S, B=B, Hkv=Hkv, G=G, D=D,
+                max_abs_err=err, cosine=cos, sdpa_cosine=lib_cos,
+                ms=time_ms(lambda: flash_decode(*args, **kw), flush),
+                plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
+                library_ms=time_ms(sdpa, flush),
+                bound_ms=b_ms, bound_by=b_by,
+                host_us=host_us(lambda: flash_decode(*args, **kw)),
+            )
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            del cache, kd, vd, kt, vt, out, ref, out2, lib
+            torch.cuda.empty_cache()
+    return rows
+
+
 def build_model(config, seed: int):
     from quanto_tpu_torch import freeze, quantize
     from quanto_tpu_torch.models.llama import LlamaForCausalLM
@@ -176,47 +315,47 @@ def build_model(config, seed: int):
     return model, qlinears
 
 
-def phase_main_path(K_mod, ids):
+def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
     """Phase 4: qint4 Llama-3.1-8B prefill + greedy decode, with exact launch counts."""
-    from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
-    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    model, qlinears = build_model(config, seed=0)
-    torch.cuda.synchronize()
-    log(f"main path: built + quantized + frozen {config.num_hidden_layers} layers in "
-        f"{time.perf_counter() - t0:.1f} s")
-    small, tiled = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled
+    config = model.config
+    small, tiled, fd = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled, FD_mod.flash_decode
 
     # Warm-up through the user-facing `generate`; its tokens must equal the timed run's.
     ref_tokens = generate(model, ids, NEW)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    small.launches = tiled.launches = 0
+    small.launches = tiled.launches = fd.launches = 0
     cache = make_cache(model, B, T + NEW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(model, ids, cache, last_only=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    pre_small, pre_tiled = small.launches, tiled.launches
+    pre = (small.launches, tiled.launches, fd.launches)
     first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
     t0 = time.perf_counter()
     rest, cache = decode(model, first, cache, T, NEW - 1)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = {"qbits_mm_small_m": small.launches, "qbits_mm_tiled": tiled.launches}
+    launches = {
+        "qbits_mm_small_m": small.launches, "qbits_mm_tiled": tiled.launches, "flash_decode": fd.launches,
+    }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    n_lin = LINEARS_PER_LAYER * config.num_hidden_layers
+    layers = config.num_hidden_layers
+    n_lin = LINEARS_PER_LAYER * layers
     steps = NEW - 1
-    if (pre_tiled, pre_small) != (n_lin, 1):
-        raise RuntimeError(f"prefill launches tiled={pre_tiled} small_m={pre_small}, want {n_lin}, 1")
-    if launches != {"qbits_mm_small_m": 1 + (n_lin + 1) * steps, "qbits_mm_tiled": n_lin}:
-        raise RuntimeError(f"decode launches {launches}, want {(n_lin + 1) * steps} more small_m")
+    if pre != (1, n_lin, 0):
+        raise RuntimeError(f"prefill launches (small_m, tiled, flash_decode) = {pre}, want (1, {n_lin}, 0)")
+    want = {
+        "qbits_mm_small_m": 1 + (n_lin + 1) * steps, "qbits_mm_tiled": n_lin, "flash_decode": layers * steps,
+    }
+    if launches != want:
+        raise RuntimeError(f"launches {launches}, want {want}")
     if logits.shape != (B, 1, config.vocab_size) or not torch.isfinite(logits).all():
         raise RuntimeError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
     tokens = torch.cat([ids, first, rest], dim=1)
@@ -239,22 +378,120 @@ def phase_main_path(K_mod, ids):
         "decode_step_weight_bytes": step_bytes,
         "decode_step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
     }))
-    del model, qlinears, cache, logits
+    del cache, logits
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_end_to_end(K_mod, ids):
+@torch.no_grad()
+def phase_long_context(K_mod, FD_mod, model, qlinears):
+    """Phase 4b: ctx-8192 decode over a qint4 KV cache, on the phase-4 model."""
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, make_cache
+
+    config = model.config
+    small, tiled, fd = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled, FD_mod.flash_decode
+    ids = torch.randint(
+        0, config.vocab_size, (B, LONG_PROMPT), generator=torch.Generator().manual_seed(8)
+    ).cuda()
+    n_chunks = LONG_PROMPT // LONG_CHUNK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    small.launches = tiled.launches = fd.launches = 0
+    cache = make_cache(model, B, LONG_SLOTS, kv_quant="qint4")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_chunks):
+        p0 = i * LONG_CHUNK
+        logits, cache = model(ids[:, p0 : p0 + LONG_CHUNK], cache, p0, logits_indices=LONG_CHUNK - 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = (small.launches, tiled.launches, fd.launches)
+    first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+    t0 = time.perf_counter()
+    rest, cache = decode(model, first, cache, LONG_PROMPT, NEW - 1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {
+        "qbits_mm_small_m": small.launches, "qbits_mm_tiled": tiled.launches, "flash_decode": fd.launches,
+    }
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    layers = config.num_hidden_layers
+    n_lin = LINEARS_PER_LAYER * layers
+    steps = NEW - 1
+    if pre != (n_chunks, n_chunks * n_lin, 0):
+        raise RuntimeError(
+            f"prefill launches (small_m, tiled, flash_decode) = {pre}, want ({n_chunks}, {n_chunks * n_lin}, 0)"
+        )
+    want = {
+        "qbits_mm_small_m": n_chunks + (n_lin + 1) * steps,
+        "qbits_mm_tiled": n_chunks * n_lin,
+        "flash_decode": layers * steps,
+    }
+    if launches != want:
+        raise RuntimeError(f"launches {launches}, want {want}")
+    if logits.shape != (B, 1, config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    if rest.shape != (B, steps) or int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
+        raise RuntimeError("decoded token ids out of the vocabulary")
+
+    cache_bytes = sum(
+        t.numel() * t.element_size()
+        for layer in cache
+        for t in (layer._k_data, layer._v_data, layer._k_scale, layer._v_scale)
+    )
+    weight_bytes = sum(m.weight._packed.numel() + 8 * m.weight._scale_t.numel() for m in qlinears)
+    # KV bytes a step reads: every visible slot's K and V rows and scales, at the mean fill.
+    mean_fill = LONG_PROMPT + 1 + (steps - 1) / 2
+    kv_step_bytes = cache_bytes * mean_fill / LONG_SLOTS
+    log(json.dumps({
+        "long_context": "llama-3.1-8b-config qint4+head4 bf16, qint4 KV cache",
+        "batch": B, "cache_slots": LONG_SLOTS, "prompt": LONG_PROMPT, "prefill_chunk": LONG_CHUNK,
+        "new_tokens": NEW, "decode_steps": steps,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s / steps * 1e3,
+        "decode_tok_s": B * steps / decode_s,
+        "peak_memory_gb": peak_gb,
+        "kv_cache_bytes": cache_bytes,
+        "launches": launches,
+        "decode_step_weight_bytes": weight_bytes,
+        "decode_step_kv_bytes": kv_step_bytes,
+        "decode_step_bound_ms": (weight_bytes + kv_step_bytes) / PEAK_BYTES_PER_S * 1e3,
+    }))
+    del cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_end_to_end(K_mod, FD_mod, ids):
     """Phase 5: 2 layers at full width, kernel path vs plain versions called explicitly."""
+    import quanto_tpu_torch.ops.attention as attention
     from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
     config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
     model, qlinears = build_model(config, seed=1)
-    small, tiled = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled
+    small, tiled, fd = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled, FD_mod.flash_decode
+    ragged = torch.tensor([T, T - 4, T - 100, 300], device="cuda")
+    step_ids = ids[:, -1:]
 
-    logits_k, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
+    @torch.no_grad()
+    def run():
+        """Prefill logits over a bf16 cache; one ragged decode step over a qint4 cache."""
+        pre, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
+        cache = make_cache(model, B, T + 8, kv_quant="qint4")
+        _, cache = prefill(model, ids, cache, last_only=True)
+        step, _ = model(step_ids, cache, ragged)
+        return pre, step
+
+    before = fd.launches
+    logits_k, step_k = run()
+    torch.cuda.synchronize()
+    if fd.launches != before + config.num_hidden_layers:
+        raise RuntimeError("the ragged decode step did not go through flash_decode")
 
     def plain_forward(self, x):
         w = self.weight
@@ -266,18 +503,23 @@ def phase_end_to_end(K_mod, ids):
 
     for m in qlinears:
         m.forward = types.MethodType(plain_forward, m)
-    before = (small.launches, tiled.launches)
-    logits_p, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
+    attention.flash_decode = FD_mod.flash_decode_plain
+    before = (small.launches, tiled.launches, fd.launches)
+    try:
+        logits_p, step_p = run()
+    finally:
+        attention.flash_decode = FD_mod.flash_decode
     torch.cuda.synchronize()
-    if (small.launches, tiled.launches) != before:
+    if (small.launches, tiled.launches, fd.launches) != before:
         raise RuntimeError("the plain forward launched a kernel")
-    lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
-    cos = torch.nn.functional.cosine_similarity(lk, lp, dim=-1)
-    top_k, top_p = lk.argmax(-1), lp.argmax(-1)
-    log(json.dumps({"end_to_end_cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
-                    "top1_plain": top_p.tolist()}))
-    if not bool((cos > 0.999).all()) or not torch.equal(top_k, top_p):
-        raise RuntimeError("end-to-end logits of the kernel path disagree with the plain path")
+    for what, k_out, p_out in (("prefill", logits_k, logits_p), ("ragged decode step", step_k, step_p)):
+        lk, lp = k_out[:, -1].float(), p_out[:, -1].float()
+        cos = torch.nn.functional.cosine_similarity(lk, lp, dim=-1)
+        top_k, top_p = lk.argmax(-1), lp.argmax(-1)
+        log(json.dumps({"end_to_end": what, "cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
+                        "top1_plain": top_p.tolist()}))
+        if not bool((cos > 0.999).all()) or not torch.equal(top_k, top_p):
+            raise RuntimeError(f"end-to-end {what} logits of the kernel path disagree with the plain path")
     del model, qlinears
     gc.collect()
     torch.cuda.empty_cache()
@@ -296,36 +538,56 @@ def main() -> int:
     log(card)
 
     # Phase 2: build.
+    from quanto_tpu_torch.ops.cuda import _build
+    from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
     from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
 
-    info = K_mod.build()
-    log(f"build: {info['seconds']:.1f} s -> {info['path']}")
+    info = _build.build()
+    log(f"build: {info['seconds']:.1f} s, {', '.join(info['sources'])} -> {info['path']}")
     if info["log"]:
         log(info["log"].strip())
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    rows = phase_kernels(K_mod, flush)
+    rows = phase_kernels(K_mod, flush) + phase_flash_decode(flush)
     del flush
+    torch.cuda.empty_cache()
 
-    # Phases 4 and 5.
+    # Phases 4, 4b and 5.
     ids = torch.randint(
         0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
     ).cuda()
-    launches = phase_main_path(K_mod, ids)
-    phase_end_to_end(K_mod, ids)
+    from quanto_tpu_torch.models.llama import LlamaConfig
+
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, qlinears = build_model(config, seed=0)
+    torch.cuda.synchronize()
+    log(f"main path: built + quantized + frozen {config.num_hidden_layers} layers in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches_1088 = phase_main_path(K_mod, FD_mod, model, qlinears, ids)
+    launches = phase_long_context(K_mod, FD_mod, model, qlinears)
+    del model, qlinears
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end_to_end(K_mod, FD_mod, ids)
 
     kernels = []
-    for name in KERNEL_M:
+    for name in [*KERNEL_M, "flash_decode"]:
         mine = [r for r in rows if r["name"] == name]
-        rep = next(r for r in mine if (r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
+        if name == "flash_decode":
+            rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
+            shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
+        else:
+            rep = next(r for r in mine if (r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
+            shape = list(SUMMARY_SHAPE[name])
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name],
+            name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+            launches=launches[name], launches_ctx1088=launches_1088[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
-            shape=list(SUMMARY_SHAPE[name]),
+            shape=shape,
         ))
     log(card)
     log(json.dumps({"kernels": kernels}))

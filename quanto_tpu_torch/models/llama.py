@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import gqa_attention
-from ..tensor.kv_cache import cache_max_len, kv_read_raw, kv_update
+from ..ops.attention import decode_attention, gqa_attention
+from ..tensor.kv_cache import cache_max_len, init_quantized_kv_cache, kv_read_raw, kv_update
 
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "init_kv_cache", "rope_params"]
@@ -105,11 +105,20 @@ def _apply_rope(x, cos, sin):
     return x * cos[:, :, None, :] + _rotate_half(x) * sin[:, :, None, :]
 
 
-def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, device=None):
-    """Float KV cache in the model dtype: per layer a (k, v) tuple of zeros
-    [B, max_len, Hkv, D]."""
+def init_kv_cache(
+    config: LlamaConfig, batch: int, max_len: int, dtype=None, kv_quant=None, device="cuda"
+):
+    """KV cache on `device`: per layer a float (k, v) tuple of zeros
+    [B, max_len, Hkv, D] in `dtype` (default the model dtype), or, when
+    `kv_quant` is a qtype or KV spec name (`tensor/kv_cache.py:parse_kv_spec`),
+    a quantized `QKVCacheLayer`."""
+    if kv_quant is not None:
+        return init_quantized_kv_cache(
+            config.num_hidden_layers, batch, max_len, config.num_key_value_heads,
+            config.head_dim, kv_quant, device=device,
+        )
     shape = (batch, max_len, config.num_key_value_heads, config.head_dim)
-    kw = dict(dtype=config.dtype, device=device)
+    kw = dict(dtype=dtype or config.dtype, device=device)
     return tuple(
         (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
         for _ in range(config.num_hidden_layers)
@@ -140,19 +149,28 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(c.hidden_size, kv_out, bias=False, **kw)
         self.o_proj = nn.Linear(q_out, c.hidden_size, bias=False, **kw)
 
-    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None):
+    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None, decode_pos=None):
+        """`decode_pos` int32 [B]: each row's position in a T == 1 step over a
+        cache, made once per forward by the model."""
         B, T, _ = x.shape
+        scale = self.head_dim**-0.5
         q = self.q_proj(x).view(B, T, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         new_cache = None
+        k_scale = v_scale = k_shift = v_shift = None
         if layer_cache is not None:
             new_cache = kv_update(layer_cache, k, v, cache_pos)
-            k, v = kv_read_raw(new_cache, q.dtype)
+            if T == 1:
+                return self.o_proj(decode_attention(q, new_cache, decode_pos)), new_cache
+            k, v, k_scale, v_scale, k_shift, v_shift = kv_read_raw(new_cache, q.dtype)
         q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
-        out = gqa_attention(q5, k, v, mask, self.head_dim**-0.5)
+        out = gqa_attention(
+            q5, k, v, mask, scale,
+            k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift,
+        )
         return self.o_proj(out), new_cache
 
 
@@ -175,9 +193,9 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
 
-    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None):
+    def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None, decode_pos=None):
         h, new_cache = self.self_attn(
-            self.input_layernorm(x), cos, sin, mask, layer_cache, cache_pos
+            self.input_layernorm(x), cos, sin, mask, layer_cache, cache_pos, decode_pos
         )
         x = x + h
         x = x + self.mlp(self.post_attention_layernorm(x))
@@ -234,11 +252,12 @@ class LlamaForCausalLM(nn.Module):
         """Forward pass; returns (logits, cache or None).
 
         Without a cache: causal self-attention over `input_ids` [B, T]. With a
-        cache: the tokens are written at `cache_pos` (a scalar, or a [B]
-        tensor of per-row positions) and attend to every cache slot up to
-        their position. `logits_indices` (scalar or [B]) computes logits only
-        at those per-row positions ([B, 1, V]): the hidden states are sliced
-        before the lm_head.
+        cache (float or quantized): the tokens are written at `cache_pos` (a
+        scalar, or a [B] tensor of per-row positions) and attend to every
+        cache slot up to their position; a T == 1 step goes through the
+        decode-attention kernel (`ops/attention.py:decode_attention`).
+        `logits_indices` (scalar or [B]) computes logits only at those per-row
+        positions ([B, 1, V]): the hidden states are sliced before the lm_head.
         """
         B, T = input_ids.shape
         dev = input_ids.device
@@ -247,16 +266,20 @@ class LlamaForCausalLM(nn.Module):
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
         cos, sin = _rope(positions, self.inv_freq, x.dtype)
         neg = torch.finfo(torch.float32).min
+        mask = decode_pos = None
         if cache is None:
             causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
             mask = torch.where(causal, 0.0, neg)[None, None]
+        elif T == 1:
+            decode_pos = positions[:, 0].to(torch.int32).contiguous()
         else:
             k_pos = torch.arange(cache_max_len(cache[0]), device=dev)[None, None, None, :]
             mask = torch.where(k_pos <= positions[:, None, :, None], 0.0, neg)
 
         new_cache = [] if cache is not None else None
         for i, layer in enumerate(self.model.layers):
-            x, lc = layer(x, cos, sin, mask, cache[i] if cache is not None else None, cache_pos)
+            layer_cache = cache[i] if cache is not None else None
+            x, lc = layer(x, cos, sin, mask, layer_cache, cache_pos, decode_pos)
             if cache is not None:
                 new_cache.append(lc)
 

@@ -19,10 +19,13 @@ from .sampling import greedy
 __all__ = ["make_cache", "prefill", "decode", "generate"]
 
 
-def make_cache(model, batch: int, cache_len: int):
-    """Float KV cache in the llama-family layout and model dtype, on the
-    model's device."""
-    return init_kv_cache(model.config, batch, cache_len, device=model.device)
+def make_cache(model, batch: int, cache_len: int, dtype=None, kv_quant=None):
+    """KV cache in the llama-family layout on the model's device: float in
+    `dtype` (default the model dtype), or quantized when `kv_quant` is a
+    qtype or KV spec name ("qint8", "qint4", "k8v4", "qint4a", ...)."""
+    return init_kv_cache(
+        model.config, batch, cache_len, dtype=dtype, kv_quant=kv_quant, device=model.device
+    )
 
 
 @torch.no_grad()

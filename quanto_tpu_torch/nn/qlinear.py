@@ -30,7 +30,7 @@ class QLinear(QModuleMixin, nn.Module):
         bias: bool = True,
         *,
         weights: Optional[Union[str, qtype]] = None,
-        device=None,
+        device="cuda",
         dtype=None,
     ):
         nn.Module.__init__(self)

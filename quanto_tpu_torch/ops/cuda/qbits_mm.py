@@ -18,21 +18,17 @@ x lies on the CPU; on a CUDA tensor it launches the kernel or raises. Each
 wrapper's `launches` attribute counts its kernel launches.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
-(`build()`), as a shared library with a plain C interface bound by `ctypes`.
+(`ops/cuda/_build.py:build`), as a shared library with a plain C interface
+bound by `ctypes`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
+
+from ._build import kernel
 
 
 __all__ = [
@@ -44,20 +40,11 @@ __all__ = [
     "qbits_mm_small_m",
     "qbits_mm_tiled",
     "qbits_mm",
-    "build",
 ]
 
 # Routing threshold between the two kernels: the JAX package's `_MAX_M`, so
 # each TPU kernel maps to one Hopper kernel.
 MAX_M = 512
-
-_PKG = Path(__file__).resolve().parents[2]
-_SOURCE = _PKG / "csrc" / "qbits_mm.cu"
-_BUILD_DIR = _PKG / "build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 
 def pack_k_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -98,61 +85,10 @@ def qbits_mm_plain(
     return (x.float() @ w.t()).to(x.dtype)
 
 
-# --- build ------------------------------------------------------------------
-
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
-
-
-def build() -> dict:
-    """Compile `csrc/qbits_mm.cu` for sm_90a (once per source content) and
-    load it. Returns {"path", "seconds", "log"}: `seconds` and the compiler's
-    `-Xptxas -v` report `log` are those of this call's build, 0.0 and "" when
-    the library was already built."""
-    global _LIB
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f"libqbits_mm_{digest}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
-    if _LIB is None:
-        lib = ctypes.CDLL(str(path))
-        for fn in (lib.qbits_mm_small_m, lib.qbits_mm_tiled):
-            fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return {"path": str(path), "seconds": seconds, "log": log}
-
-
-def _lib() -> ctypes.CDLL:
-    if _LIB is None:
-        build()
-    return _LIB
-
-
 # --- wrappers ---------------------------------------------------------------
+
+# C signature of both entry points in csrc/qbits_mm.cu.
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(x, packed, scale_t, shift_t, group_size):
@@ -205,7 +141,7 @@ def qbits_mm_small_m(x, packed, scale_t, shift_t, group_size: int) -> torch.Tens
         raise ValueError(f"qbits_mm_small_m takes M <= {MAX_M}, got {M}")
     if x.device.type == "cpu":
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
-    out = _launch(_lib().qbits_mm_small_m, x, packed, scale_t, shift_t, group_size, M, N, K)
+    out = _launch(kernel("qbits_mm_small_m", _ARGTYPES), x, packed, scale_t, shift_t, group_size, M, N, K)
     qbits_mm_small_m.launches += 1
     return out
 
@@ -216,7 +152,7 @@ def qbits_mm_tiled(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor
     M, N, K = _check(x, packed, scale_t, shift_t, group_size)
     if x.device.type == "cpu":
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
-    out = _launch(_lib().qbits_mm_tiled, x, packed, scale_t, shift_t, group_size, M, N, K)
+    out = _launch(kernel("qbits_mm_tiled", _ARGTYPES), x, packed, scale_t, shift_t, group_size, M, N, K)
     qbits_mm_tiled.launches += 1
     return out
 
@@ -230,6 +166,6 @@ def qbits_mm(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
     `qbits_matmul_kernel_call` routes (`quanto_tpu/ops/pallas/qbits_mm.py:777`)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    kernel = qbits_mm_small_m if x2.shape[0] <= MAX_M else qbits_mm_tiled
-    out = kernel(x2, packed, scale_t, shift_t, group_size)
+    wrapper = qbits_mm_small_m if x2.shape[0] <= MAX_M else qbits_mm_tiled
+    out = wrapper(x2, packed, scale_t, shift_t, group_size)
     return out.reshape(*lead, packed.shape[0])
