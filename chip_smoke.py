@@ -27,15 +27,31 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    of its last position only), then 63 greedy decode steps. Asserts the
    exact launch counts and prints prefill ms, decode ms/step, tok/s, peak
    memory, the cache's bytes and the step's byte bound.
+   The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {4, 256})
+   and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
+   {513, 4096}) at the four linear shapes, bf16 x or output, yardstick
+   `torch.matmul` on the operands dequantized to bf16.
 5. end-to-end numerics: at full width and 2 layers, the kernel path against
    the same forward through the plain versions called explicitly: the
    prefill's last-position logits (bf16 cache), and one decode step at
-   ragged per-row positions over a qint4 cache.
+   ragged per-row positions over a qint4 cache; for qint4 weights (lm_head
+   included), and for qint8, qfloat8 (e4m3fn) and calibrated W4A8 weights
+   (lm_head excluded).
+6. the `int8` arm of the JAX package's 8B decode grid (`bench.py:main_8b`):
+   the Llama-3.1-8B configuration, `quantize(weights="qint8",
+   exclude="lm_head")`, `freeze`; the prefill and decode of phase 4, with
+   exact launch counts (prefill M = 4096 takes the XLA formula, each decode
+   step 224 launches of the 8-bit kernel).
+7. the `w4a8` arm: `quantize(weights="qint4", activations="qint8",
+   exclude="lm_head")`, `Calibration` over 2 batches of 4 x 128 seeded
+   tokens (streamline must turn output quantization off for all 224
+   linears), `freeze`; the same prefill and decode, with exact launch counts.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -46,9 +62,10 @@ import types
 import torch
 import torch.nn.functional as F
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16 tensor-core rate.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16 and int8 tensor-core rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 GS = 128
 SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256, 4096)]  # (N, K)
@@ -73,6 +90,27 @@ FD_HEADS = (8, 4, 128)
 FD_CACHES = ["bf16", "qint8", "qint4", "k8v4", "qint4a"]
 FD_SLOTS = [1088, 8192]
 FD_SUMMARY = ("qint4", 8192)  # the long-context path's cache
+# The kernels of this slice: their phase-3 M values at the four linear shapes (no lm_head:
+# the 8-bit and W4A8 arms exclude it), summary shapes, sources and the TPU kernels they replace.
+LINEAR_SHAPES = SHAPES[:4]
+QBYTES_M = {"qbytes_mm_int8": (4, 256), "qbytes_mm_e4m3fn": (4, 256)}
+W4A8_M = {"qbits_mm_int8_small_m": (4, 512), "qbits_mm_tiled_int8": (513, 4096)}
+SUMMARY_SHAPE.update({
+    "qbytes_mm_int8": (4, 14336, 4096), "qbytes_mm_e4m3fn": (4, 14336, 4096),
+    "qbits_mm_int8_small_m": (4, 14336, 4096), "qbits_mm_tiled_int8": (4096, 14336, 4096),
+})
+SOURCE.update({
+    "qbytes_mm_int8": "quanto_tpu_torch/csrc/qbytes_mm.cu",
+    "qbytes_mm_e4m3fn": "quanto_tpu_torch/csrc/qbytes_mm.cu",
+    "qbits_mm_int8_small_m": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_tiled_int8": "quanto_tpu_torch/csrc/qbits_mm.cu",
+})
+REPLACES.update({
+    "qbytes_mm_int8": "quanto_tpu/ops/pallas/qbytes_mm.py:30",
+    "qbytes_mm_e4m3fn": "quanto_tpu/ops/pallas/qbytes_mm.py:108",
+    "qbits_mm_int8_small_m": "quanto_tpu/ops/pallas/qbits_mm.py:577",
+    "qbits_mm_tiled_int8": "quanto_tpu/ops/pallas/qbits_mm.py:223 (int8-x arm, :248-251)",
+})
 
 # meta-llama/Llama-3.1-8B config.json.
 LLAMA31_8B = dict(
@@ -93,6 +131,7 @@ LLAMA31_8B = dict(
     rms_norm_eps=1e-5,
 )
 B, T, NEW = 4, 1024, 64
+CAL_BATCHES, CAL_T = 2, 128
 LINEARS_PER_LAYER = 7
 # Long context: the JAX package's headline decode (ctx 8192, qint4 cache).
 LONG_SLOTS, LONG_PROMPT, LONG_CHUNK = 8192, 8128, 1016
@@ -147,14 +186,30 @@ def host_us(fn, n: int = 200) -> float:
     return t / n * 1e6
 
 
-def bound(M: int, N: int, K: int):
+def bound(M: int, N: int, K: int, x_bytes: int = 2, w_bytes: float = 0.5, side_bytes=None,
+          peak_ops: float = PEAK_BF16_FLOPS):
     """Least time (ms) on the card for one call, and what bounds it: each input
-    read once (x bf16, packed codes, scale and shift), the output written once."""
-    G = K // GS
-    nbytes = M * K * 2 + N * K // 2 + 2 * G * N * 4 + M * N * 2
-    flops = 2 * M * N * K
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    read once (x, the weight payload, its scales and shifts: by default the
+    int4 layout's float32 [G, N] pair), the bf16 output written once; 2MNK
+    operations at `peak_ops`."""
+    if side_bytes is None:
+        side_bytes = 2 * (K // GS) * N * 4
+    nbytes = M * K * x_bytes + N * K * w_bytes + side_bytes + M * N * 2
+    ops = 2 * M * N * K
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernel(what: str, out: torch.Tensor, ref: torch.Tensor):
+    """Kernel output against its plain version: cosine > 1 - 1e-4 and max abs
+    error <= 1e-2 * max|ref| (bf16 outputs). Returns (max_abs_err, cosine)."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    cos = cosine(out, ref)
+    if not (cos > 1 - 1e-4 and err <= 1e-2 * ref_max):
+        raise RuntimeError(f"{what}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})")
+    return err, cos
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -198,6 +253,79 @@ def phase_kernels(K_mod, flush):
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del out, ref
+        del packed, scale_t, shift_t, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_qbytes(flush):
+    """Phase 3, the 8-bit weight-only kernel: both payloads against the plain
+    version, bf16 x and the bf16 [N, 1] scale of a bf16 model."""
+    import quanto_tpu_torch as qtt
+    from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2345)
+    rows = []
+    for N, K in LINEAR_SHAPES:
+        w = torch.randn((N, K), device=dev, generator=g, dtype=torch.bfloat16) * 0.02
+        for name, ms in QBYTES_M.items():
+            qtype = qtt.qint8 if name == "qbytes_mm_int8" else qtt.qfloat8
+            qw = qtt.quantize_weight(w, qtype, 0, qtt.AbsmaxOptimizer()(w, qtype, 0))
+            w_bf16 = qw.dequantize()
+            kernel = getattr(QB, name)
+            for M in ms:
+                x = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
+                args = (x, qw._data, qw._scale)
+                err, cos = check_kernel(f"{name} M={M} N={N} K={K}", kernel(*args), QB.qbytes_mm_plain(*args))
+                b_ms, b_by = bound(M, N, K, w_bytes=1, side_bytes=2 * N)
+                row = dict(
+                    name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                    ms=time_ms(lambda: kernel(*args), flush),
+                    plain_ms=time_ms(lambda: QB.qbytes_mm_plain(*args), flush),
+                    library_ms=time_ms(lambda: torch.matmul(x, w_bf16.t()), flush),
+                    bound_ms=b_ms, bound_by=b_by,
+                )
+                rows.append(row)
+                log("kernel " + json.dumps(row))
+            del qw, w_bf16
+        del w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_w4a8(K_mod, flush):
+    """Phase 3, the W4A8 kernels: int8 x with a device scalar sx against random
+    int4 codes, bf16 output, against their plain version."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3456)
+    rows = []
+    sx = torch.tensor(0.0173, device=dev)
+    for N, K in LINEAR_SHAPES:
+        G = K // GS
+        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
+        shift_t = scale_t * 7.5
+        w_bf16 = K_mod.dequantize_k_nibbles(packed, scale_t, shift_t, GS).to(torch.bfloat16)
+        for name, ms in W4A8_M.items():
+            kernel = getattr(K_mod, name)
+            for M in ms:
+                xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
+                x_bf16 = (xq.float() * sx).to(torch.bfloat16)
+                args = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16)
+                err, cos = check_kernel(
+                    f"{name} M={M} N={N} K={K}", kernel(*args), K_mod.qbits_int8_mm_plain(*args)
+                )
+                b_ms, b_by = bound(M, N, K, x_bytes=1, side_bytes=2 * (K // GS) * N * 4 + 4, peak_ops=PEAK_INT8_OPS)
+                row = dict(
+                    name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                    ms=time_ms(lambda: kernel(*args), flush),
+                    plain_ms=time_ms(lambda: K_mod.qbits_int8_mm_plain(*args), flush),
+                    library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush),
+                    bound_ms=b_ms, bound_by=b_by,
+                )
+                rows.append(row)
+                log("kernel " + json.dumps(row))
         del packed, scale_t, shift_t, w_bf16
         torch.cuda.empty_cache()
     return rows
@@ -297,21 +425,36 @@ def phase_flash_decode(flush):
     return rows
 
 
-def build_model(config, seed: int):
-    from quanto_tpu_torch import freeze, quantize
+def calibration_batches(config):
+    """Phase 7's (and phase 5's W4A8) calibration data: 2 batches of 4 x 128 seeded token ids."""
+    g = torch.Generator().manual_seed(11)
+    return [torch.randint(0, config.vocab_size, (B, CAL_T), generator=g).cuda() for _ in range(CAL_BATCHES)]
+
+
+def build_model(config, seed: int, weights: str = "qint4", activations=None, exclude=None):
+    """The configuration with random weights from `seed`, quantized, calibrated
+    when activations are quantized (streamline must turn every linear's output
+    quantization off, as it does in JAX on this model), and frozen."""
+    from quanto_tpu_torch import Calibration, freeze, named_qmodules, quantize
     from quanto_tpu_torch.models.llama import LlamaForCausalLM
     from quanto_tpu_torch.nn import QLinear
-    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray, WeightQBytesArray
 
     model = LlamaForCausalLM(config, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
-    quantize(model, weights="qint4")
+    quantize(model, weights=weights, activations=activations, exclude=exclude)
+    if activations is not None:
+        with torch.no_grad(), Calibration(model):
+            for batch in calibration_batches(config):
+                model(batch)
+        still_on = [name for name, m in named_qmodules(model) if m.quantize_outputs]
+        if still_on:
+            raise RuntimeError(f"streamline left output quantization on for {still_on}")
     freeze(model)
     qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
-    expected = LINEARS_PER_LAYER * config.num_hidden_layers + 1
-    if len(qlinears) != expected or not all(
-        isinstance(m.weight, WeightQBitsHopperArray) for m in qlinears
-    ):
-        raise RuntimeError(f"expected {expected} QLinears in the Hopper layout")
+    expected = LINEARS_PER_LAYER * config.num_hidden_layers + (0 if exclude else 1)
+    layout = WeightQBytesArray if weights in ("qint8", "qfloat8") else WeightQBitsHopperArray
+    if len(qlinears) != expected or not all(isinstance(m.weight, layout) for m in qlinears):
+        raise RuntimeError(f"expected {expected} QLinears holding {layout.__name__}")
     return model, qlinears
 
 
@@ -328,7 +471,7 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    small.launches = tiled.launches = fd.launches = 0
+    reset_counts()
     cache = make_cache(model, B, T + NEW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -398,7 +541,7 @@ def phase_long_context(K_mod, FD_mod, model, qlinears):
     n_chunks = LONG_PROMPT // LONG_CHUNK
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    small.launches = tiled.launches = fd.launches = 0
+    reset_counts()
     cache = make_cache(model, B, LONG_SLOTS, kv_quant="qint4")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -466,63 +609,188 @@ def phase_long_context(K_mod, FD_mod, model, qlinears):
     return launches
 
 
-def phase_end_to_end(K_mod, FD_mod, ids):
-    """Phase 5: 2 layers at full width, kernel path vs plain versions called explicitly."""
+def counters():
+    """Every kernel wrapper of the port, by name; each counts its launches."""
+    from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
+    from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
+    from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
+
+    return {
+        "qbits_mm_small_m": K_mod.qbits_mm_small_m, "qbits_mm_tiled": K_mod.qbits_mm_tiled,
+        "qbits_mm_int8_small_m": K_mod.qbits_mm_int8_small_m, "qbits_mm_tiled_int8": K_mod.qbits_mm_tiled_int8,
+        "qbytes_mm_int8": QB_mod.qbytes_mm_int8, "qbytes_mm_e4m3fn": QB_mod.qbytes_mm_e4m3fn,
+        "flash_decode": FD_mod.flash_decode,
+    }
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in counters().items()}
+
+
+def reset_counts() -> None:
+    for w in counters().values():
+        w.launches = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel call of the model to its plain PyTorch version."""
     import quanto_tpu_torch.ops.attention as attention
+    import quanto_tpu_torch.ops.qlinear as QL
+    from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
+    from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
+    from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
+
+    def flat(fn):
+        def run(x, *args):
+            out = fn(x.reshape(-1, x.shape[-1]).contiguous(), *args)
+            return out.reshape(*x.shape[:-1], out.shape[-1])
+        return run
+
+    saved = (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode)
+    QL.qbits_mm = flat(K_mod.qbits_mm_plain)
+    QL.qbits_int8_mm = flat(K_mod.qbits_int8_mm_plain)
+    QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
+    attention.flash_decode = FD_mod.flash_decode_plain
+    try:
+        yield
+    finally:
+        QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode = saved
+
+
+# Phase 5's arms: (quantize arguments, the kernel the ragged decode step must launch 7 x 2 times).
+E2E_ARMS = {
+    "qint4": (dict(weights="qint4"), "qbits_mm_small_m"),
+    "qint8": (dict(weights="qint8", exclude="lm_head"), "qbytes_mm_int8"),
+    "qfloat8": (dict(weights="qfloat8", exclude="lm_head"), "qbytes_mm_e4m3fn"),
+    "w4a8": (dict(weights="qint4", activations="qint8", exclude="lm_head"), "qbits_mm_int8_small_m"),
+}
+
+
+def phase_end_to_end(ids):
+    """Phase 5: 2 layers at full width, kernel path vs plain versions called
+    explicitly, for each arm. Returns each arm's launch counts in its kernel run."""
     from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
     config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
-    model, qlinears = build_model(config, seed=1)
-    small, tiled, fd = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled, FD_mod.flash_decode
+    layers = config.num_hidden_layers
     ragged = torch.tensor([T, T - 4, T - 100, 300], device="cuda")
     step_ids = ids[:, -1:]
+    arm_counts = {}
+    for arm, (kw, step_kernel) in E2E_ARMS.items():
+        model, _ = build_model(config, seed=1, **kw)
 
-    @torch.no_grad()
-    def run():
-        """Prefill logits over a bf16 cache; one ragged decode step over a qint4 cache."""
-        pre, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
-        cache = make_cache(model, B, T + 8, kv_quant="qint4")
-        _, cache = prefill(model, ids, cache, last_only=True)
-        step, _ = model(step_ids, cache, ragged)
-        return pre, step
+        @torch.no_grad()
+        def run():
+            """Prefill logits over a bf16 cache; one ragged decode step over a qint4 cache."""
+            pre, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
+            cache = make_cache(model, B, T + 8, kv_quant="qint4")
+            _, cache = prefill(model, ids, cache, last_only=True)
+            before = read_counts()
+            step, _ = model(step_ids, cache, ragged)
+            torch.cuda.synchronize()
+            after = read_counts()
+            return pre, step, {n: after[n] - before[n] for n in after}
 
-    before = fd.launches
-    logits_k, step_k = run()
+        reset_counts()
+        logits_k, step_k, step_counts = run()
+        arm_counts[arm] = read_counts()
+        want = {n: 0 for n in step_counts}
+        want["flash_decode"] = layers
+        want[step_kernel] = LINEARS_PER_LAYER * layers + (0 if kw.get("exclude") else 1)
+        if step_counts != want:
+            raise RuntimeError(f"{arm}: ragged decode step launches {step_counts}, want {want}")
+        before = read_counts()
+        with plain_versions():
+            logits_p, step_p, _ = run()
+        torch.cuda.synchronize()
+        if read_counts() != before:
+            raise RuntimeError(f"{arm}: the plain forward launched a kernel")
+        for what, k_out, p_out in (("prefill", logits_k, logits_p), ("ragged decode step", step_k, step_p)):
+            lk, lp = k_out[:, -1].float(), p_out[:, -1].float()
+            cos = torch.nn.functional.cosine_similarity(lk, lp, dim=-1)
+            top_k, top_p = lk.argmax(-1), lp.argmax(-1)
+            log(json.dumps({"end_to_end": what, "arm": arm, "cosine": cos.tolist(),
+                            "top1_kernel": top_k.tolist(), "top1_plain": top_p.tolist()}))
+            if not bool((cos > 0.999).all()) or not torch.equal(top_k, top_p):
+                raise RuntimeError(f"end-to-end {arm} {what} logits of the kernel path disagree with the plain path")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return arm_counts
+
+
+def step_weight_bytes(model) -> int:
+    """Bytes of every weight a decode step reads: the quantized linears'
+    payloads, scales and shifts, and a float lm_head."""
+    from quanto_tpu_torch.nn import QLinear
+
+    total = 0
+    for m in model.modules():
+        if isinstance(m, QLinear):
+            w = m.weight
+            fields = (w._data, w._scale) if hasattr(w, "_data") else (w._packed, w._scale_t, w._shift_t)
+            total += sum(t.numel() * t.element_size() for t in fields)
+    if not isinstance(model.lm_head, QLinear):
+        total += model.lm_head.weight.numel() * model.lm_head.weight.element_size()
+    return total
+
+
+@torch.no_grad()
+def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict) -> dict:
+    """Phases 6 and 7: the 8B model's prefill (last position only) and 63 greedy
+    decode steps over a bf16 cache of T + NEW slots, with exact launch counts of
+    every kernel in each half. Returns the run's launch counts."""
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
+
+    config = model.config
+    steps = NEW - 1
+    ref_tokens = generate(model, ids, NEW)  # warm-up through the user-facing entry point
     torch.cuda.synchronize()
-    if fd.launches != before + config.num_hidden_layers:
-        raise RuntimeError("the ragged decode step did not go through flash_decode")
-
-    def plain_forward(self, x):
-        w = self.weight
-        out = K_mod.qbits_mm_plain(
-            x.reshape(-1, x.shape[-1]).contiguous(), w._packed, w._scale_t, w._shift_t,
-            w.kernel_group_size,
-        )
-        return out.reshape(*x.shape[:-1], out.shape[-1])
-
-    for m in qlinears:
-        m.forward = types.MethodType(plain_forward, m)
-    attention.flash_decode = FD_mod.flash_decode_plain
-    before = (small.launches, tiled.launches, fd.launches)
-    try:
-        logits_p, step_p = run()
-    finally:
-        attention.flash_decode = FD_mod.flash_decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cache = make_cache(model, B, T + NEW)
     torch.cuda.synchronize()
-    if (small.launches, tiled.launches, fd.launches) != before:
-        raise RuntimeError("the plain forward launched a kernel")
-    for what, k_out, p_out in (("prefill", logits_k, logits_p), ("ragged decode step", step_k, step_p)):
-        lk, lp = k_out[:, -1].float(), p_out[:, -1].float()
-        cos = torch.nn.functional.cosine_similarity(lk, lp, dim=-1)
-        top_k, top_p = lk.argmax(-1), lp.argmax(-1)
-        log(json.dumps({"end_to_end": what, "cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
-                        "top1_plain": top_p.tolist()}))
-        if not bool((cos > 0.999).all()) or not torch.equal(top_k, top_p):
-            raise RuntimeError(f"end-to-end {what} logits of the kernel path disagree with the plain path")
-    del model, qlinears
-    gc.collect()
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, ids, cache, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_counts()
+    first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+    t0 = time.perf_counter()
+    rest, cache = decode(model, first, cache, T, steps)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec = {n: launches[n] - pre[n] for n in launches}
+    zeros = {n: 0 for n in launches}
+    if pre != {**zeros, **want_prefill}:
+        raise RuntimeError(f"{label}: prefill launches {pre}, want {want_prefill} and 0 elsewhere")
+    if dec != {**zeros, **want_decode}:
+        raise RuntimeError(f"{label}: decode launches {dec}, want {want_decode} and 0 elsewhere")
+    if logits.shape != (B, 1, config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{label}: prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    if not torch.equal(torch.cat([ids, first, rest], dim=1), ref_tokens):
+        raise RuntimeError(f"{label}: generate() and prefill + decode gave different tokens")
+    if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
+        raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
+    weight_bytes = step_weight_bytes(model)
+    log(json.dumps({
+        "arm": label, "batch": B, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s / steps * 1e3,
+        "decode_tok_s": B * steps / decode_s,
+        "peak_memory_gb": peak_gb,
+        "prefill_launches": {n: c for n, c in pre.items() if c},
+        "decode_launches": {n: c for n, c in dec.items() if c},
+        "decode_step_weight_bytes": weight_bytes,
+        "decode_step_bound_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3,
+    }))
+    del cache, logits
+    return launches
 
 
 def main() -> int:
@@ -549,7 +817,7 @@ def main() -> int:
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    rows = phase_kernels(K_mod, flush) + phase_flash_decode(flush)
+    rows = phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush) + phase_w4a8(K_mod, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -570,10 +838,43 @@ def main() -> int:
     del model, qlinears
     gc.collect()
     torch.cuda.empty_cache()
-    phase_end_to_end(K_mod, FD_mod, ids)
+    arm_counts = phase_end_to_end(ids)
 
+    # Phases 6 and 7: the int8 and w4a8 arms of the 8B decode grid, one model at a time.
+    n_lin, steps = LINEARS_PER_LAYER * config.num_hidden_layers, NEW - 1
+    fd_decode = {"flash_decode": config.num_hidden_layers * steps}
+    model, _ = build_model(config, seed=0, weights="qint8", exclude="lm_head")
+    launches_int8 = phase_arm(
+        "int8: llama-3.1-8b-config qint8 (lm_head bf16), bf16 cache", model, ids,
+        want_prefill={}, want_decode={"qbytes_mm_int8": n_lin * steps, **fd_decode},
+    )
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, _ = build_model(config, seed=0, weights="qint4", activations="qint8", exclude="lm_head")
+    torch.cuda.synchronize()
+    log(f"w4a8: built + quantized + calibrated ({CAL_BATCHES} x {B} x {CAL_T} tokens) + frozen in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches_w4a8 = phase_arm(
+        "w4a8: llama-3.1-8b-config qint4 weights, qint8 activations (lm_head bf16), bf16 cache", model, ids,
+        want_prefill={"qbits_mm_tiled_int8": n_lin},
+        want_decode={"qbits_mm_int8_small_m": n_lin * steps, **fd_decode},
+    )
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Where each kernel's `launches` in the summary comes from: the long-context run for the
+    # kernels of PRs 1-2, the phase-6/7 runs for this slice's; e4m3fn runs in phase 5 only.
+    launch_runs = {
+        "qbytes_mm_int8": ("phase 6 (int8)", launches_int8),
+        "qbytes_mm_e4m3fn": ("phase 5 (qfloat8, 2 layers)", arm_counts["qfloat8"]),
+        "qbits_mm_int8_small_m": ("phase 7 (w4a8)", launches_w4a8),
+        "qbits_mm_tiled_int8": ("phase 7 (w4a8)", launches_w4a8),
+    }
     kernels = []
-    for name in [*KERNEL_M, "flash_decode"]:
+    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M]:
         mine = [r for r in rows if r["name"] == name]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
@@ -581,9 +882,11 @@ def main() -> int:
         else:
             rep = next(r for r in mine if (r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
             shape = list(SUMMARY_SHAPE[name])
+        run, counts = launch_runs.get(name, ("phase 4b (ctx 8192)", launches))
+        extra = {} if name in launch_runs else {"launches_ctx1088": launches_1088[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=launches[name], launches_ctx1088=launches_1088[name],
+            launches=counts[name], launches_run=run, **extra,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.attention import decode_attention, gqa_attention
 from ..tensor.kv_cache import cache_max_len, init_quantized_kv_cache, kv_read_raw, kv_update
+from ..tensor.qarray import QArray
 
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "init_kv_cache", "rope_params"]
@@ -95,6 +96,13 @@ def _rope(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
+def _deq(a):
+    """A projection's output as a float tensor: a module whose output
+    quantization calibration did not streamline away returns a `QArray`,
+    which the model dequantizes where `quanto_tpu/models/llama.py` does."""
+    return a.dequantize() if isinstance(a, QArray) else a
+
+
 def _rotate_half(x):
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
@@ -154,9 +162,9 @@ class LlamaAttention(nn.Module):
         cache, made once per forward by the model."""
         B, T, _ = x.shape
         scale = self.head_dim**-0.5
-        q = self.q_proj(x).view(B, T, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(B, T, self.num_kv_heads, self.head_dim)
+        q = _deq(self.q_proj(x)).view(B, T, self.num_heads, self.head_dim)
+        k = _deq(self.k_proj(x)).view(B, T, self.num_kv_heads, self.head_dim)
+        v = _deq(self.v_proj(x)).view(B, T, self.num_kv_heads, self.head_dim)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         new_cache = None
@@ -164,14 +172,14 @@ class LlamaAttention(nn.Module):
         if layer_cache is not None:
             new_cache = kv_update(layer_cache, k, v, cache_pos)
             if T == 1:
-                return self.o_proj(decode_attention(q, new_cache, decode_pos)), new_cache
+                return _deq(self.o_proj(decode_attention(q, new_cache, decode_pos))), new_cache
             k, v, k_scale, v_scale, k_shift, v_shift = kv_read_raw(new_cache, q.dtype)
         q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
         out = gqa_attention(
             q5, k, v, mask, scale,
             k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift,
         )
-        return self.o_proj(out), new_cache
+        return _deq(self.o_proj(out)), new_cache
 
 
 class LlamaMLP(nn.Module):
@@ -182,7 +190,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=False, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g, u = _deq(self.gate_proj(x)), _deq(self.up_proj(x))
+        return _deq(self.down_proj(F.silu(g) * u))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -287,4 +296,4 @@ class LlamaForCausalLM(nn.Module):
         if logits_indices is not None:
             idx = torch.as_tensor(logits_indices, device=dev).reshape(-1).expand(B)
             x = x[torch.arange(B, device=dev), idx][:, None, :]
-        return self.lm_head(x), (tuple(new_cache) if new_cache is not None else None)
+        return _deq(self.lm_head(x)), (tuple(new_cache) if new_cache is not None else None)

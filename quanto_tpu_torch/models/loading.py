@@ -2,8 +2,9 @@
 
 Counterpart of the loading half of `quanto_tpu/models/loading.py` for float
 weights: `load_hf_numpy_state_dict` fills a port model from a torch-convention
-dict of numpy arrays (`weight` in [out, in]), such as the one
-`quanto_tpu.models.loading.hf_state_dict` produces after `np.asarray`.
+dict of numpy arrays (`weight` in [out, in]; the activation scales of a
+calibrated model), such as the one `quanto_tpu.models.loading.hf_state_dict`
+produces after `np.asarray`.
 `qkv_layer_from_numpy` turns the fields of a JAX `QKVCacheLayer`, as numpy
 arrays, into the port's cache layer. Quantized checkpoints wait for the
 serialization slice.
@@ -63,11 +64,19 @@ def qkv_layer_from_numpy(fields: Mapping[str, np.ndarray], qtype_name: str) -> Q
     )
 
 
+_SCALE_BUFFERS = ("input_scale", "output_scale")
+
+
 @torch.no_grad()
 def load_hf_numpy_state_dict(model: nn.Module, tensors: Mapping[str, np.ndarray]) -> Dict[str, list]:
-    """Copy each named float tensor into the model parameter of that name
-    (cast to its dtype and device). Returns {"missing", "unexpected"} names."""
+    """Copy each named float tensor into the model parameter of that name, or
+    into a quantized module's `input_scale` / `output_scale` buffer (the keys
+    `quanto_tpu.models.loading.hf_state_dict` emits for a calibrated model),
+    cast to its dtype and device. Returns {"missing", "unexpected"} names."""
     params = dict(model.named_parameters())
+    params.update(
+        (name, b) for name, b in model.named_buffers() if name.rpartition(".")[2] in _SCALE_BUFFERS
+    )
     unexpected = []
     for name, arr in tensors.items():
         p = params.get(name)

@@ -1,9 +1,10 @@
 """Quantized linear module.
 
 PyTorch counterpart of `quanto_tpu/nn/qlinear.py`: weights always quantized,
-bias never. The weight keeps the torch linear convention
-`[out_features, in_features]`, so per-output-channel (axis 0) scales and the
-generic layout match quanto checkpoints bit for bit.
+bias never, inputs (and outputs, unless calibration streamlined them away)
+quantized when an activation qtype is set. The weight keeps the torch linear
+convention `[out_features, in_features]`, so per-output-channel (axis 0)
+scales and the generic layout match quanto checkpoints bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.qlinear import qlinear
+from ..tensor.optimizers import Optimizer
 from ..tensor.qtype import qtype
 from .qmodule import QModuleMixin, register_qmodule
 
@@ -30,6 +32,8 @@ class QLinear(QModuleMixin, nn.Module):
         bias: bool = True,
         *,
         weights: Optional[Union[str, qtype]] = None,
+        activations: Optional[Union[str, qtype]] = None,
+        optimizer: Optional[Optimizer] = None,
         device="cuda",
         dtype=None,
     ):
@@ -41,13 +45,15 @@ class QLinear(QModuleMixin, nn.Module):
         self.bias = (
             nn.Parameter(torch.zeros((out_features,), **kw), requires_grad=False) if bias else None
         )
-        self._init_quantization(weights, in_features)
+        self._init_quantization(weights, activations, optimizer, in_features, device=device)
 
     @classmethod
     def from_module(
         cls,
         module: nn.Linear,
         weights: Optional[Union[str, qtype]] = None,
+        activations: Optional[Union[str, qtype]] = None,
+        optimizer: Optional[Optimizer] = None,
     ) -> Optional["QLinear"]:
         """Build from an `nn.Linear`, sharing its parameters (no copy)."""
         if weights is None:
@@ -57,13 +63,17 @@ class QLinear(QModuleMixin, nn.Module):
             module.out_features,
             bias=module.bias is not None,
             weights=weights,
+            activations=activations,
+            optimizer=optimizer,
             device="meta",
             dtype=module.weight.dtype,
         )
         qmodule.weight = module.weight
         if module.bias is not None:
             qmodule.bias = module.bias
+        qmodule._init_scales(module.weight.device)
         return qmodule
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return qlinear(x, self.qweight, self.bias)
+    def forward(self, x):
+        x = self.maybe_quantize_input(x)
+        return self.maybe_quantize_output(qlinear(x, self.qweight, self.bias))

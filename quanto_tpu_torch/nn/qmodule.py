@@ -1,11 +1,15 @@
 """Quantized module layer.
 
-PyTorch counterpart of `quanto_tpu/nn/qmodule.py` (weight quantization only;
-activation quantization waits for a later slice). Workflow states:
+PyTorch counterpart of `quanto_tpu/nn/qmodule.py`. Workflow states:
 - **dynamic**: `weight` is the float `nn.Parameter`; `qweight` re-quantizes
   on every access;
+- **calibrated**: the `input_scale` / `output_scale` buffers (0-d float32,
+  1 until calibrated) updated by `Calibration` (`quanto_tpu_torch/calibrate.py`);
 - **frozen**: `weight` is a `QArray`, repacked into the Hopper kernel layout
-  when it lies on a CUDA device.
+  when it is int4 and lies on a CUDA device.
+
+The `qat` flag and `fake_qweight` of the JAX package wait for the training
+slice.
 """
 
 from __future__ import annotations
@@ -14,10 +18,11 @@ from typing import Optional, Union
 
 import torch
 
-from ..tensor.optimizers import MaxOptimizer
+from ..tensor.activations import mark_quantized_use, quantize_activation
+from ..tensor.optimizers import AbsmaxOptimizer, MaxOptimizer, Optimizer
 from ..tensor.qarray import QArray
 from ..tensor.qtype import qtype, qtypes
-from ..tensor.weights import WeightQBitsHopperArray, quantize_weight
+from ..tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, quantize_weight
 
 
 __all__ = ["QModuleMixin", "register_qmodule", "quantize_module"]
@@ -66,15 +71,40 @@ def _auto_group_size(in_features: int) -> Optional[int]:
 
 
 class QModuleMixin:
-    """Shared weight-quantization behaviour of quantized modules."""
+    """Shared quantization behaviour of quantized modules (an `nn.Module`
+    subclass calls `_init_quantization` from its constructor)."""
 
-    def _init_quantization(self, weights: Optional[Union[str, qtype]], in_features: int) -> None:
+    def _init_quantization(
+        self,
+        weights: Optional[Union[str, qtype]],
+        activations: Optional[Union[str, qtype]],
+        optimizer: Optional[Optimizer],
+        in_features: int,
+        device=None,
+    ) -> None:
         weights = _resolve_qtype(weights)
-        if weights is not None and weights.bits == 8:
-            raise NotImplementedError("8-bit weights are not ported yet")
+        activations = _resolve_qtype(activations)
         self.weight_qtype = weights
-        self.weight_group_size = _auto_group_size(in_features) if weights is not None else None
-        self.optimizer = MaxOptimizer()
+        self.weight_group_size = (
+            _auto_group_size(in_features) if weights is not None and weights.bits < 8 else None
+        )
+        self.activation_qtype = activations
+        if optimizer is None and weights is not None:
+            optimizer = AbsmaxOptimizer() if weights.bits == 8 else MaxOptimizer()
+        self.optimizer = optimizer
+        self._init_scales(device)
+        # Output quantization is on with activations; Calibration's streamline
+        # pass may turn it off.
+        self.quantize_outputs = activations is not None
+        self.calibrating = False
+        self._calibration = None
+
+    def _init_scales(self, device) -> None:
+        """Activation scales: 0-d float32 buffers, 1 until calibrated."""
+        for name in ("input_scale", "output_scale"):
+            self.register_buffer(name, torch.ones((), dtype=torch.float32, device=device))
+
+    # --- weight quantization -------------------------------------------------
 
     @property
     def frozen(self) -> bool:
@@ -88,21 +118,57 @@ class QModuleMixin:
         w = self.weight
         if isinstance(w, QArray):
             return w
-        scale, shift = self.optimizer(
-            w.detach(), self.weight_qtype, axis=0, group_size=self.weight_group_size
-        )
+        w = w.detach()
+        if self.weight_qtype.bits == 8:
+            scale = self.optimizer(w, self.weight_qtype, axis=0)
+            return quantize_weight(w, self.weight_qtype, 0, scale, activation_qtype=self.activation_qtype)
+        scale, shift = self.optimizer(w, self.weight_qtype, axis=0, group_size=self.weight_group_size)
         return quantize_weight(
-            w.detach(), self.weight_qtype, 0, scale, shift=shift, group_size=self.weight_group_size
+            w, self.weight_qtype, 0, scale, shift=shift, group_size=self.weight_group_size
         )
 
     @torch.no_grad()
     def freeze(self) -> None:
-        """Replace the float weight with its quantized form, repacked into the
-        Hopper layout when it lies on a CUDA device and fits the envelope."""
+        """Replace the float weight with its quantized form. An int4 weight on a
+        CUDA device is repacked into the Hopper layout when it fits the
+        envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
+        reads as it is."""
         if self.weight_qtype is None or self.frozen:
             return
         qw = self.qweight
-        if qw.device.type == "cuda":
+        if isinstance(qw, WeightQBitsArray) and qw.device.type == "cuda":
             qw = WeightQBitsHopperArray.from_generic(qw) or qw
         del self.weight  # drop the float Parameter
         self.weight = qw
+
+    # --- activation quantization ---------------------------------------------
+
+    def maybe_quantize_input(self, x):
+        """Quantize the input activation (`quanto_tpu/nn/qmodule.py:212-231`)."""
+        if self.activation_qtype is None:
+            return x
+        if isinstance(x, QArray):
+            # Consuming an already-quantized input keeps the producer's output
+            # quantization alive through streamline.
+            mark_quantized_use(x)
+            if self.calibrating and self._calibration is not None:
+                self._calibration.calibrate_input(self, x)
+            return x
+        if self.calibrating and self._calibration is not None:
+            self._calibration.calibrate_input(self, x)
+        return quantize_activation(x, self.activation_qtype, self.input_scale)
+
+    def maybe_quantize_output(self, out):
+        """Quantize the output activation (`quanto_tpu/nn/qmodule.py:233-253`)."""
+        if self.activation_qtype is None:
+            return out
+        if self.calibrating and self._calibration is not None:
+            self._calibration.calibrate_output(self, out)
+            # While calibrating, outputs are quantized with the live scale and
+            # tagged, so that streamline sees how they are consumed.
+            qout = quantize_activation(out, self.activation_qtype, self.output_scale)
+            self._calibration.tag_output(self, qout)
+            return qout
+        if not self.quantize_outputs:
+            return out
+        return quantize_activation(out, self.activation_qtype, self.output_scale)

@@ -1,6 +1,6 @@
 """Model-level quantization workflow.
 
-PyTorch counterpart of `quanto_tpu/quantize.py:77-121`: walk the module tree,
+PyTorch counterpart of `quanto_tpu/quantize.py:67-121`: walk the module tree,
 swap quantizable modules for their quantized counterparts (fnmatch
 include/exclude filters on module names), and freeze.
 """
@@ -13,10 +13,11 @@ from typing import List, Optional, Union
 from torch import nn
 
 from .nn.qmodule import QModuleMixin, quantize_module
+from .tensor.optimizers import Optimizer
 from .tensor.qtype import qtype
 
 
-__all__ = ["quantize", "freeze", "set_module_by_name"]
+__all__ = ["quantize", "freeze", "named_qmodules", "set_module_by_name"]
 
 
 def set_module_by_name(model: nn.Module, name: str, new_module: nn.Module) -> None:
@@ -25,9 +26,19 @@ def set_module_by_name(model: nn.Module, name: str, new_module: nn.Module) -> No
     setattr(parent, last, new_module)
 
 
+def named_qmodules(model: nn.Module):
+    """(name, qmodule) pairs for every quantized module in the tree (the root
+    itself included, under the empty name)."""
+    for name, m in model.named_modules():
+        if isinstance(m, QModuleMixin):
+            yield name, m
+
+
 def quantize(
     model: nn.Module,
     weights: Optional[Union[str, qtype]] = None,
+    activations: Optional[Union[str, qtype]] = None,
+    optimizer: Optional[Optimizer] = None,
     include: Optional[Union[str, List[str]]] = None,
     exclude: Optional[Union[str, List[str]]] = None,
 ) -> None:
@@ -45,13 +56,12 @@ def quantize(
             continue
         if exclude is not None and any(fnmatch.fnmatch(name, p) for p in exclude):
             continue
-        qmodule = quantize_module(m, weights=weights)
+        qmodule = quantize_module(m, weights=weights, activations=activations, optimizer=optimizer)
         if qmodule is not None:
             set_module_by_name(model, name, qmodule)
 
 
 def freeze(model: nn.Module) -> None:
     """Freeze every quantized module."""
-    for m in model.modules():
-        if isinstance(m, QModuleMixin):
-            m.freeze()
+    for _, m in named_qmodules(model):
+        m.freeze()

@@ -1,0 +1,89 @@
+"""Quantized activations.
+
+PyTorch counterpart of `quanto_tpu/tensor/activations.py:36-107`:
+activations are quantized per tensor to an 8-bit qtype with a scalar scale.
+The scale stays a 0-d device tensor from the module's buffer to the kernel:
+nothing here reads it on the host, so quantizing an activation never waits
+for the card.
+
+Consumption cells serve `Calibration`'s streamline pass
+(`quanto_tpu_torch/calibrate.py`): a consumer that uses a quantized output as
+quantized data marks `quantized_use`, `dequantize()` marks `dequantized`.
+`fake_quantize_activation` (quantization-aware training) waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..ops.quantize import dequantize_symmetric, quantize_symmetric
+from .qarray import QArray
+from .qtype import qtype
+
+
+__all__ = [
+    "ActivationQBytesArray",
+    "quantize_activation",
+    "attach_consumption_cell",
+    "mark_dequantized",
+    "mark_quantized_use",
+]
+
+
+def attach_consumption_cell(x: "ActivationQBytesArray", cell: dict) -> None:
+    """Attach a mutable consumption-tracking cell (calibration streamline)."""
+    object.__setattr__(x, "_track", cell)
+
+
+def mark_dequantized(x) -> None:
+    cell = getattr(x, "_track", None)
+    if cell is not None:
+        cell["dequantized"] = True
+
+
+def mark_quantized_use(x) -> None:
+    cell = getattr(x, "_track", None)
+    if cell is not None:
+        cell["quantized_use"] = True
+
+
+@dataclass(frozen=True, eq=False)
+class ActivationQBytesArray(QArray):
+    """8-bit per-tensor symmetric quantized activation: `_data * _scale`."""
+
+    _data: torch.Tensor
+    _scale: torch.Tensor  # 0-d float32
+    qtype: qtype
+    float_dtype: torch.dtype
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.float_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._data.device
+
+    def dequantize(self) -> torch.Tensor:
+        mark_dequantized(self)
+        return dequantize_symmetric(self._data, self._scale, self.float_dtype)
+
+
+def quantize_activation(t: torch.Tensor, qt: qtype, scale: torch.Tensor) -> ActivationQBytesArray:
+    """Quantize an activation to an 8-bit qtype with a scalar scale."""
+    if qt.bits != 8:
+        raise ValueError("Activations can only be quantized to 8-bit qtypes")
+    if scale.numel() != 1:
+        raise ValueError("Activation quantization requires a scalar scale")
+    scale = scale.reshape(())
+    return ActivationQBytesArray(
+        _data=quantize_symmetric(t, qt, None, scale), _scale=scale, qtype=qt, float_dtype=t.dtype
+    )

@@ -1,8 +1,9 @@
-"""Scale/shift optimizers for affine weight quantization.
+"""Scale/shift optimizers for weight quantization.
 
-PyTorch counterpart of `quanto_tpu/tensor/optimizers.py:71-121`: an affine
-optimizer returns a (scale, shift) pair, optionally group-wise, optionally
-with an integer zero-point.
+PyTorch counterpart of `quanto_tpu/tensor/optimizers.py:37-121`: a symmetric
+optimizer returns a scale (8-bit weights, activations), an affine optimizer a
+(scale, shift) pair, optionally group-wise, optionally with an integer
+zero-point. Scales come back in the base dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from .grouped import group
 from .qtype import qtype
 
 
-__all__ = ["Optimizer", "AffineOptimizer", "MaxOptimizer"]
+__all__ = ["Optimizer", "SymmetricOptimizer", "AbsmaxOptimizer", "AffineOptimizer", "MaxOptimizer"]
 
 
 def _reduce_dims(ndim: int, axis: int):
@@ -26,6 +27,32 @@ def _reduce_dims(ndim: int, axis: int):
 class Optimizer:
     def __call__(self, base: torch.Tensor, qt: qtype, axis: int, **kwargs):
         raise NotImplementedError
+
+
+class SymmetricOptimizer(Optimizer):
+    """Returns a scale only; used for 8-bit symmetric quantization."""
+
+    def __call__(self, base: torch.Tensor, qt: qtype, axis: Optional[int] = None) -> torch.Tensor:
+        if axis not in (None, 0, -1):
+            raise ValueError("axis parameter must be None, 0 (first axis) or -1 (last axis)")
+        if axis is not None and base.shape[axis] == 1:
+            axis = None
+        return self.optimize(base, qt, axis).to(base.dtype)
+
+    def optimize(self, base: torch.Tensor, qt: qtype, axis: Optional[int]) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class AbsmaxOptimizer(SymmetricOptimizer):
+    """scale = max|t| / qmax, per tensor (0-d) or per axis (keepdim)."""
+
+    def optimize(self, base: torch.Tensor, qt: qtype, axis: Optional[int]) -> torch.Tensor:
+        base = base.abs().float()
+        if axis is None:
+            rmax = torch.amax(base)
+        else:
+            rmax = torch.amax(base, dim=_reduce_dims(base.ndim, axis), keepdim=True)
+        return rmax / qt.qmax
 
 
 class AffineOptimizer(Optimizer):

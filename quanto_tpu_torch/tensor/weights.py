@@ -1,6 +1,10 @@
-"""Quantized sub-byte weights.
+"""Quantized weights.
 
 PyTorch counterpart of `quanto_tpu/tensor/weights.py`:
+- `WeightQBytesArray` (`weights.py:45-110`): 8-bit (int8 or float8)
+  symmetric weights, per-tensor or per-axis. `_data` [N, K] row-major is
+  already K-contiguous, the layout the Hopper kernels of
+  `ops/cuda/qbytes_mm.py` read, so it needs no kernel layout of its own.
 - `WeightQBitsArray` (`weights.py:113-189`): int2/int4 affine weights with
   scale + shift, optionally group-wise, payload bit-packed in quanto's
   generic grouped layout (the serialized, kernel-agnostic form).
@@ -28,14 +32,60 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.cuda.qbits_mm import dequantize_k_nibbles, pack_k_nibbles, unpack_k_nibbles
-from ..ops.quantize import dequantize_affine, quantize_affine
+from ..ops.quantize import dequantize_affine, dequantize_symmetric, quantize_affine, quantize_symmetric
 from .grouped import group, ungroup
 from .packed import PackedArray
 from .qarray import QArray
 from .qtype import qtype
 
 
-__all__ = ["WeightQBitsArray", "WeightQBitsHopperArray", "quantize_weight"]
+__all__ = ["WeightQBytesArray", "WeightQBitsArray", "WeightQBitsHopperArray", "quantize_weight"]
+
+
+@dataclass(frozen=True, eq=False)
+class WeightQBytesArray(QArray):
+    """8-bit symmetric weights: int8 or float8 `_data` with a per-tensor
+    (0-d) or per-axis (keepdim, e.g. [N, 1]) `_scale` in the base dtype."""
+
+    _data: torch.Tensor
+    _scale: torch.Tensor
+    qtype: qtype
+    axis: Optional[int]
+    float_dtype: torch.dtype
+    activation_qtype: Optional[qtype] = None
+
+    @classmethod
+    def quantize(
+        cls,
+        base: torch.Tensor,
+        qt: qtype,
+        axis: Optional[int],
+        scale: torch.Tensor,
+        activation_qtype: Optional[qtype] = None,
+    ) -> "WeightQBytesArray":
+        return cls(
+            _data=quantize_symmetric(base, qt, axis, scale),
+            _scale=scale,
+            qtype=qt,
+            axis=axis,
+            float_dtype=base.dtype,
+            activation_qtype=activation_qtype,
+        )
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.float_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._data.device
+
+    def dequantize(self) -> torch.Tensor:
+        return dequantize_symmetric(self._data, self._scale, self.float_dtype)
 
 
 @dataclass(frozen=True, eq=False)
@@ -194,14 +244,20 @@ def quantize_weight(
     scale: torch.Tensor,
     shift: Optional[torch.Tensor] = None,
     group_size: Optional[int] = None,
-) -> WeightQBitsArray:
-    """Quantize a weight tensor to a sub-byte qtype (per-axis or grouped);
-    `quanto_tpu/tensor/weights.py:528-555` without the 8-bit arm, which a
-    later slice ports."""
+    activation_qtype: Optional[qtype] = None,
+):
+    """Quantize a weight tensor (`quanto_tpu/tensor/weights.py:528-555`):
+    8-bit qtypes forbid shift and group size and collapse a size-1 axis to
+    per-tensor; sub-byte qtypes require a shift."""
     if axis not in (0, -1):
         raise ValueError("axis parameter must be 0 (first axis) or -1 (last axis)")
     if qt.bits == 8:
-        raise NotImplementedError("8-bit weights are not ported yet")
+        if shift is not None:
+            raise ValueError("shift cannot be specified for 8-bit qtypes")
+        if group_size is not None:
+            raise ValueError("group_size cannot be specified for 8-bit qtypes.")
+        q_axis = None if t.shape[axis] == 1 else axis
+        return WeightQBytesArray.quantize(t, qt, q_axis, scale, activation_qtype)
     if shift is None:
         raise ValueError("shift must be specified for qtypes lower than 8-bit")
     return WeightQBitsArray.quantize(t, qt, axis, group_size, scale, shift)

@@ -8,6 +8,10 @@ layouts: the generic one (dequantize + matmul, as frozen on a CPU) and the
 Hopper kernel layout (the kernels' plain versions on a CPU tensor). Logits
 agree within 1e-4 * max|ref|: float32 sums in another order.
 
+Under 8-bit weights (qint8 and qfloat8, lm_head excluded) the codes and
+scales are bit for bit JAX's, and cached-prefill logits, a per-row decode step
+and 8 greedy tokens agree as above (`test_torch_w4a8.py` holds the W4A8 arm).
+
 The qint4 model also runs over each quantized KV cache spec
 (`init_kv_cache(kv_quant=spec)`): cached prefill logits, one per-row decode
 step (the port's goes through `flash_decode`, whose plain version runs on a
@@ -40,12 +44,14 @@ from quanto_tpu.models.llama import init_kv_cache as jax_init_kv_cache
 from quanto_tpu.models.llama import rope_params as jax_rope_params
 from quanto_tpu.models.loading import hf_state_dict
 from quanto_tpu.models.serve import generate as jax_generate
+from quanto_tpu.tensor.weights import WeightQBytesArray as JaxWeightQBytesArray
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_kv_cache, rope_params
 from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
 from quanto_tpu_torch.models.serve import decode, generate, prefill
 from quanto_tpu_torch.nn import QLinear
 from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
 
+from .test_torch_qbytes import codes_of
 from .test_torch_quantize import bits_of
 
 ROPE = {
@@ -89,6 +95,34 @@ def jax_outputs(model) -> dict:
     out["step"], _ = model(tok, cache, jnp.asarray(DECODE_POS))
     out["tokens"] = np.asarray(jax_generate(model, ids, NEW))
     return out
+
+
+@nnx.jit
+def _jax_steps(model, ids, cache, last, pos):
+    prefill, cache = model(ids, cache, 0, logits_indices=last)
+    step, _ = model(ids[:, :1], cache, pos)
+    return prefill, step
+
+
+def jax_steps(model, ids: np.ndarray) -> dict:
+    """Cached prefill logits at the per-row `LAST` positions and one decode step
+    at the per-row `DECODE_POS`, over a float cache of S slots (jitted: eager
+    JAX costs seconds here)."""
+    prefill, step = _jax_steps(
+        model, jnp.asarray(ids, jnp.int32), jax_init_kv_cache(model.config, B, S),
+        jnp.asarray(LAST), jnp.asarray(DECODE_POS),
+    )
+    return {"prefill": np.asarray(prefill), "step": np.asarray(step)}
+
+
+def port_steps(model, ids: np.ndarray) -> dict:
+    """The port's counterpart of `jax_steps`."""
+    ids = torch.from_numpy(ids)
+    with torch.no_grad():
+        cache = init_kv_cache(model.config, B, S, device="cpu")
+        prefill, cache = model(ids, cache, 0, logits_indices=torch.from_numpy(LAST))
+        step, _ = model(ids[:, :1], cache, torch.from_numpy(DECODE_POS))
+    return {"prefill": prefill, "step": step}
 
 
 @pytest.fixture(scope="module")
@@ -190,6 +224,47 @@ def test_qint4_model_matches(jax_side, layout):
     check_outputs(model, q_out)
 
 
+@pytest.fixture(scope="module")
+def jax_qbytes_side():
+    """The JAX model under 8-bit weights (lm_head excluded, as `bench.py`'s
+    int8 arm): its quantized state and outputs, per weight qtype."""
+    ids = np.random.default_rng(0).integers(0, TINY["vocab_size"], (B, T))
+    out = {}
+    for weights in ("qint8", "qfloat8"):
+        model = JaxLlama(JaxLlamaConfig(**TINY), rngs=nnx.Rngs(0))
+        qt.quantize(model, weights=weights, exclude="lm_head")
+        qt.freeze(model)
+        ref = jax_steps(model, ids)
+        ref["tokens"] = np.asarray(jax_generate(model, jnp.asarray(ids, jnp.int32), NEW))
+        ref["state"] = {k: np.asarray(v) for k, v in hf_state_dict(model).items()}
+        assert isinstance(model.model.layers[0].mlp.up_proj.weight.get_value(), JaxWeightQBytesArray)
+        out[weights] = ref
+    return ids, out
+
+
+@pytest.mark.parametrize("weights", ["qint8", "qfloat8"])
+def test_qbytes_model_matches(jax_side, jax_qbytes_side, weights):
+    """8-bit weight-only: codes and scales bit for bit, then cached-prefill
+    logits and a per-row decode step (through the 8-bit kernel's plain
+    version: every M here is inside its envelope) within 1e-4 * max|ref|,
+    and 8 greedy tokens identical."""
+    ids, outs = jax_qbytes_side
+    ref = outs[weights]
+    model = port_model(jax_side[0])
+    qtt.quantize(model, weights=weights, exclude="lm_head")
+    qtt.freeze(model)
+    qlinears = [(n, m) for n, m in model.named_modules() if isinstance(m, QLinear)]
+    assert len(qlinears) == 7 * TINY["num_hidden_layers"]
+    for name, m in qlinears:
+        assert isinstance(m.weight, qtt.WeightQBytesArray) and m.weight._scale.shape == (m.out_features, 1)
+        np.testing.assert_array_equal(codes_of(m.weight._data), codes_of(ref["state"][f"{name}.weight._data"]))
+        np.testing.assert_array_equal(bits_of(m.weight._scale), bits_of(ref["state"][f"{name}.weight._scale"]))
+    got = port_steps(model, ids)
+    close(got["prefill"], ref["prefill"])
+    close(got["step"], ref["step"])
+    np.testing.assert_array_equal(generate(model, torch.from_numpy(ids), NEW).numpy(), ref["tokens"])
+
+
 @pytest.mark.parametrize("spec", KV_SPECS)
 @pytest.mark.parametrize("layout", ["generic", "hopper"])
 def test_quantized_kv_cache_model_matches(jax_side, jax_kv_side, layout, spec):
@@ -204,7 +279,7 @@ def test_quantized_kv_cache_model_matches(jax_side, jax_kv_side, layout, spec):
         out, cache = model(ids, cache, 0, logits_indices=torch.from_numpy(LAST))
         close(out, ref["prefill"], tol)
         step, _ = model(ids[:, :1], cache, torch.from_numpy(DECODE_POS))
-        close(step, ref["step"], tol)
+        close(step, ref["step"])
         cache = init_kv_cache(model.config, B, T + NEW, kv_quant=spec, device="cpu")
         logits, cache = prefill(model, ids, cache, last_only=True)
         first = logits[:, -1].argmax(-1).to(ids.dtype)[:, None]
