@@ -46,12 +46,41 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    exclude="lm_head")`, `Calibration` over 2 batches of 4 x 128 seeded
    tokens (streamline must turn output quantization off for all 224
    linears), `freeze`; the same prefill and decode, with exact launch counts.
+3 (MoE). The two MoE kernels against their plain version over 8 stacked
+   experts at both Mixtral-8x7B projection shapes (14336 x 4096, 4096 x
+   14336), bf16 x, float32 outputs: `qbits_moe_small_m` in its selective form
+   (nsel = 2), all form (S = 8 over the 8 experts) and uniq form (S = 8 over
+   a 6-expert table); `qbits_moe_tiled` over 8 slabs of M in {8, 512, 2048};
+   and both kernels at phase 8's B = 4 decode shapes: M = 4 over 8 slots of a
+   routed-first table with a device count of 6 or 8 live slots (gate/up over
+   shared rows, down over per-slot rows). Yardstick: one `torch.bmm` over the
+   live slots' experts, gathered and dequantized to bf16 beforehand. Bound:
+   the live experts' bytes once.
+8. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json; 32 layers, full
+   width, 8 experts, top-2), random weights from a seed, built on "meta" and
+   materialized one decoder layer at a time (`quantize(weights="qint4")`,
+   `freeze`, `convert_moe_to_stacked(capacity_factor=2.0)` on each layer;
+   lm_head bf16), so the card never holds the 93 GB bf16 model. B = 4 x 1024-
+   token prompts (prefill through the capacity gather, then 63 greedy decode
+   steps through the unique-expert route over a bf16 cache of 1088 slots) and
+   B = 1 (the selective route), each with exact launch counts per prefill
+   and per decode step; one MoE block's decode forward at B = 1 and B = 4
+   under `torch.cuda.set_sync_debug_mode("error")`.
+9. Mixtral end-to-end numerics at full width and 2 layers: the stacked model
+   against the same model's dense-mask blocks (through `qbits_mm`), and
+   against the stacked model through the plain versions called explicitly:
+   the prefill's last-position logits and one decode step, at B = 1 and 4,
+   for two weight seeds. Every layer's routing is recorded: a row routed
+   alike by both paths needs cosine > MIXTRAL_E2E_COS and the same top-1
+   token unless its two logits tie (LOGIT_TIE); a row routed differently
+   needs a routing tie (ROUTE_TIE) in each layer where it differs.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -111,6 +140,47 @@ REPLACES.update({
     "qbits_mm_int8_small_m": "quanto_tpu/ops/pallas/qbits_mm.py:577",
     "qbits_mm_tiled_int8": "quanto_tpu/ops/pallas/qbits_mm.py:223 (int8-x arm, :248-251)",
 })
+
+# The MoE kernels (phase 3): Mixtral-8x7B's expert shapes (N, K), the forms each kernel is run in.
+MOE_SHAPES = [(14336, 4096), (4096, 14336)]
+MOE_EXPERTS = 8
+MOE_SEL_EIDS = [3, 5]  # the selective form: nsel = 2 pairs on two experts
+MOE_UNIQ_EIDS = [6, 1, 3, 0, 7, 4]  # the uniq form: 6 of the 8 experts
+MOE_S = 8
+MOE_TILED_M = (8, 512, 2048)
+# The B = 4 decode step's unique-expert route (S = 4 rows, S·K = 8 = E): both kernels over 8 slots
+# of a routed-first table (the routed experts ascending, then the others) with the routed count
+# on the device, as `StackedSparseMoeBlock._uniq_boundary` builds them; 6 and all 8 routed.
+MOE_DECODE_M = 4
+MOE_DECODE_TABLES = [(6, [0, 2, 3, 5, 6, 7, 1, 4]), (8, list(range(8)))]
+# (form, nslots, M, N, K) of the MoE summary entries: the B = 4 decode step's gate/up call with all
+# 8 experts routed (the run its launches come from), and the prefill's gate/up GEMM.
+SUMMARY_SHAPE.update({
+    "qbits_moe_small_m": ("uniq", 8, 4, 14336, 4096), "qbits_moe_tiled": ("experts", None, 2048, 14336, 4096),
+})
+SOURCE.update({
+    "qbits_moe_small_m": "quanto_tpu_torch/csrc/moe_mm.cu",
+    "qbits_moe_tiled": "quanto_tpu_torch/csrc/moe_mm.cu",
+})
+REPLACES.update({
+    "qbits_moe_small_m": "quanto_tpu/ops/pallas/moe_mm.py:75, quanto_tpu/ops/pallas/moe_mm.py:183, "
+                         "quanto_tpu/ops/pallas/moe_mm.py:225",
+    "qbits_moe_tiled": "quanto_tpu/ops/pallas/moe_mm.py:330, quanto_tpu/ops/pallas/moe_mm.py:337",
+})
+
+# mistralai/Mixtral-8x7B-v0.1 config.json (default rope, no sliding window, untied embeddings).
+MIXTRAL_8X7B = dict(
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_hidden_layers=32,
+    num_attention_heads=32,
+    num_key_value_heads=8,
+    rope_theta=1e6,
+    rms_norm_eps=1e-5,
+    num_local_experts=8,
+    num_experts_per_tok=2,
+)
 
 # meta-llama/Llama-3.1-8B config.json.
 LLAMA31_8B = dict(
@@ -327,6 +397,93 @@ def phase_w4a8(K_mod, flush):
                 rows.append(row)
                 log("kernel " + json.dumps(row))
         del packed, scale_t, shift_t, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe(flush):
+    """Phase 3, the MoE kernels: each form against the plain version over 8
+    stacked experts with random int4 codes, bf16 x, float32 outputs held
+    within 1e-4 * max|ref| and cosine > 1 - 1e-5 (sums in another order)."""
+    from quanto_tpu_torch.ops.cuda import moe_mm as MM
+    from quanto_tpu_torch.ops.cuda.qbits_mm import dequantize_k_nibbles
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    rows = []
+    for N, K in MOE_SHAPES:
+        G = K // GS
+        packed = torch.randint(0, 256, (MOE_EXPERTS, N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        scale_t = torch.rand((MOE_EXPERTS, G, N), device=dev, generator=g) * 0.01 + 0.001
+        shift_t = scale_t * 7.5
+        w_bf16 = torch.stack([
+            dequantize_k_nibbles(packed[e], scale_t[e], shift_t[e], GS).to(torch.bfloat16)
+            for e in range(MOE_EXPERTS)
+        ])
+        weights = (packed, scale_t, shift_t, GS)
+        x8 = torch.randn((MOE_S, K), device=dev, generator=g, dtype=torch.bfloat16)
+
+        def table(ids):
+            return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+        # (form, kernel, x3 [U, M, K], eids, the device count of live slots or None for all U)
+        cases = [
+            ("sel", MM.qbits_moe_small_m, x8[: len(MOE_SEL_EIDS), None, :], table(MOE_SEL_EIDS), None),
+            ("all", MM.qbits_moe_small_m, x8.expand(MOE_EXPERTS, MOE_S, K), None, None),
+            ("uniq", MM.qbits_moe_small_m, x8.expand(len(MOE_UNIQ_EIDS), MOE_S, K), table(MOE_UNIQ_EIDS), None),
+        ] + [
+            ("experts", MM.qbits_moe_tiled,
+             torch.randn((MOE_EXPERTS, M, K), device=dev, generator=g, dtype=torch.bfloat16), None, None)
+            for M in MOE_TILED_M
+        ]
+        # The B = 4 decode step: gate/up over the shared rows, down over each slot's own rows.
+        x4 = torch.randn((MOE_DECODE_M, K), device=dev, generator=g, dtype=torch.bfloat16)
+        h4 = torch.randn((MOE_EXPERTS, MOE_DECODE_M, K), device=dev, generator=g, dtype=torch.bfloat16)
+        cases += [
+            ("uniq", kernel, x3, table(ids), n)
+            for n, ids in MOE_DECODE_TABLES
+            for kernel, x3 in ((MM.qbits_moe_small_m, x4.expand(MOE_EXPERTS, MOE_DECODE_M, K)),
+                               (MM.qbits_moe_tiled, h4))
+        ]
+        for form, kernel, x3, eids, count in cases:
+            U, M = x3.shape[:2]
+            n_live = U if count is None else count
+            nslots = None if count is None else torch.tensor(count, dtype=torch.int32, device=dev)
+            ids = (eids.long() if eids is not None else torch.arange(U, device=dev))[:n_live]
+            experts = set(ids.tolist())
+            # The yardstick computes the live slots only, on their experts in bf16.
+            x_lib, w_lib = x3[:n_live], w_bf16[ids]
+            out = kernel(x3, *weights, eids=eids, nslots=nslots)
+            ref = MM.qbits_moe_plain(x3, *weights, eids=eids, nslots=nslots)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ref_max = ref.abs().max().item()
+            cos = cosine(out, ref)
+            name = kernel.__name__
+            if not (cos > 1 - 1e-5 and err <= 1e-4 * ref_max):
+                raise RuntimeError(
+                    f"{name} {form} U={U} nslots={count} M={M} N={N} K={K}: cosine {cos} max_abs_err {err} "
+                    f"(max|ref| {ref_max})"
+                )
+            # Least time: the live slots' x read once (shared rows once), their experts'
+            # payloads, scales and shifts once, the float32 output written once; 2 n M N K
+            # operations in bf16 over the n live slots.
+            x_bytes = (M if x3.stride(0) == 0 else n_live * M) * K * 2
+            nbytes = x_bytes + len(experts) * (N * K // 2 + 2 * G * N * 4) + U * M * N * 4
+            ops = 2 * n_live * M * N * K
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOPS * 1e3
+            row = dict(
+                name=name, form=form, U=U, nslots=count, M=M, N=N, K=K, experts=len(experts),
+                max_abs_err=err, cosine=cos,
+                ms=time_ms(lambda: kernel(x3, *weights, eids=eids, nslots=nslots), flush),
+                plain_ms=time_ms(lambda: MM.qbits_moe_plain(x3, *weights, eids=eids, nslots=nslots), flush),
+                library_ms=time_ms(lambda: torch.bmm(x_lib, w_lib.transpose(1, 2)), flush),
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            )
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            del out, ref
+        del packed, scale_t, shift_t, w_bf16, cases
         torch.cuda.empty_cache()
     return rows
 
@@ -609,9 +766,13 @@ def phase_long_context(K_mod, FD_mod, model, qlinears):
     return launches
 
 
+@functools.lru_cache(maxsize=None)
 def counters():
-    """Every kernel wrapper of the port, by name; each counts its launches."""
+    """Every kernel wrapper of the port, by name; each counts its launches.
+    Taken once, so that `plain_versions` swapping a module's names does not
+    change what is counted."""
     from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
+    from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
@@ -620,6 +781,7 @@ def counters():
         "qbits_mm_int8_small_m": K_mod.qbits_mm_int8_small_m, "qbits_mm_tiled_int8": K_mod.qbits_mm_tiled_int8,
         "qbytes_mm_int8": QB_mod.qbytes_mm_int8, "qbytes_mm_e4m3fn": QB_mod.qbytes_mm_e4m3fn,
         "flash_decode": FD_mod.flash_decode,
+        "qbits_moe_small_m": MM.qbits_moe_small_m, "qbits_moe_tiled": MM.qbits_moe_tiled,
     }
 
 
@@ -638,6 +800,7 @@ def plain_versions():
     import quanto_tpu_torch.ops.attention as attention
     import quanto_tpu_torch.ops.qlinear as QL
     from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
+    from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
@@ -647,15 +810,19 @@ def plain_versions():
             return out.reshape(*x.shape[:-1], out.shape[-1])
         return run
 
-    saved = (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode)
+    saved = (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode,
+             MM.qbits_moe_small_m, MM.qbits_moe_tiled)
     QL.qbits_mm = flat(K_mod.qbits_mm_plain)
     QL.qbits_int8_mm = flat(K_mod.qbits_int8_mm_plain)
     QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
     attention.flash_decode = FD_mod.flash_decode_plain
+    # The MoE entry points call their kernel wrappers by their module's names.
+    MM.qbits_moe_small_m = MM.qbits_moe_tiled = MM.qbits_moe_plain
     try:
         yield
     finally:
-        QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode = saved
+        (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode,
+         MM.qbits_moe_small_m, MM.qbits_moe_tiled) = saved
 
 
 # Phase 5's arms: (quantize arguments, the kernel the ragged decode step must launch 7 x 2 times).
@@ -793,6 +960,281 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict) -> 
     return launches
 
 
+def build_mixtral(config, seed: int, stacked: bool = True):
+    """The Mixtral configuration with random weights from `seed`, built on
+    "meta" and materialized on the card one decoder layer at a time: each
+    layer's linears (attention, router, experts) are quantized to qint4 and
+    frozen, and its MoE block converted to the stacked dispatch (when
+    `stacked`), before the next layer's weights are drawn. The lm_head and
+    the embedding stay bf16, as `quantize(weights="qint4", exclude="lm_head")`
+    leaves them."""
+    from quanto_tpu_torch import StackedSparseMoeBlock, convert_moe_to_stacked, freeze, quantize
+    from quanto_tpu_torch.models.mixtral import MixtralForCausalLM
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.tensor.weights import WeightQBitsArray, WeightQBitsHopperArray
+
+    def per_layer(layer):
+        quantize(layer, weights="qint4")
+        freeze(layer)
+        if stacked and convert_moe_to_stacked(layer, capacity_factor=2.0) != 1:
+            raise RuntimeError("convert_moe_to_stacked did not convert the layer's MoE block")
+
+    model = MixtralForCausalLM(config, device="meta")
+    model.materialize_("cuda", torch.Generator("cuda").manual_seed(seed), layer_fn=per_layer)
+    for layer in model.model.layers:
+        attn = [layer.self_attn.q_proj, layer.self_attn.k_proj, layer.self_attn.v_proj, layer.self_attn.o_proj]
+        moe = layer.block_sparse_moe
+        if not all(isinstance(m, QLinear) and isinstance(m.weight, WeightQBitsHopperArray) for m in attn):
+            raise RuntimeError("attention projections are not qint4 in the Hopper layout")
+        if not isinstance(moe.gate.weight, WeightQBitsArray):  # N = 8: off the kernels' envelope
+            raise RuntimeError("the router should stay in the generic int4 layout")
+        if stacked != isinstance(moe, StackedSparseMoeBlock):
+            raise RuntimeError(f"MoE block {type(moe).__name__}, stacked={stacked}")
+    if isinstance(model.lm_head, QLinear):
+        raise RuntimeError("the lm_head should stay bf16")
+    return model
+
+
+def moe_step_bytes(model, routed_experts: int) -> int:
+    """Bytes a decode step reads at least: every weight but the experts, and
+    `routed_experts` experts' stacked payloads, scales and shifts per layer."""
+    total = 0
+    for layer in model.model.layers:
+        moe = layer.block_sparse_moe
+        for m in [layer.self_attn.q_proj, layer.self_attn.k_proj, layer.self_attn.v_proj,
+                  layer.self_attn.o_proj, moe.gate]:
+            w = m.weight
+            fields = (w._packed, w._scale_t, w._shift_t) if hasattr(w, "_packed") else (
+                w._data.packed_data, w._scale, w._shift)
+            total += sum(t.numel() * t.element_size() for t in fields)
+        for proj in (moe.proj_gate, moe.proj_up, moe.proj_down):
+            per_expert = sum(t[0].numel() * t.element_size() for t in (proj.packed, proj.scale_t, proj.shift_t))
+            total += routed_experts * per_expert
+    return total + model.lm_head.weight.numel() * model.lm_head.weight.element_size()
+
+
+def mixtral_want(config, batch: int):
+    """Exact launches of one prefill (B x T tokens) and one decode step: the
+    attention's q/k/v/o through `qbits_mm`, the MoE block's three projections
+    through the MoE kernels on the route the shape takes (prefill: the
+    capacity gather, 3 `qbits_moe_tiled`; decode at B = 1: the selective
+    route, 3 `qbits_moe_small_m`; at B = 4: the unique-expert route, 2
+    `qbits_moe_small_m` and the down projection's `qbits_moe_tiled`)."""
+    L = config.num_hidden_layers
+    prefill = {"qbits_mm_tiled": 4 * L, "qbits_moe_tiled": 3 * L}
+    step = {"qbits_mm_small_m": 4 * L, "flash_decode": L}
+    if batch == 1:
+        step["qbits_moe_small_m"] = 3 * L
+    else:
+        step.update(qbits_moe_small_m=2 * L, qbits_moe_tiled=L)
+    return prefill, step
+
+
+@torch.no_grad()
+def phase_mixtral(model, ids) -> dict:
+    """Phase 8 at one batch: prefill (last position only) and 63 greedy decode
+    steps over a bf16 cache of T + NEW slots, with exact launch counts of
+    every kernel in each half. Returns the run's launch counts."""
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
+
+    config = model.config
+    batch = ids.shape[0]
+    steps = NEW - 1
+    ref_tokens = generate(model, ids, NEW)  # warm-up through the user-facing entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cache = make_cache(model, batch, T + NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, ids, cache, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_counts()
+    first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+    t0 = time.perf_counter()
+    rest, cache = decode(model, first, cache, T, steps)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec = {n: launches[n] - pre[n] for n in launches}
+    want_pre, want_step = mixtral_want(config, batch)
+    zeros = {n: 0 for n in launches}
+    if pre != {**zeros, **want_pre}:
+        raise RuntimeError(f"mixtral B={batch}: prefill launches {pre}, want {want_pre} and 0 elsewhere")
+    want_dec = {n: c * steps for n, c in want_step.items()}
+    if dec != {**zeros, **want_dec}:
+        raise RuntimeError(f"mixtral B={batch}: decode launches {dec}, want {want_dec} and 0 elsewhere")
+    if logits.shape != (batch, 1, config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"mixtral B={batch}: prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    if not torch.equal(torch.cat([ids, first, rest], dim=1), ref_tokens):
+        raise RuntimeError(f"mixtral B={batch}: generate() and prefill + decode gave different tokens")
+    if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
+        raise RuntimeError(f"mixtral B={batch}: decoded token ids out of the vocabulary")
+    # Least bytes of a step: top-2 of 8 reads 2 experts per layer at B = 1; at B = 4 between 2 and
+    # all 8, as the step routes (the bound is given at both ends).
+    lo, hi = moe_step_bytes(model, 2), moe_step_bytes(model, 2 if batch == 1 else MOE_EXPERTS)
+    log(json.dumps({
+        "mixtral": "mixtral-8x7b-config qint4 experts+attention (lm_head bf16), stacked MoE, bf16 cache",
+        "batch": batch, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s / steps * 1e3,
+        "decode_tok_s": batch * steps / decode_s,
+        "peak_memory_gb": peak_gb,
+        "prefill_launches": {n: c for n, c in pre.items() if c},
+        "decode_launches": {n: c for n, c in dec.items() if c},
+        "decode_step_bytes_2_experts": lo, "decode_step_bytes_routed_max": hi,
+        "decode_step_bound_ms": [lo / PEAK_BYTES_PER_S * 1e3, hi / PEAK_BYTES_PER_S * 1e3],
+    }))
+    del cache, logits
+    return launches
+
+
+def check_no_sync(model) -> None:
+    """Phase 8: one MoE block's decode forward at B = 1 (selective) and B = 4
+    (unique-expert) must not synchronize the host with the card."""
+    block = model.model.layers[0].block_sparse_moe
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for batch in (1, 4):
+        x = torch.randn((batch, 1, model.config.hidden_size), device="cuda", generator=g).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = block(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if y.shape != x.shape or not torch.isfinite(y).all():
+            raise RuntimeError(f"MoE block at B={batch}: output {tuple(y.shape)} or non-finite values")
+    log("mixtral: the MoE block's decode forward at B = 1 and B = 4 ran with no host sync")
+
+
+# Phase 9's limits, set from its readings on random weights (NVIDIA H100). Cosine of the stacked
+# model's logits against the dense-mask and plain paths, per row whose routing agrees between the
+# two (readings 0.99988-0.99997).
+MIXTRAL_E2E_COS = 0.9998
+# A top-1 token may differ only at a logit tie: the other path's logits of the two tokens within
+# LOGIT_TIE of the row's largest |logit|, about one bf16 step there (the logits are bf16; the
+# one flip seen was an exact tie, gap 0).
+LOGIT_TIE = 2.0 ** -7
+# A row whose top-2 experts differ between the two paths in some layer took other experts, so its
+# logits are not compared; that is allowed only at a routing tie: in that layer both paths' 2nd
+# and 3rd routing probabilities within ROUTE_TIE. The largest router-probability difference
+# between the paths on rows whose routing agrees is 0.0065, which moves a 2nd-3rd margin by at
+# most 0.013.
+ROUTE_TIE = 0.02
+# Two weight seeds, so that a tie seen on one is not the whole evidence.
+MIXTRAL_E2E_SEEDS = (1, 2)
+
+
+def route_record(model):
+    """Record, for each call of each layer's router, the softmax over the
+    experts at the last position [B, E]; returns (records, hook handles)."""
+    from quanto_tpu_torch.models.llama import _deq
+
+    records = []
+
+    def hook(_mod, _args, out):
+        records.append(torch.softmax(_deq(out).float()[:, -1], dim=-1))
+
+    return records, [layer.block_sparse_moe.gate.register_forward_hook(hook) for layer in model.model.layers]
+
+
+def compare_rows(what: str, k, o, route_k, route_o) -> None:
+    """Hold the stacked path's logits `k` [B, V] against another path's `o`,
+    row by row, given both paths' routing probabilities [L, B, E] at the same
+    position: a row routed alike needs cosine > MIXTRAL_E2E_COS and the same
+    top-1 token or a logit tie; a row routed differently needs a routing tie.
+    Logs every tie it accepts; raises on anything else."""
+    top_k, top_o = k.argmax(-1), o.argmax(-1)
+    cos = torch.nn.functional.cosine_similarity(k, o, dim=-1)
+    sets_k = route_k.topk(2, dim=-1).indices.sort(dim=-1).values  # [L, B, 2]
+    sets_o = route_o.topk(2, dim=-1).indices.sort(dim=-1).values
+    p_k = route_k.sort(dim=-1, descending=True).values
+    p_o = route_o.sort(dim=-1, descending=True).values
+    margin_k, margin_o = p_k[..., 1] - p_k[..., 2], p_o[..., 1] - p_o[..., 2]  # [L, B]
+    for r in range(k.shape[0]):
+        differ = (sets_k[:, r] != sets_o[:, r]).any(dim=-1).nonzero().flatten().tolist()
+        row = {"row": r, "top1": [int(top_k[r]), int(top_o[r])], "cosine": cos[r].item()}
+        if differ:
+            margins = [[margin_k[layer, r].item(), margin_o[layer, r].item()] for layer in differ]
+            log(json.dumps({"mixtral_routing_tie": what, **row, "layers": differ, "margins_2nd_3rd": margins}))
+            if max(max(m) for m in margins) > ROUTE_TIE:
+                raise RuntimeError(f"{what}: row {r} is routed differently with no routing tie: {margins}")
+            continue
+        if not cos[r] > MIXTRAL_E2E_COS:
+            raise RuntimeError(f"{what}: row {r}, routed alike, has cosine {cos[r].item()} <= {MIXTRAL_E2E_COS}")
+        if top_k[r] != top_o[r]:
+            gap = (o[r, top_o[r]] - o[r, top_k[r]]).item()
+            scale = o[r].abs().max().item()
+            log(json.dumps({"mixtral_logit_tie": what, **row, "logit_gap": gap, "max_abs_logit": scale}))
+            if gap > LOGIT_TIE * scale:
+                raise RuntimeError(f"{what}: row {r}'s top-1 token differs with no logit tie (gap {gap})")
+
+
+@torch.no_grad()
+def phase_mixtral_end_to_end(ids, seed: int):
+    """Phase 9: 2 layers at full width, B = 1 and B = 4: prefill last-position
+    logits and one decode step of the stacked model, against the same model's
+    dense-mask blocks (run first, through `qbits_mm`) and against the stacked
+    model through the plain versions, row by row (`compare_rows`)."""
+    from quanto_tpu_torch import convert_moe_to_stacked
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    config = MixtralConfig(**dict(MIXTRAL_8X7B, num_hidden_layers=2), dtype=torch.bfloat16)
+    model = build_mixtral(config, seed=seed, stacked=False)
+    records, hooks = route_record(model)
+    L = config.num_hidden_layers
+
+    def run(batch):
+        """(prefill logits, decode-step logits, routing [2, L, B, E]) at the last position."""
+        x = ids[:batch]
+        records.clear()
+        pre, cache = prefill(model, x, make_cache(model, batch, T + 8), last_only=True)
+        step, _ = model(x[:, -1:], cache, T)
+        torch.cuda.synchronize()
+        if len(records) != 2 * L:
+            raise RuntimeError(f"recorded {len(records)} router calls, want {2 * L}")
+        return pre[:, -1].float(), step[:, -1].float(), torch.stack(records).reshape(2, L, batch, -1)
+
+    dense = {b: run(b) for b in (1, 4)}
+    if convert_moe_to_stacked(model, capacity_factor=2.0) != L:
+        raise RuntimeError("convert_moe_to_stacked did not convert every block")
+    reset_counts()
+    kernel = {b: run(b) for b in (1, 4)}
+    counts = read_counts()
+    if not counts["qbits_moe_small_m"] or not counts["qbits_moe_tiled"]:
+        raise RuntimeError(f"the stacked model did not launch both MoE kernels: {counts}")
+    with plain_versions():
+        plain = {b: run(b) for b in (1, 4)}
+    if read_counts() != counts:
+        raise RuntimeError("the plain forward launched a kernel")
+    for h in hooks:
+        h.remove()
+    for b in (1, 4):
+        for i, what in enumerate(("prefill", "decode step")):
+            k, d, p = kernel[b][i], dense[b][i], plain[b][i]
+            rk, rd, rp = kernel[b][2][i], dense[b][2][i], plain[b][2][i]
+            top_k, top_d, top_p = k.argmax(-1), d.argmax(-1), p.argmax(-1)
+            log(json.dumps({
+                "mixtral_end_to_end": what, "batch": b, "seed": seed,
+                "cosine_vs_dense": torch.nn.functional.cosine_similarity(k, d, dim=-1).tolist(),
+                "cosine_vs_plain": torch.nn.functional.cosine_similarity(k, p, dim=-1).tolist(),
+                "top1_stacked": top_k.tolist(), "top1_dense": top_d.tolist(), "top1_plain": top_p.tolist(),
+                "top1_agree_dense": int((top_k == top_d).sum()), "top1_agree_plain": int((top_k == top_p).sum()),
+                "route_max_abs_diff_vs_dense": (rk - rd).abs().max().item(),
+                "route_max_abs_diff_vs_plain": (rk - rp).abs().max().item(),
+            }))
+            compare_rows(f"seed {seed} B={b} {what} vs dense", k, d, rk, rd)
+            compare_rows(f"seed {seed} B={b} {what} vs plain", k, p, rk, rp)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -817,7 +1259,8 @@ def main() -> int:
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    rows = phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush) + phase_w4a8(K_mod, flush)
+    rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
+            + phase_w4a8(K_mod, flush) + phase_moe(flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -865,25 +1308,55 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # Phase 8: Mixtral-8x7B at B = 4, then B = 1, on one model; phase 9 at 2 layers.
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+
+    mixtral_config = MixtralConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = build_mixtral(mixtral_config, seed=0)
+    torch.cuda.synchronize()
+    log(f"mixtral: built on meta, then {mixtral_config.num_hidden_layers} layers materialized + quantized + "
+        f"frozen + stacked one at a time in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    mixtral_ids = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
+    ).cuda()
+    launches_moe = phase_mixtral(model, mixtral_ids)
+    launches_moe_b1 = phase_mixtral(model, mixtral_ids[:1])
+    check_no_sync(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for seed in MIXTRAL_E2E_SEEDS:
+        phase_mixtral_end_to_end(mixtral_ids, seed)
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
-    # kernels of PRs 1-2, the phase-6/7 runs for this slice's; e4m3fn runs in phase 5 only.
+    # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
+    # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
     launch_runs = {
         "qbytes_mm_int8": ("phase 6 (int8)", launches_int8),
         "qbytes_mm_e4m3fn": ("phase 5 (qfloat8, 2 layers)", arm_counts["qfloat8"]),
         "qbits_mm_int8_small_m": ("phase 7 (w4a8)", launches_w4a8),
         "qbits_mm_tiled_int8": ("phase 7 (w4a8)", launches_w4a8),
+        "qbits_moe_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
+        "qbits_moe_tiled": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
     }
     kernels = []
-    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M]:
+    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_moe_small_m", "qbits_moe_tiled"]:
         mine = [r for r in rows if r["name"] == name]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
+        elif name.startswith("qbits_moe"):
+            rep = next(r for r in mine if (r["form"], r["nslots"], r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
+            shape = dict(form=rep["form"], U=rep["U"], nslots=rep["nslots"], M=rep["M"], N=rep["N"], K=rep["K"])
         else:
             rep = next(r for r in mine if (r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
             shape = list(SUMMARY_SHAPE[name])
         run, counts = launch_runs.get(name, ("phase 4b (ctx 8192)", launches))
         extra = {} if name in launch_runs else {"launches_ctx1088": launches_1088[name]}
+        if name.startswith("qbits_moe"):
+            extra = {"launches_b1": launches_moe_b1[name]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=counts[name], launches_run=run, **extra,

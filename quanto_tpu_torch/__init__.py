@@ -1,12 +1,13 @@
 """quanto_tpu_torch: the PyTorch + CUDA (Hopper) port of `quanto_tpu`.
 
 Module paths mirror the JAX package (`tensor/`, `ops/`, `nn/`, `models/`,
-`quantize.py`). The port imports `torch` and never JAX or `quanto_tpu`.
+`parallel/`, `quantize.py`). The port imports `torch` and never JAX or `quanto_tpu`.
 Entry points run on CUDA unless the caller passes `device="cpu"`; on a CPU
 tensor each kernel wrapper computes its plain PyTorch version instead.
 """
 
 from .calibrate import Calibration, absmax_scale
+from .parallel import StackedSparseMoeBlock, convert_moe_to_stacked
 from .quantize import freeze, named_qmodules, quantize
 from .tensor.activations import ActivationQBytesArray, quantize_activation
 from .tensor.optimizers import AbsmaxOptimizer, MaxOptimizer
@@ -17,6 +18,8 @@ from .tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, WeightQByt
 __all__ = [
     "Calibration",
     "absmax_scale",
+    "StackedSparseMoeBlock",
+    "convert_moe_to_stacked",
     "freeze",
     "named_qmodules",
     "quantize",

@@ -212,15 +212,27 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, **kw):
+    def __init__(self, c: LlamaConfig, layer_cls=LlamaDecoderLayer, **kw):
         super().__init__()
         self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(c, **kw) for _ in range(c.num_hidden_layers)])
+        self.layers = nn.ModuleList([layer_cls(c, **kw) for _ in range(c.num_hidden_layers)])
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
 
 
+@torch.no_grad()
+def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            m.weight.normal_(0.0, _INIT_STD, generator=generator)
+        elif isinstance(m, RMSNorm):
+            m.weight.fill_(1.0)
+
+
 class LlamaForCausalLM(nn.Module):
-    """Causal LM head over LlamaModel, HF-compatible module names."""
+    """Causal LM head over LlamaModel, HF-compatible module names. A model
+    family with another decoder layer subclasses it and sets `layer_cls`."""
+
+    layer_cls = LlamaDecoderLayer
 
     def __init__(
         self,
@@ -228,24 +240,34 @@ class LlamaForCausalLM(nn.Module):
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
+        """On `device="meta"` the model holds no memory until `materialize_`."""
         super().__init__()
         self.config = config
         kw = dict(device="meta", dtype=config.dtype)
-        self.model = LlamaModel(config, **kw)
+        self.model = LlamaModel(config, self.layer_cls, **kw)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
-        inv_freq = rope_params(config.head_dim, config.rope_theta, config.rope_scaling)
-        self.to_empty(device=device)
-        self.register_buffer("inv_freq", inv_freq.to(device), persistent=False)
+        self.register_buffer("inv_freq", torch.empty(config.head_dim // 2, device="meta"), persistent=False)
         self.requires_grad_(False)
-        self._init_weights(generator or torch.Generator(device=device).manual_seed(0))
+        if torch.device(device).type != "meta":
+            self.materialize_(device, generator or torch.Generator(device=device).manual_seed(0))
 
     @torch.no_grad()
-    def _init_weights(self, generator: torch.Generator) -> None:
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.weight.normal_(0.0, _INIT_STD, generator=generator)
-            elif isinstance(m, RMSNorm):
-                m.weight.fill_(1.0)
+    def materialize_(self, device, generator: torch.Generator, layer_fn=None) -> None:
+        """Allocate a model built on "meta" on `device` and draw its weights
+        from `generator`, one part at a time (the embedding, each decoder
+        layer, the norm, the lm_head) in the order of `modules()`.
+        `layer_fn(layer)` runs on each decoder layer as soon as its weights
+        are drawn (say `quantize`, `freeze` and `convert_moe_to_stacked` on
+        it), so the device holds one float layer beyond what `layer_fn`
+        leaves: the way a model larger than the device in float is built."""
+        parts = [self.model.embed_tokens, *self.model.layers, self.model.norm, self.lm_head]
+        for part in parts:
+            part.to_empty(device=device)
+            _init_weights(part, generator)
+            if layer_fn is not None and isinstance(part, self.layer_cls):
+                layer_fn(part)
+        c = self.config
+        self.inv_freq = rope_params(c.head_dim, c.rope_theta, c.rope_scaling).to(device)
 
     @property
     def device(self) -> torch.device:

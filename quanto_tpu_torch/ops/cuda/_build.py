@@ -4,8 +4,9 @@ shared library with a plain C interface, loaded with `ctypes`.
 Each source is compiled by its own `nvcc -c` for sm_90a, all started
 together, and the objects are linked into
 `quanto_tpu_torch/build/libquanto_kernels_<hash>.so` (gitignored). The hash
-covers every source and the flags, so an edit to any source rebuilds and an
-unchanged tree loads the library it already has. The build runs at first use,
+covers every source, the headers they share (`csrc/*.cuh`) and the flags, so
+an edit to any of them rebuilds and an unchanged tree loads the library it
+already has. The build runs at first use,
 never at import: a host without `nvcc` imports every module.
 """
 
@@ -54,7 +55,7 @@ def build() -> dict:
     global _LIB
     sources = _sources()
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     digest = h.hexdigest()[:16]
     path = _BUILD_DIR / f"libquanto_kernels_{digest}.so"

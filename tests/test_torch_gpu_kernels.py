@@ -26,6 +26,16 @@ paired freely, with and without shifts), S in {1, 127, 1088, 8192}, ragged
 positions including 0, float32 and bfloat16 q. Tolerances: float32 q within
 1e-5 * max|ref| (float32 sums in another order, `__expf`); bfloat16 q within
 1e-2 * max|ref| and cosine > 1 - 1e-4 (the same, then rounded to bf16).
+
+The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
+`qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
+N < K), bf16 and f32 x: the selective form at nsel in {1, 2, 9, 32}, the all
+form at ragged S in {1, 3, 8, 512}, a 6-slot expert table (U < E) with and
+without a device count that skips slots; the batched-expert GEMM at ragged M
+in {1, 8, 16, 17, 130, 600} (both tile heights) with and without a table.
+Float32 outputs within 1e-4 * max|ref| (sums in another order; f32 x seen by
+the tiled kernel as a bf16 high + low pair) and cosine > 1 - 1e-5; skipped
+slots exactly zero.
 """
 
 import numpy as np
@@ -34,6 +44,7 @@ import torch
 
 import quanto_tpu_torch as qtt
 from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+from quanto_tpu_torch.ops.cuda import moe_mm as MM
 from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
     MAX_M,
@@ -207,3 +218,74 @@ def test_flash_decode_head_dim_64(cuda_device, cache):
 def test_flash_decode_query_groups(cuda_device, cache, G):
     """Query groups that fill part of a block's 4 rows, or span two blocks."""
     check_flash_decode(cuda_device, cache, 1088, 128, torch.float32, G=G)
+
+
+def stacked_experts(device, N, K, E=8, seed=0):
+    """E experts' int4 weights in the Hopper layout, stacked: (packed, scale_t, shift_t)."""
+    rng = np.random.default_rng(seed)
+    ws = []
+    for _ in range(E):
+        w = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(device)
+        scale, shift = qtt.MaxOptimizer()(w, qtt.qint4, axis=0, group_size=128)
+        ws.append(WeightQBitsHopperArray.from_generic(
+            qtt.quantize_weight(w, qtt.qint4, 0, scale, shift=shift, group_size=128)
+        ))
+    return tuple(torch.stack([getattr(w, f) for w in ws]) for f in ("_packed", "_scale_t", "_shift_t"))
+
+
+def check_moe(wrapper, x3, weights, eids=None, nslots=None):
+    before = wrapper.launches
+    out = wrapper(x3, *weights, 128, eids=eids, nslots=nslots)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and out.dtype == torch.float32
+    ref = MM.qbits_moe_plain(x3, *weights, 128, eids=eids, nslots=nslots)
+    assert out.shape == ref.shape
+    if nslots is not None:
+        assert not out[int(nslots):].any()
+        out, ref = out[: int(nslots)], ref[: int(nslots)]
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.nn.functional.cosine_similarity(out.flatten(), ref.flatten(), dim=0) > 1 - 1e-5
+
+
+MOE_SHAPES = [(768, 512), (512, 768)]
+MOE_TABLE = np.array([6, 1, 3, 0, 7, 4], np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,k", MOE_SHAPES)
+@pytest.mark.parametrize("kind,size,nslots", [
+    ("sel", 1, None), ("sel", 2, None), ("sel", 9, None), ("sel", 32, None),
+    ("all", 1, None), ("all", 3, None), ("all", 8, None), ("all", 512, None),
+    ("uniq", 4, None), ("uniq", 4, 3), ("uniq", 8, None), ("uniq", 8, 4),
+], ids=lambda v: str(v))
+def test_moe_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, dtype):
+    weights = stacked_experts(cuda_device, n, k, seed=n)
+    rng = np.random.default_rng(size)
+    x = torch.from_numpy(rng.standard_normal((size, k)).astype(np.float32)).to(cuda_device, dtype)
+    if kind == "sel":
+        eids = torch.from_numpy(rng.integers(0, 8, size).astype(np.int32)).to(cuda_device)
+        check_moe(MM.qbits_moe_small_m, x[:, None, :], weights, eids=eids)
+        out = MM.qbits_moe_sel(x, eids, *weights, 128)
+        torch.testing.assert_close(out, MM.qbits_moe_small_m(x[:, None, :], *weights, 128, eids=eids)[:, 0])
+    elif kind == "all":
+        check_moe(MM.qbits_moe_small_m, x.expand(8, *x.shape), weights)
+    else:
+        eids = torch.from_numpy(MOE_TABLE).to(cuda_device)
+        count = None if nslots is None else torch.tensor(nslots, dtype=torch.int32, device=cuda_device)
+        check_moe(MM.qbits_moe_small_m, x.expand(len(MOE_TABLE), *x.shape), weights, eids, count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,k", MOE_SHAPES)
+@pytest.mark.parametrize("table", ["experts", "uniq", "uniq-n4"])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 130, 600])
+def test_moe_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
+    weights = stacked_experts(cuda_device, n, k, seed=n)
+    U = 8 if table == "experts" else len(MOE_TABLE)
+    rng = np.random.default_rng(m)
+    xg = torch.from_numpy(rng.standard_normal((U, m, k)).astype(np.float32)).to(cuda_device, dtype)
+    eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
+    nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
+    check_moe(MM.qbits_moe_tiled, xg, weights, eids, nslots)
