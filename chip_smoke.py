@@ -30,13 +30,19 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {4, 256})
    and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
    {513, 4096}) at the four linear shapes, bf16 x or output, yardstick
-   `torch.matmul` on the operands dequantized to bf16.
+   `torch.matmul` on the operands dequantized to bf16. The W4A8 requant
+   kernel at M in {2048, 4096} and the four linear shapes, held EQUAL to its
+   plain version (bf16 out), timed beside the exact route
+   (`qbits_mm_tiled_int8`) at the same shape; yardstick `torch._int_mm` on
+   the requantized int8 weight.
 5. end-to-end numerics: at full width and 2 layers, the kernel path against
    the same forward through the plain versions called explicitly: the
    prefill's last-position logits (bf16 cache), and one decode step at
    ragged per-row positions over a qint4 cache; for qint4 weights (lm_head
    included), and for qint8, qfloat8 (e4m3fn) and calibrated W4A8 weights
-   (lm_head excluded).
+   (lm_head excluded), and the W4A8 model frozen again into the requant
+   form (its prefill through `qbits_mm_requant_int8`), also held against
+   the exact form of the same weights (`check_requant_vs_exact`).
 6. the `int8` arm of the JAX package's 8B decode grid (`bench.py:main_8b`):
    the Llama-3.1-8B configuration, `quantize(weights="qint8",
    exclude="lm_head")`, `freeze`; the prefill and decode of phase 4, with
@@ -46,6 +52,22 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    exclude="lm_head")`, `Calibration` over 2 batches of 4 x 128 seeded
    tokens (streamline must turn output quantization off for all 224
    linears), `freeze`; the same prefill and decode, with exact launch counts.
+10. the serving engine (run right after phase 7, on its model frozen again
+   with `freeze(model, w4a8_requant_dot=True)`): `BatchedEngine` with 8
+   slots, max_len 4352 and prefill chunks of 512 over a bf16 cache, the
+   `--long-ctx` slice of the JAX package's serving bench. Batch arm:
+   `add_batch` of 8 prompts of 3200-4096 tokens (8 chunk forwards of
+   [8, 512], M = 4096), then `run_to_completion(burst=16)` for 128 new
+   tokens each. Stream arm: `add_batch` of 4 x 1024 tokens, then 4 prompts
+   of 3328-4096 tokens `enqueue`d, their chunks riding the decode steps as
+   mixed steps, drained with bursts of 16, 64 new tokens each. Every chunk
+   forward must launch exactly 224 `qbits_mm_requant_int8`, every decode
+   forward 224 `qbits_mm_int8_small_m` and 32 `flash_decode`, and nothing
+   else; every request returns its max_new_tokens, and its first token is
+   the argmax of a standalone `prefill(last_only=True)` of its prompt over a
+   cache of the engine's length, or a logit tie (LOGIT_TIE). Prints prefill
+   ms per chunk and tok/s, decode ms/step and tok/s, mixed-step ms, peak
+   memory and the bounds.
 3 (MoE). The two MoE kernels against their plain version over 8 stacked
    experts at both Mixtral-8x7B projection shapes (14336 x 4096, 4096 x
    14336), bf16 x, float32 outputs: `qbits_moe_small_m` in its selective form
@@ -88,6 +110,7 @@ import sys
 import time
 import types
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -123,7 +146,7 @@ FD_SUMMARY = ("qint4", 8192)  # the long-context path's cache
 # the 8-bit and W4A8 arms exclude it), summary shapes, sources and the TPU kernels they replace.
 LINEAR_SHAPES = SHAPES[:4]
 QBYTES_M = {"qbytes_mm_int8": (4, 256), "qbytes_mm_e4m3fn": (4, 256)}
-W4A8_M = {"qbits_mm_int8_small_m": (4, 512), "qbits_mm_tiled_int8": (513, 4096)}
+W4A8_M = {"qbits_mm_int8_small_m": (4, 8, 512), "qbits_mm_tiled_int8": (513, 4096)}  # M = 8: phase 10's decode
 SUMMARY_SHAPE.update({
     "qbytes_mm_int8": (4, 14336, 4096), "qbytes_mm_e4m3fn": (4, 14336, 4096),
     "qbits_mm_int8_small_m": (4, 14336, 4096), "qbits_mm_tiled_int8": (4096, 14336, 4096),
@@ -140,6 +163,12 @@ REPLACES.update({
     "qbits_mm_int8_small_m": "quanto_tpu/ops/pallas/qbits_mm.py:577",
     "qbits_mm_tiled_int8": "quanto_tpu/ops/pallas/qbits_mm.py:223 (int8-x arm, :248-251)",
 })
+
+# The W4A8 requant kernel (phase 3): the route's least M and the M of phase 10's [8, 512] chunks.
+REQUANT_M = (2048, 4096)
+SUMMARY_SHAPE["qbits_mm_requant_int8"] = (4096, 14336, 4096)
+SOURCE["qbits_mm_requant_int8"] = "quanto_tpu_torch/csrc/qbits_mm.cu"
+REPLACES["qbits_mm_requant_int8"] = "quanto_tpu/ops/pallas/qbits_mm.py:401"
 
 # The MoE kernels (phase 3): Mixtral-8x7B's expert shapes (N, K), the forms each kernel is run in.
 MOE_SHAPES = [(14336, 4096), (4096, 14336)]
@@ -205,6 +234,22 @@ CAL_BATCHES, CAL_T = 2, 128
 LINEARS_PER_LAYER = 7
 # Long context: the JAX package's headline decode (ctx 8192, qint4 cache).
 LONG_SLOTS, LONG_PROMPT, LONG_CHUNK = 8192, 8128, 1016
+# Phase 10, the serving engine: the `--long-ctx` slice of the JAX package's serving bench
+# (bench/serving_bench.py:77-79): 8 slots, max_len 4352, chunks of 512 (M = 8 x 512 = 4096).
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_CHUNK = 8, 4352, 512
+ENGINE_BATCH = [4096, 3328, 3840, 3584, 4096, 3456, 3200, 3968]  # serving_bench.py:78
+ENGINE_BATCH_NEW = 128
+# The stream arm: four 1024-token prompts decoding, then four long prompts enqueued.
+ENGINE_SHORT, ENGINE_SHORT_NEW = (4, 1024), 64
+ENGINE_STREAM, ENGINE_STREAM_NEW = [3328, 3584, 3840, 4096], 64
+# flash_decode at phase 10's decode step (phase 3): 8 rows over the engine's bf16 pool of 4352
+# slots, at positions like each arm's: every row decoding a long prompt (batch arm), four rows at
+# a 1024-token prompt's and four at a long one's (stream arm), and four free rows at 0.
+FD_ENGINE_POS = {
+    "batch": [3200, 4224, 3712, 3456, 4096, 3328, 3968, 3584],
+    "stream": [1040, 3400, 1056, 3700, 1072, 3950, 1088, 4200],
+    "free": [0, 3200, 0, 3712, 0, 4224, 0, 3968],
+}
 
 
 def log(msg: str) -> None:
@@ -401,6 +446,52 @@ def phase_w4a8(K_mod, flush):
     return rows
 
 
+def phase_requant(K_mod, flush):
+    """Phase 3, the W4A8 requant kernel: int8 x with a device scalar sx against
+    random int4 codes, group scales and shifts anywhere in [0, 15] steps, bf16
+    output, held EQUAL to its plain version (exact codes and int32 sums, the
+    same two float32 multiplies). Beside it, timed at the same shape: the
+    exact route `qbits_mm_tiled_int8` (the A/B of the JAX package's
+    bench/prefill8b_bench.py:125-130) and, as a yardstick the port never
+    calls, `torch._int_mm` on the requantized int8 weight."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6789)
+    rows = []
+    sx = torch.tensor(0.0173, device=dev)
+    for N, K in LINEAR_SHAPES:
+        G = K // GS
+        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
+        shift_t = scale_t * torch.rand((G, N), device=dev, generator=g) * 15
+        s8 = K_mod.requant_step(scale_t, shift_t)
+        c8_t = K_mod.requant_codes(packed, scale_t, shift_t, s8, GS).t()  # [K, N], column-major
+        for M in REQUANT_M:
+            xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
+            args = (xq, sx, packed, scale_t, shift_t, s8, GS, torch.bfloat16)
+            exact = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16)
+            out = K_mod.qbits_mm_requant_int8(*args)
+            ref = K_mod.qbits_requant_int8_mm_plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"qbits_mm_requant_int8 M={M} N={N} K={K}: not equal to its plain version ({err})")
+            b_ms, b_by = bound(M, N, K, x_bytes=1, side_bytes=2 * G * N * 4 + 4 * N + 4, peak_ops=PEAK_INT8_OPS)
+            row = dict(
+                name="qbits_mm_requant_int8", M=M, N=N, K=K, max_abs_err=err, equal=True,
+                ms=time_ms(lambda: K_mod.qbits_mm_requant_int8(*args), flush),
+                plain_ms=time_ms(lambda: K_mod.qbits_requant_int8_mm_plain(*args), flush),
+                library_ms=time_ms(lambda: torch._int_mm(xq, c8_t), flush),
+                tiled_int8_ms=time_ms(lambda: K_mod.qbits_mm_tiled_int8(*exact), flush),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            del out, ref
+        del packed, scale_t, shift_t, s8, c8_t
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_moe(flush):
     """Phase 3, the MoE kernels: each form against the plain version over 8
     stacked experts with random int4 codes, bf16 x, float32 outputs held
@@ -488,35 +579,38 @@ def phase_moe(flush):
     return rows
 
 
-def fd_bound(S: int, k_row: int, v_row: int, per_slot: int):
-    """Least time (ms) of one flash_decode call with every slot visible: each
+def fd_bound(slots: int, batch: int, k_row: int, v_row: int, per_slot: int):
+    """Least time (ms) of one flash_decode call over `batch` rows that see
+    `slots` cache slots in all (each row its positions up to its own): each
     visible slot's K and V rows (`k_row` + `v_row` bytes per head) and
     per-slot factors (`per_slot` bytes per head) read once, bf16 q read and
     the output written once; two dots of D per slot and query at the bf16
     tensor-core rate."""
     Hkv, G, D = FD_HEADS
-    nbytes = B * S * Hkv * (k_row + v_row + per_slot) + 2 * 2 * B * Hkv * G * D
-    flops = 4 * B * Hkv * G * D * S
+    nbytes = slots * Hkv * (k_row + v_row + per_slot) + 2 * 2 * batch * Hkv * G * D
+    flops = 4 * Hkv * G * D * slots
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fd_cache(kind: str, S: int, g: torch.Generator):
+def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B):
     """One layer's cache of `kind` with every slot written by `kv_update`
     from random K (skewed, as RoPE'd K heads are) and V."""
     from quanto_tpu_torch.tensor.kv_cache import init_quantized_kv_cache, kv_update
 
     Hkv, _, D = FD_HEADS
-    k = torch.randn((B, S, Hkv, D), device="cuda", generator=g) * 2 + 0.5
-    v = torch.randn((B, S, Hkv, D), device="cuda", generator=g)
+    k = torch.randn((batch, S, Hkv, D), device="cuda", generator=g) * 2 + 0.5
+    v = torch.randn((batch, S, Hkv, D), device="cuda", generator=g)
     if kind == "bf16":
         return (k.to(torch.bfloat16), v.to(torch.bfloat16))
-    layer = init_quantized_kv_cache(1, B, S, Hkv, D, kind, device="cuda")[0]
+    layer = init_quantized_kv_cache(1, batch, S, Hkv, D, kind, device="cuda")[0]
     return kv_update(layer, k, v, 0)
 
 
 def phase_flash_decode(flush):
-    """Phase 3, flash_decode: the kernel against its plain version and SDPA."""
+    """Phase 3, flash_decode: the kernel against its plain version and SDPA,
+    at B = 4 with every slot visible over each cache type, and at phase 10's
+    decode step (bf16, 8 ragged rows, `FD_ENGINE_POS`)."""
     from quanto_tpu_torch.ops.attention import decode_attention
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
     from quanto_tpu_torch.tensor.kv_cache import kv_read
@@ -524,61 +618,64 @@ def phase_flash_decode(flush):
     Hkv, G, D = FD_HEADS
     g = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
-    for S in FD_SLOTS:
-        for kind in FD_CACHES:
-            cache = fd_cache(kind, S, g)
-            q = torch.randn((B, Hkv, G, D), device="cuda", generator=g).to(torch.bfloat16)
-            pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
-            if kind == "bf16":
-                args = (q, *cache, None, None, pos)
-                kw = {}
-                k_row = v_row = 2 * D
-                per_slot = 0
-            else:
-                c = cache
-                args = (q, c._k_data, c._v_data, c._k_scale, c._v_scale, pos)
-                kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
-                k_row, v_row = c._k_data[0, 0, 0].numel(), c._v_data[0, 0, 0].numel()
-                per_slot = 8 if c._k_shift is None else 16
-            out = flash_decode(*args, **kw)
-            ref = flash_decode_plain(*args, **kw)
-            # The model's dispatch gives the same result as the direct call.
-            out2 = decode_attention(q.reshape(B, 1, Hkv * G, D), cache, pos)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ref_max = ref.float().abs().max().item()
-            cos = cosine(out, ref)
-            if not (cos > 1 - 1e-4 and err <= 1e-2 * ref_max) or not torch.equal(
-                out2.reshape(out.shape), out
-            ):
-                raise RuntimeError(
-                    f"flash_decode {kind} S={S}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})"
-                )
-            # Yardstick: SDPA over the cache dequantized to bf16, q [B, H, 1, D].
-            kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
-            kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-            qs = q.reshape(B, Hkv * G, 1, D)
-            mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
-
-            def sdpa():
-                return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
-
-            lib = sdpa().reshape(B, Hkv, G, D)
-            lib_cos = cosine(lib, ref)
-            b_ms, b_by = fd_bound(S, k_row, v_row, per_slot)
-            row = dict(
-                name="flash_decode", cache=kind, S=S, B=B, Hkv=Hkv, G=G, D=D,
-                max_abs_err=err, cosine=cos, sdpa_cosine=lib_cos,
-                ms=time_ms(lambda: flash_decode(*args, **kw), flush),
-                plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
-                library_ms=time_ms(sdpa, flush),
-                bound_ms=b_ms, bound_by=b_by,
-                host_us=host_us(lambda: flash_decode(*args, **kw)),
+    # (cache, S, positions, the engine arm they stand for or None)
+    cases = [(kind, S, [S - 1] * B, None) for S in FD_SLOTS for kind in FD_CACHES]
+    cases += [("bf16", ENGINE_MAX_LEN, p, arm) for arm, p in FD_ENGINE_POS.items()]
+    for kind, S, positions, arm in cases:
+        nb = len(positions)
+        cache = fd_cache(kind, S, g, nb)
+        q = torch.randn((nb, Hkv, G, D), device="cuda", generator=g).to(torch.bfloat16)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        if kind == "bf16":
+            args = (q, *cache, None, None, pos)
+            kw = {}
+            k_row = v_row = 2 * D
+            per_slot = 0
+        else:
+            c = cache
+            args = (q, c._k_data, c._v_data, c._k_scale, c._v_scale, pos)
+            kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+            k_row, v_row = c._k_data[0, 0, 0].numel(), c._v_data[0, 0, 0].numel()
+            per_slot = 8 if c._k_shift is None else 16
+        out = flash_decode(*args, **kw)
+        ref = flash_decode_plain(*args, **kw)
+        # The model's dispatch gives the same result as the direct call.
+        out2 = decode_attention(q.reshape(nb, 1, Hkv * G, D), cache, pos)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        cos = cosine(out, ref)
+        if not (cos > 1 - 1e-4 and err <= 1e-2 * ref_max) or not torch.equal(
+            out2.reshape(out.shape), out
+        ):
+            raise RuntimeError(
+                f"flash_decode {kind} S={S} positions={positions}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})"
             )
-            rows.append(row)
-            log("kernel " + json.dumps(row))
-            del cache, kd, vd, kt, vt, out, ref, out2, lib
-            torch.cuda.empty_cache()
+        # Yardstick: SDPA over the cache dequantized to bf16, q [B, H, 1, D].
+        kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qs = q.reshape(nb, Hkv * G, 1, D)
+        mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        lib = sdpa().reshape(nb, Hkv, G, D)
+        lib_cos = cosine(lib, ref)
+        b_ms, b_by = fd_bound(sum(p + 1 for p in positions), nb, k_row, v_row, per_slot)
+        row = dict(
+            name="flash_decode", cache=kind, S=S, B=nb, engine_arm=arm, Hkv=Hkv, G=G, D=D,
+            max_abs_err=err, cosine=cos, sdpa_cosine=lib_cos,
+            ms=time_ms(lambda: flash_decode(*args, **kw), flush),
+            plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
+            library_ms=time_ms(sdpa, flush),
+            bound_ms=b_ms, bound_by=b_by,
+            host_us=host_us(lambda: flash_decode(*args, **kw)),
+        )
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del cache, kd, vd, kt, vt, out, ref, out2, lib
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -779,6 +876,7 @@ def counters():
     return {
         "qbits_mm_small_m": K_mod.qbits_mm_small_m, "qbits_mm_tiled": K_mod.qbits_mm_tiled,
         "qbits_mm_int8_small_m": K_mod.qbits_mm_int8_small_m, "qbits_mm_tiled_int8": K_mod.qbits_mm_tiled_int8,
+        "qbits_mm_requant_int8": K_mod.qbits_mm_requant_int8,
         "qbytes_mm_int8": QB_mod.qbytes_mm_int8, "qbytes_mm_e4m3fn": QB_mod.qbytes_mm_e4m3fn,
         "flash_decode": FD_mod.flash_decode,
         "qbits_moe_small_m": MM.qbits_moe_small_m, "qbits_moe_tiled": MM.qbits_moe_tiled,
@@ -810,19 +908,21 @@ def plain_versions():
             return out.reshape(*x.shape[:-1], out.shape[-1])
         return run
 
-    saved = (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode,
-             MM.qbits_moe_small_m, MM.qbits_moe_tiled)
+    saved = (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
+             K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8)
     QL.qbits_mm = flat(K_mod.qbits_mm_plain)
-    QL.qbits_int8_mm = flat(K_mod.qbits_int8_mm_plain)
     QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
     attention.flash_decode = FD_mod.flash_decode_plain
-    # The MoE entry points call their kernel wrappers by their module's names.
+    # `qbits_int8_mm` routes by shape and weight form to its three kernel wrappers, and the
+    # MoE entry points call theirs, by their modules' names.
+    K_mod.qbits_mm_int8_small_m = K_mod.qbits_mm_tiled_int8 = K_mod.qbits_int8_mm_plain
+    K_mod.qbits_mm_requant_int8 = K_mod.qbits_requant_int8_mm_plain
     MM.qbits_moe_small_m = MM.qbits_moe_tiled = MM.qbits_moe_plain
     try:
         yield
     finally:
-        (QL.qbits_mm, QL.qbits_int8_mm, QL.cuda_qbytes, attention.flash_decode,
-         MM.qbits_moe_small_m, MM.qbits_moe_tiled) = saved
+        (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
+         K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8) = saved
 
 
 # Phase 5's arms: (quantize arguments, the kernel the ragged decode step must launch 7 x 2 times).
@@ -831,14 +931,19 @@ E2E_ARMS = {
     "qint8": (dict(weights="qint8", exclude="lm_head"), "qbytes_mm_int8"),
     "qfloat8": (dict(weights="qfloat8", exclude="lm_head"), "qbytes_mm_e4m3fn"),
     "w4a8": (dict(weights="qint4", activations="qint8", exclude="lm_head"), "qbits_mm_int8_small_m"),
+    # The same W4A8 model frozen again into the requant form: its prefill (M = 4096) takes
+    # `qbits_mm_requant_int8`, its decode step the exact small-M kernel.
+    "w4a8_requant": (dict(weights="qint4", activations="qint8", exclude="lm_head"), "qbits_mm_int8_small_m"),
 }
 
 
 def phase_end_to_end(ids):
     """Phase 5: 2 layers at full width, kernel path vs plain versions called
     explicitly, for each arm. Returns each arm's launch counts in its kernel run."""
+    from quanto_tpu_torch import freeze
     from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.serve import make_cache, prefill
+    from quanto_tpu_torch.nn import QLinear
 
     config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
     layers = config.num_hidden_layers
@@ -860,6 +965,15 @@ def phase_end_to_end(ids):
             after = read_counts()
             return pre, step, {n: after[n] - before[n] for n in after}
 
+        if arm == "w4a8_requant":
+            logits_exact, _, _ = run()
+            with float_activations(model):
+                logits_float_x, _, _ = run()
+            freeze(model, w4a8_requant_dot=True)
+            with dense_weights(model, requant=False):
+                logits_int4_w, _, _ = run()
+            with dense_weights(model, requant=True):
+                logits_requant_w, _, _ = run()
         reset_counts()
         logits_k, step_k, step_counts = run()
         arm_counts[arm] = read_counts()
@@ -868,6 +982,10 @@ def phase_end_to_end(ids):
         want[step_kernel] = LINEARS_PER_LAYER * layers + (0 if kw.get("exclude") else 1)
         if step_counts != want:
             raise RuntimeError(f"{arm}: ragged decode step launches {step_counts}, want {want}")
+        if arm == "w4a8_requant":
+            prefill_counts = {n: c - step_counts[n] for n, c in arm_counts[arm].items() if c - step_counts[n]}
+            if prefill_counts != {"qbits_mm_requant_int8": 2 * LINEARS_PER_LAYER * layers}:
+                raise RuntimeError(f"{arm}: the two prefills launched {prefill_counts}")
         before = read_counts()
         with plain_versions():
             logits_p, step_p, _ = run()
@@ -882,10 +1000,110 @@ def phase_end_to_end(ids):
                             "top1_kernel": top_k.tolist(), "top1_plain": top_p.tolist()}))
             if not bool((cos > 0.999).all()) or not torch.equal(top_k, top_p):
                 raise RuntimeError(f"end-to-end {arm} {what} logits of the kernel path disagree with the plain path")
+        if arm == "w4a8_requant":
+            weight_change = []
+            for m in model.modules():
+                if isinstance(m, QLinear):
+                    w4 = m.weight.dequantize().float()
+                    weight_change.append(((requant_dense(m.weight) - w4).norm() / w4.norm()).item())
+            check_requant_vs_exact(*(t[:, -1].float() for t in (
+                logits_k, logits_exact, logits_float_x, logits_requant_w, logits_int4_w)), weight_change)
         del model
         gc.collect()
         torch.cuda.empty_cache()
     return arm_counts
+
+
+@contextlib.contextmanager
+def float_activations(model):
+    """Every quantized linear of `model` with its activations left in float
+    (its frozen weights as they are)."""
+    from quanto_tpu_torch.nn import QLinear
+
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    saved = [m.activation_qtype for m in qlinears]
+    for m in qlinears:
+        m.activation_qtype = None
+    try:
+        yield
+    finally:
+        for m, qt in zip(qlinears, saved):
+            m.activation_qtype = qt
+
+
+def requant_dense(w) -> torch.Tensor:
+    """A requant-form weight's requant codes times their step, c8 · s8, float32 [N, K]."""
+    from quanto_tpu_torch.ops.cuda.qbits_mm import requant_codes
+
+    return requant_codes(w._packed, w._scale_t, w._shift_t, w._s8, w.group_size).float() * w._s8[:, None]
+
+
+@contextlib.contextmanager
+def dense_weights(model, requant: bool):
+    """Every quantized linear of `model` (requant form) as `F.linear` of its
+    float activations with a dense weight in the model's dtype: the int4
+    weight dequantized, or (`requant`) c8 · s8. Both arms then differ only in
+    their weights' values."""
+    from quanto_tpu_torch.nn import QLinear
+
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    for m in qlinears:
+        dense = requant_dense(m.weight) if requant else m.weight.dequantize()
+        m.forward = functools.partial(F.linear, weight=dense.to(model.config.dtype), bias=m.bias)
+    try:
+        yield
+    finally:
+        for m in qlinears:
+            del m.forward
+
+
+# Phase 5's limits on the requant form, set from its readings on random weights (NVIDIA H100):
+# - with float activations, the requant weights c8 · s8 against the int4 weights: each row's
+#   1 - cosine of the logits at most REQUANT_WEIGHT_LIMIT. Each weight moves by at most half a
+#   step s8 (`tests/test_torch_requant.py`), about 0.9 % rms (logged), and the 14 linears of the
+#   2 layers add up: readings 1.02e-3-1.37e-3. The limit is 2.9x the largest reading and 0.38x
+#   the smallest reading with int8 activations, so it still tells the two apart;
+# - with int8 activations, the requant form against the exact form: each row's 1 - cosine at
+#   most REQUANT_X_RATIO times the exact form's own 1 - cosine against float activations
+#   (readings 0.73-0.89: 1 - cosine 0.0105-0.0131 against 0.0127-0.0161).
+REQUANT_WEIGHT_LIMIT = 4e-3
+REQUANT_X_RATIO = 2.0
+
+
+def check_requant_vs_exact(lr: torch.Tensor, le: torch.Tensor, lf: torch.Tensor, lw: torch.Tensor,
+                           li: torch.Tensor, weight_change: list) -> None:
+    """Phase 5: the requant form's prefill logits `lr` [B, V] against the
+    exact W4A8 form's `le` of the same weights. The requant codes lie within
+    half a step s8 of the int4 weights, a small change of each weight, as
+    the witness shows: `lw` (c8 · s8) against `li` (int4), both with float
+    activations. With int8 activations at one static scale per tensor, a
+    value near a step's edge re-rounds by a whole step, which amplifies that
+    change; so the requant form is held to the error W4A8 itself takes, the
+    exact form's against float activations (`lf`), times REQUANT_X_RATIO.
+    Top-1 tokens are logged, not held: at this size of move, random-weight
+    logits whose two largest differ by a few percent of max|logit| swap.
+    `weight_change` holds each linear's rms of c8 · s8 minus its int4 weight
+    over the int4 weight's rms."""
+    def one_minus_cos(a, b):
+        return 1 - torch.nn.functional.cosine_similarity(a, b, dim=-1)
+
+    weights_only = one_minus_cos(lw, li)
+    requant = one_minus_cos(lr, le)
+    int8_x = one_minus_cos(le, lf)
+    top_r, top_e = lr.argmax(-1), le.argmax(-1)
+    gaps = [(le[r, top_e[r]] - le[r, top_r[r]]).item() / le[r].abs().max().item() for r in range(le.shape[0])]
+    log(json.dumps({"end_to_end": "prefill, requant vs exact form",
+                    "weight_change_rms": [min(weight_change), max(weight_change)],
+                    "one_minus_cos_weights_float_x": weights_only.tolist(),
+                    "one_minus_cos_requant_vs_exact": requant.tolist(),
+                    "one_minus_cos_exact_vs_float_x": int8_x.tolist(),
+                    "ratio": (requant / int8_x).tolist(),
+                    "top1_requant": top_r.tolist(), "top1_exact": top_e.tolist(), "relative_gaps": gaps}))
+    if not bool((weights_only <= REQUANT_WEIGHT_LIMIT).all()):
+        raise RuntimeError(f"the requant weights move float-activation logits by 1 - cosine {weights_only.tolist()}")
+    if not bool((requant <= REQUANT_X_RATIO * int8_x).all()):
+        raise RuntimeError(f"the requant form moves the logits by 1 - cosine {requant.tolist()}, more than "
+                           f"{REQUANT_X_RATIO} x int8 activations' {int8_x.tolist()}")
 
 
 def step_weight_bytes(model) -> int:
@@ -958,6 +1176,242 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict) -> 
     }))
     del cache, logits
     return launches
+
+
+def instrument(engine, per_forward: dict) -> dict:
+    """Wrap a phase-10 engine's forward, mixed step, step and burst (on the
+    instance) to record its schedule and hold every forward's kernel launches
+    to `per_forward[T]` exactly (T = the forward's token columns). Records
+    the decode forwards' KV slots read (each row's positions up to its own,
+    free rows included, as they run) and the chunk forwards' attention
+    operations (causal: each query against the keys up to its position)."""
+    config = engine.model.config
+    rec = dict(chunks=0, decodes=0, mixed=0, mixed_s=0.0, bursts=[], steps=0, fallback_steps=0,
+               decode_slots=0, attn_ops=0, bad=[], burst_pos=None)
+    forward, mixed, step, burst = engine._forward, engine._mixed_chunk_step, engine.step, engine.decode_burst
+
+    def counted_forward(ids, cache, pos, last_idx):
+        T = ids.shape[1]
+        before = read_counts()
+        out = forward(ids, cache, pos, last_idx)
+        after = read_counts()
+        delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        if delta != per_forward[T]:
+            rec["bad"].append((T, delta))
+        if T == 1:
+            rec["decodes"] += 1
+            if isinstance(pos, np.ndarray):
+                p = pos.astype(np.int64)
+            else:  # inside a burst: its start positions plus the steps taken
+                p = rec["burst_pos"]
+                rec["burst_pos"] = p + 1
+            rec["decode_slots"] += int((p + 1).sum())
+        else:
+            rec["chunks"] += 1
+            p = np.asarray(pos, np.int64)
+            keys = int((T * p + T * (T + 1) // 2).sum())  # sum over rows and queries of pos + t + 1
+            rec["attn_ops"] += 4 * config.num_attention_heads * config.head_dim * keys * config.num_hidden_layers
+        return out
+
+    def timed_mixed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mixed()  # ends in the fetch of its sampled tokens
+        rec["mixed_s"] += time.perf_counter() - t0
+        rec["mixed"] += 1
+        return out
+
+    def counted_step():
+        if engine._by_slot:
+            rec["steps"] += 1
+            rec["fallback_steps"] += bool(engine._prefill_by_slot)
+        return step()
+
+    def counted_burst(n):
+        rec["bursts"].append(n)
+        rec["burst_pos"] = engine._pos.astype(np.int64)
+        return burst(n)
+
+    engine._forward, engine._mixed_chunk_step = counted_forward, timed_mixed
+    engine.step, engine.decode_burst = counted_step, counted_burst
+    return rec
+
+
+def check_first_tokens(label: str, model, prompts, tokens) -> list:
+    """Each request's first token against the argmax of a standalone
+    `prefill(last_only=True)` of its prompt (prompts of equal length
+    batched; every prefill here has M >= 2048, so the same requant route)
+    over a cache of the engine's length, so that attention reduces over the
+    same slots: equal, or the standalone's logits of the two tokens within
+    LOGIT_TIE of its largest |logit|. Returns the ties it accepted."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    ties = []
+    by_len = {}
+    for i, p in enumerate(prompts):
+        by_len.setdefault(len(p), []).append(i)
+    for L, idx in by_len.items():
+        ids = torch.tensor(np.stack([prompts[i] for i in idx]), device="cuda")
+        logits, _ = prefill(model, ids, make_cache(model, len(idx), ENGINE_MAX_LEN), last_only=True)
+        lv = logits[:, -1].float()
+        for row, i in enumerate(idx):
+            top = int(lv[row].argmax())
+            if top != tokens[i]:
+                gap = (lv[row, top] - lv[row, tokens[i]]).item() / lv[row].abs().max().item()
+                ties.append({"request": i, "engine": tokens[i], "standalone": top, "relative_gap": gap})
+                log(json.dumps({"engine_first_token_tie": label, **ties[-1]}))
+                if gap > LOGIT_TIE:
+                    raise RuntimeError(f"{label}: request {i}'s first token {tokens[i]} is not the standalone "
+                                       f"prefill's {top} and no logit tie (relative gap {gap})")
+    return ties
+
+
+@torch.no_grad()
+def phase_engine(model, rows) -> dict:
+    """Phase 10: the continuous-batching engine serving the calibrated w4a8
+    Llama-3.1-8B frozen into the requant form, in two arms, each on a fresh
+    engine of 8 slots, max_len 4352 and chunks of 512 over a bf16 cache.
+    The batch arm: `add_batch` of 8 long prompts (8 chunk forwards of
+    [8, 512]), then `run_to_completion(burst=16)` for 128 new tokens each.
+    The stream arm: `add_batch` of 4 x 1024-token prompts, then 4 long
+    prompts `enqueue`d, whose chunks ride the decode steps as mixed steps,
+    drained with `run_to_completion(burst=16)`, 64 new tokens each. Every
+    chunk forward launches 224 `qbits_mm_requant_int8` and nothing else of
+    the port's kernels, every decode forward 224 `qbits_mm_int8_small_m` and
+    32 `flash_decode`; the totals follow from the schedule. Beside each arm's
+    decode ms/step stand its kernels' time, summed from phase 3's `rows` at
+    the step's shapes, and the bf16 lm_head's, timed here. Returns each arm's
+    launch counts."""
+    from quanto_tpu_torch.models.serving import BatchedEngine
+    from quanto_tpu_torch.nn import QLinear
+
+    config = model.config
+    L = config.num_hidden_layers
+    n_lin = LINEARS_PER_LAYER * L
+    zeros = {n: 0 for n in read_counts()}
+    per_forward = {
+        ENGINE_CHUNK: {"qbits_mm_requant_int8": n_lin},
+        1: {"qbits_mm_int8_small_m": n_lin, "flash_decode": L},
+    }
+    g = torch.Generator().manual_seed(10)
+
+    def prompt(n):
+        return torch.randint(0, config.vocab_size, (n,), generator=g).numpy()
+
+    batch_prompts = [prompt(n) for n in ENGINE_BATCH]
+    short_prompts = [prompt(ENGINE_SHORT[1]) for _ in range(ENGINE_SHORT[0])]
+    stream_prompts = [prompt(n) for n in ENGINE_STREAM]
+    weight_bytes = step_weight_bytes(model)
+    lin_ops = 2 * ENGINE_SLOTS * ENGINE_CHUNK * sum(
+        m.weight.shape[0] * m.weight.shape[1] for m in model.modules() if isinstance(m, QLinear)
+    )
+    head_ops = 2 * ENGINE_SLOTS * config.hidden_size * config.vocab_size  # logits of one column per row
+
+    # A decode step's device work at phase 3's medians (cold L2): 224 `qbits_mm_int8_small_m` at
+    # M = 8 on the linears' shapes, 32 `flash_decode` at the arm's positions (`FD_ENGINE_POS`),
+    # and the bf16 lm_head on 8 rows (`F.linear`, no port kernel), timed here.
+    small_ms = {(r["N"], r["K"]): r["ms"] for r in rows
+                if r["name"] == "qbits_mm_int8_small_m" and r["M"] == ENGINE_SLOTS}
+    fd_ms = {r["engine_arm"]: r["ms"] for r in rows if r["name"] == "flash_decode" and r["engine_arm"]}
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    x_head = torch.randn((ENGINE_SLOTS, config.hidden_size), device="cuda", dtype=torch.bfloat16)
+    step_kernels = {
+        "qbits_mm_int8_small_m": sum(
+            small_ms[tuple(m.weight.shape)] for m in model.modules() if isinstance(m, QLinear)
+        ),
+        "lm_head": time_ms(lambda: model.lm_head(x_head), flush),
+    }
+    del flush, x_head
+
+    def engine_run(label, admit, new_tokens):
+        engine = BatchedEngine(model, max_batch=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, prefill_chunk=ENGINE_CHUNK)
+        slot_bytes = sum(t[0, 0].numel() * t.element_size() for layer in engine._cache for t in layer)
+        rec = instrument(engine, per_forward)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rids = admit(engine)
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        admit_chunks = rec["chunks"]
+        t0 = time.perf_counter()
+        engine.run_to_completion(burst=16)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        results = [engine.result(r) for r in rids]
+        if rec["bad"]:
+            raise RuntimeError(f"{label}: forwards with other launches than {per_forward}: {rec['bad'][:4]}")
+        want = dict(zeros, qbits_mm_requant_int8=n_lin * rec["chunks"], qbits_mm_int8_small_m=n_lin * rec["decodes"],
+                    flash_decode=L * rec["decodes"])
+        if counts != want:
+            raise RuntimeError(f"{label}: launches {counts}, want {want}")
+        if rec["decodes"] != rec["steps"] + sum(rec["bursts"]) or rec["chunks"] != admit_chunks + rec["mixed"]:
+            raise RuntimeError(f"{label}: forwards do not add up to the schedule {rec}")
+        if rec["fallback_steps"]:
+            raise RuntimeError(f"{label}: {rec['fallback_steps']} steps fell back from mixed steps")
+        if [len(r) for r in results] != new_tokens:
+            raise RuntimeError(f"{label}: tokens per request {[len(r) for r in results]}, want {new_tokens}")
+        if min(min(r) for r in results) < 0 or max(max(r) for r in results) >= config.vocab_size:
+            raise RuntimeError(f"{label}: token ids out of the vocabulary")
+        decode_s = run_s - rec["mixed_s"]
+        kv_bytes = rec["decode_slots"] * slot_bytes / rec["decodes"]
+        chunk_bound_ms = (lin_ops / PEAK_INT8_OPS + (rec["attn_ops"] / rec["chunks"] + head_ops) / PEAK_BF16_FLOPS) * 1e3
+        out = {
+            "engine": label, "model": "llama-3.1-8b-config w4a8 (calibrated), requant form, lm_head bf16, bf16 cache",
+            "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN, "prefill_chunk": ENGINE_CHUNK,
+            "requests": len(rids), "new_tokens": new_tokens,
+            "schedule": {"chunk_forwards": rec["chunks"], "admit_chunk_forwards": admit_chunks,
+                         "mixed_steps": rec["mixed"], "decode_forwards": rec["decodes"], "bursts": rec["bursts"],
+                         "single_steps": rec["steps"]},
+            "admit_ms": admit_s * 1e3, "run_ms": run_s * 1e3,
+            "chunk_bound_ms": chunk_bound_ms,
+            "decode_ms_per_step": decode_s / rec["decodes"] * 1e3,
+            "decode_step_weight_bytes": weight_bytes, "decode_step_kv_bytes": kv_bytes,
+            "decode_step_bound_ms": (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "decode_step_kernels_ms": dict(step_kernels, flash_decode=L * fd_ms[label],
+                                           total=sum(step_kernels.values()) + L * fd_ms[label]),
+            "peak_memory_gb": peak_gb, "launches": {n: c for n, c in counts.items() if c},
+        }
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return results, rec, out
+
+    # The batch arm.
+    results, rec, out = engine_run(
+        "batch", lambda e: e.add_batch(batch_prompts, ENGINE_BATCH_NEW), [ENGINE_BATCH_NEW] * len(ENGINE_BATCH)
+    )
+    prompt_tokens = sum(ENGINE_BATCH)
+    out.update(
+        prefill_ms_per_chunk=out["admit_ms"] / rec["chunks"],
+        prefill_tok_s=prompt_tokens / (out["admit_ms"] / 1e3),
+        decode_tok_s=ENGINE_SLOTS * rec["decodes"] / (out["run_ms"] / 1e3),
+    )
+    out["first_token_ties"] = check_first_tokens("batch", model, batch_prompts, [r[0] for r in results])
+    log(json.dumps(out))
+    batch_counts = out["launches"]
+
+    # The stream arm.
+    def stream_admit(e):
+        rids = e.add_batch(short_prompts, ENGINE_SHORT_NEW)
+        return rids + [e.enqueue(p, ENGINE_STREAM_NEW) for p in stream_prompts]
+
+    results, rec, out = engine_run(
+        "stream", stream_admit, [ENGINE_SHORT_NEW] * ENGINE_SHORT[0] + [ENGINE_STREAM_NEW] * len(ENGINE_STREAM)
+    )
+    out.update(
+        prefill_ms_per_chunk=out["admit_ms"] / out["schedule"]["admit_chunk_forwards"],
+        mixed_step_ms=rec["mixed_s"] / rec["mixed"] * 1e3,
+        serve_tok_s=sum(out["new_tokens"]) / ((out["admit_ms"] + out["run_ms"]) / 1e3),
+    )
+    out["first_token_ties"] = check_first_tokens(
+        "stream", model, short_prompts + stream_prompts, [r[0] for r in results]
+    )
+    log(json.dumps(out))
+    return {"batch": batch_counts, "stream": out["launches"]}
 
 
 def build_mixtral(config, seed: int, stacked: bool = True):
@@ -1260,7 +1714,7 @@ def main() -> int:
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
-            + phase_w4a8(K_mod, flush) + phase_moe(flush))
+            + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -1304,6 +1758,17 @@ def main() -> int:
         want_prefill={"qbits_mm_tiled_int8": n_lin},
         want_decode={"qbits_mm_int8_small_m": n_lin * steps, **fd_decode},
     )
+
+    # Phase 10: the serving engine, on phase 7's model frozen again into the requant form.
+    from quanto_tpu_torch import WeightQBitsRequantArray, freeze
+    from quanto_tpu_torch.nn import QLinear
+
+    freeze(model, w4a8_requant_dot=True)
+    if not all(isinstance(m.weight, WeightQBitsRequantArray) for m in model.modules() if isinstance(m, QLinear)):
+        raise RuntimeError("freeze(w4a8_requant_dot=True) left a linear outside the requant form")
+    t0 = time.perf_counter()
+    launches_engine = phase_engine(model, rows)
+    log(f"engine: phase 10 took {time.perf_counter() - t0:.1f} s")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1338,11 +1803,13 @@ def main() -> int:
         "qbytes_mm_e4m3fn": ("phase 5 (qfloat8, 2 layers)", arm_counts["qfloat8"]),
         "qbits_mm_int8_small_m": ("phase 7 (w4a8)", launches_w4a8),
         "qbits_mm_tiled_int8": ("phase 7 (w4a8)", launches_w4a8),
+        "qbits_mm_requant_int8": ("phase 10 (serving engine, batch arm)", launches_engine["batch"]),
         "qbits_moe_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
         "qbits_moe_tiled": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
     }
     kernels = []
-    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_moe_small_m", "qbits_moe_tiled"]:
+    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
+                 "qbits_moe_tiled"]:
         mine = [r for r in rows if r["name"] == name]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
@@ -1357,6 +1824,8 @@ def main() -> int:
         extra = {} if name in launch_runs else {"launches_ctx1088": launches_1088[name]}
         if name.startswith("qbits_moe"):
             extra = {"launches_b1": launches_moe_b1[name]}
+        if name == "qbits_mm_requant_int8":
+            extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=counts[name], launches_run=run, **extra,

@@ -12,7 +12,13 @@ from .quantize import freeze, named_qmodules, quantize
 from .tensor.activations import ActivationQBytesArray, quantize_activation
 from .tensor.optimizers import AbsmaxOptimizer, MaxOptimizer
 from .tensor.qtype import qfloat8, qint2, qint4, qint8, qtype, qtypes
-from .tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, WeightQBytesArray, quantize_weight
+from .tensor.weights import (
+    WeightQBitsArray,
+    WeightQBitsHopperArray,
+    WeightQBitsRequantArray,
+    WeightQBytesArray,
+    quantize_weight,
+)
 
 
 __all__ = [
@@ -35,6 +41,7 @@ __all__ = [
     "qint8",
     "WeightQBitsArray",
     "WeightQBitsHopperArray",
+    "WeightQBitsRequantArray",
     "WeightQBytesArray",
     "quantize_weight",
 ]

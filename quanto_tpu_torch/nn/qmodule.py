@@ -6,7 +6,8 @@ PyTorch counterpart of `quanto_tpu/nn/qmodule.py`. Workflow states:
 - **calibrated**: the `input_scale` / `output_scale` buffers (0-d float32,
   1 until calibrated) updated by `Calibration` (`quanto_tpu_torch/calibrate.py`);
 - **frozen**: `weight` is a `QArray`, repacked into the Hopper kernel layout
-  when it is int4 and lies on a CUDA device.
+  when it is int4 and lies on a CUDA device (into its W4A8 requant form,
+  `WeightQBitsRequantArray`, when frozen with `w4a8_requant_dot=True`).
 
 The `qat` flag and `fake_qweight` of the JAX package wait for the training
 slice.
@@ -22,7 +23,12 @@ from ..tensor.activations import mark_quantized_use, quantize_activation
 from ..tensor.optimizers import AbsmaxOptimizer, MaxOptimizer, Optimizer
 from ..tensor.qarray import QArray
 from ..tensor.qtype import qtype, qtypes
-from ..tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, quantize_weight
+from ..tensor.weights import (
+    WeightQBitsArray,
+    WeightQBitsHopperArray,
+    WeightQBitsRequantArray,
+    quantize_weight,
+)
 
 
 __all__ = ["QModuleMixin", "register_qmodule", "quantize_module"]
@@ -128,17 +134,30 @@ class QModuleMixin:
         )
 
     @torch.no_grad()
-    def freeze(self) -> None:
+    def freeze(self, w4a8_requant_dot: bool = False) -> None:
         """Replace the float weight with its quantized form. An int4 weight on a
         CUDA device is repacked into the Hopper layout when it fits the
         envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
-        reads as it is."""
-        if self.weight_qtype is None or self.frozen:
+        reads as it is.
+
+        `w4a8_requant_dot`: a Hopper-layout weight takes its requant form
+        (`WeightQBitsRequantArray`), which sends W4A8 matmuls at M >= 2048
+        through the approximate requant kernel (per-channel int8 codes about
+        8x finer than the coarsest group's int4 step), the counterpart of
+        the JAX package's opt-in `set_backend(w4a8_requant_dot=True)`. On an
+        already frozen module it converts a Hopper-layout weight in place of
+        freezing again. Without it, numerics stay exact."""
+        if self.weight_qtype is None:
             return
-        qw = self.qweight
-        if isinstance(qw, WeightQBitsArray) and qw.device.type == "cuda":
-            qw = WeightQBitsHopperArray.from_generic(qw) or qw
-        del self.weight  # drop the float Parameter
+        if self.frozen:
+            qw = self.weight
+        else:
+            qw = self.qweight
+            if isinstance(qw, WeightQBitsArray) and qw.device.type == "cuda":
+                qw = WeightQBitsHopperArray.from_generic(qw) or qw
+            del self.weight  # drop the float Parameter
+        if w4a8_requant_dot and type(qw) is WeightQBitsHopperArray:
+            qw = WeightQBitsRequantArray.from_hopper(qw)
         self.weight = qw
 
     # --- activation quantization ---------------------------------------------

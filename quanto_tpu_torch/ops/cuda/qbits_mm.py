@@ -15,16 +15,22 @@ that stays on the device), `y = sx * (xq @ deq(W)^T)` in the weight's float
 dtype:
 - `qbits_mm_int8_small_m` (M <= `MAX_M`) replaces `_int8_kernel`;
 - `qbits_mm_tiled_int8` (M > `MAX_M`) replaces the integer arm of
-  `_prefill_kernel`.
+  `_prefill_kernel`;
+- `qbits_mm_requant_int8` (M >= `INT8_DOT_MIN_M`, weights in the requant
+  form of `WeightQBitsRequantArray`) replaces `_int8pc_kernel`. It is
+  approximate: each weight tile is requantized to per-channel int8 codes
+  `c8 = clip(round(c * s_g/s8 - z_g/s8), -127, 127)` with the per-channel
+  step `s8` (`requant_step`), and `y = sx * s8 * (xq @ c8^T)` with one int32
+  sum over the whole K.
 
 The weight is in the Hopper layout of `WeightQBitsHopperArray`: `packed`
 uint8 [N, K/2] with the two codes of byte j at K positions 2j (low nibble) and
 2j + 1 (high nibble), `scale_t`/`shift_t` float32 [G, N].
 
 Each wrapper takes its kernel's plain PyTorch version (`qbits_mm_plain`,
-`qbits_int8_mm_plain`) when x lies on the CPU; on a CUDA tensor it launches
-the kernel or raises. Each wrapper's `launches` attribute counts its kernel
-launches.
+`qbits_int8_mm_plain`, `qbits_requant_int8_mm_plain`) when x lies on the
+CPU; on a CUDA tensor it launches the kernel or raises. Each wrapper's
+`launches` attribute counts its kernel launches.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
 (`ops/cuda/_build.py:build`), as a shared library with a plain C interface
@@ -42,6 +48,7 @@ from ._build import kernel
 
 __all__ = [
     "MAX_M",
+    "INT8_DOT_MIN_M",
     "pack_k_nibbles",
     "unpack_k_nibbles",
     "dequantize_k_nibbles",
@@ -52,12 +59,20 @@ __all__ = [
     "qbits_int8_mm_plain",
     "qbits_mm_int8_small_m",
     "qbits_mm_tiled_int8",
+    "requant_step",
+    "requant_codes",
+    "qbits_requant_int8_mm_plain",
+    "qbits_mm_requant_int8",
     "qbits_int8_mm",
 ]
 
 # Routing threshold between the two kernels: the JAX package's `_MAX_M`, so
 # each TPU kernel maps to one Hopper kernel.
 MAX_M = 512
+
+# Least M of the W4A8 requant route: the JAX package's `_INT8_DOT_MIN_M`
+# (`quanto_tpu/ops/pallas/qbits_mm.py:398`).
+INT8_DOT_MIN_M = 2048
 
 
 def pack_k_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -134,8 +149,8 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size):
 
 def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
-    shift_t and, for int8 x, sx) into a new [M, N] output; raises on a
-    refused launch."""
+    shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
+    output; raises on a refused launch."""
     x, packed = operands[0], operands[1]
     if any(t.device != x.device for t in operands):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -212,20 +227,27 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     return (y * sx.float()).to(out_dtype)
 
 
-# C signature of both int8-x entry points in csrc/qbits_mm.cu.
+# C signature of both int8-x entry points in csrc/qbits_mm.cu; the requant entry
+# point takes one more pointer (s8).
 _INT8_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_REQUANT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _run_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype):
-    """Validate the operands of an int8-x kernel, then launch it (CUDA) or
-    compute its plain version (CPU); returns (out, launched)."""
+def _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype):
+    """Validate the operands every int8-x kernel takes; returns (M, N, K)."""
     if xq.dtype != torch.int8:
         raise TypeError(f"{name}: x must be int8, got {xq.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the output dtype must be bfloat16 or float32, got {out_dtype}")
     if sx.numel() != 1 or sx.dtype != torch.float32 or sx.device != xq.device:
         raise ValueError(f"{name}: sx must be one float32 value on x's device")
-    M, N, K = _check_shapes(xq, packed, scale_t, shift_t, group_size)
+    return _check_shapes(xq, packed, scale_t, shift_t, group_size)
+
+
+def _run_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype):
+    """Validate the operands of an int8-x kernel, then launch it (CUDA) or
+    compute its plain version (CPU); returns (out, launched)."""
+    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype)
     if xq.device.type == "cpu":
         return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype), False
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
@@ -259,12 +281,87 @@ qbits_mm_int8_small_m.launches = 0
 qbits_mm_tiled_int8.launches = 0
 
 
-def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype) -> torch.Tensor:
+# --- W4A8 requant route: per-channel int8 weights, one int32 sum over K ------------
+
+
+def requant_envelope(K: int, group_size: int) -> bool:
+    """The shapes the requant kernel takes: the JAX route's envelope
+    (`qbits_mm.py:534`), several groups of a multiple of 128 codes each."""
+    return group_size % 128 == 0 and group_size != K
+
+
+def requant_step(scale_t: torch.Tensor, shift_t: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """Per-channel int8 step s8 float32 [N] of an affine weight with float32
+    scale_t/shift_t [G, N], as `_int8pc_call` computes it
+    (`quanto_tpu/ops/pallas/qbits_mm.py:484-488`): the largest |deq| a code
+    can take, amax = max_g max(|z|, |s * qmax - z|), then
+    max(amax, 1e-30) * (1 / 127) as a float32 multiply."""
+    s, z = scale_t.float(), shift_t.float()
+    amax = torch.maximum(z.abs(), (s * float(2**bits - 1) - z).abs()).amax(dim=0)
+    return amax.clamp_min(1e-30) * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=amax.device)
+
+
+def requant_codes(packed, scale_t, shift_t, s8, group_size: int) -> torch.Tensor:
+    """The int8 codes [N, K] the requant route takes for the Hopper layout:
+    c8 = clip(round(c * rs - rz), -127, 127) with rs = s / s8 and rz = z / s8
+    per group (`qbits_mm.py:443-458`, `:489-490`), each operation rounded
+    to float32 on its own, round half to even."""
+    codes = unpack_k_nibbles(packed).float()
+    N, K = codes.shape
+    G = K // group_size
+    rs = (scale_t / s8).t().unsqueeze(-1)  # [N, G, 1]
+    rz = (shift_t / s8).t().unsqueeze(-1)
+    c8 = torch.round(codes.view(N, G, group_size) * rs - rz).clamp_(-127, 127)
+    return c8.view(N, K).to(torch.int8)
+
+
+def qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype):
+    """Plain version of `qbits_mm_requant_int8`: the requant codes, their exact
+    integer product with xq (a float64 matmul: |sum| <= 128 * 127 * K < 2**53),
+    converted to float32, times s8, times sx, cast to `out_dtype`.
+    xq [M, K] int8 -> [M, N]."""
+    c8 = requant_codes(packed, scale_t, shift_t, s8, group_size)
+    acc = (xq.double() @ c8.double().t()).float()
+    return (acc * s8 * sx.float()).to(out_dtype)
+
+
+def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype) -> torch.Tensor:
+    """sx * s8 * (xq [M, K] @ c8^T) -> [M, N] in `out_dtype`, c8 the requant
+    codes of W (`requant_codes`), any M (routed at M >= INT8_DOT_MIN_M).
+    Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_int8pc_kernel`."""
+    name = "qbits_mm_requant_int8"
+    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype)
+    if not requant_envelope(K, group_size):
+        raise ValueError(f"{name}: group size {group_size} must be a multiple of 128 and below K = {K}")
+    if tuple(s8.shape) != (N,) or s8.dtype != torch.float32:
+        raise ValueError(f"{name}: s8 must be float32 [{N}]")
+    if xq.device.type == "cpu":
+        return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype)
+    operands = (xq, packed, scale_t, shift_t, s8, sx.reshape(()))
+    out = _launch(name, _REQUANT_ARGTYPES, operands, out_dtype, M, N, K, group_size)
+    qbits_mm_requant_int8.launches += 1
+    return out
+
+
+qbits_mm_requant_int8.launches = 0
+
+
+def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, s8=None) -> torch.Tensor:
     """W4A8: y[..., N] = sx * (xq[..., K] @ deq(W)^T) in `out_dtype`, routed by
-    M = prod(lead dims) as `qbits_int8_matmul_kernel_call` routes
-    (`quanto_tpu/ops/pallas/qbits_mm.py:665-726`)."""
+    M = prod(lead dims) and the weight's form as `qbits_int8_matmul_kernel_call`
+    routes (`quanto_tpu/ops/pallas/qbits_mm.py:665-726`):
+    - M <= MAX_M (512): `qbits_mm_int8_small_m`;
+    - a weight in the requant form (its per-channel step `s8` given), M >=
+      INT8_DOT_MIN_M (2048) and the route's envelope (`requant_envelope`):
+      `qbits_mm_requant_int8`, approximate;
+    - otherwise: `qbits_mm_tiled_int8`, exact."""
     lead = xq.shape[:-1]
     x2 = xq.reshape(-1, xq.shape[-1]).contiguous()
-    wrapper = qbits_mm_int8_small_m if x2.shape[0] <= MAX_M else qbits_mm_tiled_int8
-    out = wrapper(x2, sx, packed, scale_t, shift_t, group_size, out_dtype)
+    M, K = x2.shape
+    if M <= MAX_M:
+        out = qbits_mm_int8_small_m(x2, sx, packed, scale_t, shift_t, group_size, out_dtype)
+    elif s8 is not None and M >= INT8_DOT_MIN_M and requant_envelope(K, group_size):
+        out = qbits_mm_requant_int8(x2, sx, packed, scale_t, shift_t, s8, group_size, out_dtype)
+    else:
+        out = qbits_mm_tiled_int8(x2, sx, packed, scale_t, shift_t, group_size, out_dtype)
     return out.reshape(*lead, packed.shape[0])

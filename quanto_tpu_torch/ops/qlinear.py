@@ -7,8 +7,13 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   `ops/cuda/qbytes_mm.py`, else JAX's XLA formula (`ops/qbytes_mm.py`);
   with a quantized x (W8A8) it raises: `ROADMAP.md` Queue 1, item 2;
 - `WeightQBitsHopperArray` w: with a qint8 `ActivationQBytesArray` x the
-  W4A8 kernels (`qbits_int8_mm`); with float x the fused dequant-matmul
-  (`qbits_mm`); any other quantized x is dequantized first;
+  W4A8 kernels (`qbits_int8_mm`, routed by M: `qbits_mm_int8_small_m` at
+  M <= 512, `qbits_mm_tiled_int8` above); with float x the fused
+  dequant-matmul (`qbits_mm`); any other quantized x is dequantized first;
+- `WeightQBitsRequantArray` w (its subclass, frozen with
+  `w4a8_requant_dot=True`): as its parent, except that with a qint8 x at
+  M >= 2048 (`INT8_DOT_MIN_M`) `qbits_int8_mm` takes the third W4A8 branch,
+  the approximate requant kernel `qbits_mm_requant_int8`;
 - `WeightQBitsArray` w (generic layout): dequantize + `torch.matmul`, the JAX
   package's own XLA path (`qlinear.py:74-75`), x dequantized first;
 - a plain tensor w: `torch.matmul`, x dequantized first.
@@ -27,7 +32,12 @@ import torch
 from ..tensor.activations import ActivationQBytesArray, mark_quantized_use
 from ..tensor.qarray import QArray
 from ..tensor.qtype import qint8
-from ..tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, WeightQBytesArray
+from ..tensor.weights import (
+    WeightQBitsArray,
+    WeightQBitsHopperArray,
+    WeightQBitsRequantArray,
+    WeightQBytesArray,
+)
 from . import qbytes_mm as xla_qbytes
 from .cuda import qbytes_mm as cuda_qbytes
 from .cuda.qbits_mm import qbits_int8_mm, qbits_mm
@@ -49,8 +59,10 @@ def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
             out = xla_qbytes.qbytes_mm(x, w._data, w._scale)
     elif isinstance(w, WeightQBitsHopperArray):
         if isinstance(x, ActivationQBytesArray) and x.qtype == qint8:
+            s8 = w._s8 if isinstance(w, WeightQBitsRequantArray) else None
             out = qbits_int8_mm(
-                x._data, x._scale, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.float_dtype
+                x._data, x._scale, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.float_dtype,
+                s8=s8,
             )
             mark_quantized_use(x)
         else:

@@ -61,7 +61,13 @@ def quantize(
             set_module_by_name(model, name, qmodule)
 
 
-def freeze(model: nn.Module) -> None:
-    """Freeze every quantized module."""
+def freeze(model: nn.Module, w4a8_requant_dot: bool = False) -> None:
+    """Freeze every quantized module (`QModuleMixin.freeze`).
+
+    `w4a8_requant_dot=True` freezes each int4 weight that takes the Hopper
+    layout into its requant form, and converts the Hopper weights of an
+    already frozen model. The requant route is approximate (a per-channel
+    int8 step about 8x finer than the coarsest group's int4 step,
+    `quanto_tpu/ops/config.py:164-185`), so it is never taken by default."""
     for _, m in named_qmodules(model):
-        m.freeze()
+        m.freeze(w4a8_requant_dot=w4a8_requant_dot)

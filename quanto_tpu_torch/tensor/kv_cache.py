@@ -39,6 +39,7 @@ __all__ = [
     "unpack_int4_codes",
     "init_quantized_kv_cache",
     "kv_update",
+    "slot_view",
     "kv_read",
     "kv_read_raw",
 ]
@@ -206,6 +207,21 @@ def kv_update(layer_cache, k: torch.Tensor, v: torch.Tensor, pos):
     _update_(ck, k, pos)
     _update_(cv, v, pos)
     return layer_cache
+
+
+def slot_view(layer_cache, slot: int):
+    """One layer cache (float tuple or quantized) restricted to batch row
+    `slot`, as views of the same storage: `kv_update` on the view writes into
+    the pooled cache."""
+    s = slice(slot, slot + 1)
+    if isinstance(layer_cache, QKVCacheLayer):
+        return dataclasses.replace(layer_cache, **{
+            f.name: getattr(layer_cache, f.name)[s]
+            for f in dataclasses.fields(layer_cache)
+            if torch.is_tensor(getattr(layer_cache, f.name))
+        })
+    k, v = layer_cache
+    return (k[s], v[s])
 
 
 def _codes(data: torch.Tensor) -> torch.Tensor:

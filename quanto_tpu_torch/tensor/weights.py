@@ -11,6 +11,11 @@ PyTorch counterpart of `quanto_tpu/tensor/weights.py`:
 - `WeightQBitsHopperArray`: the device layout that the Hopper kernels of
   `ops/cuda/qbits_mm.py` read, the counterpart of `WeightQBitsTpuArray`
   (`weights.py:193-525`).
+- `WeightQBitsRequantArray`: a Hopper-layout weight that also carries the
+  per-channel int8 step of the W4A8 requant route. The JAX package opts into
+  that route with a global switch (`set_backend(w4a8_requant_dot=True)`);
+  the port has no switches, so the choice is this weight type, made by
+  `freeze(model, w4a8_requant_dot=True)`.
 
 Hopper layout. `_packed` is uint8 [N, K/2] with K-contiguous nibbles: byte j
 of row n holds code (n, 2j) in its low nibble and code (n, 2j + 1) in its high
@@ -31,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.cuda.qbits_mm import dequantize_k_nibbles, pack_k_nibbles, unpack_k_nibbles
+from ..ops.cuda.qbits_mm import dequantize_k_nibbles, pack_k_nibbles, requant_step, unpack_k_nibbles
 from ..ops.quantize import dequantize_affine, dequantize_symmetric, quantize_affine, quantize_symmetric
 from .grouped import group, ungroup
 from .packed import PackedArray
@@ -39,7 +44,13 @@ from .qarray import QArray
 from .qtype import qtype
 
 
-__all__ = ["WeightQBytesArray", "WeightQBitsArray", "WeightQBitsHopperArray", "quantize_weight"]
+__all__ = [
+    "WeightQBytesArray",
+    "WeightQBitsArray",
+    "WeightQBitsHopperArray",
+    "WeightQBitsRequantArray",
+    "quantize_weight",
+]
 
 
 @dataclass(frozen=True, eq=False)
@@ -235,6 +246,30 @@ class WeightQBitsHopperArray(QArray):
     def dequantize(self) -> torch.Tensor:
         w = dequantize_k_nibbles(self._packed, self._scale_t, self._shift_t, self.kernel_group_size)
         return w.to(self.float_dtype)
+
+
+@dataclass(frozen=True, eq=False)
+class WeightQBitsRequantArray(WeightQBitsHopperArray):
+    """A Hopper-layout int4 weight frozen for the W4A8 requant route
+    (`ops/cuda/qbits_mm.py:qbits_mm_requant_int8`).
+
+    `_s8` float32 [N] is the per-channel int8 step (`requant_step`,
+    `quanto_tpu/ops/pallas/qbits_mm.py:484-488`); the per-group factors
+    s / s8 and z / s8 are computed in the kernel, not stored. With a qint8
+    activation at M >= 2048 `qlinear` takes the requant kernel, which is
+    approximate: the codes are requantized to a per-channel int8 step about
+    8x finer than the coarsest group's int4 step (`quanto_tpu/ops/config.py:
+    164-185`). Everything else (float x, smaller M, `dequantize`,
+    `to_generic`) is the parent's, exact."""
+
+    _s8: torch.Tensor  # float32 [N]
+
+    @classmethod
+    def from_hopper(cls, w: WeightQBitsHopperArray) -> "WeightQBitsRequantArray":
+        """The requant form of a Hopper-layout weight (its payload, scales and
+        shifts shared, not copied)."""
+        fields = {f: getattr(w, f) for f in WeightQBitsHopperArray.__dataclass_fields__}
+        return cls(**fields, _s8=requant_step(w._scale_t, w._shift_t, w.qtype.bits))
 
 
 def quantize_weight(

@@ -20,6 +20,13 @@ max|ref| (a bf16 high + low pair), bf16 x within 1e-2 * max|ref| and cosine
 sums are exact, so a float32 output is held within 1e-5 * max|ref| and a
 bf16 output within 1e-2 * max|ref| (one rounding) and cosine > 1 - 1e-4.
 
+The W4A8 requant kernel (`qbits_mm_requant_int8`) against
+`qbits_requant_int8_mm_plain` at the Llama-3.1-8B linear shapes (N in
+{1024, 4096, 14336}, K in {4096, 14336}), M in {2048, 2049, 4096}, group
+sizes 128 and 256: its codes and int32 sums are exact and its epilogue is
+the plain version's two float32 multiplies, so float32 and bf16 outputs are
+held EQUAL to the plain version's; and its refusals on CUDA tensors.
+
 `flash_decode` against `flash_decode_plain` for every pair of K and V payload
 types (float32 and bfloat16 caches; int8, int4 and the three float8 formats
 paired freely, with and without shifts), S in {1, 127, 1088, 8192}, ragged
@@ -53,7 +60,10 @@ from quanto_tpu_torch.ops.cuda.qbits_mm import (
     qbits_mm_plain,
     qbits_mm_small_m,
     qbits_mm_tiled,
+    qbits_mm_requant_int8,
     qbits_mm_tiled_int8,
+    qbits_requant_int8_mm_plain,
+    requant_step,
 )
 from quanto_tpu_torch.tensor import kv_cache as tkv
 from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
@@ -158,6 +168,51 @@ def test_w4a8_kernels_match_plain(cuda_device, m, k, group_size, out_dtype):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1 and out.dtype == out_dtype and out.shape == (m, n)
     check_close(out, qbits_int8_mm_plain(*args), 1e-5 if out_dtype == torch.float32 else None)
+
+
+def requant_operands(device, m, n, k, gs, seed):
+    """Random int8 x, sx and an int4 weight in the requant form: codes, group
+    scales and shifts anywhere in [0, 15] steps, and its s8."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    packed = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=device, generator=g)
+    scale_t = torch.rand((k // gs, n), device=device, generator=g) * 0.01 + 0.001
+    shift_t = scale_t * torch.rand((k // gs, n), device=device, generator=g) * 15
+    sx = torch.tensor(0.0173, device=device)
+    return xq, sx, packed, scale_t, shift_t, requant_step(scale_t, shift_t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("gs", [128, 256])
+@pytest.mark.parametrize("k", [4096, 14336])
+@pytest.mark.parametrize("n", [1024, 4096, 14336])
+@pytest.mark.parametrize("m", [2048, 2049, 4096])
+def test_requant_kernel_equals_plain(cuda_device, m, n, k, gs, out_dtype):
+    xq, sx, packed, scale_t, shift_t, s8 = requant_operands(cuda_device, m, n, k, gs, seed=m + n + k + gs)
+    args = (xq, sx, packed, scale_t, shift_t, s8, gs, out_dtype)
+    before = qbits_mm_requant_int8.launches
+    out = qbits_mm_requant_int8(*args)
+    torch.cuda.synchronize()
+    assert qbits_mm_requant_int8.launches == before + 1 and out.dtype == out_dtype and out.shape == (m, n)
+    ref = qbits_requant_int8_mm_plain(*args)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+def test_requant_kernel_refusals(cuda_device):
+    xq, sx, packed, scale_t, shift_t, s8 = requant_operands(cuda_device, 2048, 1024, 4096, 128, seed=0)
+    w = (packed, scale_t, shift_t)
+    with pytest.raises(ValueError, match="one device"):
+        qbits_mm_requant_int8(xq, sx, *w, s8.cpu(), 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        qbits_mm_requant_int8(xq.t().contiguous().t(), sx, *w, s8, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="group size"):
+        qbits_mm_requant_int8(xq, sx, packed, scale_t[:1], shift_t[:1], s8, 4096, torch.bfloat16)
+    with pytest.raises(ValueError, match="sx"):
+        qbits_mm_requant_int8(xq, sx.cpu(), *w, s8, 128, torch.bfloat16)
+    with pytest.raises(TypeError, match="int8"):
+        qbits_mm_requant_int8(xq.float(), sx, *w, s8, 128, torch.bfloat16)
 
 
 def cache_operands(k_type, v_type, shifted, S, D, device, seed):

@@ -11,8 +11,11 @@ scalar or a per-row position. Tolerances:
   shift that differs in its last bit can move a code by one.
 Also: the int4 nibble layout round-trips, a JAX cache bridged through
 `qkv_layer_from_numpy` equals the port's, `kv_read` dequantizes alike, and the
-entry points allocate on CUDA unless asked for the CPU.
+entry points allocate on CUDA unless asked for the CPU, and a write through
+`slot_view` lands in its row of the pool and nowhere else.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -185,3 +188,25 @@ def test_entry_points_default_to_cuda():
             make()
     assert init_kv_cache(config, 1, 8, device="cpu")[0][0].device.type == "cpu"
     assert QLinear(128, 64, weights="qint4", device="cpu").weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("spec", [None, "qint4", "qint8a"], ids=["float", "qint4", "qint8a"])
+def test_slot_view_writes_into_the_pool(spec):
+    k, v = (torch.from_numpy(a[:1]) for a in kv(np.random.default_rng(7), 3))
+
+    def fresh(b):
+        if spec is None:
+            return (torch.zeros(b, S, H, D), torch.zeros(b, S, H, D))
+        return tkv.init_quantized_kv_cache(1, b, S, H, D, spec, device="cpu")[0]
+
+    def tensors(c):
+        if spec is None:
+            return list(c)
+        return [getattr(c, f.name) for f in dataclasses.fields(c) if torch.is_tensor(getattr(c, f.name))]
+
+    pool, one, empty = fresh(B), fresh(1), fresh(1)
+    tkv.kv_update(tkv.slot_view(pool, 1), k, v, 4)
+    tkv.kv_update(one, k, v, 4)
+    for p, o, e in zip(tensors(pool), tensors(one), tensors(empty), strict=True):
+        assert torch.equal(p[1:2], o)
+        assert torch.equal(p[0:1], e)
