@@ -97,6 +97,27 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    token unless its two logits tie (LOGIT_TIE); a row routed differently
    needs a routing tie (ROUTE_TIE) in each layer where it differs.
 
+3 (int2). The int2 arms of the four float-x kernels over random packed bytes
+   (every 2-bit code in every position of a byte), bf16 x: `qbits_mm_small_m`
+   at M in {4, 8} and `qbits_mm_tiled` at M = 1024 over the four linear
+   shapes; `qbits_moe_small_m` in its selective form and both MoE kernels at
+   phase 12's B = 4 decode shapes, `qbits_moe_tiled` over 8 slabs of 512
+   rows; bounds with the int2 payload's bytes.
+11. Llama-3.1-8B in qint2 (`quantize(weights="qint2", exclude="lm_head")`,
+   group size 128, `freeze`): the decode run of phase 6 (B = 4 x 1024, 63
+   greedy steps; every step exactly 224 launches of `qbits_mm_small_m`'s
+   int2 arm, the M = 4096 prefill none: an int2 weight takes no kernel above
+   M = 1024, as in JAX) and a B = 1 prefill of 1024 tokens (exactly 224
+   launches of `qbits_mm_tiled`'s int2 arm); then the 2-layer check of that
+   model, kernel path against the plain versions: the B = 1 prefill's and a
+   decode step's logits, cosine > INT2_E2E_COS and top-1 tokens equal or at
+   a logit tie.
+12. Mixtral-8x7B with qint2 experts (`quantize(layer, weights="qint2",
+   include="*experts*")`) and qint4 attention and router, lm_head bf16, built
+   as phase 8 builds it: the B = 4 and B = 1 runs of phase 8 with exact
+   launch counts of each MoE route's int2 arm and of the attention's int4
+   launches, the no-sync check, and phase 9's check at 2 layers (one seed).
+
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -177,6 +198,7 @@ MOE_SEL_EIDS = [3, 5]  # the selective form: nsel = 2 pairs on two experts
 MOE_UNIQ_EIDS = [6, 1, 3, 0, 7, 4]  # the uniq form: 6 of the 8 experts
 MOE_S = 8
 MOE_TILED_M = (8, 512, 2048)
+MOE_INT2_TILED_M = (512,)  # phase 12's B = 1 prefill: capacity slabs of 512 rows
 # The B = 4 decode step's unique-expert route (S = 4 rows, S·K = 8 = E): both kernels over 8 slots
 # of a routed-first table (the routed experts ascending, then the others) with the routed count
 # on the device, as `StackedSparseMoeBlock._uniq_boundary` builds them; 6 and all 8 routed.
@@ -196,6 +218,21 @@ REPLACES.update({
                          "quanto_tpu/ops/pallas/moe_mm.py:225",
     "qbits_moe_tiled": "quanto_tpu/ops/pallas/moe_mm.py:330, quanto_tpu/ops/pallas/moe_mm.py:337",
 })
+
+# The int2 arms of the four float-x kernels (phase 3): the small-M kernel at phase 11's decode
+# (M = 4) and at M = 8, the tiled one at its B = 1 prefill (M = 1024, the int2 route's largest M),
+# over the four linear shapes; the MoE kernels at phase 12's shapes (`phase_moe`). Each arm is a
+# summary entry of its own, its launches from phase 11 or 12.
+INT2_KERNEL_M = {"qbits_mm_small_m": (4, 8), "qbits_mm_tiled": (1024,)}
+INT2_ARMS = ["qbits_mm_small_m", "qbits_mm_tiled", "qbits_moe_small_m", "qbits_moe_tiled"]
+SUMMARY_SHAPE.update({
+    "qbits_mm_small_m_int2": (4, 14336, 4096), "qbits_mm_tiled_int2": (1024, 14336, 4096),
+    "qbits_moe_small_m_int2": ("uniq", 8, 4, 14336, 4096),
+    "qbits_moe_tiled_int2": ("experts", None, 512, 14336, 4096),
+})
+for _arm in INT2_ARMS:
+    SOURCE[_arm + "_int2"] = SOURCE[_arm]
+    REPLACES[_arm + "_int2"] = REPLACES[_arm] + " (int2 arm)"
 
 # mistralai/Mixtral-8x7B-v0.1 config.json (default rope, no sliding window, untied embeddings).
 MIXTRAL_8X7B = dict(
@@ -331,22 +368,25 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
 
 
-def phase_kernels(K_mod, flush):
-    """Phase 3: every kernel against its plain version at the main path's shapes."""
+def phase_kernels(K_mod, flush, bits: int = 4):
+    """Phase 3: the two float-x kernels against their plain version at the
+    main path's shapes, over random codes of `bits` (every code value in every
+    position of a byte); an int2 row's name ends in `_int2`."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1234)
+    g = torch.Generator(device=dev).manual_seed(1234 + bits)
     rows = []
-    for N, K in SHAPES:
+    shapes, kernel_m = (SHAPES, KERNEL_M) if bits == 4 else (LINEAR_SHAPES, INT2_KERNEL_M)
+    for N, K in shapes:
         G = K // GS
-        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        packed = torch.randint(0, 256, (N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
         scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
-        shift_t = scale_t * 7.5  # deq = s * (c - 7.5): codes centred on zero
-        w_bf16 = K_mod.dequantize_k_nibbles(packed, scale_t, shift_t, GS).to(torch.bfloat16)
-        for name, ms in KERNEL_M.items():
+        shift_t = scale_t * (2**bits - 1) / 2  # deq = s * (c - qmax / 2): codes centred on zero
+        w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, bits).to(torch.bfloat16)
+        for name, ms in kernel_m.items():
             kernel = getattr(K_mod, name)
             for M in ms:
                 x = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
-                args = (x, packed, scale_t, shift_t, GS)
+                args = (x, packed, scale_t, shift_t, GS, bits)
                 out = kernel(*args)
                 ref = K_mod.qbits_mm_plain(*args)
                 torch.cuda.synchronize()
@@ -357,9 +397,9 @@ def phase_kernels(K_mod, flush):
                     raise RuntimeError(
                         f"{name} M={M} N={N} K={K}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})"
                     )
-                b_ms, b_by = bound(M, N, K)
+                b_ms, b_by = bound(M, N, K, w_bytes=bits / 8)
                 row = dict(
-                    name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                    name=name + ("_int2" if bits == 2 else ""), M=M, N=N, K=K, max_abs_err=err, cosine=cos,
                     ms=time_ms(lambda: kernel(*args), flush),
                     plain_ms=time_ms(lambda: K_mod.qbits_mm_plain(*args), flush),
                     library_ms=time_ms(lambda: torch.matmul(x, w_bf16.t()), flush),
@@ -421,7 +461,7 @@ def phase_w4a8(K_mod, flush):
         packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
         scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
         shift_t = scale_t * 7.5
-        w_bf16 = K_mod.dequantize_k_nibbles(packed, scale_t, shift_t, GS).to(torch.bfloat16)
+        w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, 4).to(torch.bfloat16)
         for name, ms in W4A8_M.items():
             kernel = getattr(K_mod, name)
             for M in ms:
@@ -492,40 +532,48 @@ def phase_requant(K_mod, flush):
     return rows
 
 
-def phase_moe(flush):
+def phase_moe(flush, bits: int = 4):
     """Phase 3, the MoE kernels: each form against the plain version over 8
-    stacked experts with random int4 codes, bf16 x, float32 outputs held
-    within 1e-4 * max|ref| and cosine > 1 - 1e-5 (sums in another order)."""
+    stacked experts with random codes of `bits`, bf16 x, float32 outputs held
+    within 1e-4 * max|ref| and cosine > 1 - 1e-5 (sums in another order). The
+    int2 arms run at the selective form of phase 12's B = 1 step, its B = 4
+    decode shapes and its B = 1 prefill's slabs (MOE_INT2_TILED_M); their rows'
+    names end in `_int2`."""
     from quanto_tpu_torch.ops.cuda import moe_mm as MM
-    from quanto_tpu_torch.ops.cuda.qbits_mm import dequantize_k_nibbles
+    from quanto_tpu_torch.ops.cuda.qbits_mm import dequantize_k_codes
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5678)
+    g = torch.Generator(device=dev).manual_seed(5678 + bits)
     rows = []
     for N, K in MOE_SHAPES:
         G = K // GS
-        packed = torch.randint(0, 256, (MOE_EXPERTS, N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        packed = torch.randint(
+            0, 256, (MOE_EXPERTS, N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g
+        )
         scale_t = torch.rand((MOE_EXPERTS, G, N), device=dev, generator=g) * 0.01 + 0.001
-        shift_t = scale_t * 7.5
+        shift_t = scale_t * (2**bits - 1) / 2
         w_bf16 = torch.stack([
-            dequantize_k_nibbles(packed[e], scale_t[e], shift_t[e], GS).to(torch.bfloat16)
+            dequantize_k_codes(packed[e], scale_t[e], shift_t[e], GS, bits).to(torch.bfloat16)
             for e in range(MOE_EXPERTS)
         ])
-        weights = (packed, scale_t, shift_t, GS)
+        weights = (packed, scale_t, shift_t, GS, bits)
         x8 = torch.randn((MOE_S, K), device=dev, generator=g, dtype=torch.bfloat16)
 
         def table(ids):
             return torch.tensor(ids, dtype=torch.int32, device=dev)
 
         # (form, kernel, x3 [U, M, K], eids, the device count of live slots or None for all U)
-        cases = [
-            ("sel", MM.qbits_moe_small_m, x8[: len(MOE_SEL_EIDS), None, :], table(MOE_SEL_EIDS), None),
-            ("all", MM.qbits_moe_small_m, x8.expand(MOE_EXPERTS, MOE_S, K), None, None),
-            ("uniq", MM.qbits_moe_small_m, x8.expand(len(MOE_UNIQ_EIDS), MOE_S, K), table(MOE_UNIQ_EIDS), None),
-        ] + [
+        cases = [("sel", MM.qbits_moe_small_m, x8[: len(MOE_SEL_EIDS), None, :], table(MOE_SEL_EIDS), None)]
+        if bits == 4:
+            cases += [
+                ("all", MM.qbits_moe_small_m, x8.expand(MOE_EXPERTS, MOE_S, K), None, None),
+                ("uniq", MM.qbits_moe_small_m, x8.expand(len(MOE_UNIQ_EIDS), MOE_S, K), table(MOE_UNIQ_EIDS),
+                 None),
+            ]
+        cases += [
             ("experts", MM.qbits_moe_tiled,
              torch.randn((MOE_EXPERTS, M, K), device=dev, generator=g, dtype=torch.bfloat16), None, None)
-            for M in MOE_TILED_M
+            for M in (MOE_TILED_M if bits == 4 else MOE_INT2_TILED_M)
         ]
         # The B = 4 decode step: gate/up over the shared rows, down over each slot's own rows.
         x4 = torch.randn((MOE_DECODE_M, K), device=dev, generator=g, dtype=torch.bfloat16)
@@ -550,7 +598,7 @@ def phase_moe(flush):
             err = (out - ref).abs().max().item()
             ref_max = ref.abs().max().item()
             cos = cosine(out, ref)
-            name = kernel.__name__
+            name = kernel.__name__ + ("_int2" if bits == 2 else "")
             if not (cos > 1 - 1e-5 and err <= 1e-4 * ref_max):
                 raise RuntimeError(
                     f"{name} {form} U={U} nslots={count} M={M} N={N} K={K}: cosine {cos} max_abs_err {err} "
@@ -560,7 +608,7 @@ def phase_moe(flush):
             # payloads, scales and shifts once, the float32 output written once; 2 n M N K
             # operations in bf16 over the n live slots.
             x_bytes = (M if x3.stride(0) == 0 else n_live * M) * K * 2
-            nbytes = x_bytes + len(experts) * (N * K // 2 + 2 * G * N * 4) + U * M * N * 4
+            nbytes = x_bytes + len(experts) * (N * K * bits // 8 + 2 * G * N * 4) + U * M * N * 4
             ops = 2 * n_live * M * N * K
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOPS * 1e3
             row = dict(
@@ -884,12 +932,17 @@ def counters():
 
 
 def read_counts() -> dict:
-    return {name: w.launches for name, w in counters().items()}
+    """Each wrapper's launches, and those of each int2 arm under `<name>_int2`."""
+    counts = {name: w.launches for name, w in counters().items()}
+    counts.update({f"{name}_int2": counters()[name].launches_int2 for name in INT2_ARMS})
+    return counts
 
 
 def reset_counts() -> None:
     for w in counters().values():
         w.launches = 0
+    for name in INT2_ARMS:
+        counters()[name].launches_int2 = 0
 
 
 @contextlib.contextmanager
@@ -903,8 +956,8 @@ def plain_versions():
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
     def flat(fn):
-        def run(x, *args):
-            out = fn(x.reshape(-1, x.shape[-1]).contiguous(), *args)
+        def run(x, *args, **kw):
+            out = fn(x.reshape(-1, x.shape[-1]).contiguous(), *args, **kw)
             return out.reshape(*x.shape[:-1], out.shape[-1])
         return run
 
@@ -1414,20 +1467,25 @@ def phase_engine(model, rows) -> dict:
     return {"batch": batch_counts, "stream": out["launches"]}
 
 
-def build_mixtral(config, seed: int, stacked: bool = True):
+def build_mixtral(config, seed: int, stacked: bool = True, experts: str = "qint4"):
     """The Mixtral configuration with random weights from `seed`, built on
     "meta" and materialized on the card one decoder layer at a time: each
-    layer's linears (attention, router, experts) are quantized to qint4 and
-    frozen, and its MoE block converted to the stacked dispatch (when
-    `stacked`), before the next layer's weights are drawn. The lm_head and
-    the embedding stay bf16, as `quantize(weights="qint4", exclude="lm_head")`
+    layer's experts are quantized to `experts` (`quantize(layer,
+    weights=experts, include="*experts*")`), its other linears (attention,
+    router) to qint4, all frozen, and its MoE block converted to the stacked
+    dispatch (when `stacked`), before the next layer's weights are drawn. The
+    lm_head and the embedding stay bf16, as `quantize(..., exclude="lm_head")`
     leaves them."""
     from quanto_tpu_torch import StackedSparseMoeBlock, convert_moe_to_stacked, freeze, quantize
     from quanto_tpu_torch.models.mixtral import MixtralForCausalLM
     from quanto_tpu_torch.nn import QLinear
     from quanto_tpu_torch.tensor.weights import WeightQBitsArray, WeightQBitsHopperArray
 
+    bits = int(experts[len("qint"):])
+
     def per_layer(layer):
+        if experts != "qint4":
+            quantize(layer, weights=experts, include="*experts*")
         quantize(layer, weights="qint4")
         freeze(layer)
         if stacked and convert_moe_to_stacked(layer, capacity_factor=2.0) != 1:
@@ -1438,8 +1496,16 @@ def build_mixtral(config, seed: int, stacked: bool = True):
     for layer in model.model.layers:
         attn = [layer.self_attn.q_proj, layer.self_attn.k_proj, layer.self_attn.v_proj, layer.self_attn.o_proj]
         moe = layer.block_sparse_moe
-        if not all(isinstance(m, QLinear) and isinstance(m.weight, WeightQBitsHopperArray) for m in attn):
+        if not all(isinstance(m, QLinear) and isinstance(m.weight, WeightQBitsHopperArray)
+                   and m.weight.bits == 4 for m in attn):
             raise RuntimeError("attention projections are not qint4 in the Hopper layout")
+        if stacked:
+            expert_bits = {p.bits for p in (moe.proj_gate, moe.proj_up, moe.proj_down)}
+        else:
+            expert_bits = {w.bits if isinstance(w, WeightQBitsHopperArray) else None
+                           for e in moe.experts for w in (e.w1.weight, e.w2.weight, e.w3.weight)}
+        if expert_bits != {bits}:
+            raise RuntimeError(f"experts of widths {expert_bits} in the Hopper layout, want {{{bits}}}")
         if not isinstance(moe.gate.weight, WeightQBitsArray):  # N = 8: off the kernels' envelope
             raise RuntimeError("the router should stay in the generic int4 layout")
         if stacked != isinstance(moe, StackedSparseMoeBlock):
@@ -1467,13 +1533,14 @@ def moe_step_bytes(model, routed_experts: int) -> int:
     return total + model.lm_head.weight.numel() * model.lm_head.weight.element_size()
 
 
-def mixtral_want(config, batch: int):
+def mixtral_want(config, batch: int, expert_bits: int = 4):
     """Exact launches of one prefill (B x T tokens) and one decode step: the
     attention's q/k/v/o through `qbits_mm`, the MoE block's three projections
     through the MoE kernels on the route the shape takes (prefill: the
     capacity gather, 3 `qbits_moe_tiled`; decode at B = 1: the selective
     route, 3 `qbits_moe_small_m`; at B = 4: the unique-expert route, 2
-    `qbits_moe_small_m` and the down projection's `qbits_moe_tiled`)."""
+    `qbits_moe_small_m` and the down projection's `qbits_moe_tiled`). With
+    int2 experts every MoE launch is one of the int2 arm's too."""
     L = config.num_hidden_layers
     prefill = {"qbits_mm_tiled": 4 * L, "qbits_moe_tiled": 3 * L}
     step = {"qbits_mm_small_m": 4 * L, "flash_decode": L}
@@ -1481,14 +1548,18 @@ def mixtral_want(config, batch: int):
         step["qbits_moe_small_m"] = 3 * L
     else:
         step.update(qbits_moe_small_m=2 * L, qbits_moe_tiled=L)
+    if expert_bits == 2:
+        for want in (prefill, step):
+            want.update({f"{n}_int2": c for n, c in want.items() if n.startswith("qbits_moe")})
     return prefill, step
 
 
 @torch.no_grad()
-def phase_mixtral(model, ids) -> dict:
-    """Phase 8 at one batch: prefill (last position only) and 63 greedy decode
-    steps over a bf16 cache of T + NEW slots, with exact launch counts of
-    every kernel in each half. Returns the run's launch counts."""
+def phase_mixtral(model, ids, expert_bits: int = 4) -> dict:
+    """Phase 8 (phase 12 with int2 experts) at one batch: prefill (last
+    position only) and 63 greedy decode steps over a bf16 cache of T + NEW
+    slots, with exact launch counts of every kernel in each half. Returns the
+    run's launch counts."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
@@ -1514,7 +1585,7 @@ def phase_mixtral(model, ids) -> dict:
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dec = {n: launches[n] - pre[n] for n in launches}
-    want_pre, want_step = mixtral_want(config, batch)
+    want_pre, want_step = mixtral_want(config, batch, expert_bits)
     zeros = {n: 0 for n in launches}
     if pre != {**zeros, **want_pre}:
         raise RuntimeError(f"mixtral B={batch}: prefill launches {pre}, want {want_pre} and 0 elsewhere")
@@ -1531,7 +1602,8 @@ def phase_mixtral(model, ids) -> dict:
     # all 8, as the step routes (the bound is given at both ends).
     lo, hi = moe_step_bytes(model, 2), moe_step_bytes(model, 2 if batch == 1 else MOE_EXPERTS)
     log(json.dumps({
-        "mixtral": "mixtral-8x7b-config qint4 experts+attention (lm_head bf16), stacked MoE, bf16 cache",
+        "mixtral": f"mixtral-8x7b-config qint{expert_bits} experts, qint4 attention (lm_head bf16), "
+                   "stacked MoE, bf16 cache",
         "batch": batch, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
         "prefill_ms": prefill_s * 1e3,
         "decode_ms_per_step": decode_s / steps * 1e3,
@@ -1629,17 +1701,18 @@ def compare_rows(what: str, k, o, route_k, route_o) -> None:
 
 
 @torch.no_grad()
-def phase_mixtral_end_to_end(ids, seed: int):
-    """Phase 9: 2 layers at full width, B = 1 and B = 4: prefill last-position
-    logits and one decode step of the stacked model, against the same model's
-    dense-mask blocks (run first, through `qbits_mm`) and against the stacked
-    model through the plain versions, row by row (`compare_rows`)."""
+def phase_mixtral_end_to_end(ids, seed: int, experts: str = "qint4"):
+    """Phase 9 (phase 12's check with int2 experts): 2 layers at full width,
+    B = 1 and B = 4: prefill last-position logits and one decode step of the
+    stacked model, against the same model's dense-mask blocks (run first,
+    through `qbits_mm`) and against the stacked model through the plain
+    versions, row by row (`compare_rows`)."""
     from quanto_tpu_torch import convert_moe_to_stacked
     from quanto_tpu_torch.models.mixtral import MixtralConfig
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
     config = MixtralConfig(**dict(MIXTRAL_8X7B, num_hidden_layers=2), dtype=torch.bfloat16)
-    model = build_mixtral(config, seed=seed, stacked=False)
+    model = build_mixtral(config, seed=seed, stacked=False, experts=experts)
     records, hooks = route_record(model)
     L = config.num_hidden_layers
 
@@ -1660,8 +1733,9 @@ def phase_mixtral_end_to_end(ids, seed: int):
     reset_counts()
     kernel = {b: run(b) for b in (1, 4)}
     counts = read_counts()
-    if not counts["qbits_moe_small_m"] or not counts["qbits_moe_tiled"]:
-        raise RuntimeError(f"the stacked model did not launch both MoE kernels: {counts}")
+    arms = ("qbits_moe_small_m", "qbits_moe_tiled")
+    if not all(counts[n] for n in arms) or (experts == "qint2" and not all(counts[n + "_int2"] for n in arms)):
+        raise RuntimeError(f"the stacked model did not launch both MoE kernels' {experts} arms: {counts}")
     with plain_versions():
         plain = {b: run(b) for b in (1, 4)}
     if read_counts() != counts:
@@ -1674,7 +1748,7 @@ def phase_mixtral_end_to_end(ids, seed: int):
             rk, rd, rp = kernel[b][2][i], dense[b][2][i], plain[b][2][i]
             top_k, top_d, top_p = k.argmax(-1), d.argmax(-1), p.argmax(-1)
             log(json.dumps({
-                "mixtral_end_to_end": what, "batch": b, "seed": seed,
+                "mixtral_end_to_end": what, "experts": experts, "batch": b, "seed": seed,
                 "cosine_vs_dense": torch.nn.functional.cosine_similarity(k, d, dim=-1).tolist(),
                 "cosine_vs_plain": torch.nn.functional.cosine_similarity(k, p, dim=-1).tolist(),
                 "top1_stacked": top_k.tolist(), "top1_dense": top_d.tolist(), "top1_plain": top_p.tolist(),
@@ -1682,8 +1756,118 @@ def phase_mixtral_end_to_end(ids, seed: int):
                 "route_max_abs_diff_vs_dense": (rk - rd).abs().max().item(),
                 "route_max_abs_diff_vs_plain": (rk - rp).abs().max().item(),
             }))
-            compare_rows(f"seed {seed} B={b} {what} vs dense", k, d, rk, rd)
-            compare_rows(f"seed {seed} B={b} {what} vs plain", k, p, rk, rp)
+            compare_rows(f"{experts} seed {seed} B={b} {what} vs dense", k, d, rk, rd)
+            compare_rows(f"{experts} seed {seed} B={b} {what} vs plain", k, p, rk, rp)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def phase_llama_int2(config, ids) -> tuple:
+    """Phase 11: Llama-3.1-8B in qint2 (group size 128, lm_head bf16). The
+    decode run of phase 6 (B = 4 x 1024 prompts, 63 greedy steps over a bf16
+    cache): every step 224 launches of `qbits_mm_small_m`'s int2 arm, the
+    prefill at M = 4096 none (an int2 weight takes no kernel above M = 1024, as
+    in JAX). Then a B = 1 prefill of 1024 tokens: 224 launches of
+    `qbits_mm_tiled`'s int2 arm. Returns both runs' launch counts."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    layers = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * layers, NEW - 1
+    t0 = time.perf_counter()
+    model, qlinears = build_model(config, seed=0, weights="qint2", exclude="lm_head")
+    torch.cuda.synchronize()
+    log(f"int2: built + quantized + frozen {layers} layers in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    if not all(m.weight.bits == 2 for m in qlinears):
+        raise RuntimeError("a linear of the qint2 model is not int2")
+    step = n_lin * steps
+    decode_counts = phase_arm(
+        "int2: llama-3.1-8b-config qint2 (lm_head bf16), bf16 cache", model, ids, want_prefill={},
+        want_decode={"qbits_mm_small_m": step, "qbits_mm_small_m_int2": step, "flash_decode": layers * steps},
+    )
+
+    x1 = ids[:1]
+    prefill(model, x1, make_cache(model, 1, T), last_only=True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cache = make_cache(model, 1, T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, x1, cache, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {**{n: 0 for n in counts}, "qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin}
+    if counts != want:
+        raise RuntimeError(f"int2 B = 1 prefill launches {counts}, want {want}")
+    if logits.shape != (1, 1, config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"int2 B = 1 prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    # Least time of the linears: 2 M N K operations each at the bf16 tensor-core rate.
+    ops = 2 * T * sum(m.out_features * m.in_features for m in qlinears)
+    log(json.dumps({
+        "int2_prefill": "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache",
+        "prefill_ms": prefill_s * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {n: c for n, c in counts.items() if c},
+        "linears_operations": ops, "linears_bound_ms": ops / PEAK_BF16_FLOPS * 1e3,
+    }))
+    del model, qlinears, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return decode_counts, counts
+
+
+# Phase 11's 2-layer check, kernel path against the plain versions on the same qint2 weights:
+# cosine per row (phase 5's limit; readings in PERF.md), top-1 tokens equal or at a logit tie.
+INT2_E2E_COS = 0.999
+
+
+@torch.no_grad()
+def phase_llama_int2_end_to_end(ids):
+    """Phase 11's check at 2 layers and full width: a B = 1 prefill of 1024
+    tokens (last-position logits, through the tiled kernel's int2 arm) and one
+    decode step after a B = 4 prefill (through the small-M kernel's int2 arm),
+    against the same model through the plain versions."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
+    model, _ = build_model(config, seed=1, weights="qint2", exclude="lm_head")
+    n_lin = LINEARS_PER_LAYER * config.num_hidden_layers
+
+    def run():
+        pre, _ = prefill(model, ids[:1], make_cache(model, 1, T), last_only=True)
+        _, cache = prefill(model, ids, make_cache(model, B, T + 8), last_only=True)
+        step, _ = model(ids[:, -1:], cache, T)
+        torch.cuda.synchronize()
+        return pre[:, -1].float(), step[:, -1].float()
+
+    reset_counts()
+    kernel = run()
+    counts = read_counts()
+    want = {**{n: 0 for n in counts}, "qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin,
+            "qbits_mm_small_m": n_lin, "qbits_mm_small_m_int2": n_lin, "flash_decode": config.num_hidden_layers}
+    if counts != want:
+        raise RuntimeError(f"int2 end-to-end launches {counts}, want {want}")
+    with plain_versions():
+        plain = run()
+    if read_counts() != counts:
+        raise RuntimeError("int2: the plain forward launched a kernel")
+    for what, k, p in (("B = 1 prefill", kernel[0], plain[0]), ("decode step", kernel[1], plain[1])):
+        cos = F.cosine_similarity(k, p, dim=-1)
+        top_k, top_p = k.argmax(-1), p.argmax(-1)
+        log(json.dumps({"int2_end_to_end": what, "cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
+                        "top1_plain": top_p.tolist()}))
+        if not bool((cos > INT2_E2E_COS).all()):
+            raise RuntimeError(f"int2 {what}: cosine {cos.tolist()} <= {INT2_E2E_COS}")
+        for r in (top_k != top_p).nonzero().flatten().tolist():
+            gap = (p[r, top_p[r]] - p[r, top_k[r]]).item()
+            scale = p[r].abs().max().item()
+            log(json.dumps({"int2_logit_tie": what, "row": r, "logit_gap": gap, "max_abs_logit": scale}))
+            if gap > LOGIT_TIE * scale:
+                raise RuntimeError(f"int2 {what}: row {r}'s top-1 token differs with no logit tie (gap {gap})")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1714,7 +1898,8 @@ def main() -> int:
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
-            + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush))
+            + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
+            + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2))
     del flush
     torch.cuda.empty_cache()
 
@@ -1795,6 +1980,26 @@ def main() -> int:
     for seed in MIXTRAL_E2E_SEEDS:
         phase_mixtral_end_to_end(mixtral_ids, seed)
 
+    # Phase 11: Llama-3.1-8B in qint2, and its 2-layer check.
+    launches_int2_decode, launches_int2_prefill = phase_llama_int2(config, ids)
+    phase_llama_int2_end_to_end(ids)
+
+    # Phase 12: Mixtral-8x7B with qint2 experts (attention qint4) at B = 4, then B = 1; its
+    # 2-layer check.
+    t0 = time.perf_counter()
+    model = build_mixtral(mixtral_config, seed=0, experts="qint2")
+    torch.cuda.synchronize()
+    log(f"mixtral int2: built on meta, then {mixtral_config.num_hidden_layers} layers materialized + "
+        f"quantized + frozen + stacked one at a time in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    launches_moe_int2 = phase_mixtral(model, mixtral_ids, expert_bits=2)
+    launches_moe_int2_b1 = phase_mixtral(model, mixtral_ids[:1], expert_bits=2)
+    check_no_sync(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mixtral_end_to_end(mixtral_ids, MIXTRAL_E2E_SEEDS[0], experts="qint2")
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -1806,10 +2011,14 @@ def main() -> int:
         "qbits_mm_requant_int8": ("phase 10 (serving engine, batch arm)", launches_engine["batch"]),
         "qbits_moe_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
         "qbits_moe_tiled": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
+        "qbits_mm_small_m_int2": ("phase 11 (llama-3.1-8b qint2, decode run)", launches_int2_decode),
+        "qbits_mm_tiled_int2": ("phase 11 (llama-3.1-8b qint2, B = 1 prefill)", launches_int2_prefill),
+        "qbits_moe_small_m_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
+        "qbits_moe_tiled_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
     }
     kernels = []
     for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
-                 "qbits_moe_tiled"]:
+                 "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS)]:
         mine = [r for r in rows if r["name"] == name]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
@@ -1823,7 +2032,7 @@ def main() -> int:
         run, counts = launch_runs.get(name, ("phase 4b (ctx 8192)", launches))
         extra = {} if name in launch_runs else {"launches_ctx1088": launches_1088[name]}
         if name.startswith("qbits_moe"):
-            extra = {"launches_b1": launches_moe_b1[name]}
+            extra = {"launches_b1": (launches_moe_int2_b1 if name.endswith("_int2") else launches_moe_b1)[name]}
         if name == "qbits_mm_requant_int8":
             extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
         kernels.append(dict(

@@ -1,9 +1,10 @@
-// Stacked-expert int4 matmuls for Hopper (sm_90a): the MoE kernels.
+// Stacked-expert int4/int2 matmuls for Hopper (sm_90a): the MoE kernels.
 //
 //   out[u, m, :] = x[u, m, :] @ deq(W[e_u])^T   in float32,   e_u = eids[u] (or u without a table),
 //
-// over a stacked weight: packed uint8 [E, N, K/2], scale_t and shift_t float32 [E, G, N], each
-// expert in the layout of qbits_mm.cuh. x is bfloat16 or float32 [U, M, K] with contiguous rows
+// over a stacked weight: packed uint8 [E, N, K * bits / 8], scale_t and shift_t float32
+// [E, G, N], each expert in the layout of qbits_mm.cuh, int4 or int2 codes (an instantiation
+// each, chosen by the entry point's `bits`). x is bfloat16 or float32 [U, M, K] with contiguous rows
 // and any slot stride: 0 when every slot sees the same rows (the all and uniq forms), K for one
 // row per slot (the selective form), M * K for a slab per slot (the batched-expert GEMM). When
 // `nslots` (a device int) is given, slots at or past it write zeros and read no weight, so a
@@ -38,7 +39,7 @@ __device__ __forceinline__ int slot_expert(const int* eids, const int* nslots, i
 // row, so no slot computes rows it then throws away (the TPU kernel's padded diagonal, needed by
 // Mosaic's sublane tiling, has no reason to exist here).
 // ---------------------------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(SM_THREADS) qbits_moe_small_m_kernel(
     const T* __restrict__ x, long long x_slot_stride, const int* __restrict__ eids,
     const int* __restrict__ nslots, const uint8_t* __restrict__ packed,
@@ -58,9 +59,10 @@ __global__ void __launch_bounds__(SM_THREADS) qbits_moe_small_m_kernel(
     return;
   }
   const size_t G = (size_t)(K / gs);
-  small_m_block<T, float>(x + (size_t)u * x_slot_stride, packed + (size_t)e * N * (K / 2),
-                          scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N, out, M, N, K,
-                          gs, n0, m0);
+  small_m_block<T, float, BITS>(x + (size_t)u * x_slot_stride,
+                                packed + (size_t)e * N * row_bytes<BITS>(K),
+                                scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N, out, M,
+                                N, K, gs, n0, m0);
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(SM_THREADS) qbits_moe_small_m_kernel(
 // ragged M is masked by the body. Slabs of at most 16 rows (the down projection of a decode step)
 // take a 16 x 128 tile instead of 128 x 128.
 // ---------------------------------------------------------------------------------------------
-template <typename T, int WM, int MT>
+template <typename T, int WM, int MT, int BITS>
 __global__ void __launch_bounds__(TL_THREADS, 1) qbits_moe_tiled_kernel(
     const T* __restrict__ x, long long x_slot_stride, const int* __restrict__ eids,
     const int* __restrict__ nslots, const uint8_t* __restrict__ packed,
@@ -94,9 +96,10 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_moe_tiled_kernel(
     return;
   }
   const size_t G = (size_t)(K / gs);
-  tiled_block<T, float, WM, MT>(x + (size_t)u * x_slot_stride, packed + (size_t)e * N * (K / 2),
-                                scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N, out, M,
-                                N, K, gs, m0, n0);
+  tiled_block<T, float, WM, MT, BITS>(x + (size_t)u * x_slot_stride,
+                                      packed + (size_t)e * N * row_bytes<BITS>(K),
+                                      scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N,
+                                      out, M, N, K, gs, m0, n0);
 }
 
 struct Args {
@@ -111,32 +114,32 @@ struct Args {
   int U, M, N, K, gs;
 };
 
-template <typename T>
+template <typename T, int BITS>
 int launch_small_m(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.N / SM_ROWS, (a.M + SM_BM - 1) / SM_BM, a.U);
-  qbits_moe_small_m_kernel<T><<<grid, SM_THREADS, 0, stream>>>(
+  qbits_moe_small_m_kernel<T, BITS><<<grid, SM_THREADS, 0, stream>>>(
       static_cast<const T*>(a.x), a.x_slot_stride, a.eids, a.nslots, a.packed, a.scale_t,
       a.shift_t, a.out, a.M, a.N, a.K, a.gs);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int WM, int MT>
+template <typename T, int WM, int MT, int BITS>
 int launch_tiled(const Args& a, cudaStream_t stream) {
   constexpr int BM = WM * MT * 16;
   constexpr size_t smem = tiled_smem_bytes<T, BM>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      qbits_moe_tiled_kernel<T, WM, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(qbits_moe_tiled_kernel<T, WM, MT, BITS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.N / TL_BN, (a.M + BM - 1) / BM, a.U);
-  qbits_moe_tiled_kernel<T, WM, MT><<<grid, TL_THREADS, smem, stream>>>(
+  qbits_moe_tiled_kernel<T, WM, MT, BITS><<<grid, TL_THREADS, smem, stream>>>(
       static_cast<const T*>(a.x), a.x_slot_stride, a.eids, a.nslots, a.packed, a.scale_t,
       a.shift_t, a.out, a.M, a.N, a.K, a.gs);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int BITS>
 int launch_tiled_for_m(const Args& a, cudaStream_t stream) {
-  return a.M <= 16 ? launch_tiled<T, 1, 1>(a, stream) : launch_tiled<T, 2, TL_MT>(a, stream);
+  return a.M <= 16 ? launch_tiled<T, 1, 1, BITS>(a, stream) : launch_tiled<T, 2, TL_MT, BITS>(a, stream);
 }
 
 Args make_args(const void* x, long long x_slot_stride, const void* eids, const void* nslots,
@@ -150,28 +153,35 @@ Args make_args(const void* x, long long x_slot_stride, const void* eids, const v
 }  // namespace
 
 // x [U, M, K] at slot stride `x_slot_stride` (elements); eids int32 [U] or NULL (slot u ->
-// expert u); nslots int32 scalar or NULL (every slot); out float32 [U, M, N]; x_bf16: 1 when x
-// is bfloat16, 0 when it is float32.
+// expert u); nslots int32 scalar or NULL (every slot); out float32 [U, M, N]; bits: 4 or 2, the
+// code width (any other is refused with cudaErrorInvalidValue); x_bf16: 1 when x is bfloat16, 0
+// when it is float32.
 extern "C" int qbits_moe_small_m(int device, const void* x, long long x_slot_stride,
                                  const void* eids, const void* nslots, const void* packed,
                                  const void* scale_t, const void* shift_t, void* out, int U, int M,
-                                 int N, int K, int gs, int x_bf16, void* stream) {
+                                 int N, int K, int gs, int bits, int x_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, U, M, N,
                            K, gs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_small_m<__nv_bfloat16>(a, s) : launch_small_m<float>(a, s);
+  if (bits == 4) return x_bf16 ? launch_small_m<__nv_bfloat16, 4>(a, s) : launch_small_m<float, 4>(a, s);
+  if (bits == 2) return x_bf16 ? launch_small_m<__nv_bfloat16, 2>(a, s) : launch_small_m<float, 2>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int qbits_moe_tiled(int device, const void* x, long long x_slot_stride,
                                const void* eids, const void* nslots, const void* packed,
                                const void* scale_t, const void* shift_t, void* out, int U, int M,
-                               int N, int K, int gs, int x_bf16, void* stream) {
+                               int N, int K, int gs, int bits, int x_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, U, M, N,
                            K, gs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_tiled_for_m<__nv_bfloat16>(a, s) : launch_tiled_for_m<float>(a, s);
+  if (bits == 4)
+    return x_bf16 ? launch_tiled_for_m<__nv_bfloat16, 4>(a, s) : launch_tiled_for_m<float, 4>(a, s);
+  if (bits == 2)
+    return x_bf16 ? launch_tiled_for_m<__nv_bfloat16, 2>(a, s) : launch_tiled_for_m<float, 2>(a, s);
+  return (int)cudaErrorInvalidValue;
 }

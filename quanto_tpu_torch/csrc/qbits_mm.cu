@@ -1,9 +1,11 @@
-// Fused int4 group-wise dequant matmuls for Hopper (sm_90a).
+// Fused int4/int2 group-wise dequant matmuls for Hopper (sm_90a).
 //
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
 //
 // computed group-factored as  y = sum_g s_g * (x_g . c_g) - (sum_k x_gk) * z_g  with float32
-// sums, then cast to x's dtype (bfloat16 or float32).
+// sums, then cast to x's dtype (bfloat16 or float32). The two float-x kernels take int4 or int2
+// codes (an instantiation each, chosen by the entry point's `bits`); the int8-x kernels below
+// take int4 codes only.
 //
 // W4A8 (int8 x, per-tensor scale sx): the same factoring with integer sums inside each group,
 //
@@ -33,13 +35,13 @@ using namespace qbits;
 // Replaces quanto_tpu/ops/pallas/qbits_mm.py:_kernel, the TPU decode kernel. The body,
 // small_m_block in qbits_mm.cuh, says what bounds it and how it is built.
 // ---------------------------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(SM_THREADS) qbits_mm_small_m_kernel(
     const T* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
     T* __restrict__ out, int M, int N, int K, int gs) {
-  small_m_block<T, T>(x, packed, scale_t, shift_t, out, M, N, K, gs, blockIdx.x * SM_ROWS,
-                      blockIdx.y * SM_BM);
+  small_m_block<T, T, BITS>(x, packed, scale_t, shift_t, out, M, N, K, gs, blockIdx.x * SM_ROWS,
+                            blockIdx.y * SM_BM);
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -48,13 +50,13 @@ __global__ void __launch_bounds__(SM_THREADS) qbits_mm_small_m_kernel(
 // Replaces quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel, the TPU prefill kernel. The body,
 // tiled_block in qbits_mm.cuh, says what bounds it and how it is built; here its 128 x 128 tile.
 // ---------------------------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_kernel(
     const T* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
     T* __restrict__ out, int M, int N, int K, int gs) {
-  tiled_block<T, T, 2, TL_MT>(x, packed, scale_t, shift_t, out, M, N, K, gs, blockIdx.y * TL_BM,
-                              blockIdx.x * TL_BN);
+  tiled_block<T, T, 2, TL_MT, BITS>(x, packed, scale_t, shift_t, out, M, N, K, gs,
+                                    blockIdx.y * TL_BM, blockIdx.x * TL_BN);
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -464,26 +466,26 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int BITS>
 int launch_small_m(const void* x, const void* packed, const void* scale_t, const void* shift_t,
                    void* out, int M, int N, int K, int gs, cudaStream_t stream) {
   const dim3 grid(N / SM_ROWS, (M + SM_BM - 1) / SM_BM);
-  qbits_mm_small_m_kernel<T><<<grid, SM_THREADS, 0, stream>>>(
+  qbits_mm_small_m_kernel<T, BITS><<<grid, SM_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
       static_cast<T*>(out), M, N, K, gs);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int BITS>
 int launch_tiled(const void* x, const void* packed, const void* scale_t, const void* shift_t,
                  void* out, int M, int N, int K, int gs, cudaStream_t stream) {
   constexpr size_t smem = tiled_smem_bytes<T>();
   const cudaError_t e = cudaFuncSetAttribute(
-      qbits_mm_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      qbits_mm_tiled_kernel<T, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
-  qbits_mm_tiled_kernel<T><<<grid, TL_THREADS, smem, stream>>>(
+  qbits_mm_tiled_kernel<T, BITS><<<grid, TL_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
       static_cast<T*>(out), M, N, K, gs);
@@ -567,23 +569,34 @@ extern "C" int qbits_mm_requant_int8(int device, const void* x, const void* pack
              : launch_requant<float>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
 }
 
-// x_bf16: 1 when x and out are bfloat16, 0 when they are float32.
+// The float-x entry points: bits 4 or 2 (the code width; any other is refused with
+// cudaErrorInvalidValue); x_bf16: 1 when x and out are bfloat16, 0 when they are float32.
 extern "C" int qbits_mm_small_m(int device, const void* x, const void* packed, const void* scale_t,
                                 const void* shift_t, void* out, int M, int N, int K, int gs,
-                                int x_bf16, void* stream) {
+                                int bits, int x_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_small_m<__nv_bfloat16>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
-                : launch_small_m<float>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  if (bits == 4)
+    return x_bf16 ? launch_small_m<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
+                  : launch_small_m<float, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  if (bits == 2)
+    return x_bf16 ? launch_small_m<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
+                  : launch_small_m<float, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int qbits_mm_tiled(int device, const void* x, const void* packed, const void* scale_t,
-                              const void* shift_t, void* out, int M, int N, int K, int gs,
+                              const void* shift_t, void* out, int M, int N, int K, int gs, int bits,
                               int x_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_tiled<__nv_bfloat16>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
-                : launch_tiled<float>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  if (bits == 4)
+    return x_bf16 ? launch_tiled<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
+                  : launch_tiled<float, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  if (bits == 2)
+    return x_bf16 ? launch_tiled<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
+                  : launch_tiled<float, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Device code shared by the int4 group-wise dequant matmuls of qbits_mm.cu (one weight) and
+// Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm.cu (one weight) and
 // moe_mm.cu (a weight per slot of a stacked expert array).
 //
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
@@ -6,13 +6,17 @@
 // computed group-factored as  y = sum_g s_g * (x_g . c_g) - (sum_k x_gk) * z_g  with float32
 // sums. x is bfloat16 or float32; the output type TO is x's or float32.
 //
-// Weight layout (quanto_tpu_torch/tensor/weights.py:WeightQBitsHopperArray):
-//   packed  uint8 [N, K/2], packed[n, j] = c[n, 2j] | c[n, 2j + 1] << 4, so one 16-byte load
-//           holds 32 consecutive K codes of one row; bytes are unsigned, so no sign extension;
+// Weight layout (quanto_tpu_torch/tensor/weights.py:WeightQBitsHopperArray), BITS = 4 or 2:
+//   packed  uint8 [N, K * BITS / 8], K-contiguous: code k of a row at bits BITS * (k % (8 / BITS))
+//           of byte k / (8 / BITS). int4: packed[n, j] = c[n, 2j] | c[n, 2j + 1] << 4; int2:
+//           packed[n, j] = c[n, 4j] | c[n, 4j + 1] << 2 | c[n, 4j + 2] << 4 | c[n, 4j + 3] << 6.
+//           So code t of a run of 32 codes starting at a multiple of 32 lies at bit BITS * t of
+//           the run's BITS 32-bit words (little endian); bytes are unsigned, so no sign extension;
 //   scale_t, shift_t  float32 [G, N] (G = K / gs), float-shift semantics.
 //
-// The kernels' bodies are device functions over one block's output tile, so that a kernel
-// computes the offsets of its operands (an expert's weight, a slot's x) and calls them.
+// The kernels' bodies are device functions over one block's output tile, templated on BITS, so
+// that a kernel computes the offsets of its operands (an expert's weight, a slot's x) and calls
+// them.
 
 #pragma once
 
@@ -25,6 +29,39 @@ namespace qbits {
 // A code c in [0, 15] as a float: 0x4B000000 | c is the float 2^23 + c exactly.
 __device__ __forceinline__ float code_to_float(uint32_t c) {
   return __uint_as_float(0x4B000000u | c) - 8388608.0f;
+}
+
+// Bytes of a packed weight row of K codes.
+template <int BITS>
+__device__ __forceinline__ size_t row_bytes(int K) {
+  return (size_t)K * BITS / 8;
+}
+
+// The 32 codes of a run (BITS * 4 bytes, aligned to that size) as BITS 32-bit words: one 16-byte
+// load for int4, one 8-byte load for int2.
+template <int BITS>
+__device__ __forceinline__ void load_run(const uint8_t* p, uint32_t (&w)[BITS]);
+
+template <>
+__device__ __forceinline__ void load_run<4>(const uint8_t* p, uint32_t (&w)[4]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+template <>
+__device__ __forceinline__ void load_run<2>(const uint8_t* p, uint32_t (&w)[2]) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+}
+
+// Code t (0 <= t < 32, known at compile time once unrolled) of a run loaded by load_run.
+template <int BITS>
+__device__ __forceinline__ uint32_t run_code(const uint32_t (&w)[BITS], int t) {
+  return (w[(BITS * t) / 32] >> ((BITS * t) % 32)) & ((1u << BITS) - 1u);
 }
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
@@ -62,23 +99,30 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 // rows of x, far below the ~295 operations per byte at which the tensor cores would become the
 // limit. Design: a block owns SM_ROWS weight rows (output columns) and SM_BM rows of x and walks
 // all of K inside the block, which takes the place of the TPU's sequential grid. Each thread
-// loads 16 bytes (32 codes) of each of its rows per step, coalesced along K, and unpacks them in
-// registers. The 32 codes lie in one group (gs % 32 == 0), so the thread accumulates x . c and
-// sum(x) over them in float32 and applies s_g and z_g in registers. x is tiny next to the
-// weights and stays in L1/L2. A block-wide reduction sums the threads' partial outputs.
+// takes a run of 32 codes of each of its rows per step, coalesced along K (16 bytes for int4,
+// 8 for int2), and unpacks them in registers. The 32 codes lie in one group (gs % 32 == 0), so
+// the thread accumulates x . c and sum(x) over them in float32 and applies s_g and z_g in
+// registers. x is tiny next to the weights and stays in L1/L2. A block-wide reduction sums the
+// threads' partial outputs.
+//
+// int2: a step keeps its 32 codes and halves its bytes, rather than keeping 16 bytes and taking
+// 64 codes. At K = 4096 a 64-code step would leave 64 of the 128 threads without work, and the
+// kernel is held by its arithmetic and latency, not by its bytes (the int4 arm takes about five
+// times its byte bound), so a wider load would not pay; the register tiles, the group rule and
+// the reduction stay the int4 arm's.
 // ---------------------------------------------------------------------------------------------
 constexpr int SM_THREADS = 128;
 constexpr int SM_ROWS = 4;
 constexpr int SM_BM = 4;
 
 // Output rows m0 .. m0 + SM_BM - 1 (those below M) and columns n0 .. n0 + SM_ROWS - 1.
-template <typename T, typename TO>
+template <typename T, typename TO, int BITS>
 __device__ __forceinline__ void small_m_block(
     const T* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
     TO* __restrict__ out, int M, int N, int K, int gs, int n0, int m0) {
   const int rows_m = min(SM_BM, M - m0);
-  const size_t kp = (size_t)K / 2;
+  const size_t kp = row_bytes<BITS>(K);
   const int nchunks = K / 32;
 
   float y[SM_ROWS][SM_BM];
@@ -89,15 +133,10 @@ __device__ __forceinline__ void small_m_block(
 
   for (int c = threadIdx.x; c < nchunks; c += SM_THREADS) {
     const int k0 = c * 32;
-    uint32_t w[SM_ROWS][4];
+    uint32_t w[SM_ROWS][BITS];
 #pragma unroll
-    for (int r = 0; r < SM_ROWS; ++r) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(packed + (size_t)(n0 + r) * kp) + c);
-      w[r][0] = v.x;
-      w[r][1] = v.y;
-      w[r][2] = v.z;
-      w[r][3] = v.w;
-    }
+    for (int r = 0; r < SM_ROWS; ++r)
+      load_run<BITS>(packed + (size_t)(n0 + r) * kp + (size_t)c * 4 * BITS, w[r]);
     float dot[SM_ROWS][SM_BM];
     float xs[SM_BM];
 #pragma unroll
@@ -107,12 +146,12 @@ __device__ __forceinline__ void small_m_block(
       for (int r = 0; r < SM_ROWS; ++r) dot[r][m] = 0.f;
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // 8 codes per 32-bit word
+    for (int q = 0; q < 4; ++q) {  // codes 8q .. 8q + 7 of the run
       float cf[SM_ROWS][8];
 #pragma unroll
       for (int r = 0; r < SM_ROWS; ++r)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) cf[r][i] = code_to_float((w[r][q] >> (4 * i)) & 0xFu);
+        for (int i = 0; i < 8; ++i) cf[r][i] = code_to_float(run_code<BITS>(w[r], 8 * q + i));
 #pragma unroll
       for (int m = 0; m < SM_BM; ++m) {
         if (m < rows_m) {
@@ -170,11 +209,17 @@ __device__ __forceinline__ void small_m_block(
 // a block owns a BM x TL_BN output tile and loops over K in TL_BK steps inside the block (the
 // TPU's "arbitrary" K grid axis has no counterpart across blocks). Each step stages the x tile
 // and the weight tile in shared memory as bfloat16: codes are unpacked to bfloat16, which is
-// exact for int4, and float32 x is split into a bfloat16 high part and a bfloat16 low part (two
+// exact for int4 and int2, and float32 x is split into a bfloat16 high part and a bfloat16 low part (two
 // products), so the tensor cores see float32 x to about 16 bits. mma.sync m16n8k16 sums x . c in
 // float32 per group; at each group's end the per-group epilogue y += s_g * acc - (sum x_g) * z_g
 // runs in registers, with sum x_g taken from the staged values' float32 sums. No wgmma, TMA or
 // pipelining yet: right and simple first.
+//
+// int2: a K step keeps its TL_BK = 64 codes and halves its bytes (each thread stages 8 packed
+// bytes instead of 16), rather than keeping its bytes and taking 128 codes. The staged tile is
+// bf16 codes either way, so the shared-memory layout, the mma loop and the per-group epilogue
+// (gs % 64 == 0) stay the int4 arm's; a 128-code step would double the x tile in shared memory
+// for a kernel that is held by its tensor-core work, not by the weight bytes.
 //
 // The 8 warps form a WM x (8 / WM) grid, each warp an (MT * 16) x (NT * 8) tile: WM = 2, MT = 4
 // gives the 128 x 128 tile of prompt-sized M; WM = 1, MT = 1 a 16 x 128 tile for M <= 16, where
@@ -241,20 +286,15 @@ __device__ __forceinline__ float stage_x32(const float* src, bool valid, __nv_bf
   return s;
 }
 
-// Stage 32 consecutive codes (16 packed bytes) of one weight row as bf16.
+// Stage 32 consecutive codes (4 * BITS packed bytes) of one weight row as bf16.
+template <int BITS>
 __device__ __forceinline__ void stage_w32(const uint8_t* src, __nv_bfloat16* dst) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  uint32_t w[BITS];
+  load_run<BITS>(src, w);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // byte j of word q holds codes 8q + 2j (low) and 8q + 2j + 1
-      const uint32_t lo = (words[q] >> (8 * j)) & 0xFu;
-      const uint32_t hi = (words[q] >> (8 * j + 4)) & 0xFu;
-      reinterpret_cast<__nv_bfloat162*>(dst)[4 * q + j] =
-          __floats2bfloat162_rn(code_to_float(lo), code_to_float(hi));
-    }
-  }
+  for (int p = 0; p < 16; ++p)  // codes 2p and 2p + 1
+    reinterpret_cast<__nv_bfloat162*>(dst)[p] = __floats2bfloat162_rn(
+        code_to_float(run_code<BITS>(w, 2 * p)), code_to_float(run_code<BITS>(w, 2 * p + 1)));
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -285,7 +325,7 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* plane, int row0, int
 
 // Output tile rows m0 .. m0 + WM * MT * 16 - 1 (those below M), columns n0 .. n0 + TL_BN - 1.
 // Needs tiled_smem_bytes<T, WM * MT * 16>() bytes of dynamic shared memory and TL_THREADS threads.
-template <typename T, typename TO, int WM, int MT>
+template <typename T, typename TO, int WM, int MT, int BITS>
 __device__ __forceinline__ void tiled_block(
     const T* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
@@ -316,7 +356,7 @@ __device__ __forceinline__ void tiled_block(
   const bool x_stager = 2 * BM >= TL_THREADS || srow < BM;
   const bool x_valid = x_stager && m0 + srow < M;
   const T* x_src = x + (size_t)(x_valid ? m0 + srow : 0) * K + shalf * 32;
-  const uint8_t* w_src = packed + (size_t)(n0 + srow) * (K / 2) + shalf * 16;
+  const uint8_t* w_src = packed + (size_t)(n0 + srow) * row_bytes<BITS>(K) + shalf * 4 * BITS;
   const int xrow = x_stager ? srow : 0;
   __nv_bfloat16* x_hi_dst = x_hi + xrow * TL_LD + shalf * 32;
   __nv_bfloat16* x_lo_dst = x_lo + xrow * TL_LD + shalf * 32;
@@ -341,7 +381,7 @@ __device__ __forceinline__ void tiled_block(
     const bool group_end = (kbase + TL_BK) % gs == 0;
     float part = 0.f;
     if (x_stager) part = stage_x32(x_src + kbase, x_valid, x_hi_dst, x_lo_dst);
-    stage_w32(w_src + kbase / 2, w_dst);
+    stage_w32<BITS>(w_src + (size_t)kbase * BITS / 8, w_dst);
     part += __shfl_xor_sync(0xffffffffu, part, 1);  // the other half of the row
     gsum += part;
     if (group_end) {

@@ -6,8 +6,9 @@ PyTorch counterpart of `quanto_tpu/nn/qmodule.py`. Workflow states:
 - **calibrated**: the `input_scale` / `output_scale` buffers (0-d float32,
   1 until calibrated) updated by `Calibration` (`quanto_tpu_torch/calibrate.py`);
 - **frozen**: `weight` is a `QArray`, repacked into the Hopper kernel layout
-  when it is int4 and lies on a CUDA device (into its W4A8 requant form,
-  `WeightQBitsRequantArray`, when frozen with `w4a8_requant_dot=True`).
+  when it is int4 or int2 and lies on a CUDA device (an int4 one into its
+  W4A8 requant form, `WeightQBitsRequantArray`, when frozen with
+  `w4a8_requant_dot=True`).
 
 The `qat` flag and `fake_qweight` of the JAX package wait for the training
 slice.
@@ -135,18 +136,19 @@ class QModuleMixin:
 
     @torch.no_grad()
     def freeze(self, w4a8_requant_dot: bool = False) -> None:
-        """Replace the float weight with its quantized form. An int4 weight on a
-        CUDA device is repacked into the Hopper layout when it fits the
-        envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
+        """Replace the float weight with its quantized form. An int4 or int2
+        weight on a CUDA device is repacked into the Hopper layout when it fits
+        the envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
         reads as it is.
 
-        `w4a8_requant_dot`: a Hopper-layout weight takes its requant form
+        `w4a8_requant_dot`: an int4 Hopper-layout weight takes its requant form
         (`WeightQBitsRequantArray`), which sends W4A8 matmuls at M >= 2048
         through the approximate requant kernel (per-channel int8 codes about
         8x finer than the coarsest group's int4 step), the counterpart of
         the JAX package's opt-in `set_backend(w4a8_requant_dot=True)`. On an
         already frozen module it converts a Hopper-layout weight in place of
-        freezing again. Without it, numerics stay exact."""
+        freezing again. An int2 weight keeps the plain Hopper layout: the
+        requant route is int4 only. Without it, numerics stay exact."""
         if self.weight_qtype is None:
             return
         if self.frozen:
@@ -156,7 +158,7 @@ class QModuleMixin:
             if isinstance(qw, WeightQBitsArray) and qw.device.type == "cuda":
                 qw = WeightQBitsHopperArray.from_generic(qw) or qw
             del self.weight  # drop the float Parameter
-        if w4a8_requant_dot and type(qw) is WeightQBitsHopperArray:
+        if w4a8_requant_dot and type(qw) is WeightQBitsHopperArray and qw.bits == 4:
             qw = WeightQBitsRequantArray.from_hopper(qw)
         self.weight = qw
 

@@ -1,4 +1,4 @@
-"""Stacked-expert int4 matmuls (the MoE kernels): the Hopper kernels, their
+"""Stacked-expert int4/int2 matmuls (the MoE kernels): the Hopper kernels, their
 plain version and their launch counts.
 
 Counterpart of `quanto_tpu/ops/pallas/moe_mm.py`. Two CUDA kernels in
@@ -8,7 +8,9 @@ activation,
     out[u] = x[u] @ deq(W[e_u])^T   in float32,   e_u = eids[u] (u without a table),
 
 over a stacked weight in the Hopper layout of `WeightQBitsHopperArray`:
-`packed` uint8 [E, N, K/2], `scale_t`/`shift_t` float32 [E, G, N].
+`packed` uint8 [E, N, K * bits / 8], `scale_t`/`shift_t` float32 [E, G, N],
+int4 or int2 codes (`bits`; every M takes the kernels at either width: the
+JAX MoE kernels have no int2 gate on M).
 - `qbits_moe_small_m` (M <= `MAX_M`) replaces the TPU kernels
   `_moe_sel_kernel`, `_moe_all_kernel` and `_moe_uniq_kernel`;
 - `qbits_moe_tiled` (any M) replaces `_moe_prefill_kernel` and
@@ -27,7 +29,8 @@ The three entry points keep the semantics of the JAX calls:
 
 Each wrapper takes the plain PyTorch version `qbits_moe_plain` when x lies on
 the CPU; on a CUDA tensor it launches its kernel or raises. Each wrapper's
-`launches` attribute counts its kernel launches. Expert ids must lie in
+`launches` attribute counts its kernel launches, of either width, and
+`launches_int2` those of its int2 arm. Expert ids must lie in
 [0, E): the kernels read them on the device and do not check them.
 """
 
@@ -39,7 +42,7 @@ from typing import Optional
 import torch
 
 from ._build import kernel
-from .qbits_mm import MAX_M, dequantize_k_nibbles
+from .qbits_mm import MAX_M, dequantize_k_codes
 
 
 __all__ = [
@@ -56,14 +59,16 @@ __all__ = [
 SEL_MAX = 32
 
 
-def qbits_moe_plain(x3, packed, scale_t, shift_t, group_size: int, eids=None, nslots=None) -> torch.Tensor:
+def qbits_moe_plain(
+    x3, packed, scale_t, shift_t, group_size: int, bits: int = 4, eids=None, nslots=None
+) -> torch.Tensor:
     """Plain version of both kernels: each slot's expert dequantized in
     float32, `x3[u].float() @ w.T`; slots at or past `nslots` are zeros.
     x3 [U, M, K] -> float32 [U, M, N]."""
     U = x3.shape[0]
     ids = eids.long() if eids is not None else torch.arange(U, device=x3.device)
     w = torch.stack([
-        dequantize_k_nibbles(p, s, z, group_size)
+        dequantize_k_codes(p, s, z, group_size, bits)
         for p, s, z in zip(packed[ids], scale_t[ids], shift_t[ids])
     ])
     out = torch.bmm(x3.float(), w.transpose(1, 2))
@@ -75,23 +80,26 @@ def qbits_moe_plain(x3, packed, scale_t, shift_t, group_size: int, eids=None, ns
 
 # --- wrappers ---------------------------------------------------------------
 
-# C signature of both entry points in csrc/moe_mm.cu.
+# C signature of both entry points in csrc/moe_mm.cu: device, x, x_slot_stride, eids, nslots,
+# packed, scale_t, shift_t, out, U, M, N, K, gs, bits, x_bf16, stream.
 _ARGTYPES = (
     [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
     + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6
+    + [ctypes.c_int] * 7
     + [ctypes.c_void_p]
 )
 
 
-def _check(name, x3, packed, scale_t, shift_t, group_size, eids, nslots):
+def _check(name, x3, packed, scale_t, shift_t, group_size, bits, eids, nslots):
     """Validate the operands both kernels take; returns (U, M, N, K)."""
+    if bits not in (2, 4):
+        raise ValueError(f"{name}: bits must be 2 or 4, got {bits}")
     if x3.dim() != 3 or packed.dim() != 3 or scale_t.dim() != 3 or shift_t.dim() != 3:
         raise ValueError(f"{name}: x, packed, scale_t and shift_t must be 3-D")
     U, M, K = x3.shape
     E, N, Kp = packed.shape
-    if Kp * 2 != K:
-        raise ValueError(f"{name}: packed {tuple(packed.shape)} does not match K = {K}")
+    if Kp * 8 != K * bits:
+        raise ValueError(f"{name}: packed {tuple(packed.shape)} does not match K = {K} at {bits} bits")
     if group_size <= 0 or K % group_size or group_size % 64:
         raise ValueError(f"{name}: group size {group_size} must divide K = {K} and be a multiple of 64")
     G = K // group_size
@@ -112,12 +120,13 @@ def _check(name, x3, packed, scale_t, shift_t, group_size, eids, nslots):
     return U, M, N, K
 
 
-def _run(name, x3, packed, scale_t, shift_t, group_size, eids, nslots):
-    """Launch the C entry point `name` into a new float32 [U, M, N] output, or
-    compute the plain version on a CPU tensor; returns (out, launched)."""
-    U, M, N, K = _check(name, x3, packed, scale_t, shift_t, group_size, eids, nslots)
+def _run(wrapper, name, x3, packed, scale_t, shift_t, group_size, bits, eids, nslots):
+    """Launch the C entry point `name` into a new float32 [U, M, N] output,
+    counted in `wrapper.launches` (and `launches_int2`), or compute the plain
+    version on a CPU tensor."""
+    U, M, N, K = _check(name, x3, packed, scale_t, shift_t, group_size, bits, eids, nslots)
     if x3.device.type == "cpu":
-        return qbits_moe_plain(x3, packed, scale_t, shift_t, group_size, eids, nslots), False
+        return qbits_moe_plain(x3, packed, scale_t, shift_t, group_size, bits, eids, nslots)
     tables = [t for t in (eids, nslots) if t is not None]
     if any(t.device != x3.device for t in (packed, scale_t, shift_t, *tables)):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -135,53 +144,55 @@ def _run(name, x3, packed, scale_t, shift_t, group_size, eids, nslots):
         None if eids is None else eids.data_ptr(),
         None if nslots is None else nslots.data_ptr(),
         packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(),
-        U, M, N, K, group_size, int(x3.dtype == torch.bfloat16),
+        U, M, N, K, group_size, bits, int(x3.dtype == torch.bfloat16),
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    return out, True
+    wrapper.launches += 1
+    wrapper.launches_int2 += bits == 2
+    return out
 
 
-def qbits_moe_small_m(x3, packed, scale_t, shift_t, group_size: int, eids=None, nslots=None) -> torch.Tensor:
+def qbits_moe_small_m(
+    x3, packed, scale_t, shift_t, group_size: int, bits: int = 4, eids=None, nslots=None
+) -> torch.Tensor:
     """out[u] = x3[u] @ deq(W[e_u])^T -> float32 [U, M, N], M <= MAX_M.
     Replaces `quanto_tpu/ops/pallas/moe_mm.py:_moe_sel_kernel`,
     `_moe_all_kernel` and `_moe_uniq_kernel`."""
     if x3.dim() == 3 and x3.shape[1] > MAX_M:
         raise ValueError(f"qbits_moe_small_m takes M <= {MAX_M}, got {x3.shape[1]}")
-    out, launched = _run("qbits_moe_small_m", x3, packed, scale_t, shift_t, group_size, eids, nslots)
-    qbits_moe_small_m.launches += launched
-    return out
+    return _run(qbits_moe_small_m, "qbits_moe_small_m", x3, packed, scale_t, shift_t, group_size, bits, eids, nslots)
 
 
-def qbits_moe_tiled(x3, packed, scale_t, shift_t, group_size: int, eids=None, nslots=None) -> torch.Tensor:
+def qbits_moe_tiled(
+    x3, packed, scale_t, shift_t, group_size: int, bits: int = 4, eids=None, nslots=None
+) -> torch.Tensor:
     """out[u] = x3[u] @ deq(W[e_u])^T -> float32 [U, M, N], any M.
     Replaces `quanto_tpu/ops/pallas/moe_mm.py:_moe_prefill_kernel` and
     `_moe_prefill_uniq_kernel`."""
-    out, launched = _run("qbits_moe_tiled", x3, packed, scale_t, shift_t, group_size, eids, nslots)
-    qbits_moe_tiled.launches += launched
-    return out
+    return _run(qbits_moe_tiled, "qbits_moe_tiled", x3, packed, scale_t, shift_t, group_size, bits, eids, nslots)
 
 
-qbits_moe_small_m.launches = 0
-qbits_moe_tiled.launches = 0
+qbits_moe_small_m.launches = qbits_moe_small_m.launches_int2 = 0
+qbits_moe_tiled.launches = qbits_moe_tiled.launches_int2 = 0
 
 
 # --- entry points (the JAX calls' semantics) -----------------------------------
 
 
-def qbits_moe_sel(x_sel, eids, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
+def qbits_moe_sel(x_sel, eids, packed, scale_t, shift_t, group_size: int, bits: int = 4) -> torch.Tensor:
     """out[i] = x_sel[i] @ deq(W[eids[i]])^T, reading only the selected
     experts: x_sel [nsel, K] with nsel <= SEL_MAX, eids int32 [nsel] ->
     float32 [nsel, N] (`qbits_moe_sel_call`, `moe_mm.py:148`)."""
     if x_sel.shape[0] > SEL_MAX:
         raise ValueError(f"qbits_moe_sel takes at most {SEL_MAX} pairs, got {x_sel.shape[0]}")
     x_sel = x_sel.contiguous()
-    return qbits_moe_small_m(x_sel[:, None, :], packed, scale_t, shift_t, group_size, eids=eids)[:, 0]
+    return qbits_moe_small_m(x_sel[:, None, :], packed, scale_t, shift_t, group_size, bits, eids=eids)[:, 0]
 
 
 def qbits_moe_all(
-    x, packed, scale_t, shift_t, group_size: int,
+    x, packed, scale_t, shift_t, group_size: int, bits: int = 4,
     eids: Optional[torch.Tensor] = None, nslots: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """out[e] = x @ deq(W[e])^T for every expert: x [S, K], S <= MAX_M ->
@@ -190,15 +201,15 @@ def qbits_moe_all(
     [U, S, N]; with `nslots` as well, the slots at or past it are zeros."""
     U = eids.shape[0] if eids is not None else packed.shape[0]
     x = x.contiguous()
-    return qbits_moe_small_m(x.expand(U, *x.shape), packed, scale_t, shift_t, group_size, eids, nslots)
+    return qbits_moe_small_m(x.expand(U, *x.shape), packed, scale_t, shift_t, group_size, bits, eids, nslots)
 
 
 def qbits_moe_prefill(
-    xg, packed, scale_t, shift_t, group_size: int,
+    xg, packed, scale_t, shift_t, group_size: int, bits: int = 4,
     eids: Optional[torch.Tensor] = None, nslots: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """out[e] = xg[e] @ deq(W[e])^T over per-expert token slabs xg [E, cap, K]
     -> float32 [E, cap, N] (`qbits_moe_prefill_call`, `moe_mm.py:429`). With
     `eids` int32 [U] (U == xg.shape[0]): slot u against W[eids[u]]; with
     `nslots` as well, the slots at or past it are zeros."""
-    return qbits_moe_tiled(xg.contiguous(), packed, scale_t, shift_t, group_size, eids, nslots)
+    return qbits_moe_tiled(xg.contiguous(), packed, scale_t, shift_t, group_size, bits, eids, nslots)

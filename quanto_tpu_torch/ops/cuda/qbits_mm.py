@@ -1,4 +1,4 @@
-"""Fused int4 group-wise dequant matmul: the Hopper kernels, their plain
+"""Fused int4/int2 group-wise dequant matmul: the Hopper kernels, their plain
 versions and their launch counts.
 
 Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. Four CUDA kernels in
@@ -6,13 +6,15 @@ Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. Four CUDA kernels in
 
     y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n]
 
-for float x:
+for float x, with int4 or int2 codes (`bits`, each width its own
+instantiation of the kernel):
 - `qbits_mm_small_m` (M <= `MAX_M`) replaces the TPU decode kernel `_kernel`;
 - `qbits_mm_tiled` (M > `MAX_M`) replaces the TPU prefill kernel `_prefill_kernel`;
 
 and for W4A8, int8 x `xq` with a per-tensor scale `sx` (a 0-d float32 tensor
 that stays on the device), `y = sx * (xq @ deq(W)^T)` in the weight's float
-dtype:
+dtype, int4 codes only (the int2 arms, W2A8, are `ROADMAP.md` Queue 2 item 1;
+their plain versions take either width):
 - `qbits_mm_int8_small_m` (M <= `MAX_M`) replaces `_int8_kernel`;
 - `qbits_mm_tiled_int8` (M > `MAX_M`) replaces the integer arm of
   `_prefill_kernel`;
@@ -24,13 +26,16 @@ dtype:
   sum over the whole K.
 
 The weight is in the Hopper layout of `WeightQBitsHopperArray`: `packed`
-uint8 [N, K/2] with the two codes of byte j at K positions 2j (low nibble) and
-2j + 1 (high nibble), `scale_t`/`shift_t` float32 [G, N].
+uint8 [N, K * bits / 8] with K-contiguous codes, code k of a row at bits
+`bits * (k % (8 / bits))` of byte `k // (8 / bits)` (int4: codes 2j, 2j + 1 in
+the low and high nibble of byte j; int2: codes 4j .. 4j + 3 in its crumbs),
+`scale_t`/`shift_t` float32 [G, N].
 
 Each wrapper takes its kernel's plain PyTorch version (`qbits_mm_plain`,
 `qbits_int8_mm_plain`, `qbits_requant_int8_mm_plain`) when x lies on the
 CPU; on a CUDA tensor it launches the kernel or raises. Each wrapper's
-`launches` attribute counts its kernel launches.
+`launches` attribute counts its kernel launches, of either width; the float
+kernels' `launches_int2` counts those of their int2 arm.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
 (`ops/cuda/_build.py:build`), as a shared library with a plain C interface
@@ -48,10 +53,11 @@ from ._build import kernel
 
 __all__ = [
     "MAX_M",
+    "INT2_MAX_M",
     "INT8_DOT_MIN_M",
-    "pack_k_nibbles",
-    "unpack_k_nibbles",
-    "dequantize_k_nibbles",
+    "pack_k_codes",
+    "unpack_k_codes",
+    "dequantize_k_codes",
     "qbits_mm_plain",
     "qbits_mm_small_m",
     "qbits_mm_tiled",
@@ -70,30 +76,40 @@ __all__ = [
 # each TPU kernel maps to one Hopper kernel.
 MAX_M = 512
 
+# Largest M an int2 weight takes a kernel at: above it the JAX package's
+# `_prefill_route` returns None for bits == 2 (`quanto_tpu/ops/pallas/
+# qbits_mm.py:339-344`) and the caller runs dequantize + matmul.
+INT2_MAX_M = 1024
+
 # Least M of the W4A8 requant route: the JAX package's `_INT8_DOT_MIN_M`
 # (`quanto_tpu/ops/pallas/qbits_mm.py:398`).
 INT8_DOT_MIN_M = 2048
 
 
-def pack_k_nibbles(codes: torch.Tensor) -> torch.Tensor:
-    """uint8 codes [N, K] in [0, 15] -> the Hopper layout uint8 [N, K/2]:
-    byte j holds code 2j in its low nibble and code 2j + 1 in its high nibble."""
+def pack_k_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 codes [N, K] in [0, 2**bits) -> the Hopper layout uint8
+    [N, K * bits / 8]: byte j holds codes (8 / bits) * j + i at bits
+    bits * i (int4: nibbles, int2: crumbs)."""
+    per = 8 // bits
     codes = codes.to(torch.uint8)
-    return (codes[:, 0::2] | (codes[:, 1::2] << 4)).contiguous()
+    out = codes[:, 0::per].clone()
+    for i in range(1, per):
+        out |= codes[:, i::per] << (bits * i)
+    return out.contiguous()
 
 
-def unpack_k_nibbles(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of `pack_k_nibbles`: uint8 [N, K/2] -> uint8 codes [N, K]."""
-    lo = packed & 0xF
-    hi = packed >> 4
-    return torch.stack([lo, hi], dim=-1).reshape(packed.shape[0], -1)
+def unpack_k_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of `pack_k_codes`: uint8 [N, K * bits / 8] -> uint8 codes [N, K]."""
+    mask = (1 << bits) - 1
+    parts = [(packed >> (bits * i)) & mask for i in range(8 // bits)]
+    return torch.stack(parts, dim=-1).reshape(packed.shape[0], -1)
 
 
-def dequantize_k_nibbles(
-    packed: torch.Tensor, scale_t: torch.Tensor, shift_t: torch.Tensor, group_size: int
+def dequantize_k_codes(
+    packed: torch.Tensor, scale_t: torch.Tensor, shift_t: torch.Tensor, group_size: int, bits: int
 ) -> torch.Tensor:
     """The Hopper layout dequantized in float32: [N, K], scale * code - shift."""
-    codes = unpack_k_nibbles(packed).float()
+    codes = unpack_k_codes(packed, bits).float()
     N, K = codes.shape
     G = K // group_size
     w = codes.view(N, G, group_size) * scale_t.t().unsqueeze(-1) - shift_t.t().unsqueeze(-1)
@@ -106,35 +122,42 @@ def qbits_mm_plain(
     scale_t: torch.Tensor,
     shift_t: torch.Tensor,
     group_size: int,
+    bits: int = 4,
 ) -> torch.Tensor:
     """Plain version of both kernels: unpack, dequantize in float32,
     `x.float() @ w.T`, cast to x's dtype. x [M, K] -> [M, N]."""
-    w = dequantize_k_nibbles(packed, scale_t, shift_t, group_size)
+    w = dequantize_k_codes(packed, scale_t, shift_t, group_size, bits)
     return (x.float() @ w.t()).to(x.dtype)
 
 
 # --- wrappers ---------------------------------------------------------------
 
-# C signature of both entry points in csrc/qbits_mm.cu.
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# C signature of both float-x entry points in csrc/qbits_mm.cu: device, x, packed, scale_t,
+# shift_t, out, M, N, K, gs, bits, x_bf16, stream.
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+# Where the int2 arms of the int8-x kernels stand.
+_W2A8 = "int8 x with int2 weights (W2A8) has no kernel yet: ROADMAP.md Queue 2 item 1"
 
 
-def _check(x, packed, scale_t, shift_t, group_size):
+def _check(x, packed, scale_t, shift_t, group_size, bits):
     """Validate the operands a float-x kernel takes; returns (M, N, K)."""
-    M, N, K = _check_shapes(x, packed, scale_t, shift_t, group_size)
+    M, N, K = _check_shapes(x, packed, scale_t, shift_t, group_size, bits)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qbits_mm: x must be bfloat16 or float32, got {x.dtype}")
     return M, N, K
 
 
-def _check_shapes(x, packed, scale_t, shift_t, group_size):
+def _check_shapes(x, packed, scale_t, shift_t, group_size, bits):
     """Shapes and weight dtypes every kernel of this module takes; returns (M, N, K)."""
+    if bits not in (2, 4):
+        raise ValueError(f"qbits_mm: bits must be 2 or 4, got {bits}")
     if x.dim() != 2 or packed.dim() != 2 or scale_t.dim() != 2 or shift_t.dim() != 2:
         raise ValueError("qbits_mm: x, packed, scale_t and shift_t must be 2-D")
     M, K = x.shape
     N = packed.shape[0]
-    if packed.shape[1] * 2 != K:
-        raise ValueError(f"qbits_mm: packed {tuple(packed.shape)} does not match K = {K}")
+    if packed.shape[1] * 8 != K * bits:
+        raise ValueError(f"qbits_mm: packed {tuple(packed.shape)} does not match K = {K} at {bits} bits")
     if group_size <= 0 or K % group_size or group_size % 64:
         raise ValueError(f"qbits_mm: group size {group_size} must divide K = {K} and be a multiple of 64")
     G = K // group_size
@@ -147,10 +170,11 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size):
     return M, N, K
 
 
-def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size):
+def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits=None):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
     shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
-    output; raises on a refused launch."""
+    output; the float-x entry points also take the code width `bits`. Raises
+    on a refused launch."""
     x, packed = operands[0], operands[1]
     if any(t.device != x.device for t in operands):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -159,10 +183,11 @@ def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size):
     if x.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError(f"{name}: x and packed must be 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ints = (M, N, K, group_size) + (() if bits is None else (bits,))
     rc = kernel(name, argtypes)(
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         *(t.data_ptr() for t in operands), out.data_ptr(),
-        M, N, K, group_size, int(out_dtype == torch.bfloat16),
+        *ints, int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -170,48 +195,54 @@ def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size):
     return out
 
 
-def qbits_mm_small_m(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
-    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, M <= MAX_M. Replaces
-    `quanto_tpu/ops/pallas/qbits_mm.py:_kernel`."""
-    M, N, K = _check(x, packed, scale_t, shift_t, group_size)
-    if M > MAX_M:
-        raise ValueError(f"qbits_mm_small_m takes M <= {MAX_M}, got {M}")
+def _run_float(wrapper, name, x, packed, scale_t, shift_t, group_size, bits):
+    """The plain version on a CPU tensor; on a CUDA tensor the launch of the
+    C entry point `name`, counted in `wrapper.launches` (and `launches_int2`)."""
+    M, N, K = _check(x, packed, scale_t, shift_t, group_size, bits)
     if x.device.type == "cpu":
-        return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
-    out = _launch("qbits_mm_small_m", _ARGTYPES, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size)
-    qbits_mm_small_m.launches += 1
+        return qbits_mm_plain(x, packed, scale_t, shift_t, group_size, bits)
+    out = _launch(
+        name, _ARGTYPES, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits
+    )
+    wrapper.launches += 1
+    wrapper.launches_int2 += bits == 2
     return out
 
 
-def qbits_mm_tiled(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
-    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, any M (routed at M > MAX_M).
-    Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel`."""
-    M, N, K = _check(x, packed, scale_t, shift_t, group_size)
-    if x.device.type == "cpu":
-        return qbits_mm_plain(x, packed, scale_t, shift_t, group_size)
-    out = _launch("qbits_mm_tiled", _ARGTYPES, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size)
-    qbits_mm_tiled.launches += 1
-    return out
+def qbits_mm_small_m(x, packed, scale_t, shift_t, group_size: int, bits: int = 4) -> torch.Tensor:
+    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, M <= MAX_M, int4 or int2
+    codes. Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_kernel`."""
+    if x.dim() == 2 and x.shape[0] > MAX_M:
+        raise ValueError(f"qbits_mm_small_m takes M <= {MAX_M}, got {x.shape[0]}")
+    return _run_float(qbits_mm_small_m, "qbits_mm_small_m", x, packed, scale_t, shift_t, group_size, bits)
 
 
-qbits_mm_small_m.launches = 0
-qbits_mm_tiled.launches = 0
+def qbits_mm_tiled(x, packed, scale_t, shift_t, group_size: int, bits: int = 4) -> torch.Tensor:
+    """x [M, K] @ deq(W)^T -> [M, N] in x's dtype, any M (routed at M > MAX_M),
+    int4 or int2 codes. Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel`."""
+    return _run_float(qbits_mm_tiled, "qbits_mm_tiled", x, packed, scale_t, shift_t, group_size, bits)
 
 
-def qbits_mm(x, packed, scale_t, shift_t, group_size: int) -> torch.Tensor:
+qbits_mm_small_m.launches = qbits_mm_small_m.launches_int2 = 0
+qbits_mm_tiled.launches = qbits_mm_tiled.launches_int2 = 0
+
+
+def qbits_mm(x, packed, scale_t, shift_t, group_size: int, bits: int = 4) -> torch.Tensor:
     """y[..., N] = x[..., K] @ deq(W)^T, routed by M = prod(lead dims) as
-    `qbits_matmul_kernel_call` routes (`quanto_tpu/ops/pallas/qbits_mm.py:777`)."""
+    `qbits_matmul_kernel_call` routes (`quanto_tpu/ops/pallas/qbits_mm.py:777`).
+    An int2 weight above INT2_MAX_M takes no kernel in JAX: `ops/qlinear.py`
+    routes it before this call."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     wrapper = qbits_mm_small_m if x2.shape[0] <= MAX_M else qbits_mm_tiled
-    out = wrapper(x2, packed, scale_t, shift_t, group_size)
+    out = wrapper(x2, packed, scale_t, shift_t, group_size, bits)
     return out.reshape(*lead, packed.shape[0])
 
 
 # --- W4A8: int8 x ---------------------------------------------------------------
 
 
-def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype) -> torch.Tensor:
+def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, bits: int = 4) -> torch.Tensor:
     """Plain version of both int8-x kernels, group-factored as they are:
     y = sx * sum_g [s_g * (xq_g @ c_g^T) - z_g * sum(xq_g)] in float32, cast to
     `out_dtype`. Each group's integer product is exact in float32 while
@@ -219,7 +250,7 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     M, K = xq.shape
     G = K // group_size
     xg = xq.float().view(M, G, group_size)
-    cg = unpack_k_nibbles(packed).float().view(-1, G, group_size)
+    cg = unpack_k_codes(packed, bits).float().view(-1, G, group_size)
     y = torch.zeros((M, packed.shape[0]), dtype=torch.float32, device=xq.device)
     for g in range(G):
         acc = xg[:, g] @ cg[:, g].t()
@@ -227,51 +258,55 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     return (y * sx.float()).to(out_dtype)
 
 
-# C signature of both int8-x entry points in csrc/qbits_mm.cu; the requant entry
-# point takes one more pointer (s8).
+# C signature of both int8-x entry points in csrc/qbits_mm.cu (int4 codes only); the requant
+# entry point takes one more pointer (s8).
 _INT8_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _REQUANT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype):
-    """Validate the operands every int8-x kernel takes; returns (M, N, K)."""
+def _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
+    """Validate the operands every int8-x kernel takes; returns (M, N, K).
+    On a CUDA tensor an int2 weight raises: its arm is not ported."""
     if xq.dtype != torch.int8:
         raise TypeError(f"{name}: x must be int8, got {xq.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the output dtype must be bfloat16 or float32, got {out_dtype}")
     if sx.numel() != 1 or sx.dtype != torch.float32 or sx.device != xq.device:
         raise ValueError(f"{name}: sx must be one float32 value on x's device")
-    return _check_shapes(xq, packed, scale_t, shift_t, group_size)
+    shapes = _check_shapes(xq, packed, scale_t, shift_t, group_size, bits)
+    if bits == 2 and xq.device.type != "cpu":
+        raise NotImplementedError(f"{name}: {_W2A8}")
+    return shapes
 
 
-def _run_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype):
+def _run_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
     """Validate the operands of an int8-x kernel, then launch it (CUDA) or
     compute its plain version (CPU); returns (out, launched)."""
-    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype)
+    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     if xq.device.type == "cpu":
-        return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype), False
+        return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits), False
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
     return _launch(name, _INT8_ARGTYPES, operands, out_dtype, M, N, K, group_size), True
 
 
-def qbits_mm_int8_small_m(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype) -> torch.Tensor:
+def qbits_mm_int8_small_m(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, bits: int = 4):
     """sx * (xq [M, K] @ deq(W)^T) -> [M, N] in `out_dtype`, M <= MAX_M.
     Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_int8_kernel`."""
     if xq.dim() == 2 and xq.shape[0] > MAX_M:
         raise ValueError(f"qbits_mm_int8_small_m takes M <= {MAX_M}, got {xq.shape[0]}")
     out, launched = _run_int8(
-        "qbits_mm_int8_small_m", xq, sx, packed, scale_t, shift_t, group_size, out_dtype
+        "qbits_mm_int8_small_m", xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits
     )
     qbits_mm_int8_small_m.launches += launched
     return out
 
 
-def qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype) -> torch.Tensor:
+def qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, bits: int = 4):
     """sx * (xq [M, K] @ deq(W)^T) -> [M, N] in `out_dtype`, any M (routed at
     M > MAX_M). Replaces the integer arm of
     `quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel`."""
     out, launched = _run_int8(
-        "qbits_mm_tiled_int8", xq, sx, packed, scale_t, shift_t, group_size, out_dtype
+        "qbits_mm_tiled_int8", xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits
     )
     qbits_mm_tiled_int8.launches += launched
     return out
@@ -301,12 +336,12 @@ def requant_step(scale_t: torch.Tensor, shift_t: torch.Tensor, bits: int = 4) ->
     return amax.clamp_min(1e-30) * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=amax.device)
 
 
-def requant_codes(packed, scale_t, shift_t, s8, group_size: int) -> torch.Tensor:
+def requant_codes(packed, scale_t, shift_t, s8, group_size: int, bits: int = 4) -> torch.Tensor:
     """The int8 codes [N, K] the requant route takes for the Hopper layout:
     c8 = clip(round(c * rs - rz), -127, 127) with rs = s / s8 and rz = z / s8
     per group (`qbits_mm.py:443-458`, `:489-490`), each operation rounded
     to float32 on its own, round half to even."""
-    codes = unpack_k_nibbles(packed).float()
+    codes = unpack_k_codes(packed, bits).float()
     N, K = codes.shape
     G = K // group_size
     rs = (scale_t / s8).t().unsqueeze(-1)  # [N, G, 1]
@@ -315,28 +350,28 @@ def requant_codes(packed, scale_t, shift_t, s8, group_size: int) -> torch.Tensor
     return c8.view(N, K).to(torch.int8)
 
 
-def qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype):
+def qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype, bits: int = 4):
     """Plain version of `qbits_mm_requant_int8`: the requant codes, their exact
     integer product with xq (a float64 matmul: |sum| <= 128 * 127 * K < 2**53),
     converted to float32, times s8, times sx, cast to `out_dtype`.
     xq [M, K] int8 -> [M, N]."""
-    c8 = requant_codes(packed, scale_t, shift_t, s8, group_size)
+    c8 = requant_codes(packed, scale_t, shift_t, s8, group_size, bits)
     acc = (xq.double() @ c8.double().t()).float()
     return (acc * s8 * sx.float()).to(out_dtype)
 
 
-def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype) -> torch.Tensor:
+def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int, out_dtype, bits: int = 4):
     """sx * s8 * (xq [M, K] @ c8^T) -> [M, N] in `out_dtype`, c8 the requant
     codes of W (`requant_codes`), any M (routed at M >= INT8_DOT_MIN_M).
     Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_int8pc_kernel`."""
     name = "qbits_mm_requant_int8"
-    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype)
+    M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     if not requant_envelope(K, group_size):
         raise ValueError(f"{name}: group size {group_size} must be a multiple of 128 and below K = {K}")
     if tuple(s8.shape) != (N,) or s8.dtype != torch.float32:
         raise ValueError(f"{name}: s8 must be float32 [{N}]")
     if xq.device.type == "cpu":
-        return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype)
+        return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, s8, sx.reshape(()))
     out = _launch(name, _REQUANT_ARGTYPES, operands, out_dtype, M, N, K, group_size)
     qbits_mm_requant_int8.launches += 1
@@ -346,7 +381,7 @@ def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int,
 qbits_mm_requant_int8.launches = 0
 
 
-def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, s8=None) -> torch.Tensor:
+def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, s8=None, bits: int = 4):
     """W4A8: y[..., N] = sx * (xq[..., K] @ deq(W)^T) in `out_dtype`, routed by
     M = prod(lead dims) and the weight's form as `qbits_int8_matmul_kernel_call`
     routes (`quanto_tpu/ops/pallas/qbits_mm.py:665-726`):
@@ -354,14 +389,18 @@ def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, 
     - a weight in the requant form (its per-channel step `s8` given), M >=
       INT8_DOT_MIN_M (2048) and the route's envelope (`requant_envelope`):
       `qbits_mm_requant_int8`, approximate;
-    - otherwise: `qbits_mm_tiled_int8`, exact."""
+    - otherwise: `qbits_mm_tiled_int8`, exact.
+    int2 codes (W2A8) take the plain versions on a CPU tensor and raise
+    NotImplementedError on a CUDA one; above INT2_MAX_M `ops/qlinear.py`
+    routes them before this call, as JAX does."""
     lead = xq.shape[:-1]
     x2 = xq.reshape(-1, xq.shape[-1]).contiguous()
     M, K = x2.shape
+    args = (x2, sx, packed, scale_t, shift_t)
     if M <= MAX_M:
-        out = qbits_mm_int8_small_m(x2, sx, packed, scale_t, shift_t, group_size, out_dtype)
+        out = qbits_mm_int8_small_m(*args, group_size, out_dtype, bits)
     elif s8 is not None and M >= INT8_DOT_MIN_M and requant_envelope(K, group_size):
-        out = qbits_mm_requant_int8(x2, sx, packed, scale_t, shift_t, s8, group_size, out_dtype)
+        out = qbits_mm_requant_int8(*args, s8, group_size, out_dtype, bits)
     else:
-        out = qbits_mm_tiled_int8(x2, sx, packed, scale_t, shift_t, group_size, out_dtype)
+        out = qbits_mm_tiled_int8(*args, group_size, out_dtype, bits)
     return out.reshape(*lead, packed.shape[0])

@@ -6,10 +6,16 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   K multiples of 128, bf16/f32 x, M <= 256) the fused kernel of
   `ops/cuda/qbytes_mm.py`, else JAX's XLA formula (`ops/qbytes_mm.py`);
   with a quantized x (W8A8) it raises: `ROADMAP.md` Queue 1, item 2;
-- `WeightQBitsHopperArray` w: with a qint8 `ActivationQBytesArray` x the
-  W4A8 kernels (`qbits_int8_mm`, routed by M: `qbits_mm_int8_small_m` at
-  M <= 512, `qbits_mm_tiled_int8` above); with float x the fused
-  dequant-matmul (`qbits_mm`); any other quantized x is dequantized first;
+- `WeightQBitsHopperArray` w (int4 or int2): with a qint8
+  `ActivationQBytesArray` x the W4A8 kernels (`qbits_int8_mm`, routed by M:
+  `qbits_mm_int8_small_m` at M <= 512, `qbits_mm_tiled_int8` above; int2
+  codes raise on a CUDA tensor, `ROADMAP.md` Queue 2 item 1); with float x
+  the fused dequant-matmul (`qbits_mm`); any other quantized x is
+  dequantized first. An int2 weight at M > 1024 (`INT2_MAX_M`) takes no
+  kernel, float or int8 x: JAX's `_prefill_route` refuses it
+  (`quanto_tpu/ops/pallas/qbits_mm.py:339-344`) and its `qlinear` falls back
+  to dequantize + matmul (`quanto_tpu/ops/qlinear.py:74-75`), x dequantized
+  first;
 - `WeightQBitsRequantArray` w (its subclass, frozen with
   `w4a8_requant_dot=True`): as its parent, except that with a qint8 x at
   M >= 2048 (`INT8_DOT_MIN_M`) `qbits_int8_mm` takes the third W4A8 branch,
@@ -25,6 +31,7 @@ shape [out_features, in_features].
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -40,7 +47,7 @@ from ..tensor.weights import (
 )
 from . import qbytes_mm as xla_qbytes
 from .cuda import qbytes_mm as cuda_qbytes
-from .cuda.qbits_mm import qbits_int8_mm, qbits_mm
+from .cuda.qbits_mm import INT2_MAX_M, qbits_int8_mm, qbits_mm
 
 
 __all__ = ["qlinear"]
@@ -58,17 +65,22 @@ def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         else:
             out = xla_qbytes.qbytes_mm(x, w._data, w._scale)
     elif isinstance(w, WeightQBitsHopperArray):
-        if isinstance(x, ActivationQBytesArray) and x.qtype == qint8:
+        M = math.prod(x.shape[:-1])
+        if w.bits == 2 and M > INT2_MAX_M:
+            if isinstance(x, QArray):
+                x = x.dequantize()
+            out = torch.matmul(x, w.dequantize().to(x.dtype).t())
+        elif isinstance(x, ActivationQBytesArray) and x.qtype == qint8:
             s8 = w._s8 if isinstance(w, WeightQBitsRequantArray) else None
             out = qbits_int8_mm(
                 x._data, x._scale, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.float_dtype,
-                s8=s8,
+                s8=s8, bits=w.bits,
             )
             mark_quantized_use(x)
         else:
             if isinstance(x, QArray):
                 x = x.dequantize()
-            out = qbits_mm(x, w._packed, w._scale_t, w._shift_t, w.kernel_group_size)
+            out = qbits_mm(x, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.bits)
     else:
         if isinstance(x, QArray):
             x = x.dequantize()

@@ -49,20 +49,24 @@ __all__ = ["StackedSparseMoeBlock", "convert_moe_to_stacked"]
 
 
 class _StackedProj(nn.Module):
-    """One projection of every expert, stacked: `packed` uint8 [E, N, K/2],
-    `scale_t` / `shift_t` float32 [E, G, N] (buffers), the kernels' group size."""
+    """One projection of every expert, stacked: `packed` uint8
+    [E, N, K * bits / 8], `scale_t` / `shift_t` float32 [E, G, N] (buffers),
+    the kernels' group size and code width."""
 
     def __init__(self, weights):
         super().__init__()
         w0 = weights[0]
         if any(w.orig_shape != w0.orig_shape or w.group_size != w0.group_size for w in weights):
             raise ValueError("stacked experts must share their shape and group size")
+        if any(w.bits != w0.bits for w in weights):
+            raise ValueError(f"stacked experts must share their bits, got {sorted({w.bits for w in weights})}")
         self.group_size = w0.kernel_group_size
+        self.bits = w0.bits
         for name in ("packed", "scale_t", "shift_t"):
             self.register_buffer(name, torch.stack([getattr(w, f"_{name}") for w in weights]))
 
     def operands(self):
-        return self.packed, self.scale_t, self.shift_t, self.group_size
+        return self.packed, self.scale_t, self.shift_t, self.group_size, self.bits
 
 
 def _stack_expert_projs(experts, names, who: str):
@@ -74,8 +78,8 @@ def _stack_expert_projs(experts, names, who: str):
         ws = [m.weight if isinstance(m, QModuleMixin) and m.bias is None else None for m in mods]
         if not all(isinstance(w, WeightQBitsHopperArray) for w in ws):
             raise ValueError(
-                f"{who} needs frozen int4 experts in the Hopper layout (WeightQBitsHopperArray): "
-                "quantize with qint4 and freeze on a CUDA device first"
+                f"{who} needs frozen int4 or int2 experts in the Hopper layout (WeightQBitsHopperArray): "
+                "quantize with qint4 or qint2 and freeze on a CUDA device first"
             )
         projs.append(_StackedProj(ws))
     return projs

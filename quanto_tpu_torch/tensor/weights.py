@@ -17,16 +17,19 @@ PyTorch counterpart of `quanto_tpu/tensor/weights.py`:
   the port has no switches, so the choice is this weight type, made by
   `freeze(model, w4a8_requant_dot=True)`.
 
-Hopper layout. `_packed` is uint8 [N, K/2] with K-contiguous nibbles: byte j
-of row n holds code (n, 2j) in its low nibble and code (n, 2j + 1) in its high
-nibble, so one 16-byte load holds 32 consecutive K codes of one row. The bytes
-are unsigned, so unpacking needs no sign-extension care (the w16 fault of the
+Hopper layout. `_packed` is uint8 [N, K * bits / 8] with K-contiguous codes.
+int4: byte j of row n holds code (n, 2j) in its low nibble and code
+(n, 2j + 1) in its high nibble, so one 16-byte load holds 32 consecutive K
+codes of one row. int2: byte j holds codes (n, 4j) .. (n, 4j + 3) in bits
+0-1, 2-3, 4-5 and 6-7, so one 16-byte load holds 64 codes. The bytes are
+unsigned, so unpacking needs no sign-extension care (the w16 fault of the
 TPU layout, `ops/pallas/qbits_mm.py:166-177`). `_scale_t`/`_shift_t` are
 float32 [G, N] (transposed, as on the TPU) with float-shift semantics
 `deq = scale * code - shift`; integer zero-points become float shifts
-`scale * zp` (as `weights.py:313-317`). The envelope is int4 with the TPU
-layout's shape rule (`eligible`); off-envelope weights stay in the generic
-layout, as JAX's `from_generic` returns None for shapes it cannot pad.
+`scale * zp` (as `weights.py:313-317`). The envelope is int4 and int2 under
+the TPU layout's shape rule (`eligible`); off-envelope weights stay in the
+generic layout, as JAX's `from_generic` returns None for shapes it cannot
+pad.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.cuda.qbits_mm import dequantize_k_nibbles, pack_k_nibbles, requant_step, unpack_k_nibbles
+from ..ops.cuda.qbits_mm import dequantize_k_codes, pack_k_codes, requant_step, unpack_k_codes
 from ..ops.quantize import dequantize_affine, dequantize_symmetric, quantize_affine, quantize_symmetric
 from .grouped import group, ungroup
 from .packed import PackedArray
@@ -159,9 +162,9 @@ class WeightQBitsArray(QArray):
 
 @dataclass(frozen=True, eq=False)
 class WeightQBitsHopperArray(QArray):
-    """int4 weights in the layout of the Hopper kernels (module docstring)."""
+    """int4 or int2 weights in the layout of the Hopper kernels (module docstring)."""
 
-    _packed: torch.Tensor  # uint8 [N, K/2]
+    _packed: torch.Tensor  # uint8 [N, K * bits / 8]
     _scale_t: torch.Tensor  # float32 [G, N]
     _shift_t: torch.Tensor  # float32 [G, N]
     qtype: qtype
@@ -172,12 +175,12 @@ class WeightQBitsHopperArray(QArray):
     @staticmethod
     def eligible(orig_shape: Tuple[int, ...], bits: int, group_size: Optional[int]) -> bool:
         """Kernel-layout constraints: the TPU layout's rule for one K block
-        (`quanto_tpu/tensor/weights.py:231-251`), int4 only."""
-        if len(orig_shape) != 2 or bits != 4:
+        (`quanto_tpu/tensor/weights.py:231-251`), with kp = K * bits / 8."""
+        if len(orig_shape) != 2 or bits not in (2, 4):
             return False
         N, K = orig_shape
-        kp = K // 2
-        if K % 2 or N % 128 != 0 or kp % 128 != 0:
+        kp = K * bits // 8
+        if K % (8 // bits) or N % 128 != 0 or kp % 128 != 0:  # whole bytes per row
             return False
         gs = group_size if group_size is not None else K
         if gs == K:
@@ -199,7 +202,7 @@ class WeightQBitsHopperArray(QArray):
             # Integer zero-point: deq = scale*(code - zp) = scale*code - scale*zp.
             shift = scale * w._shift.float().reshape(N, G)
         return cls(
-            _packed=pack_k_nibbles(codes),
+            _packed=pack_k_codes(codes, w.qtype.bits),
             _scale_t=scale.t().contiguous(),
             _shift_t=shift.t().contiguous(),
             qtype=w.qtype,
@@ -211,7 +214,7 @@ class WeightQBitsHopperArray(QArray):
     def to_generic(self) -> WeightQBitsArray:
         """Back to the serialized generic layout (float shifts)."""
         gs = self.group_size
-        codes = unpack_k_nibbles(self._packed)
+        codes = unpack_k_codes(self._packed, self.bits)
         scale, shift = self._scale_t.t(), self._shift_t.t()
         if gs is not None:
             codes = group(codes, 0, gs)
@@ -226,6 +229,10 @@ class WeightQBitsHopperArray(QArray):
             orig_shape=self.orig_shape,
             float_dtype=self.float_dtype,
         )
+
+    @property
+    def bits(self) -> int:
+        return self.qtype.bits
 
     @property
     def kernel_group_size(self) -> int:
@@ -244,7 +251,7 @@ class WeightQBitsHopperArray(QArray):
         return self._packed.device
 
     def dequantize(self) -> torch.Tensor:
-        w = dequantize_k_nibbles(self._packed, self._scale_t, self._shift_t, self.kernel_group_size)
+        w = dequantize_k_codes(self._packed, self._scale_t, self._shift_t, self.kernel_group_size, self.bits)
         return w.to(self.float_dtype)
 
 
@@ -267,7 +274,9 @@ class WeightQBitsRequantArray(WeightQBitsHopperArray):
     @classmethod
     def from_hopper(cls, w: WeightQBitsHopperArray) -> "WeightQBitsRequantArray":
         """The requant form of a Hopper-layout weight (its payload, scales and
-        shifts shared, not copied)."""
+        shifts shared, not copied). int4 only: int2 has no requant route."""
+        if w.bits != 4:
+            raise ValueError(f"the requant form takes int4 weights, got int{w.bits}")
         fields = {f: getattr(w, f) for f in WeightQBitsHopperArray.__dataclass_fields__}
         return cls(**fields, _s8=requant_step(w._scale_t, w._shift_t, w.qtype.bits))
 

@@ -43,6 +43,13 @@ in {1, 8, 16, 17, 130, 600} (both tile heights) with and without a table.
 Float32 outputs within 1e-4 * max|ref| (sums in another order; f32 x seen by
 the tiled kernel as a bf16 high + low pair) and cosine > 1 - 1e-5; skipped
 slots exactly zero.
+
+The int2 arms of the four float-x kernels, with the tolerances of their int4
+arms: `qbits_mm_small_m` and `qbits_mm_tiled` over M in 1..1024 (the int2
+envelope of the tiled route) for qint2 weights of group size 128 and per
+axis, and over random packed bytes (every crumb value in every position);
+the MoE kernels over 8 stacked qint2 experts in each form and tile height.
+int8 x with an int2 weight (W2A8) raises NotImplementedError on the card.
 """
 
 import numpy as np
@@ -55,6 +62,7 @@ from quanto_tpu_torch.ops.cuda import moe_mm as MM
 from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
     MAX_M,
+    qbits_int8_mm,
     qbits_int8_mm_plain,
     qbits_mm_int8_small_m,
     qbits_mm_plain,
@@ -275,25 +283,29 @@ def test_flash_decode_query_groups(cuda_device, cache, G):
     check_flash_decode(cuda_device, cache, 1088, 128, torch.float32, G=G)
 
 
-def stacked_experts(device, N, K, E=8, seed=0):
-    """E experts' int4 weights in the Hopper layout, stacked: (packed, scale_t, shift_t)."""
+def stacked_experts(device, N, K, E=8, seed=0, bits=4):
+    """E experts' weights of `bits` in the Hopper layout, stacked: (packed, scale_t, shift_t)."""
     rng = np.random.default_rng(seed)
+    qtype = qtt.qtypes[f"qint{bits}"]
     ws = []
     for _ in range(E):
         w = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(device)
-        scale, shift = qtt.MaxOptimizer()(w, qtt.qint4, axis=0, group_size=128)
+        scale, shift = qtt.MaxOptimizer()(w, qtype, axis=0, group_size=128)
         ws.append(WeightQBitsHopperArray.from_generic(
-            qtt.quantize_weight(w, qtt.qint4, 0, scale, shift=shift, group_size=128)
+            qtt.quantize_weight(w, qtype, 0, scale, shift=shift, group_size=128)
         ))
     return tuple(torch.stack([getattr(w, f) for w in ws]) for f in ("_packed", "_scale_t", "_shift_t"))
 
 
-def check_moe(wrapper, x3, weights, eids=None, nslots=None):
-    before = wrapper.launches
-    out = wrapper(x3, *weights, 128, eids=eids, nslots=nslots)
+def check_moe(wrapper, x3, weights, eids=None, nslots=None, bits=4):
+    """One launch of `wrapper` (counted in its int2 arm's count too at bits = 2)
+    against the plain version."""
+    before = (wrapper.launches, wrapper.launches_int2)
+    out = wrapper(x3, *weights, 128, bits, eids=eids, nslots=nslots)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1 and out.dtype == torch.float32
-    ref = MM.qbits_moe_plain(x3, *weights, 128, eids=eids, nslots=nslots)
+    assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + (bits == 2))
+    assert out.dtype == torch.float32
+    ref = MM.qbits_moe_plain(x3, *weights, 128, bits, eids=eids, nslots=nslots)
     assert out.shape == ref.shape
     if nslots is not None:
         assert not out[int(nslots):].any()
@@ -344,3 +356,107 @@ def test_moe_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
     eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
     nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
     check_moe(MM.qbits_moe_tiled, xg, weights, eids, nslots)
+
+
+# --- the int2 arms -----------------------------------------------------------------------------
+
+
+def hopper_weight(device, n, k, bits, group_size, seed):
+    """A seeded float32 weight quantized to qint{bits} and repacked to the Hopper layout."""
+    w = torch.from_numpy(np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)).to(device)
+    qtype = qtt.qtypes[f"qint{bits}"]
+    scale, shift = qtt.MaxOptimizer()(w, qtype, axis=0, group_size=group_size)
+    hop = WeightQBitsHopperArray.from_generic(
+        qtt.quantize_weight(w, qtype, 0, scale, shift=shift, group_size=group_size)
+    )
+    assert hop is not None and hop.bits == bits
+    return hop
+
+
+def check_int2(wrapper, x, packed, scale_t, shift_t, gs):
+    before = (wrapper.launches, wrapper.launches_int2)
+    out = wrapper(x, packed, scale_t, shift_t, gs, 2).float()
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + 1)
+    ref = qbits_mm_plain(x, packed, scale_t, shift_t, gs, 2).float()
+    err = (out - ref).abs().max().item()
+    if x.dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 1e-2 * ref.abs().max().item()
+        assert torch.nn.functional.cosine_similarity(out.flatten(), ref.flatten(), dim=0) > 1 - 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group_size", [128, None])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 4, 7, 512, 513, 700, 1024])
+def test_int2_kernels_match_plain(cuda_device, m, dtype, group_size):
+    hop = hopper_weight(cuda_device, 384, 2048, 2, group_size, seed=m)
+    x = torch.from_numpy(np.random.default_rng(m + 1).standard_normal((m, 2048)).astype(np.float32))
+    wrapper = qbits_mm_small_m if m <= MAX_M else qbits_mm_tiled
+    check_int2(wrapper, x.to(cuda_device, dtype), hop._packed, hop._scale_t, hop._shift_t, hop.kernel_group_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1024, 4096), (4096, 14336)])
+@pytest.mark.parametrize("m", [4, 1024])
+def test_int2_kernels_every_crumb(cuda_device, m, n, k):
+    """Random packed bytes: every crumb value in every position of a byte,
+    bytes >= 0xC0 included, at the Llama-3.1-8B linear shapes."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + n)
+    packed = torch.randint(0, 256, (n, k // 4), dtype=torch.uint8, device=cuda_device, generator=g)
+    scale_t = torch.rand((k // 128, n), device=cuda_device, generator=g) * 0.01 + 0.001
+    shift_t = scale_t * 1.5
+    x = torch.randn((m, k), device=cuda_device, generator=g, dtype=torch.bfloat16)
+    check_int2(qbits_mm_small_m if m <= MAX_M else qbits_mm_tiled, x, packed, scale_t, shift_t, 128)
+
+
+@pytest.mark.gpu
+def test_w2a8_raises_on_the_card(cuda_device):
+    hop = hopper_weight(cuda_device, 384, 2048, 2, 128, seed=0)
+    xq = torch.zeros((8, 2048), dtype=torch.int8, device=cuda_device)
+    sx = torch.tensor(0.01, device=cuda_device)
+    w = (hop._packed, hop._scale_t, hop._shift_t, 128, torch.bfloat16)
+    for m in (8, 600):
+        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+            qbits_int8_mm(xq.new_zeros((m, 2048)), sx, *w, bits=2)
+
+
+MOE_INT2_SHAPES = [(1024, 512), (512, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,k", MOE_INT2_SHAPES)
+@pytest.mark.parametrize("kind,size,nslots", [
+    ("sel", 2, None), ("sel", 32, None), ("all", 3, None), ("all", 512, None),
+    ("uniq", 4, 3), ("uniq", 8, None),
+], ids=lambda v: str(v))
+def test_moe_int2_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, dtype):
+    weights = stacked_experts(cuda_device, n, k, seed=n, bits=2)
+    rng = np.random.default_rng(size)
+    x = torch.from_numpy(rng.standard_normal((size, k)).astype(np.float32)).to(cuda_device, dtype)
+    if kind == "sel":
+        eids = torch.from_numpy(rng.integers(0, 8, size).astype(np.int32)).to(cuda_device)
+        check_moe(MM.qbits_moe_small_m, x[:, None, :], weights, eids=eids, bits=2)
+    elif kind == "all":
+        check_moe(MM.qbits_moe_small_m, x.expand(8, *x.shape), weights, bits=2)
+    else:
+        eids = torch.from_numpy(MOE_TABLE).to(cuda_device)
+        count = None if nslots is None else torch.tensor(nslots, dtype=torch.int32, device=cuda_device)
+        check_moe(MM.qbits_moe_small_m, x.expand(len(MOE_TABLE), *x.shape), weights, eids, count, bits=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,k", MOE_INT2_SHAPES)
+@pytest.mark.parametrize("table", ["experts", "uniq-n4"])
+@pytest.mark.parametrize("m", [1, 16, 17, 600])
+def test_moe_int2_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
+    weights = stacked_experts(cuda_device, n, k, seed=n, bits=2)
+    U = 8 if table == "experts" else len(MOE_TABLE)
+    xg = torch.from_numpy(np.random.default_rng(m).standard_normal((U, m, k)).astype(np.float32))
+    eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
+    nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
+    check_moe(MM.qbits_moe_tiled, xg.to(cuda_device, dtype), weights, eids, nslots, bits=2)

@@ -58,16 +58,16 @@ def test_hopper_layout_roundtrip(shape, dtype, group_size, zeropoint):
         np.testing.assert_array_equal(bits_of(back._shift), bits_of(generic._shift))
 
 
-@pytest.mark.parametrize("shape,bits", [((96, 512), 4), ((256, 384), 4), ((256, 512), 2)])
+@pytest.mark.parametrize("shape,bits", [((96, 512), 4), ((256, 384), 4), ((256, 384), 2)])
 def test_off_envelope_stays_generic(shape, bits):
-    """int2, and int4 shapes the JAX layout pads, keep the generic layout."""
+    """Shapes the JAX layout pads (int4, and int2 at K / 4 = 96) keep the
+    generic layout."""
     w = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     qtype = qtt.qtypes[f"qint{bits}"]
     scale, shift = qtt.MaxOptimizer()(w, qtype, axis=0, group_size=128)
     generic = qtt.quantize_weight(w, qtype, 0, scale, shift=shift, group_size=128)
     assert WeightQBitsHopperArray.from_generic(generic) is None
-    if bits == 4:
-        assert not WeightQBitsTpuArray.eligible(shape, bits, 128)
+    assert not WeightQBitsTpuArray.eligible(shape, bits, 128)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])

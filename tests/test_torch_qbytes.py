@@ -130,16 +130,40 @@ def test_plain_matches_pallas_interpret(qtype_name, m):
 
 
 @pytest.mark.parametrize(
-    "qtype_name,m", [("qint8", 300), ("qfloat8_e4m3fn", 300), ("qfloat8_e5m2", 4)]
+    "qtype_name,m,dtype_name",
+    [
+        pytest.param("qint8", 300, "float32", id="qint8-300"),
+        pytest.param("qfloat8_e4m3fn", 300, "float32", id="qfloat8_e4m3fn-300"),
+        pytest.param("qfloat8_e5m2", 4, "float32", id="qfloat8_e5m2-4"),
+        pytest.param("qint8", 300, "bfloat16", id="qint8-300-bf16"),
+    ],
 )
-def test_outside_envelope_matches_jax_qbytes_mm(qtype_name, m):
-    """Prefill M > 256 and the e5m2 payload take JAX's XLA formula."""
-    wj, wt = quantized_pair(qtype_name)
-    xj, xt = inputs((m, 512), "float32", m)
+def test_outside_envelope_matches_jax_qbytes_mm(qtype_name, m, dtype_name):
+    """Prefill M > 256 and the e5m2 payload take JAX's XLA formula. In a bf16
+    model (x [300, 1024] and the weight's scale bf16) the product stays in
+    float32 until after the scale, as JAX's `preferred_element_type` keeps
+    it: the outputs are JAX's bit for bit but for at most 0.01 %, each within
+    one bf16 ulp (float32 sums in another order can round the other way)."""
+    k = 512 if dtype_name == "float32" else 1024
+    wj, wt = quantized_pair(qtype_name, shape=(256, k))
+    if dtype_name == "bfloat16":
+        wj, wt = (qt.quantize_weight(wj.dequantize(), qt.qint8, 0, wj._scale.astype(jnp.bfloat16)),
+                  qtt.quantize_weight(wt.dequantize(), qtt.qint8, 0, wt._scale.to(torch.bfloat16)))
+        np.testing.assert_array_equal(codes_of(wt._data), codes_of(wj._data))
+    xj, xt = inputs((m, k), dtype_name, m)
     assert not K.eligible(xt, wt._data, wt._scale)
     counts = (K.qbytes_mm_int8.launches, K.qbytes_mm_e4m3fn.launches)
-    close(qlinear(xt, wt), jax_qbytes_mm(xj, wj._data, wj._scale))
+    out, ref = qlinear(xt, wt), jax_qbytes_mm(xj, wj._data, wj._scale)
     assert (K.qbytes_mm_int8.launches, K.qbytes_mm_e4m3fn.launches) == counts
+    if dtype_name == "float32":
+        close(out, ref)
+        return
+    assert out.dtype == torch.bfloat16
+    o, r = out.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    differ = o != r
+    assert differ.mean() <= 1e-4, differ.mean()
+    ulp = np.exp2(np.floor(np.log2(np.abs(r[differ]))) - 7)
+    assert np.all(np.abs(o[differ] - r[differ]) <= ulp)
 
 
 def test_wrapper_refusals():

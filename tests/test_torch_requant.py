@@ -110,7 +110,7 @@ def test_requant_step_and_codes_match_jax(gs):
     rs, rz = s / js8[None, :], z / js8[None, :]
     np.testing.assert_array_equal(bits(hop._scale_t / s8), bits(rs))
     np.testing.assert_array_equal(bits(hop._shift_t / s8), bits(rz))
-    raw = jnp.asarray(K.unpack_k_nibbles(hop._packed).numpy().astype(np.float32)).reshape(N, -1, gs)
+    raw = jnp.asarray(K.unpack_k_codes(hop._packed, 4).numpy().astype(np.float32)).reshape(N, -1, gs)
     jc8 = jnp.clip(jnp.round(raw * rs.T[:, :, None] - rz.T[:, :, None]), -127, 127).astype(jnp.int8)
     c8 = K.requant_codes(hop._packed, hop._scale_t, hop._shift_t, s8, gs)
     assert c8.dtype == torch.int8 and c8.shape == (N, K_)
