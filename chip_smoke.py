@@ -118,6 +118,29 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    launch counts of each MoE route's int2 arm and of the attention's int4
    launches, the no-sync check, and phase 9's check at 2 layers (one seed).
 
+3 (W2A8). The int2 arms of the three int8-x kernels over random packed bytes
+   (every 2-bit code in every position of a byte), int8 x, bf16 output, at the
+   four linear shapes: `qbits_mm_int8_small_m` at M in {4, 8} and
+   `qbits_mm_tiled_int8` at M in {513, 1024} within the W4A8 rows'
+   tolerance; `qbits_mm_requant_int8` at M in {2048, 4096} held EQUAL to its
+   plain version and timed beside the exact int2 route at that M
+   (dequantize + `torch.matmul`: JAX's `_prefill_route` refuses int2 above
+   M = 1024). Bounds with the int2 payload's bytes.
+13. Llama-3.1-8B in W2A8 (`quantize(weights="qint2", activations="qint8",
+   exclude="lm_head")`, group size 128, calibrated as phase 7, `freeze`):
+   (a) phase 6's decode run (every step exactly 224 launches of
+   `qbits_mm_int8_small_m`'s int2 arm and 32 `flash_decode`; the M = 4096
+   prefill none, as in JAX) and a B = 1 prefill of 1024 tokens (exactly 224
+   launches of `qbits_mm_tiled_int8`'s int2 arm); (b) frozen again with
+   `freeze(model, w4a8_requant_dot=True)`, every linear in the requant form,
+   and phase 6's run again, its M = 4096 prefill through exactly 224
+   launches of `qbits_mm_requant_int8`'s int2 arm; prefill ms, decode
+   ms/step, tok/s and peak memory beside their bounds; (c) at 2 layers, the
+   kernel path against the plain versions (B = 1 prefill, B = 4 prefill, a
+   ragged decode step; cosine > W2A8_E2E_COS and top-1 equal or at a logit
+   tie), in both forms, and the requant form against the exact form
+   (`check_requant_vs_exact`, phase 5's limits). Prints its seconds.
+
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -224,11 +247,18 @@ REPLACES.update({
 # over the four linear shapes; the MoE kernels at phase 12's shapes (`phase_moe`). Each arm is a
 # summary entry of its own, its launches from phase 11 or 12.
 INT2_KERNEL_M = {"qbits_mm_small_m": (4, 8), "qbits_mm_tiled": (1024,)}
-INT2_ARMS = ["qbits_mm_small_m", "qbits_mm_tiled", "qbits_moe_small_m", "qbits_moe_tiled"]
+# The int2 arms of the three int8-x kernels (W2A8, phase 3): the small-M kernel at phase 13's decode
+# (M = 4) and at M = 8, the tiled one just above its least M and at phase 13's B = 1 prefill
+# (M = 1024), the requant kernel at REQUANT_M (phase 13's requant prefill is M = 4096).
+W2A8_M = {"qbits_mm_int8_small_m": (4, 8), "qbits_mm_tiled_int8": (513, 1024)}
+INT2_ARMS = ["qbits_mm_small_m", "qbits_mm_tiled", "qbits_moe_small_m", "qbits_moe_tiled",
+             "qbits_mm_int8_small_m", "qbits_mm_tiled_int8", "qbits_mm_requant_int8"]
 SUMMARY_SHAPE.update({
     "qbits_mm_small_m_int2": (4, 14336, 4096), "qbits_mm_tiled_int2": (1024, 14336, 4096),
     "qbits_moe_small_m_int2": ("uniq", 8, 4, 14336, 4096),
     "qbits_moe_tiled_int2": ("experts", None, 512, 14336, 4096),
+    "qbits_mm_int8_small_m_int2": (4, 14336, 4096), "qbits_mm_tiled_int8_int2": (1024, 14336, 4096),
+    "qbits_mm_requant_int8_int2": (4096, 14336, 4096),
 })
 for _arm in INT2_ARMS:
     SOURCE[_arm + "_int2"] = SOURCE[_arm]
@@ -449,31 +479,34 @@ def phase_qbytes(flush):
     return rows
 
 
-def phase_w4a8(K_mod, flush):
-    """Phase 3, the W4A8 kernels: int8 x with a device scalar sx against random
-    int4 codes, bf16 output, against their plain version."""
+def phase_w4a8(K_mod, flush, bits: int = 4):
+    """Phase 3, the W4A8 kernels (W2A8 at `bits` = 2): int8 x with a device
+    scalar sx against random codes of `bits` (every code value in every
+    position of a byte), bf16 output, against their plain version; an int2
+    row's name ends in `_int2`."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3456)
+    g = torch.Generator(device=dev).manual_seed(3456 + (bits != 4))
     rows = []
     sx = torch.tensor(0.0173, device=dev)
     for N, K in LINEAR_SHAPES:
         G = K // GS
-        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        packed = torch.randint(0, 256, (N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
         scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
-        shift_t = scale_t * 7.5
-        w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, 4).to(torch.bfloat16)
-        for name, ms in W4A8_M.items():
+        shift_t = scale_t * (2**bits - 1) / 2
+        w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, bits).to(torch.bfloat16)
+        for name, ms in (W4A8_M if bits == 4 else W2A8_M).items():
             kernel = getattr(K_mod, name)
             for M in ms:
                 xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
                 x_bf16 = (xq.float() * sx).to(torch.bfloat16)
-                args = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16)
+                args = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16, bits)
                 err, cos = check_kernel(
-                    f"{name} M={M} N={N} K={K}", kernel(*args), K_mod.qbits_int8_mm_plain(*args)
+                    f"{name} int{bits} M={M} N={N} K={K}", kernel(*args), K_mod.qbits_int8_mm_plain(*args)
                 )
-                b_ms, b_by = bound(M, N, K, x_bytes=1, side_bytes=2 * (K // GS) * N * 4 + 4, peak_ops=PEAK_INT8_OPS)
+                b_ms, b_by = bound(M, N, K, x_bytes=1, w_bytes=bits / 8, side_bytes=2 * G * N * 4 + 4,
+                                   peak_ops=PEAK_INT8_OPS)
                 row = dict(
-                    name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                    name=name + ("_int2" if bits == 2 else ""), M=M, N=N, K=K, max_abs_err=err, cosine=cos,
                     ms=time_ms(lambda: kernel(*args), flush),
                     plain_ms=time_ms(lambda: K_mod.qbits_int8_mm_plain(*args), flush),
                     library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush),
@@ -486,42 +519,57 @@ def phase_w4a8(K_mod, flush):
     return rows
 
 
-def phase_requant(K_mod, flush):
-    """Phase 3, the W4A8 requant kernel: int8 x with a device scalar sx against
-    random int4 codes, group scales and shifts anywhere in [0, 15] steps, bf16
-    output, held EQUAL to its plain version (exact codes and int32 sums, the
-    same two float32 multiplies). Beside it, timed at the same shape: the
-    exact route `qbits_mm_tiled_int8` (the A/B of the JAX package's
-    bench/prefill8b_bench.py:125-130) and, as a yardstick the port never
-    calls, `torch._int_mm` on the requantized int8 weight."""
+def phase_requant(K_mod, flush, bits: int = 4):
+    """Phase 3, the requant kernel: int8 x with a device scalar sx against
+    random codes of `bits`, group scales and shifts anywhere in [0, qmax]
+    steps, bf16 output, held EQUAL to its plain version (exact codes and int32
+    sums, the same two float32 multiplies). Beside it, timed at the same shape:
+    the exact route, as a user's `qlinear` takes it without the requant form
+    (int4: `qbits_mm_tiled_int8`, the A/B of the JAX package's
+    bench/prefill8b_bench.py:125-130; int2: dequantize + `torch.matmul`, since
+    JAX's `_prefill_route` refuses int2 above M = 1024) and, as a yardstick
+    the port never calls, `torch._int_mm` on the requantized int8 weight. An
+    int2 row's name ends in `_int2`."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(6789)
+    g = torch.Generator(device=dev).manual_seed(6789 + (bits != 4))
     rows = []
     sx = torch.tensor(0.0173, device=dev)
     for N, K in LINEAR_SHAPES:
         G = K // GS
-        packed = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g)
+        packed = torch.randint(0, 256, (N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
         scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
-        shift_t = scale_t * torch.rand((G, N), device=dev, generator=g) * 15
-        s8 = K_mod.requant_step(scale_t, shift_t)
-        c8_t = K_mod.requant_codes(packed, scale_t, shift_t, s8, GS).t()  # [K, N], column-major
+        shift_t = scale_t * torch.rand((G, N), device=dev, generator=g) * (2**bits - 1)
+        s8 = K_mod.requant_step(scale_t, shift_t, bits)
+        c8_t = K_mod.requant_codes(packed, scale_t, shift_t, s8, GS, bits).t()  # [K, N], column-major
         for M in REQUANT_M:
             xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
-            args = (xq, sx, packed, scale_t, shift_t, s8, GS, torch.bfloat16)
-            exact = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16)
+            args = (xq, sx, packed, scale_t, shift_t, s8, GS, torch.bfloat16, bits)
             out = K_mod.qbits_mm_requant_int8(*args)
             ref = K_mod.qbits_requant_int8_mm_plain(*args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.equal(out, ref):
-                raise RuntimeError(f"qbits_mm_requant_int8 M={M} N={N} K={K}: not equal to its plain version ({err})")
-            b_ms, b_by = bound(M, N, K, x_bytes=1, side_bytes=2 * G * N * 4 + 4 * N + 4, peak_ops=PEAK_INT8_OPS)
+                raise RuntimeError(
+                    f"qbits_mm_requant_int8 int{bits} M={M} N={N} K={K}: not equal to its plain version ({err})"
+                )
+            b_ms, b_by = bound(M, N, K, x_bytes=1, w_bytes=bits / 8, side_bytes=2 * G * N * 4 + 4 * N + 4,
+                               peak_ops=PEAK_INT8_OPS)
+            if bits == 4:
+                exact = (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16)
+                exact_route = ("tiled_int8_ms", lambda: K_mod.qbits_mm_tiled_int8(*exact))
+            else:
+                def dequantized_matmul():
+                    x = (xq.float() * sx).to(torch.bfloat16)  # `ActivationQBytesArray.dequantize`
+                    w = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, bits).to(torch.bfloat16)
+                    return torch.matmul(x, w.t())
+                exact_route = ("exact_ms", dequantized_matmul)
             row = dict(
-                name="qbits_mm_requant_int8", M=M, N=N, K=K, max_abs_err=err, equal=True,
+                name="qbits_mm_requant_int8" + ("_int2" if bits == 2 else ""), M=M, N=N, K=K,
+                max_abs_err=err, equal=True,
                 ms=time_ms(lambda: K_mod.qbits_mm_requant_int8(*args), flush),
                 plain_ms=time_ms(lambda: K_mod.qbits_requant_int8_mm_plain(*args), flush),
                 library_ms=time_ms(lambda: torch._int_mm(xq, c8_t), flush),
-                tiled_int8_ms=time_ms(lambda: K_mod.qbits_mm_tiled_int8(*exact), flush),
+                **{exact_route[0]: time_ms(exact_route[1], flush)},
                 bound_ms=b_ms, bound_by=b_by,
             )
             rows.append(row)
@@ -1088,7 +1136,7 @@ def requant_dense(w) -> torch.Tensor:
     """A requant-form weight's requant codes times their step, c8 · s8, float32 [N, K]."""
     from quanto_tpu_torch.ops.cuda.qbits_mm import requant_codes
 
-    return requant_codes(w._packed, w._scale_t, w._shift_t, w._s8, w.group_size).float() * w._s8[:, None]
+    return requant_codes(w._packed, w._scale_t, w._shift_t, w._s8, w.group_size, w.bits).float() * w._s8[:, None]
 
 
 @contextlib.contextmanager
@@ -1124,7 +1172,7 @@ REQUANT_X_RATIO = 2.0
 
 
 def check_requant_vs_exact(lr: torch.Tensor, le: torch.Tensor, lf: torch.Tensor, lw: torch.Tensor,
-                           li: torch.Tensor, weight_change: list) -> None:
+                           li: torch.Tensor, weight_change: list, label: str = "") -> None:
     """Phase 5: the requant form's prefill logits `lr` [B, V] against the
     exact W4A8 form's `le` of the same weights. The requant codes lie within
     half a step s8 of the int4 weights, a small change of each weight, as
@@ -1136,7 +1184,8 @@ def check_requant_vs_exact(lr: torch.Tensor, le: torch.Tensor, lf: torch.Tensor,
     Top-1 tokens are logged, not held: at this size of move, random-weight
     logits whose two largest differ by a few percent of max|logit| swap.
     `weight_change` holds each linear's rms of c8 · s8 minus its int4 weight
-    over the int4 weight's rms."""
+    over the int4 weight's rms. Phase 13 holds a W2A8 model (int2 weights
+    in place of int4) to the same limits (`label` names it in the log)."""
     def one_minus_cos(a, b):
         return 1 - torch.nn.functional.cosine_similarity(a, b, dim=-1)
 
@@ -1145,7 +1194,7 @@ def check_requant_vs_exact(lr: torch.Tensor, le: torch.Tensor, lf: torch.Tensor,
     int8_x = one_minus_cos(le, lf)
     top_r, top_e = lr.argmax(-1), le.argmax(-1)
     gaps = [(le[r, top_e[r]] - le[r, top_r[r]]).item() / le[r].abs().max().item() for r in range(le.shape[0])]
-    log(json.dumps({"end_to_end": "prefill, requant vs exact form",
+    log(json.dumps({"end_to_end": f"{label}prefill, requant vs exact form",
                     "weight_change_rms": [min(weight_change), max(weight_change)],
                     "one_minus_cos_weights_float_x": weights_only.tolist(),
                     "one_minus_cos_requant_vs_exact": requant.tolist(),
@@ -1153,10 +1202,18 @@ def check_requant_vs_exact(lr: torch.Tensor, le: torch.Tensor, lf: torch.Tensor,
                     "ratio": (requant / int8_x).tolist(),
                     "top1_requant": top_r.tolist(), "top1_exact": top_e.tolist(), "relative_gaps": gaps}))
     if not bool((weights_only <= REQUANT_WEIGHT_LIMIT).all()):
-        raise RuntimeError(f"the requant weights move float-activation logits by 1 - cosine {weights_only.tolist()}")
+        raise RuntimeError(f"{label}the requant weights move float-activation logits by 1 - cosine "
+                           f"{weights_only.tolist()}")
     if not bool((requant <= REQUANT_X_RATIO * int8_x).all()):
-        raise RuntimeError(f"the requant form moves the logits by 1 - cosine {requant.tolist()}, more than "
+        raise RuntimeError(f"{label}the requant form moves the logits by 1 - cosine {requant.tolist()}, more than "
                            f"{REQUANT_X_RATIO} x int8 activations' {int8_x.tolist()}")
+
+
+def linears_operations(model, M: int) -> int:
+    """2 M N K over the model's quantized linears: their operations on M rows."""
+    from quanto_tpu_torch.nn import QLinear
+
+    return 2 * M * sum(m.out_features * m.in_features for m in model.modules() if isinstance(m, QLinear))
 
 
 def step_weight_bytes(model) -> int:
@@ -1176,10 +1233,12 @@ def step_weight_bytes(model) -> int:
 
 
 @torch.no_grad()
-def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict) -> dict:
+def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, prefill_peak_ops=None) -> dict:
     """Phases 6 and 7: the 8B model's prefill (last position only) and 63 greedy
     decode steps over a bf16 cache of T + NEW slots, with exact launch counts of
-    every kernel in each half. Returns the run's launch counts."""
+    every kernel in each half. With `prefill_peak_ops` it also logs the
+    prefill's linears' least time (2 M N K operations at that rate). Returns
+    the run's launch counts."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
@@ -1216,9 +1275,13 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict) -> 
     if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
         raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
     weight_bytes = step_weight_bytes(model)
+    prefill_bound = {}
+    if prefill_peak_ops is not None:
+        ops = linears_operations(model, B * T)
+        prefill_bound = {"prefill_linears_operations": ops, "prefill_linears_bound_ms": ops / prefill_peak_ops * 1e3}
     log(json.dumps({
         "arm": label, "batch": B, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
-        "prefill_ms": prefill_s * 1e3,
+        "prefill_ms": prefill_s * 1e3, **prefill_bound,
         "decode_ms_per_step": decode_s / steps * 1e3,
         "decode_tok_s": B * steps / decode_s,
         "peak_memory_gb": peak_gb,
@@ -1788,6 +1851,25 @@ def phase_llama_int2(config, ids) -> tuple:
         want_decode={"qbits_mm_small_m": step, "qbits_mm_small_m_int2": step, "flash_decode": layers * steps},
     )
 
+    counts = phase_b1_prefill(
+        "int2", "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache", model, ids,
+        want={"qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin}, peak_ops=PEAK_BF16_FLOPS,
+    )
+    del model, qlinears
+    gc.collect()
+    torch.cuda.empty_cache()
+    return decode_counts, counts
+
+
+@torch.no_grad()
+def phase_b1_prefill(tag: str, what: str, model, ids, want: dict, peak_ops: float) -> dict:
+    """Phases 11 and 13: a B = 1 prefill of T tokens (last position only) over a
+    bf16 cache, after a warm-up, with exact launch counts (`want`, 0
+    elsewhere); logs its time and peak memory beside its linears' least time
+    (2 M N K operations at `peak_ops`) under the key `<tag>_prefill`. Returns
+    its launch counts."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
     x1 = ids[:1]
     prefill(model, x1, make_cache(model, 1, T), last_only=True)  # warm-up
     torch.cuda.synchronize()
@@ -1800,23 +1882,18 @@ def phase_llama_int2(config, ids) -> tuple:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts = read_counts()
-    want = {**{n: 0 for n in counts}, "qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin}
-    if counts != want:
-        raise RuntimeError(f"int2 B = 1 prefill launches {counts}, want {want}")
-    if logits.shape != (1, 1, config.vocab_size) or not torch.isfinite(logits).all():
-        raise RuntimeError(f"int2 B = 1 prefill logits: shape {tuple(logits.shape)} or non-finite values")
-    # Least time of the linears: 2 M N K operations each at the bf16 tensor-core rate.
-    ops = 2 * T * sum(m.out_features * m.in_features for m in qlinears)
+    if counts != {**{n: 0 for n in counts}, **want}:
+        raise RuntimeError(f"{tag} B = 1 prefill launches {counts}, want {want} and 0 elsewhere")
+    if logits.shape != (1, 1, model.config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{tag} B = 1 prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    ops = linears_operations(model, T)
     log(json.dumps({
-        "int2_prefill": "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache",
+        f"{tag}_prefill": what,
         "prefill_ms": prefill_s * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": {n: c for n, c in counts.items() if c},
-        "linears_operations": ops, "linears_bound_ms": ops / PEAK_BF16_FLOPS * 1e3,
+        "linears_operations": ops, "linears_bound_ms": ops / peak_ops * 1e3,
     }))
-    del model, qlinears, cache, logits
-    gc.collect()
-    torch.cuda.empty_cache()
-    return decode_counts, counts
+    return counts
 
 
 # Phase 11's 2-layer check, kernel path against the plain versions on the same qint2 weights:
@@ -1856,18 +1933,199 @@ def phase_llama_int2_end_to_end(ids):
     if read_counts() != counts:
         raise RuntimeError("int2: the plain forward launched a kernel")
     for what, k, p in (("B = 1 prefill", kernel[0], plain[0]), ("decode step", kernel[1], plain[1])):
-        cos = F.cosine_similarity(k, p, dim=-1)
-        top_k, top_p = k.argmax(-1), p.argmax(-1)
-        log(json.dumps({"int2_end_to_end": what, "cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
-                        "top1_plain": top_p.tolist()}))
-        if not bool((cos > INT2_E2E_COS).all()):
-            raise RuntimeError(f"int2 {what}: cosine {cos.tolist()} <= {INT2_E2E_COS}")
-        for r in (top_k != top_p).nonzero().flatten().tolist():
-            gap = (p[r, top_p[r]] - p[r, top_k[r]]).item()
-            scale = p[r].abs().max().item()
-            log(json.dumps({"int2_logit_tie": what, "row": r, "logit_gap": gap, "max_abs_logit": scale}))
-            if gap > LOGIT_TIE * scale:
-                raise RuntimeError(f"int2 {what}: row {r}'s top-1 token differs with no logit tie (gap {gap})")
+        check_rows("int2", what, k, p, INT2_E2E_COS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_rows(tag: str, what: str, k: torch.Tensor, p: torch.Tensor, min_cos: float) -> None:
+    """Phases 11 and 13: last-position logits [rows, V] of the kernel path `k`
+    against the plain versions' `p`: each row's cosine above `min_cos`, and
+    the same top-1 token or a logit tie (LOGIT_TIE)."""
+    cos = F.cosine_similarity(k, p, dim=-1)
+    top_k, top_p = k.argmax(-1), p.argmax(-1)
+    log(json.dumps({f"{tag}_end_to_end": what, "cosine": cos.tolist(), "top1_kernel": top_k.tolist(),
+                    "top1_plain": top_p.tolist()}))
+    if not bool((cos > min_cos).all()):
+        raise RuntimeError(f"{tag} {what}: cosine {cos.tolist()} <= {min_cos}")
+    for r in (top_k != top_p).nonzero().flatten().tolist():
+        gap = (p[r, top_p[r]] - p[r, top_k[r]]).item()
+        scale = p[r].abs().max().item()
+        log(json.dumps({f"{tag}_logit_tie": what, "row": r, "logit_gap": gap, "max_abs_logit": scale}))
+        if gap > LOGIT_TIE * scale:
+            raise RuntimeError(f"{tag} {what}: row {r}'s top-1 token differs with no logit tie (gap {gap})")
+
+
+@torch.no_grad()
+def phase_llama_w2a8(config, ids) -> dict:
+    """Phase 13: Llama-3.1-8B in W2A8 (`quantize(weights="qint2",
+    activations="qint8", exclude="lm_head")`, group size 128, calibrated as
+    phase 7, frozen). (a) The exact form: phase 6's decode run (every step
+    224 launches of `qbits_mm_int8_small_m`'s int2 arm, the M = 4096 prefill
+    none: an int2 weight off the requant route takes no kernel above M =
+    1024, as in JAX) and a B = 1 prefill of 1024 tokens (224 launches of
+    `qbits_mm_tiled_int8`'s int2 arm). (b) Frozen again with
+    `freeze(model, w4a8_requant_dot=True)`: every linear in the requant form,
+    and phase 6's run again, its M = 4096 prefill through 224 launches of
+    `qbits_mm_requant_int8`'s int2 arm. Returns each run's launch counts."""
+    from quanto_tpu_torch import WeightQBitsRequantArray, freeze
+
+    layers = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * layers, NEW - 1
+    t_phase = time.perf_counter()
+    model, qlinears = build_model(config, seed=0, weights="qint2", activations="qint8", exclude="lm_head")
+    torch.cuda.synchronize()
+    log(f"w2a8: built + quantized + calibrated ({CAL_BATCHES} x {B} x {CAL_T} tokens) + frozen in "
+        f"{time.perf_counter() - t_phase:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    if not all(m.weight.bits == 2 for m in qlinears):
+        raise RuntimeError("a linear of the W2A8 model is not int2")
+    decode = {"qbits_mm_int8_small_m": n_lin * steps, "qbits_mm_int8_small_m_int2": n_lin * steps,
+              "flash_decode": layers * steps}
+    what = "llama-3.1-8b-config qint2 weights, qint8 activations (lm_head bf16), bf16 cache"
+    counts = {"decode": phase_arm(f"w2a8: {what}", model, ids, want_prefill={}, want_decode=decode,
+                                  prefill_peak_ops=PEAK_BF16_FLOPS)}
+    counts["b1_prefill"] = phase_b1_prefill(
+        "w2a8", f"{what}, B = 1 x 1024 tokens", model, ids,
+        want={"qbits_mm_tiled_int8": n_lin, "qbits_mm_tiled_int8_int2": n_lin}, peak_ops=PEAK_INT8_OPS,
+    )
+    freeze(model, w4a8_requant_dot=True)
+    if not all(isinstance(m.weight, WeightQBitsRequantArray) for m in qlinears):
+        raise RuntimeError("freeze(w4a8_requant_dot=True) left a W2A8 linear outside the requant form")
+    counts["requant"] = phase_arm(
+        f"w2a8 requant form: {what}", model, ids,
+        want_prefill={"qbits_mm_requant_int8": n_lin, "qbits_mm_requant_int8_int2": n_lin}, want_decode=decode,
+        prefill_peak_ops=PEAK_INT8_OPS,
+    )
+    del model, qlinears
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"w2a8: phase 13 (a, b) took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# Phase 13's 2-layer checks, set from its readings on random weights (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6):
+# - the kernel path against the plain versions: each row's cosine above W2A8_E2E_COS. Readings:
+#   1.0 in 23 of the 24 rows of both forms; 0.997975 in the exact form's ragged decode row 0, the
+#   same in two calls, where one int8 activation code of layer 0's o_proj input moved (a value
+#   0.0008 of a step from the rounding half in one path, `flash_decode` against its plain
+#   version) and then hundreds of the next linears' codes (logged, `first_moved_codes`). Phase
+#   5's 0.999 would refuse that one code; the limit allows 5x its 1 - cosine;
+# - the requant form against the exact form (`check_requant_vs_exact`), to phase 5's limits:
+#   witness readings 0.98e-3-1.48e-3 (REQUANT_WEIGHT_LIMIT is 2.7x the largest, 0.48x the
+#   smallest requant vs exact reading of 8.3e-3), ratio readings 1.01-1.17 (W4A8: 0.73-0.89).
+W2A8_E2E_COS = 0.99
+
+
+@contextlib.contextmanager
+def decode_inputs(model, record: list):
+    """Record (name, module, float input) of every quantized linear's call on
+    one-token rows (a decode step) of `model`."""
+    from quanto_tpu_torch.nn import QLinear
+
+    def hook(m, args, name):
+        if isinstance(args[0], torch.Tensor) and args[0].shape[-2] == 1:
+            record.append((name, m, args[0].float().clone()))
+
+    handles = [m.register_forward_pre_hook(functools.partial(hook, name=n))
+               for n, m in model.named_modules() if isinstance(m, QLinear)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def first_moved_codes(rec_k: list, rec_p: list) -> dict:
+    """For each row of a decode step recorded by `decode_inputs` in two runs:
+    the first quantized linear whose int8 input codes differ between them, how
+    many differ, and the moved value nearest a rounding half (in steps, in
+    each run)."""
+    from quanto_tpu_torch.tensor.activations import quantize_activation
+
+    moved = {}
+    for (name, m, a), (_, _, b) in zip(rec_k, rec_p):
+        ca, cb = (quantize_activation(t, m.activation_qtype, m.input_scale)._data for t in (a, b))
+        step = m.input_scale.float()
+        for r in range(a.shape[0]):
+            diff = (ca[r] != cb[r]).flatten()
+            if r in moved or not diff.any():
+                continue
+            xa, xb = (t[r].flatten()[diff] / step for t in (a, b))
+            i = ((xa - xa.round()).abs() - 0.5).abs().argmin()
+            moved[r] = {"linear": name, "codes_moved": int(diff.sum()),
+                        "x_over_step": [xa[i].item(), xb[i].item()]}
+    return moved
+
+
+@torch.no_grad()
+def phase_w2a8_end_to_end(ids) -> None:
+    """Phase 13's check at 2 layers and full width, on a calibrated W2A8 model:
+    the kernel path against the plain versions called explicitly, for a B = 1
+    prefill of 1024 tokens (last-position logits, through the tiled int8
+    kernel's int2 arm) and one decode step at ragged per-row positions after a
+    B = 4 prefill (through the small-M int8 kernel's int2 arm); then the same
+    weights frozen into the requant form, its B = 4 prefill (through the
+    requant kernel's int2 arm) held against the exact form's as phase 5 holds
+    W4A8's, and its kernel path against its plain versions."""
+    from quanto_tpu_torch import freeze
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+    from quanto_tpu_torch.nn import QLinear
+
+    config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
+    layers = config.num_hidden_layers
+    model, _ = build_model(config, seed=1, weights="qint2", activations="qint8", exclude="lm_head")
+    n_lin = LINEARS_PER_LAYER * layers
+    ragged = torch.tensor([T, T - 4, T - 100, 300], device="cuda")
+
+    def run():
+        """Last-position logits of a B = 1 prefill, a B = 4 prefill, a ragged decode step."""
+        pre1, _ = prefill(model, ids[:1], make_cache(model, 1, T), last_only=True)
+        pre4, cache = prefill(model, ids, make_cache(model, B, T + 8), last_only=True)
+        step, _ = model(ids[:, -1:], cache, ragged)
+        torch.cuda.synchronize()
+        return pre1[:, -1].float(), pre4[:, -1].float(), step[:, -1].float()
+
+    def kernel_vs_plain(form: str, want: dict):
+        rec_k, rec_p = [], []
+        reset_counts()
+        with decode_inputs(model, rec_k):
+            kernel = run()
+        counts = read_counts()
+        if counts != {**{n: 0 for n in counts}, **want}:
+            raise RuntimeError(f"w2a8 {form} end-to-end launches {counts}, want {want} and 0 elsewhere")
+        with plain_versions(), decode_inputs(model, rec_p):
+            plain = run()
+        if read_counts() != counts:
+            raise RuntimeError(f"w2a8 {form}: the plain forward launched a kernel")
+        log(json.dumps({"w2a8_first_moved_codes": f"{form}, ragged decode step, kernel vs plain",
+                        "rows": first_moved_codes(rec_k, rec_p)}))
+        for what, k, p in zip(("B = 1 prefill", "B = 4 prefill", "ragged decode step"), kernel, plain):
+            check_rows("w2a8", f"{form}, {what}", k, p, W2A8_E2E_COS)
+        return kernel
+
+    exact_want = {"qbits_mm_tiled_int8": n_lin, "qbits_mm_tiled_int8_int2": n_lin,
+                  "qbits_mm_int8_small_m": n_lin, "qbits_mm_int8_small_m_int2": n_lin, "flash_decode": layers}
+    logits_exact = kernel_vs_plain("exact form", exact_want)[1]
+    with float_activations(model):
+        logits_float_x = run()[1]
+    freeze(model, w4a8_requant_dot=True)
+    with dense_weights(model, requant=False):
+        logits_int2_w = run()[1]
+    with dense_weights(model, requant=True):
+        logits_requant_w = run()[1]
+    logits_requant = kernel_vs_plain("requant form", {
+        **exact_want, "qbits_mm_requant_int8": n_lin, "qbits_mm_requant_int8_int2": n_lin,
+    })[1]
+    weight_change = []
+    for m in model.modules():
+        if isinstance(m, QLinear):
+            w2 = m.weight.dequantize().float()
+            weight_change.append(((requant_dense(m.weight) - w2).norm() / w2.norm()).item())
+    check_requant_vs_exact(logits_requant, logits_exact, logits_float_x, logits_requant_w, logits_int2_w,
+                           weight_change, label="w2a8 ")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1899,7 +2157,8 @@ def main() -> int:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
-            + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2))
+            + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
+            + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2))
     del flush
     torch.cuda.empty_cache()
 
@@ -2000,6 +2259,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_mixtral_end_to_end(mixtral_ids, MIXTRAL_E2E_SEEDS[0], experts="qint2")
 
+    # Phase 13: Llama-3.1-8B in W2A8, exact and requant forms, and its 2-layer check.
+    t0 = time.perf_counter()
+    launches_w2a8 = phase_llama_w2a8(config, ids)
+    phase_w2a8_end_to_end(ids)
+    log(f"w2a8: phase 13 took {time.perf_counter() - t0:.1f} s")
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -2015,6 +2280,9 @@ def main() -> int:
         "qbits_mm_tiled_int2": ("phase 11 (llama-3.1-8b qint2, B = 1 prefill)", launches_int2_prefill),
         "qbits_moe_small_m_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
         "qbits_moe_tiled_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
+        "qbits_mm_int8_small_m_int2": ("phase 13 (llama-3.1-8b w2a8, decode run)", launches_w2a8["decode"]),
+        "qbits_mm_tiled_int8_int2": ("phase 13 (llama-3.1-8b w2a8, B = 1 prefill)", launches_w2a8["b1_prefill"]),
+        "qbits_mm_requant_int8_int2": ("phase 13 (llama-3.1-8b w2a8, requant form)", launches_w2a8["requant"]),
     }
     kernels = []
     for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
@@ -2035,6 +2303,8 @@ def main() -> int:
             extra = {"launches_b1": (launches_moe_int2_b1 if name.endswith("_int2") else launches_moe_b1)[name]}
         if name == "qbits_mm_requant_int8":
             extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
+        if name == "qbits_mm_requant_int8_int2":
+            extra = {"exact_ms": rep["exact_ms"]}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=counts[name], launches_run=run, **extra,

@@ -3,18 +3,18 @@
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
 //
 // computed group-factored as  y = sum_g s_g * (x_g . c_g) - (sum_k x_gk) * z_g  with float32
-// sums, then cast to x's dtype (bfloat16 or float32). The two float-x kernels take int4 or int2
-// codes (an instantiation each, chosen by the entry point's `bits`); the int8-x kernels below
-// take int4 codes only.
+// sums, then cast to x's dtype (bfloat16 or float32). Every kernel takes int4 or int2 codes (an
+// instantiation each, chosen by the entry point's `bits`).
 //
-// W4A8 (int8 x, per-tensor scale sx): the same factoring with integer sums inside each group,
+// W4A8 and W2A8 (int8 x, per-tensor scale sx): the same factoring with integer sums inside each
+// group,
 //
 //   y = sx * sum_g [ s_g * (xq_g . c_g) - z_g * (sum_k xq_gk) ],
 //
-// exact in int32 within a group (|xq| <= 128, c <= 15), the epilogue in float32, then cast to
-// the weight's float dtype (bfloat16 or float32); sx is read from device memory.
+// exact in int32 within a group (|xq| <= 128, c <= 15 or 3), the epilogue in float32, then cast
+// to the weight's float dtype (bfloat16 or float32); sx is read from device memory.
 //
-// W4A8 requant route (approximate; weights requantized to per-channel int8 codes c8 with step s8):
+// Requant route (approximate; weights requantized to per-channel int8 codes c8 with step s8):
 //
 //   y = sx * s8 * (xq . c8)   with one int32 sum over the whole K.
 //
@@ -60,25 +60,96 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_kernel(
 }
 
 // ---------------------------------------------------------------------------------------------
-// qbits_mm_int8_small_m (W4A8, M <= 512).
+// Codes of a run of 32 (load_run) as int8 operands of __dp4a and of mma.sync s8.
+// ---------------------------------------------------------------------------------------------
+
+// The 4 x 4 byte transpose: byte b of o_i is byte i of a_b.
+__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                           uint32_t& o0, uint32_t& o1, uint32_t& o2,
+                                           uint32_t& o3) {
+  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
+  const uint32_t t1 = __byte_perm(a0, a1, 0x7362);  // a0.b2 a1.b2 a0.b3 a1.b3
+  const uint32_t t2 = __byte_perm(a2, a3, 0x5140);  // a2.b0 a3.b0 a2.b1 a3.b1
+  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);  // a2.b2 a3.b2 a2.b3 a3.b3
+  o0 = __byte_perm(t0, t2, 0x5410);
+  o1 = __byte_perm(t0, t2, 0x7632);
+  o2 = __byte_perm(t1, t3, 0x5410);
+  o3 = __byte_perm(t1, t3, 0x7632);
+}
+
+// Operand j (0..7) of a run's codes: code i of each byte of packed word j / (8 / BITS), i =
+// j % (8 / BITS), one code (0..15 or 0..3, exact as s8) per byte. int4: byte b of word q holds
+// codes 8q + 2b and 8q + 2b + 1; int2: crumb i of byte b of word q holds code 16q + 4b + i.
+template <int BITS>
+__device__ __forceinline__ uint32_t code_operand(const uint32_t (&w)[BITS], int j) {
+  constexpr int per = 8 / BITS;
+  constexpr uint32_t mask = ((1u << BITS) - 1u) * 0x01010101u;
+  return (w[j / per] >> (BITS * (j % per))) & mask;
+}
+
+// The x words that pair with code_operand<BITS>(w, j) in __dp4a, given x's 32 int8 values of
+// the run in order (xw). int4: x's even and odd bytes of each 8; int2: x's bytes 4b + i (b =
+// 0..3) of each 16, gathered by a 4 x 4 byte transpose.
+template <int BITS>
+__device__ __forceinline__ void x_operands(const uint32_t (&xw)[8], uint32_t (&xo)[8]) {
+  if constexpr (BITS == 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xo[2 * q] = __byte_perm(xw[2 * q], xw[2 * q + 1], 0x6420);      // x 8q + 0, 2, 4, 6
+      xo[2 * q + 1] = __byte_perm(xw[2 * q], xw[2 * q + 1], 0x7531);  // x 8q + 1, 3, 5, 7
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      transpose4(xw[4 * q], xw[4 * q + 1], xw[4 * q + 2], xw[4 * q + 3], xo[4 * q], xo[4 * q + 1],
+                 xo[4 * q + 2], xo[4 * q + 3]);
+  }
+}
+
+// The run's 32 codes as int8, in K order: cw[j] holds codes 4j .. 4j + 3.
+template <int BITS>
+__device__ __forceinline__ void codes_s8(const uint32_t (&pw)[BITS], uint32_t (&cw)[8]) {
+  if constexpr (BITS == 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t lo = code_operand<4>(pw, 2 * q);      // codes 8q + 0, 2, 4, 6
+      const uint32_t hi = code_operand<4>(pw, 2 * q + 1);  // codes 8q + 1, 3, 5, 7
+      cw[2 * q] = __byte_perm(lo, hi, 0x5140);
+      cw[2 * q + 1] = __byte_perm(lo, hi, 0x7362);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)  // crumb planes i = 0..3 of word q, transposed: byte b's codes
+      transpose4(code_operand<2>(pw, 4 * q), code_operand<2>(pw, 4 * q + 1),
+                 code_operand<2>(pw, 4 * q + 2), code_operand<2>(pw, 4 * q + 3), cw[4 * q],
+                 cw[4 * q + 1], cw[4 * q + 2], cw[4 * q + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// qbits_mm_int8_small_m (W4A8 and W2A8, M <= 512).
 //
 // Replaces quanto_tpu/ops/pallas/qbits_mm.py:_int8_kernel, the TPU W4A8 decode kernel.
 // Bound on this card by bytes at decode, as qbits_mm_small_m: each packed weight byte is read
 // once and used for M rows of x. Design: qbits_mm_small_m's, with the products on the integer
 // dot unit. A block owns I8_ROWS weight rows and I8_BM rows of x and walks all of K; each thread
-// loads 16 packed bytes (32 codes) of each of its rows per step. Byte j holds codes 2j (low
-// nibble) and 2j + 1 (high nibble), so the low nibbles of a word's four bytes pair with x's even
-// positions and the high nibbles with its odd ones: __byte_perm gathers x's even and odd bytes,
-// and __dp4a adds four int8 x times four codes (0..15, exact as s8) into an int32 sum of the
-// chunk. sum(xq) over the chunk comes from __dp4a against 0x01010101. The 32 codes lie in one
-// group, so the thread adds s_g * acc - z_g * sum(xq) in float32 per chunk. A block-wide
-// reduction sums the threads' partial outputs; the result is multiplied by sx and stored.
+// loads a run of 32 codes of each of its rows per step (16 packed bytes for int4, 8 for int2).
+// __dp4a adds four int8 x times four codes (exact as s8) into an int32 sum of the run: each
+// code operand (code_operand) holds one code per byte, and x_operands gathers the x bytes it
+// pairs with, once per x row and run for all I8_ROWS rows. int4: the low nibbles of a word's four
+// bytes pair with x's even positions and the high nibbles with its odd ones (two __byte_perm);
+// int2: crumb i of the bytes b = 0..3 pairs with x at 4b + i (a 4 x 4 byte transpose, eight
+// __byte_perm per 16 codes). sum(xq) over the run comes from __dp4a against 0x01010101. The 32
+// codes lie in one group, so the thread adds s_g * acc - z_g * sum(xq) in float32 per run. A
+// block-wide reduction sums the threads' partial outputs; the result is multiplied by sx and
+// stored. The int2 arm keeps the int4 arm's 32 codes per step, as small_m_block in
+// qbits_mm.cuh does: it is held by its arithmetic and latency, not its bytes.
 // ---------------------------------------------------------------------------------------------
 constexpr int I8_THREADS = 128;
 constexpr int I8_ROWS = 4;
 constexpr int I8_BM = 8;
 
-template <typename TO>
+template <typename TO, int BITS>
 __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
     const int8_t* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
@@ -86,7 +157,7 @@ __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
   const int n0 = blockIdx.x * I8_ROWS;
   const int m0 = blockIdx.y * I8_BM;
   const int rows_m = min(I8_BM, M - m0);
-  const size_t kp = (size_t)K / 2;
+  const size_t kp = row_bytes<BITS>(K);
   const int nchunks = K / 32;
 
   float y[I8_ROWS][I8_BM];
@@ -97,15 +168,10 @@ __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
 
   for (int c = threadIdx.x; c < nchunks; c += I8_THREADS) {
     const int k0 = c * 32;
-    uint32_t w[I8_ROWS][4];
+    uint32_t w[I8_ROWS][BITS];
 #pragma unroll
-    for (int r = 0; r < I8_ROWS; ++r) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(packed + (size_t)(n0 + r) * kp) + c);
-      w[r][0] = v.x;
-      w[r][1] = v.y;
-      w[r][2] = v.z;
-      w[r][3] = v.w;
-    }
+    for (int r = 0; r < I8_ROWS; ++r)
+      load_run<BITS>(packed + (size_t)(n0 + r) * kp + (size_t)c * 4 * BITS, w[r]);
     int acc[I8_ROWS][I8_BM];
     int xs[I8_BM];
 #pragma unroll
@@ -118,17 +184,14 @@ __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
         const uint4 a = __ldg(xp);
         const uint4 b = __ldg(xp + 1);
         const uint32_t xw[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        uint32_t xo[8];
+        x_operands<BITS>(xw, xo);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {  // packed word q holds codes 8q .. 8q + 7
-          const int xe = (int)__byte_perm(xw[2 * q], xw[2 * q + 1], 0x6420);  // x 8q + 0, 2, 4, 6
-          const int xo = (int)__byte_perm(xw[2 * q], xw[2 * q + 1], 0x7531);  // x 8q + 1, 3, 5, 7
-          xs[m] = __dp4a((int)xw[2 * q], 0x01010101, xs[m]);
-          xs[m] = __dp4a((int)xw[2 * q + 1], 0x01010101, xs[m]);
+        for (int j = 0; j < 8; ++j) {
+          xs[m] = __dp4a((int)xw[j], 0x01010101, xs[m]);
 #pragma unroll
-          for (int r = 0; r < I8_ROWS; ++r) {
-            acc[r][m] = __dp4a((int)(w[r][q] & 0x0F0F0F0Fu), xe, acc[r][m]);
-            acc[r][m] = __dp4a((int)((w[r][q] >> 4) & 0x0F0F0F0Fu), xo, acc[r][m]);
-          }
+          for (int r = 0; r < I8_ROWS; ++r)
+            acc[r][m] = __dp4a((int)code_operand<BITS>(w[r], j), (int)xo[j], acc[r][m]);
         }
       }
     }
@@ -169,16 +232,19 @@ __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
 }
 
 // ---------------------------------------------------------------------------------------------
-// qbits_mm_tiled_int8 (W4A8, M > 512).
+// qbits_mm_tiled_int8 (W4A8 and W2A8, M > 512).
 //
 // Replaces the integer arm of quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel (int8 x
-// against int4 codes on the TPU's integer matrix unit). Bound on this card by operations at
-// prompt lengths. Design: qbits_mm_tiled's, with mma.sync m16n8k32 s8 x s8 -> s32. Each K step
-// stages the int8 x tile as it is and the weight tile as one int8 code per byte (exact), so no
-// bf16 split is needed; the int32 accumulator is exact within a group, and at each group's end
-// the epilogue y += s_g * acc - z_g * sum(xq_g) runs in float32 registers, with sum(xq_g) summed
-// as int32 by the staging threads (__dp4a against 0x01010101). The result is multiplied by sx.
-// No wgmma, TMA or pipelining yet: right and simple first.
+// against int4 or int2 codes on the TPU's integer matrix unit). Bound on this card by operations
+// at prompt lengths. Design: qbits_mm_tiled's, with mma.sync m16n8k32 s8 x s8 -> s32. Each K step
+// stages the int8 x tile as it is and the weight tile as one int8 code per byte (exact, codes_s8:
+// for int2 each packed byte's four crumbs become one word of four codes), so no bf16 split is
+// needed; the int32 accumulator is exact within a group, and at each group's end the epilogue
+// y += s_g * acc - z_g * sum(xq_g) runs in float32 registers, with sum(xq_g) summed as int32 by
+// the staging threads (__dp4a against 0x01010101). The result is multiplied by sx. An int2 K
+// step keeps its 64 codes and stages 8 packed bytes a thread instead of 16, so the tiles, the
+// mma loop and the epilogue are the int4 arm's. No wgmma, TMA or pipelining yet: right and
+// simple first.
 // ---------------------------------------------------------------------------------------------
 constexpr int TI_LD = TL_BK + 16;  // padded shared-memory row, in bytes: no bank conflicts
 
@@ -224,7 +290,7 @@ __device__ __forceinline__ void mma_k_step_s8(const int8_t* x_s, const int8_t* w
   }
 }
 
-template <typename TO>
+template <typename TO, int BITS>
 __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_int8_kernel(
     const int8_t* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
@@ -248,7 +314,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_int8_kernel(
   const int shalf = tid & 1;
   const bool x_valid = m0 + srow < M;
   const int8_t* x_src = x + (size_t)(x_valid ? m0 + srow : 0) * K + shalf * 32;
-  const uint8_t* w_src = packed + (size_t)(n0 + srow) * (K / 2) + shalf * 16;
+  const uint8_t* w_src = packed + (size_t)(n0 + srow) * row_bytes<BITS>(K) + shalf * 4 * BITS;
   int8_t* x_dst = x_s + srow * TI_LD + shalf * 32;
   int8_t* w_dst = w_s + srow * TI_LD + shalf * 32;
 
@@ -278,17 +344,11 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_int8_kernel(
     int part = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) part = __dp4a((int)xw[i], 0x01010101, part);
-    // 16 packed bytes -> 32 codes, one per byte, in K order.
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(w_src + kbase / 2));
-    const uint32_t pw[4] = {v.x, v.y, v.z, v.w};
+    // 4 * BITS packed bytes -> 32 codes, one per byte, in K order.
+    uint32_t pw[BITS];
+    load_run<BITS>(w_src + (size_t)kbase * BITS / 8, pw);
     uint32_t cw[8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t lo = pw[q] & 0x0F0F0F0Fu;         // codes 8q + 0, 2, 4, 6
-      const uint32_t hi = (pw[q] >> 4) & 0x0F0F0F0Fu;  // codes 8q + 1, 3, 5, 7
-      cw[2 * q] = __byte_perm(lo, hi, 0x5140);
-      cw[2 * q + 1] = __byte_perm(lo, hi, 0x7362);
-    }
+    codes_s8<BITS>(pw, cw);
     reinterpret_cast<uint4*>(w_dst)[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
     reinterpret_cast<uint4*>(w_dst)[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
     part += __shfl_xor_sync(0xffffffffu, part, 1);  // the other half of the row
@@ -364,6 +424,8 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_int8_kernel(
 // fma (one rounding in place of two would move a code at a rounding tie), and rintf (half to
 // even, as jnp.round). Codes and the int32 sum are exact and the epilogue is the plain version's
 // two float32 multiplies in its order, so the output equals the plain version bit for bit.
+// int2 (W2A8): the same with s8 from qmax = 3; an int2 K step stages 8 packed bytes a thread,
+// and each byte's four crumbs are requantized into one word of four int8 codes.
 // Each block requantizes its weight tiles again, as each TPU grid row does; requantizing once
 // per N tile, wgmma and TMA are later work.
 // ---------------------------------------------------------------------------------------------
@@ -372,7 +434,7 @@ __device__ __forceinline__ uint32_t requant8(uint32_t c, float rs, float rz) {
   return (uint32_t)__float2int_rn(fminf(fmaxf(v, -127.f), 127.f)) & 0xFFu;
 }
 
-template <typename TO>
+template <typename TO, int BITS>
 __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
     const int8_t* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale_t, const float* __restrict__ shift_t,
@@ -396,7 +458,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
   const int shalf = tid & 1;
   const bool x_valid = m0 + srow < M;
   const int8_t* x_src = x + (size_t)(x_valid ? m0 + srow : 0) * K + shalf * 32;
-  const uint8_t* w_src = packed + (size_t)(n0 + srow) * (K / 2) + shalf * 16;
+  const uint8_t* w_src = packed + (size_t)(n0 + srow) * row_bytes<BITS>(K) + shalf * 4 * BITS;
   int8_t* x_dst = x_s + srow * TI_LD + shalf * 32;
   int8_t* w_dst = w_s + srow * TI_LD + shalf * 32;
   const float s8_row = __ldg(s8 + n0 + srow);
@@ -422,21 +484,17 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
     const uint4* xp = reinterpret_cast<const uint4*>(x_src + kbase);
     reinterpret_cast<uint4*>(x_dst)[0] = x_valid ? __ldg(xp) : zero;
     reinterpret_cast<uint4*>(x_dst)[1] = x_valid ? __ldg(xp + 1) : zero;
-    // 16 packed bytes -> 32 int8 codes, one per byte, in K order: byte j of word q holds the
-    // codes at 8q + 2j (low nibble) and 8q + 2j + 1 (high nibble).
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(w_src + kbase / 2));
-    const uint32_t pw[4] = {v.x, v.y, v.z, v.w};
+    // 4 * BITS packed bytes -> 32 int8 codes, one per byte, in K order: code t of the run lies
+    // at bit BITS * t (run_code).
+    uint32_t pw[BITS];
+    load_run<BITS>(w_src + (size_t)kbase * BITS / 8, pw);
     uint32_t cw[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // bytes 2h, 2h + 1 of word q: codes 8q + 4h .. 8q + 4h + 3
-        const uint32_t b0 = pw[q] >> (16 * h);
-        const uint32_t b1 = b0 >> 8;
-        cw[2 * q + h] = requant8(b0 & 0xFu, rs, rz) | requant8((b0 >> 4) & 0xFu, rs, rz) << 8 |
-                        requant8(b1 & 0xFu, rs, rz) << 16 | requant8((b1 >> 4) & 0xFu, rs, rz) << 24;
-      }
-    }
+    for (int j = 0; j < 8; ++j)  // codes 4j .. 4j + 3
+      cw[j] = requant8(run_code<BITS>(pw, 4 * j), rs, rz) |
+              requant8(run_code<BITS>(pw, 4 * j + 1), rs, rz) << 8 |
+              requant8(run_code<BITS>(pw, 4 * j + 2), rs, rz) << 16 |
+              requant8(run_code<BITS>(pw, 4 * j + 3), rs, rz) << 24;
     reinterpret_cast<uint4*>(w_dst)[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
     reinterpret_cast<uint4*>(w_dst)[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
     __syncthreads();
@@ -492,7 +550,7 @@ int launch_tiled(const void* x, const void* packed, const void* scale_t, const v
   return (int)cudaGetLastError();
 }
 
-template <typename TO>
+template <typename TO, int BITS>
 int launch_int8(bool tiled, const void* x, const void* packed, const void* scale_t,
                 const void* shift_t, const void* sx, void* out, int M, int N, int K, int gs,
                 cudaStream_t stream) {
@@ -504,20 +562,20 @@ int launch_int8(bool tiled, const void* x, const void* packed, const void* scale
   TO* o = static_cast<TO*>(out);
   if (tiled) {
     const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
-    qbits_mm_tiled_int8_kernel<TO><<<grid, TL_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
+    qbits_mm_tiled_int8_kernel<TO, BITS><<<grid, TL_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
   } else {
     const dim3 grid(N / I8_ROWS, (M + I8_BM - 1) / I8_BM);
-    qbits_mm_int8_small_m_kernel<TO><<<grid, I8_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
+    qbits_mm_int8_small_m_kernel<TO, BITS><<<grid, I8_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename TO>
+template <typename TO, int BITS>
 int launch_requant(const void* x, const void* packed, const void* scale_t, const void* shift_t,
                    const void* s8, const void* sx, void* out, int M, int N, int K, int gs,
                    cudaStream_t stream) {
   const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
-  qbits_mm_requant_int8_kernel<TO><<<grid, TL_THREADS, 0, stream>>>(
+  qbits_mm_requant_int8_kernel<TO, BITS><<<grid, TL_THREADS, 0, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
       static_cast<const float*>(s8), static_cast<const float*>(sx), static_cast<TO*>(out), M, N,
@@ -527,46 +585,59 @@ int launch_requant(const void* x, const void* packed, const void* scale_t, const
 
 int int8_entry(bool tiled, int device, const void* x, const void* packed, const void* scale_t,
                const void* shift_t, const void* sx, void* out, int M, int N, int K, int gs,
-               int out_bf16, void* stream) {
+               int bits, int out_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16
-             ? launch_int8<__nv_bfloat16>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
-             : launch_int8<float>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
+  if (bits == 4)
+    return out_bf16
+               ? launch_int8<__nv_bfloat16, 4>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
+               : launch_int8<float, 4>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
+  if (bits == 2)
+    return out_bf16
+               ? launch_int8<__nv_bfloat16, 2>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
+               : launch_int8<float, 2>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// W4A8 entry points: x int8 [M, K], sx float32 scalar on the device; out_bf16: 1 when out is
-// bfloat16, 0 when it is float32.
+// The int8-x entry points (W4A8, W2A8): x int8 [M, K], sx float32 scalar on the device; bits 4 or
+// 2 (any other is refused with cudaErrorInvalidValue); out_bf16: 1 when out is bfloat16, 0 when
+// it is float32.
 extern "C" int qbits_mm_int8_small_m(int device, const void* x, const void* packed,
                                      const void* scale_t, const void* shift_t, const void* sx,
-                                     void* out, int M, int N, int K, int gs, int out_bf16,
-                                     void* stream) {
-  return int8_entry(false, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, out_bf16,
-                    stream);
+                                     void* out, int M, int N, int K, int gs, int bits,
+                                     int out_bf16, void* stream) {
+  return int8_entry(false, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, bits,
+                    out_bf16, stream);
 }
 
 extern "C" int qbits_mm_tiled_int8(int device, const void* x, const void* packed,
                                    const void* scale_t, const void* shift_t, const void* sx,
-                                   void* out, int M, int N, int K, int gs, int out_bf16,
+                                   void* out, int M, int N, int K, int gs, int bits, int out_bf16,
                                    void* stream) {
-  return int8_entry(true, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, out_bf16,
-                    stream);
+  return int8_entry(true, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, bits,
+                    out_bf16, stream);
 }
 
 // The requant route: x int8 [M, K], s8 float32 [N], sx float32 scalar, all on the device.
 extern "C" int qbits_mm_requant_int8(int device, const void* x, const void* packed,
                                      const void* scale_t, const void* shift_t, const void* s8,
                                      const void* sx, void* out, int M, int N, int K, int gs,
-                                     int out_bf16, void* stream) {
+                                     int bits, int out_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16
-             ? launch_requant<__nv_bfloat16>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s)
-             : launch_requant<float>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
+  if (bits == 4)
+    return out_bf16
+               ? launch_requant<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s)
+               : launch_requant<float, 4>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
+  if (bits == 2)
+    return out_bf16
+               ? launch_requant<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s)
+               : launch_requant<float, 2>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The float-x entry points: bits 4 or 2 (the code width; any other is refused with

@@ -141,14 +141,14 @@ class QModuleMixin:
         the envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
         reads as it is.
 
-        `w4a8_requant_dot`: an int4 Hopper-layout weight takes its requant form
-        (`WeightQBitsRequantArray`), which sends W4A8 matmuls at M >= 2048
-        through the approximate requant kernel (per-channel int8 codes about
-        8x finer than the coarsest group's int4 step), the counterpart of
-        the JAX package's opt-in `set_backend(w4a8_requant_dot=True)`. On an
-        already frozen module it converts a Hopper-layout weight in place of
-        freezing again. An int2 weight keeps the plain Hopper layout: the
-        requant route is int4 only. Without it, numerics stay exact."""
+        `w4a8_requant_dot`: a Hopper-layout weight, int4 or int2, takes its
+        requant form (`WeightQBitsRequantArray`), which sends W4A8 and W2A8
+        matmuls at M >= 2048 through the approximate requant kernel
+        (per-channel int8 codes about 8x finer than the coarsest group's int4
+        step, 42x finer than its int2 step), the counterpart of the JAX
+        package's opt-in `set_backend(w4a8_requant_dot=True)`. On an already
+        frozen module it converts a Hopper-layout weight in place of freezing
+        again. Without it, numerics stay exact."""
         if self.weight_qtype is None:
             return
         if self.frozen:
@@ -158,7 +158,7 @@ class QModuleMixin:
             if isinstance(qw, WeightQBitsArray) and qw.device.type == "cuda":
                 qw = WeightQBitsHopperArray.from_generic(qw) or qw
             del self.weight  # drop the float Parameter
-        if w4a8_requant_dot and type(qw) is WeightQBitsHopperArray and qw.bits == 4:
+        if w4a8_requant_dot and type(qw) is WeightQBitsHopperArray:
             qw = WeightQBitsRequantArray.from_hopper(qw)
         self.weight = qw
 

@@ -11,10 +11,9 @@ instantiation of the kernel):
 - `qbits_mm_small_m` (M <= `MAX_M`) replaces the TPU decode kernel `_kernel`;
 - `qbits_mm_tiled` (M > `MAX_M`) replaces the TPU prefill kernel `_prefill_kernel`;
 
-and for W4A8, int8 x `xq` with a per-tensor scale `sx` (a 0-d float32 tensor
-that stays on the device), `y = sx * (xq @ deq(W)^T)` in the weight's float
-dtype, int4 codes only (the int2 arms, W2A8, are `ROADMAP.md` Queue 2 item 1;
-their plain versions take either width):
+and for W4A8 and W2A8, int8 x `xq` with a per-tensor scale `sx` (a 0-d
+float32 tensor that stays on the device), `y = sx * (xq @ deq(W)^T)` in the
+weight's float dtype, with int4 or int2 codes (`bits`, as above):
 - `qbits_mm_int8_small_m` (M <= `MAX_M`) replaces `_int8_kernel`;
 - `qbits_mm_tiled_int8` (M > `MAX_M`) replaces the integer arm of
   `_prefill_kernel`;
@@ -34,8 +33,8 @@ the low and high nibble of byte j; int2: codes 4j .. 4j + 3 in its crumbs),
 Each wrapper takes its kernel's plain PyTorch version (`qbits_mm_plain`,
 `qbits_int8_mm_plain`, `qbits_requant_int8_mm_plain`) when x lies on the
 CPU; on a CUDA tensor it launches the kernel or raises. Each wrapper's
-`launches` attribute counts its kernel launches, of either width; the float
-kernels' `launches_int2` counts those of their int2 arm.
+`launches` attribute counts its kernel launches, of either width, and its
+`launches_int2` those of its int2 arm.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
 (`ops/cuda/_build.py:build`), as a shared library with a plain C interface
@@ -65,6 +64,7 @@ __all__ = [
     "qbits_int8_mm_plain",
     "qbits_mm_int8_small_m",
     "qbits_mm_tiled_int8",
+    "requant_route",
     "requant_step",
     "requant_codes",
     "qbits_requant_int8_mm_plain",
@@ -136,9 +136,6 @@ def qbits_mm_plain(
 # shift_t, out, M, N, K, gs, bits, x_bf16, stream.
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
-# Where the int2 arms of the int8-x kernels stand.
-_W2A8 = "int8 x with int2 weights (W2A8) has no kernel yet: ROADMAP.md Queue 2 item 1"
-
 
 def _check(x, packed, scale_t, shift_t, group_size, bits):
     """Validate the operands a float-x kernel takes; returns (M, N, K)."""
@@ -170,11 +167,10 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size, bits):
     return M, N, K
 
 
-def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits=None):
+def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
     shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
-    output; the float-x entry points also take the code width `bits`. Raises
-    on a refused launch."""
+    output, with the code width `bits`. Raises on a refused launch."""
     x, packed = operands[0], operands[1]
     if any(t.device != x.device for t in operands):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -183,11 +179,10 @@ def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits=None)
     if x.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError(f"{name}: x and packed must be 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ints = (M, N, K, group_size) + (() if bits is None else (bits,))
     rc = kernel(name, argtypes)(
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         *(t.data_ptr() for t in operands), out.data_ptr(),
-        *ints, int(out_dtype == torch.bfloat16),
+        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -195,17 +190,23 @@ def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits=None)
     return out
 
 
+def _count(wrapper, bits) -> None:
+    """One launch of `wrapper`'s kernel, in `launches` and, for an int2
+    weight, in `launches_int2`."""
+    wrapper.launches += 1
+    wrapper.launches_int2 += bits == 2
+
+
 def _run_float(wrapper, name, x, packed, scale_t, shift_t, group_size, bits):
     """The plain version on a CPU tensor; on a CUDA tensor the launch of the
-    C entry point `name`, counted in `wrapper.launches` (and `launches_int2`)."""
+    C entry point `name`, counted on `wrapper`."""
     M, N, K = _check(x, packed, scale_t, shift_t, group_size, bits)
     if x.device.type == "cpu":
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size, bits)
     out = _launch(
         name, _ARGTYPES, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits
     )
-    wrapper.launches += 1
-    wrapper.launches_int2 += bits == 2
+    _count(wrapper, bits)
     return out
 
 
@@ -246,7 +247,7 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     """Plain version of both int8-x kernels, group-factored as they are:
     y = sx * sum_g [s_g * (xq_g @ c_g^T) - z_g * sum(xq_g)] in float32, cast to
     `out_dtype`. Each group's integer product is exact in float32 while
-    128 * 15 * group_size < 2**24. xq [M, K] int8 -> [M, N]."""
+    128 * (2**bits - 1) * group_size < 2**24. xq [M, K] int8 -> [M, N]."""
     M, K = xq.shape
     G = K // group_size
     xg = xq.float().view(M, G, group_size)
@@ -258,35 +259,34 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     return (y * sx.float()).to(out_dtype)
 
 
-# C signature of both int8-x entry points in csrc/qbits_mm.cu (int4 codes only); the requant
-# entry point takes one more pointer (s8).
-_INT8_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_REQUANT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# C signature of both int8-x entry points in csrc/qbits_mm.cu: device, x, packed, scale_t,
+# shift_t, sx, out, M, N, K, gs, bits, out_bf16, stream; the requant entry point takes one more
+# pointer (s8, before sx).
+_INT8_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_REQUANT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
-    """Validate the operands every int8-x kernel takes; returns (M, N, K).
-    On a CUDA tensor an int2 weight raises: its arm is not ported."""
+    """Validate the operands every int8-x kernel takes; returns (M, N, K)."""
     if xq.dtype != torch.int8:
         raise TypeError(f"{name}: x must be int8, got {xq.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the output dtype must be bfloat16 or float32, got {out_dtype}")
     if sx.numel() != 1 or sx.dtype != torch.float32 or sx.device != xq.device:
         raise ValueError(f"{name}: sx must be one float32 value on x's device")
-    shapes = _check_shapes(xq, packed, scale_t, shift_t, group_size, bits)
-    if bits == 2 and xq.device.type != "cpu":
-        raise NotImplementedError(f"{name}: {_W2A8}")
-    return shapes
+    return _check_shapes(xq, packed, scale_t, shift_t, group_size, bits)
 
 
-def _run_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
-    """Validate the operands of an int8-x kernel, then launch it (CUDA) or
-    compute its plain version (CPU); returns (out, launched)."""
+def _run_int8(wrapper, name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
+    """Validate the operands of an int8-x kernel, then compute its plain
+    version (CPU) or launch it, counted on `wrapper` (CUDA)."""
     M, N, K = _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     if xq.device.type == "cpu":
-        return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits), False
+        return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
-    return _launch(name, _INT8_ARGTYPES, operands, out_dtype, M, N, K, group_size), True
+    out = _launch(name, _INT8_ARGTYPES, operands, out_dtype, M, N, K, group_size, bits)
+    _count(wrapper, bits)
+    return out
 
 
 def qbits_mm_int8_small_m(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, bits: int = 4):
@@ -294,26 +294,24 @@ def qbits_mm_int8_small_m(xq, sx, packed, scale_t, shift_t, group_size: int, out
     Replaces `quanto_tpu/ops/pallas/qbits_mm.py:_int8_kernel`."""
     if xq.dim() == 2 and xq.shape[0] > MAX_M:
         raise ValueError(f"qbits_mm_int8_small_m takes M <= {MAX_M}, got {xq.shape[0]}")
-    out, launched = _run_int8(
-        "qbits_mm_int8_small_m", xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits
+    return _run_int8(
+        qbits_mm_int8_small_m, "qbits_mm_int8_small_m", xq, sx, packed, scale_t, shift_t, group_size,
+        out_dtype, bits,
     )
-    qbits_mm_int8_small_m.launches += launched
-    return out
 
 
 def qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, bits: int = 4):
     """sx * (xq [M, K] @ deq(W)^T) -> [M, N] in `out_dtype`, any M (routed at
     M > MAX_M). Replaces the integer arm of
     `quanto_tpu/ops/pallas/qbits_mm.py:_prefill_kernel`."""
-    out, launched = _run_int8(
-        "qbits_mm_tiled_int8", xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits
+    return _run_int8(
+        qbits_mm_tiled_int8, "qbits_mm_tiled_int8", xq, sx, packed, scale_t, shift_t, group_size,
+        out_dtype, bits,
     )
-    qbits_mm_tiled_int8.launches += launched
-    return out
 
 
-qbits_mm_int8_small_m.launches = 0
-qbits_mm_tiled_int8.launches = 0
+qbits_mm_int8_small_m.launches = qbits_mm_int8_small_m.launches_int2 = 0
+qbits_mm_tiled_int8.launches = qbits_mm_tiled_int8.launches_int2 = 0
 
 
 # --- W4A8 requant route: per-channel int8 weights, one int32 sum over K ------------
@@ -323,6 +321,15 @@ def requant_envelope(K: int, group_size: int) -> bool:
     """The shapes the requant kernel takes: the JAX route's envelope
     (`qbits_mm.py:534`), several groups of a multiple of 128 codes each."""
     return group_size % 128 == 0 and group_size != K
+
+
+def requant_route(M: int, K: int, group_size: int, s8) -> bool:
+    """Whether `qbits_int8_mm` takes the requant kernel: a weight in the
+    requant form (its step `s8` given), M >= INT8_DOT_MIN_M and the route's
+    envelope, at either code width. JAX's `qbits_int8_matmul_kernel_call`
+    tries `_int8pc_route` first (`qbits_mm.py:694-704`), so an int2 weight
+    takes it where `_prefill_route` would refuse M > INT2_MAX_M."""
+    return s8 is not None and M >= INT8_DOT_MIN_M and requant_envelope(K, group_size)
 
 
 def requant_step(scale_t: torch.Tensor, shift_t: torch.Tensor, bits: int = 4) -> torch.Tensor:
@@ -373,33 +380,34 @@ def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int,
     if xq.device.type == "cpu":
         return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, s8, sx.reshape(()))
-    out = _launch(name, _REQUANT_ARGTYPES, operands, out_dtype, M, N, K, group_size)
-    qbits_mm_requant_int8.launches += 1
+    out = _launch(name, _REQUANT_ARGTYPES, operands, out_dtype, M, N, K, group_size, bits)
+    _count(qbits_mm_requant_int8, bits)
     return out
 
 
-qbits_mm_requant_int8.launches = 0
+qbits_mm_requant_int8.launches = qbits_mm_requant_int8.launches_int2 = 0
 
 
 def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, s8=None, bits: int = 4):
-    """W4A8: y[..., N] = sx * (xq[..., K] @ deq(W)^T) in `out_dtype`, routed by
-    M = prod(lead dims) and the weight's form as `qbits_int8_matmul_kernel_call`
-    routes (`quanto_tpu/ops/pallas/qbits_mm.py:665-726`):
+    """W4A8 and W2A8: y[..., N] = sx * (xq[..., K] @ deq(W)^T) in `out_dtype`,
+    routed by M = prod(lead dims) and the weight's form as
+    `qbits_int8_matmul_kernel_call` routes (`quanto_tpu/ops/pallas/
+    qbits_mm.py:665-726`), int4 or int2 codes alike:
     - M <= MAX_M (512): `qbits_mm_int8_small_m`;
-    - a weight in the requant form (its per-channel step `s8` given), M >=
-      INT8_DOT_MIN_M (2048) and the route's envelope (`requant_envelope`):
+    - `requant_route` (a weight in the requant form, its per-channel step
+      `s8` given, M >= INT8_DOT_MIN_M = 2048 and the route's envelope):
       `qbits_mm_requant_int8`, approximate;
     - otherwise: `qbits_mm_tiled_int8`, exact.
-    int2 codes (W2A8) take the plain versions on a CPU tensor and raise
-    NotImplementedError on a CUDA one; above INT2_MAX_M `ops/qlinear.py`
-    routes them before this call, as JAX does."""
+    An int2 weight off the requant route above INT2_MAX_M takes no kernel:
+    `ops/qlinear.py` routes it before this call, as JAX's `_prefill_route`
+    refuses it after `_int8pc_route`."""
     lead = xq.shape[:-1]
     x2 = xq.reshape(-1, xq.shape[-1]).contiguous()
     M, K = x2.shape
     args = (x2, sx, packed, scale_t, shift_t)
     if M <= MAX_M:
         out = qbits_mm_int8_small_m(*args, group_size, out_dtype, bits)
-    elif s8 is not None and M >= INT8_DOT_MIN_M and requant_envelope(K, group_size):
+    elif requant_route(M, K, group_size, s8):
         out = qbits_mm_requant_int8(*args, s8, group_size, out_dtype, bits)
     else:
         out = qbits_mm_tiled_int8(*args, group_size, out_dtype, bits)

@@ -64,10 +64,11 @@ def quantize(
 def freeze(model: nn.Module, w4a8_requant_dot: bool = False) -> None:
     """Freeze every quantized module (`QModuleMixin.freeze`).
 
-    `w4a8_requant_dot=True` freezes each int4 weight that takes the Hopper
-    layout into its requant form, and converts the Hopper weights of an
-    already frozen model. The requant route is approximate (a per-channel
-    int8 step about 8x finer than the coarsest group's int4 step,
-    `quanto_tpu/ops/config.py:164-185`), so it is never taken by default."""
+    `w4a8_requant_dot=True` freezes each int4 or int2 weight that takes the
+    Hopper layout into its requant form, and converts the Hopper weights of
+    an already frozen model. The requant route is approximate (a per-channel
+    int8 step about 8x finer than the coarsest group's int4 step and 42x
+    finer than its int2 step, `quanto_tpu/ops/config.py:164-185`), so it is
+    never taken by default."""
     for _, m in named_qmodules(model):
         m.freeze(w4a8_requant_dot=w4a8_requant_dot)

@@ -257,26 +257,26 @@ class WeightQBitsHopperArray(QArray):
 
 @dataclass(frozen=True, eq=False)
 class WeightQBitsRequantArray(WeightQBitsHopperArray):
-    """A Hopper-layout int4 weight frozen for the W4A8 requant route
+    """A Hopper-layout int4 or int2 weight frozen for the requant route
     (`ops/cuda/qbits_mm.py:qbits_mm_requant_int8`).
 
     `_s8` float32 [N] is the per-channel int8 step (`requant_step`,
     `quanto_tpu/ops/pallas/qbits_mm.py:484-488`); the per-group factors
     s / s8 and z / s8 are computed in the kernel, not stored. With a qint8
     activation at M >= 2048 `qlinear` takes the requant kernel, which is
-    approximate: the codes are requantized to a per-channel int8 step about
-    8x finer than the coarsest group's int4 step (`quanto_tpu/ops/config.py:
-    164-185`). Everything else (float x, smaller M, `dequantize`,
-    `to_generic`) is the parent's, exact."""
+    approximate: the codes are requantized to a per-channel int8 step
+    (127 steps over the row's largest |weight|) about 8x finer than the
+    coarsest group's int4 step (15 steps over it) and about 42x finer than
+    an int2 one (3 steps; `quanto_tpu/ops/config.py:164-185`). Everything
+    else (float x, smaller M, `dequantize`, `to_generic`) is the parent's,
+    exact."""
 
     _s8: torch.Tensor  # float32 [N]
 
     @classmethod
     def from_hopper(cls, w: WeightQBitsHopperArray) -> "WeightQBitsRequantArray":
-        """The requant form of a Hopper-layout weight (its payload, scales and
-        shifts shared, not copied). int4 only: int2 has no requant route."""
-        if w.bits != 4:
-            raise ValueError(f"the requant form takes int4 weights, got int{w.bits}")
+        """The requant form of a Hopper-layout int4 or int2 weight (its
+        payload, scales and shifts shared, not copied)."""
         fields = {f: getattr(w, f) for f in WeightQBitsHopperArray.__dataclass_fields__}
         return cls(**fields, _s8=requant_step(w._scale_t, w._shift_t, w.qtype.bits))
 

@@ -49,7 +49,13 @@ arms: `qbits_mm_small_m` and `qbits_mm_tiled` over M in 1..1024 (the int2
 envelope of the tiled route) for qint2 weights of group size 128 and per
 axis, and over random packed bytes (every crumb value in every position);
 the MoE kernels over 8 stacked qint2 experts in each form and tile height.
-int8 x with an int2 weight (W2A8) raises NotImplementedError on the card.
+The int2 arms of the three int8-x kernels (W2A8) over random packed bytes
+(every crumb value in every position) and random int8 x, with the
+tolerances of their int4 arms: `qbits_mm_int8_small_m` at M in 1..512 and
+`qbits_mm_tiled_int8` at M in 513..1024 (the int2 envelope of the tiled
+route) for group sizes 128, 256 and per axis, bf16 and f32 output; the
+requant kernel at the Llama-3.1-8B linear shapes, M in {2048, 2049, 4096},
+EQUAL to its plain version.
 """
 
 import numpy as np
@@ -412,15 +418,52 @@ def test_int2_kernels_every_crumb(cuda_device, m, n, k):
     check_int2(qbits_mm_small_m if m <= MAX_M else qbits_mm_tiled, x, packed, scale_t, shift_t, 128)
 
 
+def w2a8_operands(device, m, n, k, gs, seed):
+    """Random int8 x, sx, random packed int2 bytes (every crumb value in every
+    position of a byte), group scales and shifts anywhere in [0, 3] steps,
+    and the requant step s8."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    packed = torch.randint(0, 256, (n, k // 4), dtype=torch.uint8, device=device, generator=g)
+    scale_t = torch.rand((k // gs, n), device=device, generator=g) * 0.01 + 0.001
+    shift_t = scale_t * torch.rand((k // gs, n), device=device, generator=g) * 3
+    sx = torch.tensor(0.0173, device=device)
+    return xq, sx, packed, scale_t, shift_t, requant_step(scale_t, shift_t, 2)
+
+
 @pytest.mark.gpu
-def test_w2a8_raises_on_the_card(cuda_device):
-    hop = hopper_weight(cuda_device, 384, 2048, 2, 128, seed=0)
-    xq = torch.zeros((8, 2048), dtype=torch.int8, device=cuda_device)
-    sx = torch.tensor(0.01, device=cuda_device)
-    w = (hop._packed, hop._scale_t, hop._shift_t, 128, torch.bfloat16)
-    for m in (8, 600):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-            qbits_int8_mm(xq.new_zeros((m, 2048)), sx, *w, bits=2)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,group_size", [(512, 128), (1024, 256), (2048, 2048), (4096, 128)])
+@pytest.mark.parametrize("m", [1, 3, 8, 33, 512, 513, 700, 1024])
+def test_w2a8_kernels_match_plain(cuda_device, m, k, group_size, out_dtype):
+    xq, sx, packed, scale_t, shift_t, _ = w2a8_operands(cuda_device, m, 384, k, group_size, seed=m + k)
+    args = (xq, sx, packed, scale_t, shift_t, group_size, out_dtype, 2)
+    wrapper = qbits_mm_int8_small_m if m <= MAX_M else qbits_mm_tiled_int8
+    before = (wrapper.launches, wrapper.launches_int2)
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == out_dtype and out.shape == (m, 384)
+    check_close(out, qbits_int8_mm_plain(*args), 1e-5 if out_dtype == torch.float32 else None)
+    # The router takes the same arm at this M.
+    assert torch.equal(qbits_int8_mm(*args[:7], bits=2), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("gs", [128, 256])
+@pytest.mark.parametrize("n,k", [(1024, 4096), (14336, 4096), (4096, 14336)])
+@pytest.mark.parametrize("m", [2048, 2049, 4096])
+def test_w2a8_requant_kernel_equals_plain(cuda_device, m, n, k, gs, out_dtype):
+    xq, sx, packed, scale_t, shift_t, s8 = w2a8_operands(cuda_device, m, n, k, gs, seed=m + n + k + gs)
+    args = (xq, sx, packed, scale_t, shift_t, s8, gs, out_dtype, 2)
+    before = (qbits_mm_requant_int8.launches, qbits_mm_requant_int8.launches_int2)
+    out = qbits_mm_requant_int8(*args)
+    torch.cuda.synchronize()
+    assert (qbits_mm_requant_int8.launches, qbits_mm_requant_int8.launches_int2) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    ref = qbits_requant_int8_mm_plain(*args)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
 
 
 MOE_INT2_SHAPES = [(1024, 512), (512, 1024)]

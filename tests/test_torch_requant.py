@@ -66,15 +66,16 @@ from .test_torch_llama import TINY, close
 from .test_torch_w4a8 import CAL_BATCHES, W4A8, port_calibrated
 
 
-def hopper_weight(w: np.ndarray, gs):
+def hopper_weight(w: np.ndarray, gs, qtype=qtt.qint4):
     wt = torch.from_numpy(w)
-    scale, shift = qtt.MaxOptimizer()(wt, qtt.qint4, axis=0, group_size=gs)
-    return WeightQBitsHopperArray.from_generic(qtt.quantize_weight(wt, qtt.qint4, 0, scale, shift=shift, group_size=gs))
+    scale, shift = qtt.MaxOptimizer()(wt, qtype, axis=0, group_size=gs)
+    return WeightQBitsHopperArray.from_generic(qtt.quantize_weight(wt, qtype, 0, scale, shift=shift, group_size=gs))
 
 
-def jax_s8_formula(s, z):
-    """`_int8pc_call`'s per-channel step (`qbits_mm.py:484-488`)."""
-    amax = jnp.max(jnp.maximum(jnp.abs(z), jnp.abs(s * 15.0 - z)), axis=0)
+def jax_s8_formula(s, z, qmax: float = 15.0):
+    """`_int8pc_call`'s per-channel step (`qbits_mm.py:484-488`); qmax 15 for
+    int4 codes, 3 for int2."""
+    amax = jnp.max(jnp.maximum(jnp.abs(z), jnp.abs(s * qmax - z)), axis=0)
     return jnp.maximum(amax, 1e-30) * (1.0 / 127.0)
 
 
@@ -144,17 +145,21 @@ def test_requant_codes_within_half_a_step(gs):
 
 
 def test_requant_array_round_trip():
-    hop = hopper_weight(np.random.default_rng(0).standard_normal((256, 512)).astype(np.float32), 128)
-    req = WeightQBitsRequantArray.from_hopper(hop)
-    assert isinstance(req, WeightQBitsHopperArray) and req._packed is hop._packed
-    assert req._s8.dtype == torch.float32 and req._s8.shape == (256,)
-    assert torch.equal(req.dequantize(), hop.dequantize())
-    generic = req.to_generic()
-    back = WeightQBitsRequantArray.from_hopper(WeightQBitsHopperArray.from_generic(generic))
-    assert type(back) is WeightQBitsRequantArray
-    for f in ("_packed", "_scale_t", "_shift_t", "_s8"):
-        assert torch.equal(getattr(back, f), getattr(req, f))
-    assert torch.equal(generic.dequantize(), hop.to_generic().dequantize())
+    """int4 and int2 (W2A8, K / 4 a multiple of 128): the requant form shares
+    its parent's payload, and from_hopper -> to_generic -> back is bit for bit."""
+    for qtype, K_ in ((qtt.qint4, 512), (qtt.qint2, 1024)):
+        hop = hopper_weight(np.random.default_rng(0).standard_normal((256, K_)).astype(np.float32), 128, qtype)
+        req = WeightQBitsRequantArray.from_hopper(hop)
+        assert isinstance(req, WeightQBitsHopperArray) and req._packed is hop._packed
+        assert req.bits == qtype.bits and req._s8.dtype == torch.float32 and req._s8.shape == (256,)
+        assert torch.equal(req._s8, K.requant_step(hop._scale_t, hop._shift_t, qtype.bits))
+        assert torch.equal(req.dequantize(), hop.dequantize())
+        generic = req.to_generic()
+        back = WeightQBitsRequantArray.from_hopper(WeightQBitsHopperArray.from_generic(generic))
+        assert type(back) is WeightQBitsRequantArray
+        for f in ("_packed", "_scale_t", "_shift_t", "_s8"):
+            assert torch.equal(getattr(back, f), getattr(req, f))
+        assert torch.equal(generic.dequantize(), hop.to_generic().dequantize())
 
 
 # --- (b) the plain version against the TPU kernel in interpret mode --------------------
@@ -257,23 +262,28 @@ def test_qlinear_routes_w4a8(monkeypatch, case, m, form, gs, want):
 
 def test_freeze_takes_the_requant_form():
     """A second `freeze(model, w4a8_requant_dot=True)` converts the Hopper
-    weights of a frozen model; generic weights (a CPU freeze) stay as they
+    weights of a frozen model, int4 (W4A8) and int2 (W2A8, on the int2
+    envelope's widths) alike; generic weights (a CPU freeze) stay as they
     are, and without the keyword nothing changes."""
     from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-    model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
-    qtt.quantize(model, **W4A8)
-    qtt.freeze(model, w4a8_requant_dot=True)
-    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
-    assert all(type(m.weight).__name__ == "WeightQBitsArray" for m in qlinears)
-    for m in qlinears:
-        m.weight = WeightQBitsHopperArray.from_generic(m.weight)
-    qtt.freeze(model)
-    assert all(type(m.weight) is WeightQBitsHopperArray for m in qlinears)
-    payloads = [m.weight._packed for m in qlinears]
-    qtt.freeze(model, w4a8_requant_dot=True)
-    assert all(type(m.weight) is WeightQBitsRequantArray for m in qlinears)
-    assert all(m.weight._packed is p for m, p in zip(qlinears, payloads))
+    from .test_torch_int2 import LLAMA
+
+    for config, kw in ((TINY, W4A8), (LLAMA, dict(W4A8, weights="qint2"))):
+        model = LlamaForCausalLM(LlamaConfig(**config), device="cpu")
+        qtt.quantize(model, **kw)
+        qtt.freeze(model, w4a8_requant_dot=True)
+        qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+        assert all(type(m.weight).__name__ == "WeightQBitsArray" for m in qlinears)
+        for m in qlinears:
+            m.weight = WeightQBitsHopperArray.from_generic(m.weight)
+        qtt.freeze(model)
+        assert all(type(m.weight) is WeightQBitsHopperArray for m in qlinears)
+        payloads = [m.weight._packed for m in qlinears]
+        qtt.freeze(model, w4a8_requant_dot=True)
+        assert all(type(m.weight) is WeightQBitsRequantArray for m in qlinears)
+        assert all(m.weight._packed is p for m, p in zip(qlinears, payloads))
+        assert all(m.weight.bits == qtt.qtypes[kw["weights"]].bits for m in qlinears)
 
 
 # --- (d) the tiny calibrated W4A8 Llama ----------------------------------------------
