@@ -140,6 +140,32 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    ragged decode step; cosine > W2A8_E2E_COS and top-1 equal or at a logit
    tie), in both forms, and the requant form against the exact form
    (`check_requant_vs_exact`, phase 5's limits). Prints its seconds.
+3 (#5). `qbits_mm_partitioned`'s rank-local product (`_local_mm`: the int4
+   kernel on the rank's part, cast up to float32) at each tp = 2 shard of
+   Llama-3.1-8B (q 2048 x 4096, k/v 512 x 4096, o 4096 x 2048, gate/up 7168 x
+   4096, down 4096 x 7168, lm_head 64128 x 4096) and M in {4, 4096}, against
+   its plain version; yardstick `torch.matmul` on the part dequantized to
+   bf16.
+14. tensor parallelism: 2 ranks (`torch.multiprocessing` spawn, a `file://`
+   store) share the one card over gloo (NCCL refuses two ranks on one
+   device). Each rank builds phase 4's model from phase 4's seed, each
+   decoder layer quantized, frozen and sharded at tp = 2 as it is drawn
+   (`shard_model`), and times gloo's all_reduce of float32 [4, 4096] and
+   [4096, 4096]. (a) phase 4's run (prefill of B = 4 x 1024, 63 greedy decode
+   steps over a bf16 cache of 1088 slots), with each rank's exact counts: 224
+   `qbits_mm_tiled` and 1 `qbits_mm_small_m` in the prefill, 225
+   `qbits_mm_small_m` and 32 `flash_decode` a decode step, 225
+   `qbits_mm_partitioned` launches and 66 all_reduces a forward (64 row
+   linears, the embedding, the gathered logits); the ranks' tokens equal. Then
+   phase 4's tokens fed to the TP model (teacher forcing): at the prefill's
+   last position and each of the 63 steps, 1 - cosine against phase 4's
+   logits within TP_1MCOS, and a top-1 token other than phase 4's only at a
+   phase-4 logit gap within TP_TOP1_GAP; and a witness of the cause, the
+   prefill with float32 row partials, closer to phase 4's by TP_WITNESS_FALL
+   at least. (b) phase 5's 2-layer check of the qint4 and
+   calibrated W4A8 arms on each rank, sharded after freezing. Every time it
+   prints is labelled: 2 ranks sharing one H100 over gloo measure no TP
+   speed. A rank that fails fails the phase.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -263,6 +289,22 @@ SUMMARY_SHAPE.update({
 for _arm in INT2_ARMS:
     SOURCE[_arm + "_int2"] = SOURCE[_arm]
     REPLACES[_arm + "_int2"] = REPLACES[_arm] + " (int2 arm)"
+
+# TPU kernel #5, `qbits_mm_partitioned` (phase 3 and phase 14): Llama-3.1-8B at tp = 2, each rank's
+# part (N x K) of every sharded linear; q/k/v/gate/up/lm_head column shards, o/down row shards. Phase
+# 3 times the rank-local product at decode (M = 4) and prefill (M = 4096); phase 14's ranks time
+# gloo's all_reduce of the float32 partials of a row shard at those M.
+TP_WORLD = 2
+TP_SHARDS = {
+    "q_proj": (2048, 4096), "k_proj, v_proj": (512, 4096), "o_proj": (4096, 2048),
+    "gate_proj, up_proj": (7168, 4096), "down_proj": (4096, 7168), "lm_head": (64128, 4096),
+}
+TP_M = (4, 4096)
+TP_ALL_REDUCE = [(4, 4096), (4096, 4096)]
+SUMMARY_SHAPE["qbits_mm_partitioned"] = (4, 4096, 7168)  # the down_proj shard at decode
+SOURCE["qbits_mm_partitioned"] = "quanto_tpu_torch/ops/cuda/qbits_mm_sharded.py"
+REPLACES["qbits_mm_partitioned"] = "quanto_tpu/ops/pallas/qbits_mm_sharded.py:146"
+TP_LABEL = "2 ranks sharing one H100 over gloo; not a TP speed"
 
 # mistralai/Mixtral-8x7B-v0.1 config.json (default rope, no sliding window, untied embeddings).
 MIXTRAL_8X7B = dict(
@@ -439,6 +481,48 @@ def phase_kernels(K_mod, flush, bits: int = 4):
                 log("kernel " + json.dumps(row))
                 del out, ref
         del packed, scale_t, shift_t, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_partitioned(flush):
+    """Phase 3, TPU kernel #5: the rank-local product of `qbits_mm_partitioned`
+    (`_local_mm`: the int4 kernel on the rank's part, cast up to float32) at
+    each tp = 2 shard of Llama-3.1-8B (TP_SHARDS) and M in TP_M, over random
+    codes, bf16 x, against its plain version (`_local_mm_plain`); bound:
+    the local work, as `bound` counts it; yardstick `torch.matmul` on the
+    part dequantized to bf16."""
+    from quanto_tpu_torch import qint4
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    rows = []
+    for proj, (N, K) in TP_SHARDS.items():
+        G = K // GS
+        scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
+        w = WeightQBitsHopperArray(
+            _packed=torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev, generator=g),
+            _scale_t=scale_t, _shift_t=scale_t * 7.5, qtype=qint4, group_size=GS, orig_shape=(N, K),
+            float_dtype=torch.bfloat16,
+        )
+        w_bf16 = w.dequantize()
+        for M in TP_M:
+            x = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
+            err, cos = check_kernel(f"qbits_mm_partitioned {proj} M={M} N={N} K={K}", SH._local_mm(x, w),
+                                    SH._local_mm_plain(x, w))
+            b_ms, b_by = bound(M, N, K)
+            row = dict(
+                name="qbits_mm_partitioned", proj=proj, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                ms=time_ms(lambda: SH._local_mm(x, w), flush),
+                plain_ms=time_ms(lambda: SH._local_mm_plain(x, w), flush),
+                library_ms=time_ms(lambda: torch.matmul(x, w_bf16.t()), flush),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+        del w, w_bf16, scale_t
         torch.cuda.empty_cache()
     return rows
 
@@ -860,6 +944,10 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
     step_bytes = sum(
         m.weight._packed.numel() + 8 * m.weight._scale_t.numel() for m in qlinears
     )
+    # Phase 14's reference: phase 4's tokens and the logits that chose them, taken again by
+    # feeding those tokens (the same forwards as the timed run).
+    forced = forced_logits(model, ids, torch.cat([first, rest], dim=1))
+    reference = (forced, torch.cat([first, rest], dim=1).cpu())
     log(json.dumps({
         "main_path": "llama-3.1-8b-config qint4+head4 bf16",
         "batch": B, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
@@ -870,11 +958,28 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
         "launches": launches,
         "decode_step_weight_bytes": step_bytes,
         "decode_step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+        "forced_logits_reproduce_tokens": bool(torch.equal(forced.float().argmax(-1).t(), reference[1])),
     }))
     del cache, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, reference
+
+
+@torch.no_grad()
+def forced_logits(model, ids, tokens) -> torch.Tensor:
+    """Teacher forcing: the last-position logits of the prefill of `ids` [B, T]
+    and of each decode step fed `tokens` [B, NEW] in turn (the last one is not
+    fed), over a bf16 cache of T + NEW slots; [NEW, B, V] bf16 on the host."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    cache = make_cache(model, B, T + NEW)
+    logits, cache = prefill(model, ids, cache, last_only=True)
+    out = [logits[:, -1]]
+    for i in range(NEW - 1):
+        logits, cache = model(tokens[:, i : i + 1].to(ids.device, ids.dtype), cache, T + i)
+        out.append(logits[:, -1])
+    return torch.stack(out).cpu()
 
 
 @torch.no_grad()
@@ -967,9 +1072,11 @@ def counters():
     from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
     from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
     return {
+        "qbits_mm_partitioned": SH.qbits_mm_partitioned,
         "qbits_mm_small_m": K_mod.qbits_mm_small_m, "qbits_mm_tiled": K_mod.qbits_mm_tiled,
         "qbits_mm_int8_small_m": K_mod.qbits_mm_int8_small_m, "qbits_mm_tiled_int8": K_mod.qbits_mm_tiled_int8,
         "qbits_mm_requant_int8": K_mod.qbits_mm_requant_int8,
@@ -1001,6 +1108,7 @@ def plain_versions():
     from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
     from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda import qbits_mm as K_mod
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
     def flat(fn):
@@ -1010,7 +1118,7 @@ def plain_versions():
         return run
 
     saved = (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
-             K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8)
+             K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8, SH._local_mm)
     QL.qbits_mm = flat(K_mod.qbits_mm_plain)
     QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
     attention.flash_decode = FD_mod.flash_decode_plain
@@ -1019,11 +1127,12 @@ def plain_versions():
     K_mod.qbits_mm_int8_small_m = K_mod.qbits_mm_tiled_int8 = K_mod.qbits_int8_mm_plain
     K_mod.qbits_mm_requant_int8 = K_mod.qbits_requant_int8_mm_plain
     MM.qbits_moe_small_m = MM.qbits_moe_tiled = MM.qbits_moe_plain
+    SH._local_mm = SH._local_mm_plain  # a rank's part of a sharded weight (phase 14)
     try:
         yield
     finally:
         (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
-         K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8) = saved
+         K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8, SH._local_mm) = saved
 
 
 # Phase 5's arms: (quantize arguments, the kernel the ragged decode step must launch 7 x 2 times).
@@ -2131,6 +2240,309 @@ def phase_w2a8_end_to_end(ids) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase 14, (a): 1 - cosine of each row of the TP logits against phase 4's unsharded ones, at
+# most TP_1MCOS, at the prefill's last position and at each teacher-forced decode step. Predicted
+# <= 1e-3 for the prefill; read 1.24e-3-1.40e-3 over the 4 rows, and 1.34e-3-1.78e-3 over the
+# 64 teacher-forced positions (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6). The limit is about
+# twice the largest prefill reading.
+TP_1MCOS = 3e-3
+# The witness of the cause: the same prefill with float32 row partials (nothing rounded before
+# the sum) must come closer to phase 4's than the bf16-partials run by TP_WITNESS_FALL at least.
+# Predicted a fall of 10x or more; read 2.05x-2.18x per row (1 - cosine 5.69e-4-6.62e-4): the
+# bf16 rounding of the partials is about half of the difference, the rest comes from summing K
+# in two halves at all, which the model's bf16 roundings carry through 32 layers. The limit is
+# about 0.7x the smallest reading.
+TP_WITNESS_FALL = 1.5
+# Where TP's top-1 token differs from phase 4's at a teacher-forced position, phase 4's logit gap
+# between the two, at most TP_TOP1_GAP. Read: 28 flips in the 256 positions, gaps 0-0.21875
+# (max |logit| 7.47, max |TP - unsharded| 0.41). The limit is about 1.4x the largest gap, below
+# the 2 x max |TP - unsharded| that a flip's gap can reach.
+TP_TOP1_GAP = 0.3125
+
+
+def build_tp_model(config, seed: int, group):
+    """Phase 4's model on this rank: built on "meta", each decoder layer drawn
+    (phase 4's draw order and generator, so the same weights), quantized to
+    qint4, frozen and sharded as it is drawn, so that no rank holds the bf16
+    model; then the lm_head quantized and frozen, and the embedding and the
+    lm_head sharded."""
+    from quanto_tpu_torch import freeze, quantize
+    from quanto_tpu_torch.models.llama import LlamaForCausalLM
+    from quanto_tpu_torch.parallel import shard_model
+
+    def layer_fn(layer):
+        quantize(layer, weights="qint4")
+        freeze(layer)
+        shard_model(layer, group)
+
+    model = LlamaForCausalLM(config, device="meta")
+    model.materialize_("cuda", torch.Generator("cuda").manual_seed(seed), layer_fn)
+    quantize(model, weights="qint4")  # the lm_head: the layers' linears are quantized already
+    freeze(model)
+    shard_model(model, group)
+    return model
+
+
+def tp_counts() -> dict:
+    """The kernel launches (`read_counts`), with `all_reduce` calls and the
+    partitioned matmul's all_reduces."""
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
+    from quanto_tpu_torch.ops.collectives import all_reduce
+
+    return {**read_counts(), "all_reduce": all_reduce.calls,
+            "qbits_mm_partitioned_all_reduces": SH.qbits_mm_partitioned.all_reduces}
+
+
+def reset_tp_counts() -> None:
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
+    from quanto_tpu_torch.ops.collectives import all_reduce
+
+    reset_counts()
+    all_reduce.calls = SH.qbits_mm_partitioned.all_reduces = 0
+
+
+def tp_all_reduce_us(group) -> dict:
+    """Median host time of one gloo all_reduce of float32 zeros on the card, in µs,
+    at each shape of TP_ALL_REDUCE (a row shard's partials at decode and
+    prefill), each call synchronised."""
+    from quanto_tpu_torch.ops.collectives import all_reduce
+
+    out = {}
+    for shape in TP_ALL_REDUCE:
+        t = torch.zeros(shape, device="cuda")
+        times = []
+        for _ in range(3 + 20 * (shape[0] == B)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(t, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        out["x".join(map(str, shape))] = sorted(times[1:])[len(times[1:]) // 2]
+    return out
+
+
+@contextlib.contextmanager
+def float32_partials():
+    """The witness of phase 14: each rank-local float product takes x cast to
+    float32 into the same kernel, so a row shard's partial stays float32 up
+    to the sum (a column shard's product is rounded to bf16 as before)."""
+    from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
+
+    saved = SH.qbits_mm
+    SH.qbits_mm = lambda x2, *args: saved(x2.float(), *args)
+    try:
+        yield
+    finally:
+        SH.qbits_mm = saved
+
+
+@torch.no_grad()
+def tp_full_depth(group, ids, ref_tokens) -> dict:
+    """Phase 14 (a) on one rank: phase 4's run at tp = 2, with exact counts;
+    then the same model fed phase 4's tokens `ref_tokens` (teacher forcing),
+    and the witness prefill with float32 partials."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, make_cache, prefill
+
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = build_tp_model(config, 0, group)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    layers, steps = config.num_hidden_layers, NEW - 1
+    n_lin = LINEARS_PER_LAYER * layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_tp_counts()
+    cache = make_cache(model, B, T + NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, ids, cache, last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = tp_counts()
+    first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+    t0 = time.perf_counter()
+    rest, cache = decode(model, first, cache, T, steps)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = tp_counts()
+    dec = {n: counts[n] - pre[n] for n in counts}
+    zeros = {n: 0 for n in counts}
+    # Per forward: 225 partitioned products (7 a layer and the lm_head), 64 of them row shards; the
+    # all_reduces of those 64, of the embedding and of the gathered logits.
+    per_forward = {"qbits_mm_partitioned": n_lin + 1, "qbits_mm_partitioned_all_reduces": 2 * layers,
+                   "all_reduce": 2 * layers + 2}
+    want_pre = {**zeros, **per_forward, "qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1}
+    want_dec = {**zeros, **{n: c * steps for n, c in per_forward.items()},
+                "qbits_mm_small_m": (n_lin + 1) * steps, "flash_decode": layers * steps}
+    if pre != want_pre:
+        raise RuntimeError(f"tp rank {group.rank}: prefill counts {pre}, want {want_pre}")
+    if dec != want_dec:
+        raise RuntimeError(f"tp rank {group.rank}: decode counts {dec}, want {want_dec}")
+    if logits.shape != (B, 1, config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"tp rank {group.rank}: prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    attn = model.model.layers[0].self_attn
+    log(json.dumps({
+        "tp": f"llama-3.1-8b-config qint4+head4 bf16, tp = {group.world_size}, rank {group.rank}; {TP_LABEL}",
+        "backend": group.backend, "local_heads": [attn.num_heads, attn.num_kv_heads],
+        "build_s": build_s, "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": decode_s / steps * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "prefill_counts": {n: c for n, c in pre.items() if c}, "decode_counts": {n: c for n, c in dec.items() if c},
+    }))
+    out = {"logits": logits[:, -1].float().cpu(), "tokens": torch.cat([first, rest], dim=1).cpu(), "counts": counts,
+           "prefill_ms": prefill_s * 1e3, "decode_ms_per_step": decode_s / steps * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del cache, logits
+    out["forced"] = forced_logits(model, ids, ref_tokens)
+    with float32_partials():
+        out["witness"] = prefill(model, ids, make_cache(model, B, T + NEW), last_only=True)[0][:, -1].float().cpu()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def tp_two_layers(group, ids) -> None:
+    """Phase 14 (b) on one rank: phase 5's check of the qint4 and W4A8 arms at
+    tp = 2, each model built, calibrated (W4A8) and frozen whole, then sharded;
+    the kernel path against the plain versions called explicitly."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+    from quanto_tpu_torch.parallel import shard_model
+
+    config = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=2), dtype=torch.bfloat16)
+    layers = config.num_hidden_layers
+    ragged = torch.tensor([T, T - 4, T - 100, 300], device="cuda")
+    for arm in ("qint4", "w4a8"):
+        kw, step_kernel = E2E_ARMS[arm]
+        model, _ = build_model(config, seed=1, **kw)
+        shard_model(model, group)
+
+        def run():
+            """Prefill logits over a bf16 cache; one ragged decode step over a qint4 cache."""
+            pre, _ = prefill(model, ids, make_cache(model, B, T), last_only=True)
+            cache = make_cache(model, B, T + 8, kv_quant="qint4")
+            _, cache = prefill(model, ids, cache, last_only=True)
+            step, _ = model(ids[:, -1:], cache, ragged)
+            torch.cuda.synchronize()
+            return pre[:, -1].float(), step[:, -1].float()
+
+        reset_counts()
+        kernel = run()
+        counts = read_counts()
+        # Two prefills (M = 4096 in the layers, M = 4 in a quantized lm_head) and one decode step.
+        head = 0 if kw.get("exclude") else 1
+        n_lin = LINEARS_PER_LAYER * layers + head
+        prefill_kernel = "qbits_mm_tiled" if arm == "qint4" else "qbits_mm_tiled_int8"
+        want = {prefill_kernel: 2 * LINEARS_PER_LAYER * layers, step_kernel: n_lin + 2 * head,
+                "flash_decode": layers, "qbits_mm_partitioned": 3 * n_lin}
+        if counts != {**{n: 0 for n in counts}, **want}:
+            raise RuntimeError(f"tp rank {group.rank} {arm}: 2-layer launches {counts}, want {want}")
+        with plain_versions():
+            plain = run()
+        if read_counts() != counts:
+            raise RuntimeError(f"tp rank {group.rank} {arm}: the plain forward launched a kernel")
+        for what, k, p in zip(("prefill", "ragged decode step"), kernel, plain):
+            check_rows(f"tp_rank{group.rank}_{arm}", what, k, p, 0.999)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_rank(rank: int, d) -> None:
+    """One rank of phase 14 (spawned): join the group on the one card, load the
+    kernels phase 2 built, time gloo's all_reduce, run (a) and (b), save what
+    the parent checks to `d`."""
+    import torch.distributed as dist
+
+    from quanto_tpu_torch.ops.cuda import _build
+    from quanto_tpu_torch.parallel import initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = initialize(rank, TP_WORLD, f"file://{d}/store", device="cuda:0")
+    try:
+        _build.build()
+        ids = torch.randint(
+            0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+        ).cuda()  # phase 4's prompts
+        out = {"all_reduce_us": tp_all_reduce_us(group), "backend": group.backend}
+        out["full"] = tp_full_depth(group, ids, torch.load(d / "phase4_tokens.pt"))
+        tp_two_layers(group, ids)
+        torch.save(out, d / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(ref_forced: torch.Tensor, ref_tokens: torch.Tensor) -> dict:
+    """Phase 14: TP_WORLD ranks (spawned) share the one card over gloo, each
+    running `tp_rank`; every rank must exit 0. Then the ranks' tokens, logits
+    and teacher-forced logits must be equal. Rank 0's teacher-forced logits
+    (phase 4's tokens fed in) are held against phase 4's `ref_forced` [NEW, B,
+    V], whose greedy tokens are `ref_tokens` [B, NEW]: 1 - cosine at most
+    TP_1MCOS at every position and row, and where the top-1 token differs,
+    phase 4's logit gap between the two at most TP_TOP1_GAP. The witness (the
+    prefill with float32 partials) must come closer to phase 4's prefill by
+    TP_WITNESS_FALL at least. Returns rank 0's results."""
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        torch.save(ref_tokens, d / "phase4_tokens.pt")
+        ctx = mp.start_processes(tp_rank, args=(d,), nprocs=TP_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + 900
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("phase 14: the ranks did not finish in 900 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        ranks = [torch.load(d / f"rank{r}.pt") for r in range(TP_WORLD)]
+    full = [r["full"] for r in ranks]
+    if not all(all(torch.equal(f[k], full[0][k]) for k in ("tokens", "logits", "forced", "witness")) for f in full):
+        raise RuntimeError("phase 14: the ranks' tokens or logits differ")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise RuntimeError(f"phase 14: ranks sharing one card took {[r['backend'] for r in ranks]}, want gloo")
+    for r, rank in enumerate(ranks):
+        log(json.dumps({"tp_all_reduce_us": rank["all_reduce_us"], "rank": r, "float32": True, "note": TP_LABEL}))
+    lt, lr = full[0]["forced"].float(), ref_forced.float()  # [NEW, B, V]
+    one_minus_cos = 1 - F.cosine_similarity(lt, lr, dim=-1)  # [NEW, B]
+    witness = (1 - F.cosine_similarity(full[0]["witness"], lr[0], dim=-1)).tolist()
+    top_tp, top_ref = lt.argmax(-1), ref_tokens.t()
+    flips = [(i, r, int(top_ref[i, r]), int(top_tp[i, r]),
+              (lr[i, r, top_ref[i, r]] - lr[i, r, top_tp[i, r]]).item())
+             for i, r in torch.nonzero(top_tp != top_ref).tolist()]
+    log(json.dumps({
+        "tp_vs_unsharded": "rank 0 fed phase 4's tokens (teacher forcing), against phase 4's logits; "
+                           "position 0 is the prefill's last",
+        "prefill_one_minus_cosine": one_minus_cos[0].tolist(), "limit": TP_1MCOS,
+        "forced_one_minus_cosine_max_per_position": one_minus_cos.amax(dim=1).tolist(),
+        "forced_one_minus_cosine_median": one_minus_cos.median().item(),
+        "forced_one_minus_cosine_max": one_minus_cos.max().item(),
+        "max_abs_logit": lr.abs().amax(dim=-1).max().item(), "max_abs_diff": (lt - lr).abs().amax().item(),
+        "top1_equal_share": 1 - len(flips) / top_ref.numel(),
+        "flips_position_row_phase4_tp_gap": flips, "top1_gap_limit": TP_TOP1_GAP,
+        "witness_float32_partials_one_minus_cosine": witness, "witness_fall_limit": TP_WITNESS_FALL,
+        "free_running_tokens_equal_share": (full[0]["tokens"] == ref_tokens).float().mean(dim=1).tolist(),
+    }))
+    if one_minus_cos.max() > TP_1MCOS:
+        raise RuntimeError(f"phase 14: 1 - cosine {one_minus_cos.max().item()} against phase 4 above {TP_1MCOS}")
+    if any(gap > TP_TOP1_GAP for *_, gap in flips):
+        raise RuntimeError(f"phase 14: a top-1 token differs from phase 4's by a logit gap above {TP_TOP1_GAP}: {flips}")
+    if max(witness) * TP_WITNESS_FALL > one_minus_cos[0].min():
+        raise RuntimeError(f"phase 14: the float32-partials witness {witness} does not fall {TP_WITNESS_FALL}x "
+                           f"below the bf16-partials prefill {one_minus_cos[0].tolist()}")
+    return ranks[0]
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -2158,7 +2570,7 @@ def main() -> int:
     rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
-            + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2))
+            + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -2174,7 +2586,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"main path: built + quantized + frozen {config.num_hidden_layers} layers in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches_1088 = phase_main_path(K_mod, FD_mod, model, qlinears, ids)
+    launches_1088, phase4_reference = phase_main_path(K_mod, FD_mod, model, qlinears, ids)
     launches = phase_long_context(K_mod, FD_mod, model, qlinears)
     del model, qlinears
     gc.collect()
@@ -2265,6 +2677,13 @@ def main() -> int:
     phase_w2a8_end_to_end(ids)
     log(f"w2a8: phase 13 took {time.perf_counter() - t0:.1f} s")
 
+    # Phase 14: tensor parallelism, 2 ranks sharing the card over gloo.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = phase_tp(*phase4_reference)
+    log(f"tp: phase 14 took {time.perf_counter() - t0:.1f} s ({TP_LABEL})")
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -2283,10 +2702,11 @@ def main() -> int:
         "qbits_mm_int8_small_m_int2": ("phase 13 (llama-3.1-8b w2a8, decode run)", launches_w2a8["decode"]),
         "qbits_mm_tiled_int8_int2": ("phase 13 (llama-3.1-8b w2a8, B = 1 prefill)", launches_w2a8["b1_prefill"]),
         "qbits_mm_requant_int8_int2": ("phase 13 (llama-3.1-8b w2a8, requant form)", launches_w2a8["requant"]),
+        "qbits_mm_partitioned": ("phase 14 (llama-3.1-8b qint4, tp = 2, rank 0)", tp["full"]["counts"]),
     }
     kernels = []
     for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
-                 "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS)]:
+                 "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS), "qbits_mm_partitioned"]:
         mine = [r for r in rows if r["name"] == name]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
@@ -2305,6 +2725,8 @@ def main() -> int:
             extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
         if name == "qbits_mm_requant_int8_int2":
             extra = {"exact_ms": rep["exact_ms"]}
+        if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
+            extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=counts[name], launches_run=run, **extra,

@@ -9,7 +9,12 @@ patterns transfer 1:1 with the JAX package.
 The model is built on `device` (CUDA unless the caller passes "cpu") with
 random weights drawn from an explicit `torch.Generator` (normal, std 0.02,
 Llama's `initializer_range` as Hugging Face initializes it); real weights
-come in through `models/loading.py`. Bias, tied-embedding, yarn/dynamic rope
+come in through `models/loading.py`. Under tensor parallelism
+(`parallel/sharding.py:shard_model`) each rank runs its own heads and
+vocabulary rows: the embedding is a masked lookup of the rank's rows summed
+over the ranks, and a vocabulary-sharded lm_head's logits are gathered to
+the full vocabulary on every rank, so that every rank samples the same
+tokens. Bias, tied-embedding, yarn/dynamic rope
 and Gemma options of the JAX config wait for the models that need them.
 """
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import decode_attention, gqa_attention
+from ..ops.collectives import all_reduce
 from ..tensor.kv_cache import cache_max_len, init_quantized_kv_cache, kv_read_raw, kv_update
 from ..tensor.qarray import QArray
 
@@ -101,6 +107,26 @@ def _deq(a):
     quantization calibration did not streamline away returns a `QArray`,
     which the model dequantizes where `quanto_tpu/models/llama.py` does."""
     return a.dequantize() if isinstance(a, QArray) else a
+
+
+def _vocab_parallel_embed(emb: nn.Embedding, ids: torch.Tensor, group) -> torch.Tensor:
+    """The embedding of `ids` from a rank's rows [r n, (r+1) n) of the
+    vocabulary: rows off this rank are zeros, and the all_reduce sums them
+    (in float32; exact, since one rank contributes each row)."""
+    n = emb.weight.shape[0]
+    local = ids - group.rank * n
+    hit = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), emb.weight).float()
+    return all_reduce(torch.where(hit[..., None], x, 0.0), group).to(emb.weight.dtype)
+
+
+def _gather_vocab(logits: torch.Tensor, group, vocab: int) -> torch.Tensor:
+    """A rank's logits over vocabulary [r n, (r+1) n) -> the full vocabulary on
+    every rank: a sum into a zeroed float32 [..., vocab] buffer (exact)."""
+    n = logits.shape[-1]
+    full = logits.new_zeros((*logits.shape[:-1], vocab), dtype=torch.float32)
+    full[..., group.rank * n : (group.rank + 1) * n] = logits
+    return all_reduce(full, group).to(logits.dtype)
 
 
 def _rotate_half(x):
@@ -233,6 +259,9 @@ class LlamaForCausalLM(nn.Module):
     family with another decoder layer subclasses it and sets `layer_cls`."""
 
     layer_cls = LlamaDecoderLayer
+    # The tensor-parallel group (`ops/collectives.py:TPGroup`) once
+    # `parallel/sharding.py:shard_model` has sharded the model; None on one device.
+    tp = None
 
     def __init__(
         self,
@@ -292,7 +321,12 @@ class LlamaForCausalLM(nn.Module):
         """
         B, T = input_ids.shape
         dev = input_ids.device
-        x = self.model.embed_tokens(input_ids.long())
+        V = self.config.vocab_size
+        embed = self.model.embed_tokens
+        if embed.weight.shape[0] == V:
+            x = embed(input_ids.long())
+        else:
+            x = _vocab_parallel_embed(embed, input_ids.long(), self.tp)
         pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
         cos, sin = _rope(positions, self.inv_freq, x.dtype)
@@ -318,4 +352,7 @@ class LlamaForCausalLM(nn.Module):
         if logits_indices is not None:
             idx = torch.as_tensor(logits_indices, device=dev).reshape(-1).expand(B)
             x = x[torch.arange(B, device=dev), idx][:, None, :]
-        return _deq(self.lm_head(x)), (tuple(new_cache) if new_cache is not None else None)
+        logits = _deq(self.lm_head(x))
+        if logits.shape[-1] != V:
+            logits = _gather_vocab(logits, self.tp, V)
+        return logits, (tuple(new_cache) if new_cache is not None else None)

@@ -3,10 +3,14 @@
 Counterpart of `quanto_tpu/models/serve.py`. JAX compiles a prefill program
 and a `lax.scan` decode program; PyTorch runs eagerly, so `decode` is a
 Python loop of one forward per token (CUDA graphs are for a later slice).
+Under tensor parallelism every rank runs these functions unchanged on its
+shards; the logits are gathered on every rank, so each rank's tokens are the
+same.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Optional
 
@@ -22,10 +26,12 @@ __all__ = ["make_cache", "prefill", "decode", "generate"]
 def make_cache(model, batch: int, cache_len: int, dtype=None, kv_quant=None):
     """KV cache in the llama-family layout on the model's device: float in
     `dtype` (default the model dtype), or quantized when `kv_quant` is a
-    qtype or KV spec name ("qint8", "qint4", "k8v4", "qint4a", ...)."""
-    return init_kv_cache(
-        model.config, batch, cache_len, dtype=dtype, kv_quant=kv_quant, device=model.device
-    )
+    qtype or KV spec name ("qint8", "qint4", "k8v4", "qint4a", ...). It holds
+    the kv heads the model's attention runs: under tensor parallelism this
+    rank's (`parallel/sharding.py:shard_model`)."""
+    kv_heads = model.model.layers[0].self_attn.num_kv_heads
+    config = dataclasses.replace(model.config, num_key_value_heads=kv_heads)
+    return init_kv_cache(config, batch, cache_len, dtype=dtype, kv_quant=kv_quant, device=model.device)
 
 
 @torch.no_grad()

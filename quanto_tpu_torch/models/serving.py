@@ -2,7 +2,7 @@
 
 Counterpart of `quanto_tpu/models/serving.py:BatchedEngine` (`:58-790`):
 slot-based continuous batching over one pooled KV cache
-[max_batch, max_len, Hkv, D], float or quantized (`init_kv_cache(kv_quant=...)`):
+[max_batch, max_len, Hkv, D], float or quantized (`make_cache(kv_quant=...)`):
 - `add` prefills a prompt into a free slot (in fixed `prefill_chunk` pieces
   when that is set); `add_batch` prefills several prompts together, one
   [max_batch, prefill_chunk] forward over the pool per chunk;
@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from ..tensor.kv_cache import slot_view
-from .llama import init_kv_cache
 from .sampling import greedy
+from .serve import make_cache
 
 
 __all__ = ["BatchedEngine"]
@@ -95,7 +95,7 @@ class BatchedEngine:
         # causal mask hides the rest.
         self.prefill_chunk = prefill_chunk
         self._device = model.device
-        self._cache = init_kv_cache(model.config, max_batch, max_len, kv_quant=kv_quant, device=self._device)
+        self._cache = make_cache(model, max_batch, max_len, kv_quant=kv_quant)
         self._pos = np.zeros((max_batch,), np.int32)  # next write position per slot
         self._last_tok = np.zeros((max_batch,), np.int32)
         self._free = list(range(max_batch))

@@ -22,7 +22,13 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   width: JAX tries `_int8pc_route` before `_prefill_route`'s int2 gate;
 - `WeightQBitsArray` w (generic layout): dequantize + `torch.matmul`, the JAX
   package's own XLA path (`qlinear.py:74-75`), x dequantized first;
-- a plain tensor w: `torch.matmul`, x dequantized first.
+- a plain tensor w: `torch.matmul`, x dequantized first;
+- a rank's part of a sharded int4/int2 weight (its `shard` set by
+  `parallel/sharding.py:shard_model`, Hopper or generic layout):
+  `qbits_mm_partitioned`, which runs the rank's local product and sums a
+  row shard's partials over the group, as JAX's `qlinear` does under a mesh
+  (`quanto_tpu/ops/qlinear.py:48-60`, `:110-123`); a qint8 x stays int8,
+  any other quantized x is dequantized first.
 
 Each kernel wrapper computes its plain version on a CPU tensor and launches
 its kernel on a CUDA tensor. Weights follow the torch linear convention:
@@ -48,6 +54,7 @@ from ..tensor.weights import (
 from . import qbytes_mm as xla_qbytes
 from .cuda import qbytes_mm as cuda_qbytes
 from .cuda.qbits_mm import INT2_MAX_M, qbits_int8_mm, qbits_mm, requant_route
+from .cuda.qbits_mm_sharded import qbits_mm_partitioned
 
 
 __all__ = ["qlinear"]
@@ -55,7 +62,14 @@ __all__ = ["qlinear"]
 
 def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w.T + bias with quantized or plain operands."""
-    if isinstance(w, WeightQBytesArray):
+    if getattr(w, "shard", None) is not None:
+        int8_x = isinstance(x, ActivationQBytesArray) and x.qtype == qint8
+        if isinstance(x, QArray) and not int8_x:
+            x = x.dequantize()
+        out = qbits_mm_partitioned(x, w)
+        if int8_x:
+            mark_quantized_use(x)
+    elif isinstance(w, WeightQBytesArray):
         if isinstance(x, ActivationQBytesArray):
             raise NotImplementedError(
                 "qlinear: int8 x int8 (W8A8, qbytes_int_mm) is not ported yet: ROADMAP.md Queue 1, item 2"

@@ -34,8 +34,8 @@ pad.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -48,12 +48,25 @@ from .qtype import qtype
 
 
 __all__ = [
+    "Shard",
+    "shard_qbits",
     "WeightQBytesArray",
     "WeightQBitsArray",
     "WeightQBitsHopperArray",
     "WeightQBitsRequantArray",
     "quantize_weight",
 ]
+
+
+@dataclass(frozen=True, eq=False)
+class Shard:
+    """Which part of a weight a rank holds: `mode` "column" (N / world rows of
+    the [N, K] weight), "row" (K / world columns) or "replicated" (all of
+    it), in `group` (`ops/collectives.py:TPGroup`). A row part's
+    products are partial sums that the group adds."""
+
+    mode: str
+    group: Any
 
 
 @dataclass(frozen=True, eq=False)
@@ -119,6 +132,7 @@ class WeightQBitsArray(QArray):
     group_size: Optional[int]
     orig_shape: Tuple[int, ...]
     float_dtype: torch.dtype
+    shard: Optional[Shard] = field(default=None, kw_only=True)
 
     @classmethod
     def quantize(
@@ -154,10 +168,11 @@ class WeightQBitsArray(QArray):
     def device(self) -> torch.device:
         return self._data.packed_data.device
 
-    def dequantize(self) -> torch.Tensor:
+    def dequantize(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """In `dtype`, by default the weight's float dtype (computed in float32)."""
         codes = self._data.unpack()
         grouped = dequantize_affine(codes, self._scale, self._shift, torch.float32)
-        return ungroup(grouped, self.axis, self.orig_shape).to(self.float_dtype)
+        return ungroup(grouped, self.axis, self.orig_shape).to(dtype or self.float_dtype)
 
 
 @dataclass(frozen=True, eq=False)
@@ -171,6 +186,7 @@ class WeightQBitsHopperArray(QArray):
     group_size: Optional[int]
     orig_shape: Tuple[int, ...]
     float_dtype: torch.dtype
+    shard: Optional[Shard] = field(default=None, kw_only=True)
 
     @staticmethod
     def eligible(orig_shape: Tuple[int, ...], bits: int, group_size: Optional[int]) -> bool:
@@ -192,23 +208,21 @@ class WeightQBitsHopperArray(QArray):
         """Repack a generic weight, or None when it is off the envelope."""
         if w.axis != 0 or not cls.eligible(w.orig_shape, w.qtype.bits, w.group_size):
             return None
-        N, K = w.orig_shape
-        G = K // (w.group_size if w.group_size is not None else K)
-        codes = ungroup(w._data.unpack(), w.axis, w.orig_shape)
-        scale = w._scale.float().reshape(N, G)
-        if w._shift.is_floating_point():
-            shift = w._shift.float().reshape(N, G)
-        else:
-            # Integer zero-point: deq = scale*(code - zp) = scale*code - scale*zp.
-            shift = scale * w._shift.float().reshape(N, G)
+        return cls._from_codes(*_codes_scales(w), w, w.shard)
+
+    @classmethod
+    def _from_codes(cls, codes, scale, shift, like, shard=None) -> "WeightQBitsHopperArray":
+        """From uint8 codes [N, K] and float32 scale/shift [N, G], with the
+        qtype, group size and float dtype of `like`; no envelope check."""
         return cls(
-            _packed=pack_k_codes(codes, w.qtype.bits),
+            _packed=pack_k_codes(codes, like.qtype.bits),
             _scale_t=scale.t().contiguous(),
             _shift_t=shift.t().contiguous(),
-            qtype=w.qtype,
-            group_size=w.group_size,
-            orig_shape=tuple(w.orig_shape),
-            float_dtype=w.float_dtype,
+            qtype=like.qtype,
+            group_size=like.group_size,
+            orig_shape=tuple(codes.shape),
+            float_dtype=like.float_dtype,
+            shard=shard,
         )
 
     def to_generic(self) -> WeightQBitsArray:
@@ -228,6 +242,7 @@ class WeightQBitsHopperArray(QArray):
             group_size=gs,
             orig_shape=self.orig_shape,
             float_dtype=self.float_dtype,
+            shard=self.shard,
         )
 
     @property
@@ -250,9 +265,10 @@ class WeightQBitsHopperArray(QArray):
     def device(self) -> torch.device:
         return self._packed.device
 
-    def dequantize(self) -> torch.Tensor:
+    def dequantize(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """In `dtype`, by default the weight's float dtype (computed in float32)."""
         w = dequantize_k_codes(self._packed, self._scale_t, self._shift_t, self.kernel_group_size, self.bits)
-        return w.to(self.float_dtype)
+        return w.to(dtype or self.float_dtype)
 
 
 @dataclass(frozen=True, eq=False)
@@ -279,6 +295,63 @@ class WeightQBitsRequantArray(WeightQBitsHopperArray):
         payload, scales and shifts shared, not copied)."""
         fields = {f: getattr(w, f) for f in WeightQBitsHopperArray.__dataclass_fields__}
         return cls(**fields, _s8=requant_step(w._scale_t, w._shift_t, w.qtype.bits))
+
+
+def _codes_scales(w) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An int4/int2 weight (generic layout, axis 0, or Hopper layout) as uint8
+    codes [N, K] and float32 scale and float shift [N, G]."""
+    if isinstance(w, WeightQBitsHopperArray):
+        return unpack_k_codes(w._packed, w.bits), w._scale_t.t(), w._shift_t.t()
+    if w.axis != 0:
+        raise ValueError("an int4/int2 weight quantized along axis -1 has no Hopper layout")
+    N, K = w.orig_shape
+    G = K // (w.group_size if w.group_size is not None else K)
+    codes = ungroup(w._data.unpack(), w.axis, w.orig_shape)
+    scale = w._scale.float().reshape(N, G)
+    if w._shift.is_floating_point():
+        shift = w._shift.float().reshape(N, G)
+    else:
+        # Integer zero-point: deq = scale*(code - zp) = scale*code - scale*zp.
+        shift = scale * w._shift.float().reshape(N, G)
+    return codes, scale, shift
+
+
+def shard_qbits(w, mode: str, group):
+    """This rank's part of an int4/int2 weight (generic or Hopper layout) in
+    the TP group `group` (rank, world_size), for `mode` "column", "row" or
+    "replicated": rank r of p holds rows [r N/p, (r+1) N/p) of a column
+    shard, columns [r K/p, (r+1) K/p) of a row shard (whole groups: the
+    group size must divide K / p), or all of it. The part takes the Hopper
+    layout where its own shape is on the envelope (`eligible`) and stays in
+    the generic layout where it is not; JAX replicates such a row-parallel
+    weight instead (`sharding.py:242-247`), which changes only the order of
+    the float32 sum. The caller replicates where p does not divide the
+    dimension (`parallel/sharding.py`, the pad-free rule)."""
+    if isinstance(w, WeightQBitsRequantArray):
+        raise NotImplementedError(
+            "shard_qbits: the requant form under tensor parallelism is not ported yet: ROADMAP.md Queue 1, item 10"
+        )
+    codes, scale, shift = _codes_scales(w)
+    N, K = codes.shape
+    p, r = group.world_size, group.rank
+    if mode == "column":
+        rows = slice(r * N // p, (r + 1) * N // p)
+        codes, scale, shift = codes[rows], scale[rows], shift[rows]
+    elif mode == "row":
+        gs = w.group_size if w.group_size is not None else K
+        k = K // p
+        if gs != K and k % gs:
+            raise ValueError(f"shard_qbits: a row shard of K = {K} over {p} ranks splits groups of {gs}")
+        codes = codes[:, r * k : (r + 1) * k]
+        if gs != K:
+            g = slice(r * k // gs, (r + 1) * k // gs)
+            scale, shift = scale[:, g], shift[:, g]
+    elif mode != "replicated":
+        raise ValueError(f"shard_qbits: mode must be column, row or replicated, got {mode!r}")
+    local = WeightQBitsHopperArray._from_codes(codes.contiguous(), scale, shift, w, Shard(mode, group))
+    if WeightQBitsHopperArray.eligible(local.orig_shape, local.bits, local.group_size):
+        return local
+    return local.to_generic()
 
 
 def quantize_weight(

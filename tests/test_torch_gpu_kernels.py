@@ -56,6 +56,15 @@ tolerances of their int4 arms: `qbits_mm_int8_small_m` at M in 1..512 and
 route) for group sizes 128, 256 and per axis, bf16 and f32 output; the
 requant kernel at the Llama-3.1-8B linear shapes, M in {2048, 2049, 4096},
 EQUAL to its plain version.
+
+`qbits_mm_partitioned` (TPU kernel #5) on one rank's part of a 512 x 2048
+weight, column, row and replicated, float and int8 x, int4 and int2, against
+the same call through its plain local product (`_local_mm_plain`): bf16 x
+with the tolerances of the bf16 int4 matmuls above (the partial is the
+kernel's bf16 output), int8 x within 1e-5 * max|ref| (exact integer sums);
+one launch a call.
+The row part's all_reduce runs over a one-rank gloo group on the card's
+tensors (gloo stages them through the host), so it returns the partial.
 """
 
 import numpy as np
@@ -79,8 +88,11 @@ from quanto_tpu_torch.ops.cuda.qbits_mm import (
     qbits_requant_int8_mm_plain,
     requant_step,
 )
+from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
+from quanto_tpu_torch.ops.collectives import TPGroup
 from quanto_tpu_torch.tensor import kv_cache as tkv
-from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+from quanto_tpu_torch.tensor.activations import ActivationQBytesArray
+from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray, shard_qbits
 
 CODE_TYPES = ["qint8", "qint4", "qfloat8_e4m3fn", "qfloat8_e5m2", "qfloat8_e4m3fnuz"]
 CACHES = (
@@ -503,3 +515,48 @@ def test_moe_int2_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
     eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
     nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
     check_moe(MM.qbits_moe_tiled, xg.to(cuda_device, dtype), weights, eids, nslots, bits=2)
+
+
+@pytest.fixture
+def one_rank_gloo(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("xk", ["float", "int8"])
+@pytest.mark.parametrize("mode", ["column", "row", "replicated"])
+@pytest.mark.parametrize("m", [4, 600])
+def test_partitioned_matches_plain(cuda_device, one_rank_gloo, m, mode, xk, bits):
+    N, K = 512, 2048
+    rng = np.random.default_rng(m + bits)
+    qtype = qtt.qint4 if bits == 4 else qtt.qint2
+    w = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(cuda_device)
+    scale, shift = qtt.MaxOptimizer()(w, qtype, axis=0, group_size=128)
+    qw = qtt.quantize_weight(w, qtype, 0, scale, shift=shift, group_size=128)
+    part = shard_qbits(qw, mode, TPGroup(rank=1, world_size=2, group=one_rank_gloo, device=cuda_device))
+    assert isinstance(part, WeightQBitsHopperArray)
+    k = part.shape[1]
+    if xk == "float":
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    else:
+        codes = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda_device)
+        x = ActivationQBytesArray(codes, torch.tensor(0.0123, device=cuda_device), qtt.qint8, torch.float32)
+    before = (SH.qbits_mm_partitioned.launches, SH.qbits_mm_partitioned.all_reduces)
+    out = SH.qbits_mm_partitioned(x, part)
+    torch.cuda.synchronize()
+    assert (SH.qbits_mm_partitioned.launches, SH.qbits_mm_partitioned.all_reduces) == (
+        before[0] + 1, before[1] + (mode == "row"))
+    saved, SH._local_mm = SH._local_mm, SH._local_mm_plain
+    try:
+        ref = SH.qbits_mm_partitioned(x, part)
+    finally:
+        SH._local_mm = saved
+    assert out.dtype == ref.dtype and out.shape == (m, part.shape[0])
+    check_close(out, ref, None if xk == "float" else 1e-5)

@@ -310,7 +310,9 @@ def test_rope_params_match(scaling):
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, pulls in JAX or quanto_tpu,
     whether imported or read: the script's own import statements are parsed
-    too, since its phases import the port inside functions."""
+    too, since its phases import the port inside functions. The modules of
+    tensor parallelism (which the ranks that `torch.multiprocessing` spawns
+    import) are among those checked."""
     root = Path(__file__).resolve().parents[1]
     code = (
         "import importlib, pkgutil, runpy, sys\n"
@@ -320,6 +322,9 @@ def test_port_imports_no_jax():
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'quanto_tpu')]\n"
         "assert not bad, bad\n"
+        "tp = {'quanto_tpu_torch.parallel.distributed', 'quanto_tpu_torch.parallel.sharding',\n"
+        "      'quanto_tpu_torch.ops.cuda.qbits_mm_sharded', 'quanto_tpu_torch.ops.collectives'}\n"
+        "assert tp <= set(sys.modules), tp - set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules if m.startswith('quanto_tpu_torch')]))\n"
     )
     proc = subprocess.run(
