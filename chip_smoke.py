@@ -2,6 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --only sweep,serving   # phases 1-2, phase 3's small-M sweep and
+                                                 # phase 15 alone (a tree's kernels, A/B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -140,12 +142,36 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    ragged decode step; cosine > W2A8_E2E_COS and top-1 equal or at a logit
    tie), in both forms, and the requant form against the exact form
    (`check_requant_vs_exact`, phase 5's limits). Prints its seconds.
+3 (sweep). The two small-M kernels over the M they take: `qbits_mm_small_m`
+   (bf16 x) and `qbits_mm_int8_small_m` (int8 x, bf16 output), int4 and int2
+   codes over random packed bytes, at M in {1, 4, 8, 16, 32, 64, 128, 256,
+   512} on 14336 x 4096 and 4096 x 14336 and at M in {1, 4} on the lm_head
+   (128256 x 4096), with phase 3's check; yardstick `torch.matmul` on the bf16
+   operands. Phase 3 (MoE) also times `qbits_moe_small_m`'s all form (TPU #12:
+   every expert, no table) at S = 16.
 3 (#5). `qbits_mm_partitioned`'s rank-local product (`_local_mm`: the int4
    kernel on the rank's part, cast up to float32) at each tp = 2 shard of
    Llama-3.1-8B (q 2048 x 4096, k/v 512 x 4096, o 4096 x 2048, gate/up 7168 x
    4096, down 4096 x 7168, lm_head 64128 x 4096) and M in {4, 4096}, against
    its plain version; yardstick `torch.matmul` on the part dequantized to
    bf16.
+15. the default 8B slice of the JAX package's serving bench
+   (bench/serving_bench.py without `--long-ctx`): `BatchedEngine` with 8
+   slots, max_len 768 and prefill chunks of 64 over a bf16 cache, prompts of
+   512, 384, 448, 256, 512, 320, 192 and 448 random ids, 128 new tokens each,
+   decode bursts of 16; run on phase 4's qint4 model (before it is deleted)
+   and on phase 7's calibrated W4A8 model in the exact form (before phase 10
+   freezes it again). Two arms on each, on a fresh engine: serial `add` of
+   every prompt ([1, 64] chunk forwards, M = 64) and `add_batch` ([8, 64],
+   M = 512), each drained by `run_to_completion(burst=16)` (decode at M = 8).
+   Every forward launches exactly 224 `qbits_mm_small_m` (qint4) or
+   `qbits_mm_int8_small_m` (W4A8) at its M (a pre-hook on each quantized
+   linear records the M), one more at M = its rows for the qint4 lm_head, 32
+   `flash_decode` at decode, and nothing else; every request returns 128 ids
+   in the vocabulary and its first token is a standalone prefill's or at a
+   logit tie. Prints the median ms per chunk beside its linears' bound, time
+   to first token, decode ms/step beside the bytes a step reads, tok/s and
+   peak memory.
 14. tensor parallelism: 2 ranks (`torch.multiprocessing` spawn, a `file://`
    store) share the one card over gloo (NCCL refuses two ranks on one
    device). Each rank builds phase 4's model from phase 4's seed, each
@@ -199,7 +225,7 @@ REPLACES = {
     "qbits_mm_tiled": "quanto_tpu/ops/pallas/qbits_mm.py:223",
 }
 SOURCE = {
-    "qbits_mm_small_m": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_small_m": "quanto_tpu_torch/csrc/qbits_mm_small_m.cu",
     "qbits_mm_tiled": "quanto_tpu_torch/csrc/qbits_mm.cu",
     "flash_decode": "quanto_tpu_torch/csrc/flash_decode.cu",
 }
@@ -224,7 +250,7 @@ SUMMARY_SHAPE.update({
 SOURCE.update({
     "qbytes_mm_int8": "quanto_tpu_torch/csrc/qbytes_mm.cu",
     "qbytes_mm_e4m3fn": "quanto_tpu_torch/csrc/qbytes_mm.cu",
-    "qbits_mm_int8_small_m": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_int8_small_m": "quanto_tpu_torch/csrc/qbits_mm_small_m.cu",
     "qbits_mm_tiled_int8": "quanto_tpu_torch/csrc/qbits_mm.cu",
 })
 REPLACES.update({
@@ -246,6 +272,7 @@ MOE_EXPERTS = 8
 MOE_SEL_EIDS = [3, 5]  # the selective form: nsel = 2 pairs on two experts
 MOE_UNIQ_EIDS = [6, 1, 3, 0, 7, 4]  # the uniq form: 6 of the 8 experts
 MOE_S = 8
+MOE_ALL_S = 16  # TPU #12 (`_moe_all_kernel`): every expert over the same S rows
 MOE_TILED_M = (8, 512, 2048)
 MOE_INT2_TILED_M = (512,)  # phase 12's B = 1 prefill: capacity slabs of 512 rows
 # The B = 4 decode step's unique-expert route (S = 4 rows, S·K = 8 = E): both kernels over 8 slots
@@ -359,6 +386,24 @@ FD_ENGINE_POS = {
     "stream": [1040, 3400, 1056, 3700, 1072, 3950, 1088, 4200],
     "free": [0, 3200, 0, 3712, 0, 4224, 0, 3968],
 }
+# Phase 3's sweep of the two small-M kernels (#1 at bf16 x, #4 at int8 x and bf16 output) over the
+# M they take, at both code widths: the gate/up and down shapes at SWEEP_M, the lm_head at M = 1, 4.
+SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 256, 512)
+SWEEP_SHAPES = [((14336, 4096), SWEEP_M), ((4096, 14336), SWEEP_M), ((128256, 4096), (1, 4))]
+# Phase 15's first-token check: the engine's chunks (M = 64 or 512) and the standalone prefill
+# (M = the batched prompts' rows, 192-1024) take kernels whose float32 sums are ordered by their
+# M tiles and K splits, so a bf16 output moves by one step here and there and 32 random-weight
+# layers carry it to the logits. A first token may differ from the standalone's where the latter's
+# logits of the two tokens lie within SERVE_TOP1_GAP of its largest |logit|. Readings (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6): 0.0054 with the CUDA-core small-M kernels (one request, in
+# both qint4 arms), 0.0054-0.0234 with the tensor-core ones (four flips); a K summed in two halves
+# flipped tokens at up to 0.029 (phase 14). The limit is 1.7x the largest of these.
+SERVE_TOP1_GAP = 0.05
+# Phase 15: the 8B slice of the JAX package's serving bench without `--long-ctx`
+# (bench/serving_bench.py:81-82, :133, :37-43): 8 slots, max_len 768, these prompts, chunks of 64,
+# 128 new tokens each, decode bursts of 16.
+SERVE_PROMPTS = [512, 384, 448, 256, 512, 320, 192, 448]
+SERVE_MAX_LEN, SERVE_CHUNK, SERVE_NEW, SERVE_BURST = 768, 64, 128, 16
 
 
 def log(msg: str) -> None:
@@ -482,6 +527,52 @@ def phase_kernels(K_mod, flush, bits: int = 4):
                 del out, ref
         del packed, scale_t, shift_t, w_bf16
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_small_m_sweep(K_mod, flush):
+    """Phase 3, the sweep: `qbits_mm_small_m` (bf16 x) and `qbits_mm_int8_small_m`
+    (int8 x, bf16 output) against their plain versions at SWEEP_SHAPES, int4
+    and int2 codes (every code value in every position of a byte), with phase
+    3's check; yardstick `torch.matmul` on the bf16 operands. Rows carry
+    `sweep`; an int2 row's name ends in `_int2`."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(910)
+    sx = torch.tensor(0.0173, device=dev)
+    rows = []
+    for bits in (4, 2):
+        for (N, K), ms in SWEEP_SHAPES:
+            G = K // GS
+            packed = torch.randint(0, 256, (N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
+            scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
+            shift_t = scale_t * (2**bits - 1) / 2
+            w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, bits).to(torch.bfloat16)
+            for M in ms:
+                x = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
+                xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
+                arms = [
+                    ("qbits_mm_small_m", K_mod.qbits_mm_small_m, K_mod.qbits_mm_plain,
+                     (x, packed, scale_t, shift_t, GS, bits), x, 2, 0, PEAK_BF16_FLOPS),
+                    ("qbits_mm_int8_small_m", K_mod.qbits_mm_int8_small_m, K_mod.qbits_int8_mm_plain,
+                     (xq, sx, packed, scale_t, shift_t, GS, torch.bfloat16, bits),
+                     (xq.float() * sx).to(torch.bfloat16), 1, 4, PEAK_INT8_OPS),
+                ]
+                for name, kernel, plain, args, x_lib, x_bytes, sx_bytes, peak in arms:
+                    name += "_int2" if bits == 2 else ""
+                    err, cos = check_kernel(f"{name} M={M} N={N} K={K}", kernel(*args), plain(*args))
+                    b_ms, b_by = bound(M, N, K, x_bytes=x_bytes, w_bytes=bits / 8,
+                                       side_bytes=2 * G * N * 4 + sx_bytes, peak_ops=peak)
+                    row = dict(
+                        name=name, sweep=True, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                        ms=time_ms(lambda: kernel(*args), flush),
+                        plain_ms=time_ms(lambda: plain(*args), flush),
+                        library_ms=time_ms(lambda: torch.matmul(x_lib, w_bf16.t()), flush),
+                        bound_ms=b_ms, bound_by=b_by,
+                    )
+                    rows.append(row)
+                    log("kernel " + json.dumps(row))
+            del packed, scale_t, shift_t, w_bf16
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -716,6 +807,9 @@ def phase_moe(flush, bits: int = 4):
             for kernel, x3 in ((MM.qbits_moe_small_m, x4.expand(MOE_EXPERTS, MOE_DECODE_M, K)),
                                (MM.qbits_moe_tiled, h4))
         ]
+        if bits == 4:  # TPU #12's own row: the all form over every expert, no table, S = 16
+            x16 = torch.randn((MOE_ALL_S, K), device=dev, generator=g, dtype=torch.bfloat16)
+            cases.append(("all", MM.qbits_moe_small_m, x16.expand(MOE_EXPERTS, MOE_ALL_S, K), None, None))
         for form, kernel, x3, eids, count in cases:
             U, M = x3.shape[:2]
             n_live = U if count is None else count
@@ -1462,14 +1556,17 @@ def instrument(engine, per_forward: dict) -> dict:
     return rec
 
 
-def check_first_tokens(label: str, model, prompts, tokens) -> list:
+def check_first_tokens(label: str, model, prompts, tokens, max_len: int = ENGINE_MAX_LEN, tie=None) -> list:
     """Each request's first token against the argmax of a standalone
     `prefill(last_only=True)` of its prompt (prompts of equal length
-    batched; every prefill here has M >= 2048, so the same requant route)
-    over a cache of the engine's length, so that attention reduces over the
-    same slots: equal, or the standalone's logits of the two tokens within
-    LOGIT_TIE of its largest |logit|. Returns the ties it accepted."""
+    batched; in phase 10 every such prefill has M >= 2048, so the same
+    requant route) over a cache of the engine's length `max_len`, so that
+    attention reduces over the same slots: equal, or the standalone's logits
+    of the two tokens within `tie` (default LOGIT_TIE) of its largest
+    |logit|. Returns the ties it accepted."""
     from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    tie = LOGIT_TIE if tie is None else tie
 
     ties = []
     by_len = {}
@@ -1477,7 +1574,7 @@ def check_first_tokens(label: str, model, prompts, tokens) -> list:
         by_len.setdefault(len(p), []).append(i)
     for L, idx in by_len.items():
         ids = torch.tensor(np.stack([prompts[i] for i in idx]), device="cuda")
-        logits, _ = prefill(model, ids, make_cache(model, len(idx), ENGINE_MAX_LEN), last_only=True)
+        logits, _ = prefill(model, ids, make_cache(model, len(idx), max_len), last_only=True)
         lv = logits[:, -1].float()
         for row, i in enumerate(idx):
             top = int(lv[row].argmax())
@@ -1485,7 +1582,7 @@ def check_first_tokens(label: str, model, prompts, tokens) -> list:
                 gap = (lv[row, top] - lv[row, tokens[i]]).item() / lv[row].abs().max().item()
                 ties.append({"request": i, "engine": tokens[i], "standalone": top, "relative_gap": gap})
                 log(json.dumps({"engine_first_token_tie": label, **ties[-1]}))
-                if gap > LOGIT_TIE:
+                if gap > tie:
                     raise RuntimeError(f"{label}: request {i}'s first token {tokens[i]} is not the standalone "
                                        f"prefill's {top} and no logit tie (relative gap {gap})")
     return ties
@@ -1637,6 +1734,162 @@ def phase_engine(model, rows) -> dict:
     )
     log(json.dumps(out))
     return {"batch": batch_counts, "stream": out["launches"]}
+
+
+def linears_bound(model, rows: int, T: int, x_bytes: int, peak_ops: float):
+    """Least time (ms) of one forward's quantized linears over `rows` x `T`
+    tokens (a quantized lm_head on the `rows` last positions), and what bounds
+    it: each call's x, weight payload, scales and shifts read once and its
+    bf16 output written once; 2 M N K operations at `peak_ops`."""
+    from quanto_tpu_torch.nn import QLinear
+
+    nbytes = ops = 0
+    for m in model.modules():
+        if isinstance(m, QLinear):
+            M = rows if m is model.lm_head else rows * T
+            w = m.weight
+            fields = (w._data, w._scale) if hasattr(w, "_data") else (w._packed, w._scale_t, w._shift_t)
+            nbytes += M * m.in_features * x_bytes + sum(t.numel() * t.element_size() for t in fields)
+            nbytes += M * m.out_features * 2
+            ops += 2 * M * m.out_features * m.in_features
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@torch.no_grad()
+def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW) -> dict:
+    """Phase 15: the default 8B slice of the JAX package's serving bench on
+    `model`, whose linears all take `kernel` (#1 or #4) below M = 513: a
+    `BatchedEngine` of 8 slots, max_len 768, chunks of 64 over a bf16 cache,
+    SERVE_PROMPTS (random ids from a seed), each arm on a fresh engine:
+    (a) serial `add` of each prompt ([1, 64] chunk forwards, M = 64), (b)
+    `add_batch` of all ([8, 64], M = 512); then `run_to_completion(burst=16)`
+    for `new_tokens` each (decode forwards of [8, 1], M = 8). Every forward is
+    held to exactly 224 launches of `kernel` at its M, one more at M = its
+    rows for a quantized lm_head, 32 `flash_decode` at decode and nothing
+    else (a pre-hook on every quantized linear records the M it is called
+    at); each request's first token is held to a standalone prefill's, or a
+    logit tie. Chunk forwards are timed between synchronizations. Prints per
+    arm the median ms per chunk beside its linears' bound, time to first
+    token (the requests all arrive at once), decode ms/step beside the bytes
+    a step reads, tok/s and peak memory. Returns each arm's launch counts."""
+    from quanto_tpu_torch.models.serving import BatchedEngine
+    from quanto_tpu_torch.nn import QLinear
+
+    config = model.config
+    L = config.num_hidden_layers
+    n_lin = LINEARS_PER_LAYER * L
+    head_q = isinstance(model.lm_head, QLinear)
+    x_bytes, peak_ops = (1, PEAK_INT8_OPS) if kernel == "qbits_mm_int8_small_m" else (2, PEAK_BF16_FLOPS)
+    g = torch.Generator().manual_seed(15)
+    prompts = [torch.randint(0, config.vocab_size, (n,), generator=g).numpy() for n in SERVE_PROMPTS]
+    slots = len(prompts)
+    weight_bytes = step_weight_bytes(model)
+    seen_m = []  # the M of every quantized linear's call, in order
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen_m.append(args[0].numel() // args[0].shape[-1]))
+             for m in model.modules() if isinstance(m, QLinear)]
+
+    def run(arm: str, admit):
+        engine = BatchedEngine(model, max_batch=slots, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+        slot_bytes = sum(t[0, 0].numel() * t.element_size() for layer in engine._cache for t in layer)
+        rec = dict(chunks=0, chunk_ms=[], chunk_m=set(), decodes=0, bad=[])
+        forward = engine._forward
+
+        def counted_forward(ids, cache, pos, last_idx):
+            R, T = ids.shape
+            before = read_counts()
+            seen_m.clear()
+            if T > 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = forward(ids, cache, pos, last_idx)
+            if T > 1:
+                torch.cuda.synchronize()
+                rec["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["chunks"] += 1
+                rec["chunk_m"].add(R * T)
+            else:
+                rec["decodes"] += 1
+            after = read_counts()
+            delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            want = {kernel: n_lin + head_q, **({} if T > 1 else {"flash_decode": L})}
+            want_m = [R * T] * n_lin + [R] * head_q
+            if delta != want or seen_m != want_m:
+                rec["bad"].append((R, T, delta, sorted(set(seen_m))))
+            return out
+
+        engine._forward = counted_forward
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rids, ttft = admit(engine, t0)
+        admit_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        engine.run_to_completion(burst=SERVE_BURST)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        results = [engine.result(r) for r in rids]
+        del engine
+        if rec["bad"]:
+            raise RuntimeError(f"{label} {arm}: forwards off their launches or M: {rec['bad'][:4]}")
+        chunks = sum(-(-n // SERVE_CHUNK) for n in SERVE_PROMPTS) if arm == "serial" else \
+            -(-max(SERVE_PROMPTS) // SERVE_CHUNK)
+        if rec["chunks"] != chunks or rec["decodes"] != new_tokens - 1:
+            raise RuntimeError(f"{label} {arm}: {rec['chunks']} chunk and {rec['decodes']} decode forwards, "
+                               f"want {chunks} and {new_tokens - 1}")
+        want = {n: 0 for n in counts}
+        want.update({kernel: (n_lin + head_q) * (chunks + rec["decodes"]), "flash_decode": L * rec["decodes"]})
+        if counts != want:
+            raise RuntimeError(f"{label} {arm}: launches {counts}, want {want}")
+        if [len(r) for r in results] != [new_tokens] * slots:
+            raise RuntimeError(f"{label} {arm}: tokens per request {[len(r) for r in results]}")
+        if min(min(r) for r in results) < 0 or max(max(r) for r in results) >= config.vocab_size:
+            raise RuntimeError(f"{label} {arm}: token ids out of the vocabulary")
+        (chunk_m,) = rec["chunk_m"]
+        b_ms, b_by = linears_bound(model, chunk_m // SERVE_CHUNK, SERVE_CHUNK, x_bytes, peak_ops)
+        # A decode step's bytes: the weights, and every row's visible KV slots at its position.
+        kv_bytes = slot_bytes * np.mean([n + j + 1 for n in SERVE_PROMPTS for j in range(rec["decodes"])]) * slots
+        out = {
+            "serving": label, "arm": arm, "slots": slots, "max_len": SERVE_MAX_LEN, "prefill_chunk": SERVE_CHUNK,
+            "prompts": SERVE_PROMPTS, "new_tokens": new_tokens, "chunk_forwards": rec["chunks"], "chunk_m": chunk_m,
+            "ms_per_chunk": float(np.median(rec["chunk_ms"])), "chunk_bound_ms": b_ms, "chunk_bound_by": b_by,
+            "ttft_first_ms": min(ttft) * 1e3, "ttft_mean_ms": float(np.mean(ttft)) * 1e3, "admit_ms": admit_s * 1e3,
+            "prefill_tok_s": sum(SERVE_PROMPTS) / admit_s,
+            "decode_forwards": rec["decodes"], "decode_ms_per_step": run_s / rec["decodes"] * 1e3,
+            "decode_step_bound_ms": (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "decode_tok_s": slots * rec["decodes"] / run_s,
+            "serve_tok_s": slots * new_tokens / (admit_s + run_s),
+            "peak_memory_gb": peak_gb, "launches": {n: c for n, c in counts.items() if c},
+        }
+        log(json.dumps(out))
+        check_first_tokens(f"{label} {arm}", model, prompts, [r[0] for r in results], SERVE_MAX_LEN,
+                           SERVE_TOP1_GAP)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out["launches"]
+
+    def serial(engine, t0):
+        rids, ttft = [], []
+        for p in prompts:
+            rids.append(engine.add(p, new_tokens))  # returns after fetching the request's first token
+            ttft.append(time.perf_counter() - t0)
+        return rids, ttft
+
+    def batched(engine, t0):
+        rids = engine.add_batch(prompts, new_tokens)
+        return rids, [time.perf_counter() - t0] * len(rids)
+
+    t0 = time.perf_counter()
+    try:
+        counts = {"serial": run("serial", serial), "batch": run("batch", batched)}
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"serving: phase 15 ({label}) took {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def build_mixtral(config, seed: int, stacked: bool = True, experts: str = "qint4"):
@@ -2543,11 +2796,45 @@ def phase_tp(ref_forced: torch.Tensor, ref_tokens: torch.Tensor) -> dict:
     return ranks[0]
 
 
+def only_sweep_and_serving(K_mod, card: str) -> int:
+    """`--only sweep,serving`: phase 3's small-M sweep and phase 15 on both of
+    its models, built as phases 4 and 7 build them; for timing a tree's
+    small-M kernels against another's."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.serve import generate
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_small_m_sweep(K_mod, flush)
+    del flush
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    warm = torch.randint(0, config.vocab_size, (1, 64), generator=torch.Generator().manual_seed(3)).cuda()
+    for kw, kernel, label in [
+        (dict(), "qbits_mm_small_m", "llama-3.1-8b-config qint4+head4, bf16 cache"),
+        (dict(weights="qint4", activations="qint8", exclude="lm_head"), "qbits_mm_int8_small_m",
+         "llama-3.1-8b-config w4a8 (calibrated, exact form), lm_head bf16, bf16 cache"),
+    ]:
+        model, _ = build_model(config, seed=0, **kw)
+        generate(model, warm, 4)  # warm-up, as phases 4 and 7 warm the full run's phase 15
+        phase_serving(label, model, kernel)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"ok": True, "only": "sweep,serving", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    if only not in (None, "sweep,serving"):
+        print(f"chip_smoke: --only takes sweep,serving, got {only}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
@@ -2564,10 +2851,13 @@ def main() -> int:
     log(f"build: {info['seconds']:.1f} s, {', '.join(info['sources'])} -> {info['path']}")
     if info["log"]:
         log(info["log"].strip())
+    if only:
+        return only_sweep_and_serving(K_mod, card)
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    rows = (phase_kernels(K_mod, flush) + phase_flash_decode(flush) + phase_qbytes(flush)
+    rows = (phase_kernels(K_mod, flush) + phase_small_m_sweep(K_mod, flush) + phase_flash_decode(flush)
+            + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
             + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush))
@@ -2588,6 +2878,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     launches_1088, phase4_reference = phase_main_path(K_mod, FD_mod, model, qlinears, ids)
     launches = phase_long_context(K_mod, FD_mod, model, qlinears)
+    # Phase 15 on this model: the serving bench's default slice, its chunks through #1.
+    serving = {"qbits_mm_small_m": phase_serving(
+        "llama-3.1-8b-config qint4+head4, bf16 cache", model, "qbits_mm_small_m")}
     del model, qlinears
     gc.collect()
     torch.cuda.empty_cache()
@@ -2614,6 +2907,11 @@ def main() -> int:
         want_prefill={"qbits_mm_tiled_int8": n_lin},
         want_decode={"qbits_mm_int8_small_m": n_lin * steps, **fd_decode},
     )
+    # Phase 15 on this model in the exact form (before phase 10 freezes it again): its chunks
+    # through #4.
+    serving["qbits_mm_int8_small_m"] = phase_serving(
+        "llama-3.1-8b-config w4a8 (calibrated, exact form), lm_head bf16, bf16 cache", model,
+        "qbits_mm_int8_small_m")
 
     # Phase 10: the serving engine, on phase 7's model frozen again into the requant form.
     from quanto_tpu_torch import WeightQBitsRequantArray, freeze
@@ -2725,6 +3023,8 @@ def main() -> int:
             extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
         if name == "qbits_mm_requant_int8_int2":
             extra = {"exact_ms": rep["exact_ms"]}
+        if name in serving:
+            extra["launches_phase15"] = {arm: c[name] for arm, c in serving[name].items()}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(

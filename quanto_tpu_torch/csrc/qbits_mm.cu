@@ -18,7 +18,8 @@
 //
 //   y = sx * s8 * (xq . c8)   with one int32 sum over the whole K.
 //
-// The weight layout, and the bodies of the two float-x kernels, are in qbits_mm.cuh.
+// This file holds the kernels for M > 512 and the requant route; the two small-M kernels (M <= 512)
+// are in qbits_mm_small_m.cu. The weight layout and the tiled body are in qbits_mm.cuh.
 //
 // Entry points have a plain C interface (bound with ctypes in ops/cuda/qbits_mm.py). They launch
 // on the stream they are given, allocate nothing, and return cudaGetLastError().
@@ -28,21 +29,6 @@
 namespace {
 
 using namespace qbits;
-
-// ---------------------------------------------------------------------------------------------
-// qbits_mm_small_m (M <= 512).
-//
-// Replaces quanto_tpu/ops/pallas/qbits_mm.py:_kernel, the TPU decode kernel. The body,
-// small_m_block in qbits_mm.cuh, says what bounds it and how it is built.
-// ---------------------------------------------------------------------------------------------
-template <typename T, int BITS>
-__global__ void __launch_bounds__(SM_THREADS) qbits_mm_small_m_kernel(
-    const T* __restrict__ x, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    T* __restrict__ out, int M, int N, int K, int gs) {
-  small_m_block<T, T, BITS>(x, packed, scale_t, shift_t, out, M, N, K, gs, blockIdx.x * SM_ROWS,
-                            blockIdx.y * SM_BM);
-}
 
 // ---------------------------------------------------------------------------------------------
 // qbits_mm_tiled (M > 512).
@@ -57,178 +43,6 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_kernel(
     T* __restrict__ out, int M, int N, int K, int gs) {
   tiled_block<T, T, 2, TL_MT, BITS>(x, packed, scale_t, shift_t, out, M, N, K, gs,
                                     blockIdx.y * TL_BM, blockIdx.x * TL_BN);
-}
-
-// ---------------------------------------------------------------------------------------------
-// Codes of a run of 32 (load_run) as int8 operands of __dp4a and of mma.sync s8.
-// ---------------------------------------------------------------------------------------------
-
-// The 4 x 4 byte transpose: byte b of o_i is byte i of a_b.
-__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                           uint32_t& o0, uint32_t& o1, uint32_t& o2,
-                                           uint32_t& o3) {
-  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
-  const uint32_t t1 = __byte_perm(a0, a1, 0x7362);  // a0.b2 a1.b2 a0.b3 a1.b3
-  const uint32_t t2 = __byte_perm(a2, a3, 0x5140);  // a2.b0 a3.b0 a2.b1 a3.b1
-  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);  // a2.b2 a3.b2 a2.b3 a3.b3
-  o0 = __byte_perm(t0, t2, 0x5410);
-  o1 = __byte_perm(t0, t2, 0x7632);
-  o2 = __byte_perm(t1, t3, 0x5410);
-  o3 = __byte_perm(t1, t3, 0x7632);
-}
-
-// Operand j (0..7) of a run's codes: code i of each byte of packed word j / (8 / BITS), i =
-// j % (8 / BITS), one code (0..15 or 0..3, exact as s8) per byte. int4: byte b of word q holds
-// codes 8q + 2b and 8q + 2b + 1; int2: crumb i of byte b of word q holds code 16q + 4b + i.
-template <int BITS>
-__device__ __forceinline__ uint32_t code_operand(const uint32_t (&w)[BITS], int j) {
-  constexpr int per = 8 / BITS;
-  constexpr uint32_t mask = ((1u << BITS) - 1u) * 0x01010101u;
-  return (w[j / per] >> (BITS * (j % per))) & mask;
-}
-
-// The x words that pair with code_operand<BITS>(w, j) in __dp4a, given x's 32 int8 values of
-// the run in order (xw). int4: x's even and odd bytes of each 8; int2: x's bytes 4b + i (b =
-// 0..3) of each 16, gathered by a 4 x 4 byte transpose.
-template <int BITS>
-__device__ __forceinline__ void x_operands(const uint32_t (&xw)[8], uint32_t (&xo)[8]) {
-  if constexpr (BITS == 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      xo[2 * q] = __byte_perm(xw[2 * q], xw[2 * q + 1], 0x6420);      // x 8q + 0, 2, 4, 6
-      xo[2 * q + 1] = __byte_perm(xw[2 * q], xw[2 * q + 1], 0x7531);  // x 8q + 1, 3, 5, 7
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      transpose4(xw[4 * q], xw[4 * q + 1], xw[4 * q + 2], xw[4 * q + 3], xo[4 * q], xo[4 * q + 1],
-                 xo[4 * q + 2], xo[4 * q + 3]);
-  }
-}
-
-// The run's 32 codes as int8, in K order: cw[j] holds codes 4j .. 4j + 3.
-template <int BITS>
-__device__ __forceinline__ void codes_s8(const uint32_t (&pw)[BITS], uint32_t (&cw)[8]) {
-  if constexpr (BITS == 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t lo = code_operand<4>(pw, 2 * q);      // codes 8q + 0, 2, 4, 6
-      const uint32_t hi = code_operand<4>(pw, 2 * q + 1);  // codes 8q + 1, 3, 5, 7
-      cw[2 * q] = __byte_perm(lo, hi, 0x5140);
-      cw[2 * q + 1] = __byte_perm(lo, hi, 0x7362);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)  // crumb planes i = 0..3 of word q, transposed: byte b's codes
-      transpose4(code_operand<2>(pw, 4 * q), code_operand<2>(pw, 4 * q + 1),
-                 code_operand<2>(pw, 4 * q + 2), code_operand<2>(pw, 4 * q + 3), cw[4 * q],
-                 cw[4 * q + 1], cw[4 * q + 2], cw[4 * q + 3]);
-  }
-}
-
-// ---------------------------------------------------------------------------------------------
-// qbits_mm_int8_small_m (W4A8 and W2A8, M <= 512).
-//
-// Replaces quanto_tpu/ops/pallas/qbits_mm.py:_int8_kernel, the TPU W4A8 decode kernel.
-// Bound on this card by bytes at decode, as qbits_mm_small_m: each packed weight byte is read
-// once and used for M rows of x. Design: qbits_mm_small_m's, with the products on the integer
-// dot unit. A block owns I8_ROWS weight rows and I8_BM rows of x and walks all of K; each thread
-// loads a run of 32 codes of each of its rows per step (16 packed bytes for int4, 8 for int2).
-// __dp4a adds four int8 x times four codes (exact as s8) into an int32 sum of the run: each
-// code operand (code_operand) holds one code per byte, and x_operands gathers the x bytes it
-// pairs with, once per x row and run for all I8_ROWS rows. int4: the low nibbles of a word's four
-// bytes pair with x's even positions and the high nibbles with its odd ones (two __byte_perm);
-// int2: crumb i of the bytes b = 0..3 pairs with x at 4b + i (a 4 x 4 byte transpose, eight
-// __byte_perm per 16 codes). sum(xq) over the run comes from __dp4a against 0x01010101. The 32
-// codes lie in one group, so the thread adds s_g * acc - z_g * sum(xq) in float32 per run. A
-// block-wide reduction sums the threads' partial outputs; the result is multiplied by sx and
-// stored. The int2 arm keeps the int4 arm's 32 codes per step, as small_m_block in
-// qbits_mm.cuh does: it is held by its arithmetic and latency, not its bytes.
-// ---------------------------------------------------------------------------------------------
-constexpr int I8_THREADS = 128;
-constexpr int I8_ROWS = 4;
-constexpr int I8_BM = 8;
-
-template <typename TO, int BITS>
-__global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
-    const int8_t* __restrict__ x, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    const float* __restrict__ sx, TO* __restrict__ out, int M, int N, int K, int gs) {
-  const int n0 = blockIdx.x * I8_ROWS;
-  const int m0 = blockIdx.y * I8_BM;
-  const int rows_m = min(I8_BM, M - m0);
-  const size_t kp = row_bytes<BITS>(K);
-  const int nchunks = K / 32;
-
-  float y[I8_ROWS][I8_BM];
-#pragma unroll
-  for (int r = 0; r < I8_ROWS; ++r)
-#pragma unroll
-    for (int m = 0; m < I8_BM; ++m) y[r][m] = 0.f;
-
-  for (int c = threadIdx.x; c < nchunks; c += I8_THREADS) {
-    const int k0 = c * 32;
-    uint32_t w[I8_ROWS][BITS];
-#pragma unroll
-    for (int r = 0; r < I8_ROWS; ++r)
-      load_run<BITS>(packed + (size_t)(n0 + r) * kp + (size_t)c * 4 * BITS, w[r]);
-    int acc[I8_ROWS][I8_BM];
-    int xs[I8_BM];
-#pragma unroll
-    for (int m = 0; m < I8_BM; ++m) {
-      xs[m] = 0;
-#pragma unroll
-      for (int r = 0; r < I8_ROWS; ++r) acc[r][m] = 0;
-      if (m < rows_m) {
-        const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + k0);
-        const uint4 a = __ldg(xp);
-        const uint4 b = __ldg(xp + 1);
-        const uint32_t xw[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-        uint32_t xo[8];
-        x_operands<BITS>(xw, xo);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          xs[m] = __dp4a((int)xw[j], 0x01010101, xs[m]);
-#pragma unroll
-          for (int r = 0; r < I8_ROWS; ++r)
-            acc[r][m] = __dp4a((int)code_operand<BITS>(w[r], j), (int)xo[j], acc[r][m]);
-        }
-      }
-    }
-    const size_t g = (size_t)(k0 / gs);
-#pragma unroll
-    for (int r = 0; r < I8_ROWS; ++r) {
-      const float s = __ldg(scale_t + g * N + n0 + r);
-      const float z = __ldg(shift_t + g * N + n0 + r);
-#pragma unroll
-      for (int m = 0; m < I8_BM; ++m) y[r][m] += s * (float)acc[r][m] - z * (float)xs[m];
-    }
-  }
-
-  __shared__ float red[I8_THREADS / 32][I8_ROWS * I8_BM];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < I8_ROWS; ++r) {
-#pragma unroll
-    for (int m = 0; m < I8_BM; ++m) {
-      float v = y[r][m];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][r * I8_BM + m] = v;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < I8_ROWS * I8_BM) {
-    const int r = threadIdx.x / I8_BM;
-    const int m = threadIdx.x % I8_BM;
-    if (m < rows_m) {
-      float v = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < I8_THREADS / 32; ++wi) v += red[wi][threadIdx.x];
-      store1(out + (size_t)(m0 + m) * N + n0 + r, v * __ldg(sx));
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -247,14 +61,6 @@ __global__ void __launch_bounds__(I8_THREADS) qbits_mm_int8_small_m_kernel(
 // simple first.
 // ---------------------------------------------------------------------------------------------
 constexpr int TI_LD = TL_BK + 16;  // padded shared-memory row, in bytes: no bank conflicts
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -525,17 +331,6 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
 }
 
 template <typename T, int BITS>
-int launch_small_m(const void* x, const void* packed, const void* scale_t, const void* shift_t,
-                   void* out, int M, int N, int K, int gs, cudaStream_t stream) {
-  const dim3 grid(N / SM_ROWS, (M + SM_BM - 1) / SM_BM);
-  qbits_mm_small_m_kernel<T, BITS><<<grid, SM_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
-      static_cast<T*>(out), M, N, K, gs);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BITS>
 int launch_tiled(const void* x, const void* packed, const void* scale_t, const void* shift_t,
                  void* out, int M, int N, int K, int gs, cudaStream_t stream) {
   constexpr size_t smem = tiled_smem_bytes<T>();
@@ -551,22 +346,13 @@ int launch_tiled(const void* x, const void* packed, const void* scale_t, const v
 }
 
 template <typename TO, int BITS>
-int launch_int8(bool tiled, const void* x, const void* packed, const void* scale_t,
-                const void* shift_t, const void* sx, void* out, int M, int N, int K, int gs,
-                cudaStream_t stream) {
-  const int8_t* xi = static_cast<const int8_t*>(x);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  const float* s = static_cast<const float*>(scale_t);
-  const float* z = static_cast<const float*>(shift_t);
-  const float* sxp = static_cast<const float*>(sx);
-  TO* o = static_cast<TO*>(out);
-  if (tiled) {
-    const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
-    qbits_mm_tiled_int8_kernel<TO, BITS><<<grid, TL_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
-  } else {
-    const dim3 grid(N / I8_ROWS, (M + I8_BM - 1) / I8_BM);
-    qbits_mm_int8_small_m_kernel<TO, BITS><<<grid, I8_THREADS, 0, stream>>>(xi, p, s, z, sxp, o, M, N, K, gs);
-  }
+int launch_tiled_int8(const void* x, const void* packed, const void* scale_t, const void* shift_t,
+                      const void* sx, void* out, int M, int N, int K, int gs, cudaStream_t stream) {
+  const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
+  qbits_mm_tiled_int8_kernel<TO, BITS><<<grid, TL_THREADS, 0, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
+      static_cast<const float*>(sx), static_cast<TO*>(out), M, N, K, gs);
   return (int)cudaGetLastError();
 }
 
@@ -583,42 +369,27 @@ int launch_requant(const void* x, const void* packed, const void* scale_t, const
   return (int)cudaGetLastError();
 }
 
-int int8_entry(bool tiled, int device, const void* x, const void* packed, const void* scale_t,
-               const void* shift_t, const void* sx, void* out, int M, int N, int K, int gs,
-               int bits, int out_bf16, void* stream) {
+}  // namespace
+
+// The int8-x entry point (W4A8, W2A8): x int8 [M, K], sx float32 scalar on the device; bits 4 or 2
+// (any other is refused with cudaErrorInvalidValue); out_bf16: 1 when out is bfloat16, 0 when it
+// is float32.
+extern "C" int qbits_mm_tiled_int8(int device, const void* x, const void* packed,
+                                   const void* scale_t, const void* shift_t, const void* sx,
+                                   void* out, int M, int N, int K, int gs, int bits, int out_bf16,
+                                   void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 4)
     return out_bf16
-               ? launch_int8<__nv_bfloat16, 4>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
-               : launch_int8<float, 4>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
+               ? launch_tiled_int8<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
+               : launch_tiled_int8<float, 4>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
   if (bits == 2)
     return out_bf16
-               ? launch_int8<__nv_bfloat16, 2>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
-               : launch_int8<float, 2>(tiled, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
+               ? launch_tiled_int8<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
+               : launch_tiled_int8<float, 2>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
   return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// The int8-x entry points (W4A8, W2A8): x int8 [M, K], sx float32 scalar on the device; bits 4 or
-// 2 (any other is refused with cudaErrorInvalidValue); out_bf16: 1 when out is bfloat16, 0 when
-// it is float32.
-extern "C" int qbits_mm_int8_small_m(int device, const void* x, const void* packed,
-                                     const void* scale_t, const void* shift_t, const void* sx,
-                                     void* out, int M, int N, int K, int gs, int bits,
-                                     int out_bf16, void* stream) {
-  return int8_entry(false, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, bits,
-                    out_bf16, stream);
-}
-
-extern "C" int qbits_mm_tiled_int8(int device, const void* x, const void* packed,
-                                   const void* scale_t, const void* shift_t, const void* sx,
-                                   void* out, int M, int N, int K, int gs, int bits, int out_bf16,
-                                   void* stream) {
-  return int8_entry(true, device, x, packed, scale_t, shift_t, sx, out, M, N, K, gs, bits,
-                    out_bf16, stream);
 }
 
 // The requant route: x int8 [M, K], s8 float32 [N], sx float32 scalar, all on the device.
@@ -640,23 +411,8 @@ extern "C" int qbits_mm_requant_int8(int device, const void* x, const void* pack
   return (int)cudaErrorInvalidValue;
 }
 
-// The float-x entry points: bits 4 or 2 (the code width; any other is refused with
+// The float-x entry point: bits 4 or 2 (the code width; any other is refused with
 // cudaErrorInvalidValue); x_bf16: 1 when x and out are bfloat16, 0 when they are float32.
-extern "C" int qbits_mm_small_m(int device, const void* x, const void* packed, const void* scale_t,
-                                const void* shift_t, void* out, int M, int N, int K, int gs,
-                                int bits, int x_bf16, void* stream) {
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4)
-    return x_bf16 ? launch_small_m<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
-                  : launch_small_m<float, 4>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
-  if (bits == 2)
-    return x_bf16 ? launch_small_m<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s)
-                  : launch_small_m<float, 2>(x, packed, scale_t, shift_t, out, M, N, K, gs, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 extern "C" int qbits_mm_tiled(int device, const void* x, const void* packed, const void* scale_t,
                               const void* shift_t, void* out, int M, int N, int K, int gs, int bits,
                               int x_bf16, void* stream) {

@@ -1,5 +1,5 @@
-// Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm.cu (one weight) and
-// moe_mm.cu (a weight per slot of a stacked expert array).
+// Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm.cu and
+// qbits_mm_small_m.cu (one weight) and moe_mm.cu (a weight per slot of a stacked expert array).
 //
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
 //
@@ -93,7 +93,8 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 
 // ---------------------------------------------------------------------------------------------
-// Small-M body (decode-sized M).
+// Small-M body (decode-sized M) of the MoE kernel qbits_moe_small_m (moe_mm.cu); the one-weight
+// small-M kernels of qbits_mm_small_m.cu run on the tensor cores instead.
 //
 // Bound on this card by bytes: at M = 4 every packed weight byte is read once and used for 4
 // rows of x, far below the ~295 operations per byte at which the tensor cores would become the
@@ -306,6 +307,62 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---------------------------------------------------------------------------------------------
+// Codes of a run of 32 (load_run) as int8 operands of mma.sync s8.
+// ---------------------------------------------------------------------------------------------
+
+// The 4 x 4 byte transpose: byte b of o_i is byte i of a_b.
+__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                           uint32_t& o0, uint32_t& o1, uint32_t& o2,
+                                           uint32_t& o3) {
+  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
+  const uint32_t t1 = __byte_perm(a0, a1, 0x7362);  // a0.b2 a1.b2 a0.b3 a1.b3
+  const uint32_t t2 = __byte_perm(a2, a3, 0x5140);  // a2.b0 a3.b0 a2.b1 a3.b1
+  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);  // a2.b2 a3.b2 a2.b3 a3.b3
+  o0 = __byte_perm(t0, t2, 0x5410);
+  o1 = __byte_perm(t0, t2, 0x7632);
+  o2 = __byte_perm(t1, t3, 0x5410);
+  o3 = __byte_perm(t1, t3, 0x7632);
+}
+
+// Operand j (0..7) of a run's codes: code i of each byte of packed word j / (8 / BITS), i =
+// j % (8 / BITS), one code (0..15 or 0..3, exact as s8) per byte. int4: byte b of word q holds
+// codes 8q + 2b and 8q + 2b + 1; int2: crumb i of byte b of word q holds code 16q + 4b + i.
+template <int BITS>
+__device__ __forceinline__ uint32_t code_operand(const uint32_t (&w)[BITS], int j) {
+  constexpr int per = 8 / BITS;
+  constexpr uint32_t mask = ((1u << BITS) - 1u) * 0x01010101u;
+  return (w[j / per] >> (BITS * (j % per))) & mask;
+}
+
+// The run's 32 codes as int8, in K order: cw[j] holds codes 4j .. 4j + 3.
+template <int BITS>
+__device__ __forceinline__ void codes_s8(const uint32_t (&pw)[BITS], uint32_t (&cw)[8]) {
+  if constexpr (BITS == 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t lo = code_operand<4>(pw, 2 * q);      // codes 8q + 0, 2, 4, 6
+      const uint32_t hi = code_operand<4>(pw, 2 * q + 1);  // codes 8q + 1, 3, 5, 7
+      cw[2 * q] = __byte_perm(lo, hi, 0x5140);
+      cw[2 * q + 1] = __byte_perm(lo, hi, 0x7362);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)  // crumb planes i = 0..3 of word q, transposed: byte b's codes
+      transpose4(code_operand<2>(pw, 4 * q), code_operand<2>(pw, 4 * q + 1),
+                 code_operand<2>(pw, 4 * q + 2), code_operand<2>(pw, 4 * q + 3), cw[4 * q],
+                 cw[4 * q + 1], cw[4 * q + 2], cw[4 * q + 3]);
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -1,8 +1,9 @@
 """Fused int4/int2 group-wise dequant matmul: the Hopper kernels, their plain
 versions and their launch counts.
 
-Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. Four CUDA kernels in
-`quanto_tpu_torch/csrc/qbits_mm.cu` compute
+Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. CUDA kernels in
+`quanto_tpu_torch/csrc/qbits_mm_small_m.cu` (M <= `MAX_M`, on the tensor cores)
+and `quanto_tpu_torch/csrc/qbits_mm.cu` (larger M) compute
 
     y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n]
 
@@ -34,7 +35,12 @@ Each wrapper takes its kernel's plain PyTorch version (`qbits_mm_plain`,
 `qbits_int8_mm_plain`, `qbits_requant_int8_mm_plain`) when x lies on the
 CPU; on a CUDA tensor it launches the kernel or raises. Each wrapper's
 `launches` attribute counts its kernel launches, of either width, and its
-`launches_int2` those of its int2 arm.
+`launches_int2` those of its int2 arm. The two small-M kernels take a
+workspace the wrapper allocates at the size the C side plans
+(`qbits_mm_small_m_workspace`): from M = 33 (bf16 and int8 x) a first pass
+of the same call sums x over each 64 values once, and where the card would
+be short of blocks K is split over them and a last pass sums the splits in a
+fixed order.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
 (`ops/cuda/_build.py:build`), as a shared library with a plain C interface
@@ -44,6 +50,7 @@ bound by `ctypes`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -132,9 +139,22 @@ def qbits_mm_plain(
 
 # --- wrappers ---------------------------------------------------------------
 
-# C signature of both float-x entry points in csrc/qbits_mm.cu: device, x, packed, scale_t,
-# shift_t, out, M, N, K, gs, bits, x_bf16, stream.
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# `qbits_mm_small_m_workspace`: device, M, N, K, gs, x_f32, the 4-byte elements (out).
+_WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(device: int, M: int, N: int, K: int, group_size: int, x_f32: bool) -> int:
+    """4-byte elements of the workspace of a small-M launch at these shapes on
+    `device` (its first pass's sums of x and its split-K partials; 0: neither),
+    as csrc/qbits_mm_small_m.cu plans it."""
+    n = ctypes.c_longlong()
+    rc = kernel("qbits_mm_small_m_workspace", _WS_ARGTYPES)(
+        device, M, N, K, group_size, int(x_f32), ctypes.byref(n)
+    )
+    if rc != 0:
+        raise RuntimeError(f"qbits_mm_small_m workspace query failed: cudaError {rc}")
+    return n.value
 
 
 def _check(x, packed, scale_t, shift_t, group_size, bits):
@@ -167,10 +187,13 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size, bits):
     return M, N, K
 
 
-def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits):
+def _launch(name, operands, out_dtype, M, N, K, group_size, bits, workspace=False):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
     shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
-    output, with the code width `bits`. Raises on a refused launch."""
+    output, with the code width `bits`; with `workspace` (the small-M entry
+    points) also on a new workspace. Every entry point of csrc/qbits_mm*.cu
+    takes (device, those pointers, out[, workspace], M, N, K, gs, bits,
+    bf16 flag, stream). Raises on a refused launch."""
     x, packed = operands[0], operands[1]
     if any(t.device != x.device for t in operands):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -178,11 +201,18 @@ def _launch(name, argtypes, operands, out_dtype, M, N, K, group_size, bits):
         raise ValueError(f"{name}: operands must be contiguous")
     if x.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError(f"{name}: x and packed must be 16-byte aligned")
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in operands] + [out.data_ptr()]
+    if workspace:
+        # Freed on return: the caching allocator hands the block only to later work on this
+        # stream, which runs after both passes.
+        n_ws = _workspace_floats(device, M, N, K, group_size, x.dtype == torch.float32)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None
+        ptrs.append(ws.data_ptr() if ws is not None else None)
+    argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = kernel(name, argtypes)(
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        *(t.data_ptr() for t in operands), out.data_ptr(),
-        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16),
+        device, *ptrs, M, N, K, group_size, bits, int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -204,7 +234,8 @@ def _run_float(wrapper, name, x, packed, scale_t, shift_t, group_size, bits):
     if x.device.type == "cpu":
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size, bits)
     out = _launch(
-        name, _ARGTYPES, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits
+        name, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits,
+        workspace=name == "qbits_mm_small_m",
     )
     _count(wrapper, bits)
     return out
@@ -259,13 +290,6 @@ def qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size: int, out_d
     return (y * sx.float()).to(out_dtype)
 
 
-# C signature of both int8-x entry points in csrc/qbits_mm.cu: device, x, packed, scale_t,
-# shift_t, sx, out, M, N, K, gs, bits, out_bf16, stream; the requant entry point takes one more
-# pointer (s8, before sx).
-_INT8_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_REQUANT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
 def _check_int8(name, xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits):
     """Validate the operands every int8-x kernel takes; returns (M, N, K)."""
     if xq.dtype != torch.int8:
@@ -284,7 +308,9 @@ def _run_int8(wrapper, name, xq, sx, packed, scale_t, shift_t, group_size, out_d
     if xq.device.type == "cpu":
         return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
-    out = _launch(name, _INT8_ARGTYPES, operands, out_dtype, M, N, K, group_size, bits)
+    out = _launch(
+        name, operands, out_dtype, M, N, K, group_size, bits, workspace=name == "qbits_mm_int8_small_m"
+    )
     _count(wrapper, bits)
     return out
 
@@ -380,7 +406,7 @@ def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int,
     if xq.device.type == "cpu":
         return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, s8, sx.reshape(()))
-    out = _launch(name, _REQUANT_ARGTYPES, operands, out_dtype, M, N, K, group_size, bits)
+    out = _launch(name, operands, out_dtype, M, N, K, group_size, bits)
     _count(qbits_mm_requant_int8, bits)
     return out
 

@@ -65,6 +65,12 @@ kernel's bf16 output), int8 x within 1e-5 * max|ref| (exact integer sums);
 one launch a call.
 The row part's all_reduce runs over a one-rank gloo group on the card's
 tensors (gloo stages them through the host), so it returns the partial.
+
+The tensor-core small-M kernels (#1 `qbits_mm_small_m`, #4
+`qbits_mm_int8_small_m`) at every M-tile edge (M in 9..512), N in {1024,
+14336}, group sizes 64, 128 and 256, int4 and int2, over a K (4352) that
+leaves a split-K remainder, with the tolerances above; two launches give the
+same bits; one launch counted a call.
 """
 
 import numpy as np
@@ -78,6 +84,7 @@ from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
     MAX_M,
     qbits_int8_mm,
+    qbits_mm,
     qbits_int8_mm_plain,
     qbits_mm_int8_small_m,
     qbits_mm_plain,
@@ -560,3 +567,109 @@ def test_partitioned_matches_plain(cuda_device, one_rank_gloo, m, mode, xk, bits
         SH._local_mm = saved
     assert out.dtype == ref.dtype and out.shape == (m, part.shape[0])
     check_close(out, ref, None if xk == "float" else 1e-5)
+
+
+# --- the tensor-core small-M kernels (#1 and #4): the M-tile edges, split K, bit-stable ------------
+
+# M on both sides of every M-tile edge (8, 16, 32, 64, 128) and its multiples up to MAX_M.
+SMALL_M_EDGES = [9, 15, 16, 17, 31, 33, 63, 64, 65, 127, 129, 255, 257, 511, 512]
+# K of 68 stages of 64 codes: at N = 1024 the small M tiles split it 14 ways of 5 stages and a last
+# one of 3, cutting groups of 256 codes in two.
+SPLIT_K = 4352
+
+
+def small_m_operands(device, m, n, k, gs, bits, seed, x_dtype):
+    """Random x (float, or int8 with sx), random packed bytes (every code value
+    in every position of a byte) and group scales and shifts anywhere in
+    [0, 2**bits - 1] steps."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    packed = torch.randint(0, 256, (n, k * bits // 8), dtype=torch.uint8, device=device, generator=g)
+    scale_t = torch.rand((k // gs, n), device=device, generator=g) * 0.01 + 0.001
+    shift_t = scale_t * torch.rand((k // gs, n), device=device, generator=g) * (2**bits - 1)
+    if x_dtype == torch.int8:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=device, generator=g)
+    else:
+        x = torch.randn((m, k), device=device, generator=g, dtype=x_dtype)
+    return x, packed, scale_t, shift_t
+
+
+def assert_close_to_plain(out, ref, rel):
+    out, ref = out.float(), ref.float()
+    assert (out - ref).abs().max().item() <= rel * ref.abs().max().item()
+    assert torch.nn.functional.cosine_similarity(out.flatten(), ref.flatten(), dim=0) > 1 - 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1024, 14336])
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("gs", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", SMALL_M_EDGES)
+def test_small_m_tiles_match_plain(cuda_device, m, dtype, gs, bits, n):
+    """#1 against its plain version at every M-tile edge, bf16 and float32 x,
+    group sizes 64 / 128 / 256 (the 128-code stages only where 128 divides the
+    group), a K that leaves a split-K remainder: float32 x within 1e-4 *
+    max|ref| (a bf16 high + low pair), bf16 x within 1e-2 * max|ref|."""
+    x, packed, scale_t, shift_t = small_m_operands(cuda_device, m, n, SPLIT_K, gs, bits, m + gs + n, dtype)
+    args = (x, packed, scale_t, shift_t, gs, bits)
+    out = qbits_mm_small_m(*args)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert_close_to_plain(out, qbits_mm_plain(*args), 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1024, 14336])
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("gs", [64, 128, 256])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", SMALL_M_EDGES)
+def test_int8_small_m_tiles_match_plain(cuda_device, m, out_dtype, gs, bits, n):
+    """#4 against its plain version at the same edges, bf16 and float32
+    output: the integer sums are exact, so float32 within 1e-5 * max|ref| and
+    bf16 within 1e-2 * max|ref|."""
+    xq, packed, scale_t, shift_t = small_m_operands(cuda_device, m, n, SPLIT_K, gs, bits, m + gs + n, torch.int8)
+    args = (xq, torch.tensor(0.0173, device=cuda_device), packed, scale_t, shift_t, gs, out_dtype, bits)
+    out = qbits_mm_int8_small_m(*args)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    assert_close_to_plain(out, qbits_int8_mm_plain(*args), 1e-5 if out_dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_small_m_bit_identical_across_launches(cuda_device, m, x_kind):
+    """Split K sums its partials in a fixed order (no atomics), and the first
+    pass's sums of x are deterministic: two launches give the same bits."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}[x_kind]
+    x, packed, scale_t, shift_t = small_m_operands(cuda_device, m, 1024, SPLIT_K, 256, 4, m, dtype)
+    if x_kind == "int8":
+        sx = torch.tensor(0.0173, device=cuda_device)
+        run = lambda: qbits_mm_int8_small_m(x, sx, packed, scale_t, shift_t, 256, torch.float32)  # noqa: E731
+    else:
+        run = lambda: qbits_mm_small_m(x, packed, scale_t, shift_t, 256)  # noqa: E731
+    first = run()
+    assert torch.equal(first, run())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_small_m_launch_counts(cuda_device, m, bits):
+    """Each call of either small-M wrapper, or of the routers on M <= MAX_M,
+    is one launch in `launches` (and, for int2 codes, in `launches_int2`),
+    whatever passes (first pass, split-K sum) it runs."""
+    x, packed, scale_t, shift_t = small_m_operands(cuda_device, m, 1024, SPLIT_K, 256, bits, m, torch.bfloat16)
+    xq = torch.randint(-128, 128, x.shape, dtype=torch.int8, device=cuda_device)
+    sx = torch.tensor(0.0173, device=cuda_device)
+    calls = [
+        (qbits_mm_small_m, lambda: qbits_mm_small_m(x, packed, scale_t, shift_t, 256, bits)),
+        (qbits_mm_small_m, lambda: qbits_mm(x, packed, scale_t, shift_t, 256, bits)),
+        (qbits_mm_int8_small_m,
+         lambda: qbits_mm_int8_small_m(xq, sx, packed, scale_t, shift_t, 256, torch.bfloat16, bits)),
+        (qbits_mm_int8_small_m, lambda: qbits_int8_mm(xq, sx, packed, scale_t, shift_t, 256, torch.bfloat16, bits=bits)),
+    ]
+    for wrapper, call in calls:
+        before = (wrapper.launches, wrapper.launches_int2)
+        call()
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + (bits == 2))

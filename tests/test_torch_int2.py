@@ -164,7 +164,7 @@ def test_int2_crumbs_of_three(position):
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [8, 600])
+@pytest.mark.parametrize("m", [8, 64, 512, 600])
 def test_int2_plain_matches_pallas_interpret(m, dtype_name):
     N, Kd = 256, 1024
     rng = np.random.default_rng(m + 2)
@@ -234,6 +234,31 @@ def test_w2a8_plain_matches_pallas_interpret():
         torch.from_numpy(xq), torch.tensor(sx), hop._packed, hop._scale_t, hop._shift_t, GS, torch.float32,
         bits=2,
     )
+    close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("m", [64, 512])
+def test_w2a8_plain_matches_pallas_interpret_at_chunk_m(m):
+    """int8 x with int2 weights at the serving engine's chunk M (a [1, 64]
+    and an [8, 64] chunk): `_int8_kernel` in interpret mode against the
+    port's router on a CPU tensor (its plain version), within the 1e-5 of
+    the M = 8 case."""
+    N, Kd = 256, 1024
+    rng = np.random.default_rng(3 + m)
+    tpu, hop = weight_pair(rng.standard_normal((N, Kd)).astype(np.float32), 2)
+    xq = rng.integers(-128, 128, (m, Kd)).astype(np.int8)
+    sx = np.float32(0.0173)
+    ref = qbits_int8_matmul_kernel_call(
+        jnp.asarray(xq), jnp.asarray(sx), tpu._packed, tpu._scale_t, tpu._shift_t, 2, GS, jnp.float32,
+        interpret=True,
+    )
+    assert ref is not None
+    before = (K.qbits_mm_int8_small_m.launches, K.qbits_mm_int8_small_m.launches_int2)
+    out = K.qbits_int8_mm(
+        torch.from_numpy(xq), torch.tensor(sx), hop._packed, hop._scale_t, hop._shift_t, GS, torch.float32,
+        bits=2,
+    )
+    assert (K.qbits_mm_int8_small_m.launches, K.qbits_mm_int8_small_m.launches_int2) == before
     close(out, ref, 1e-5)
 
 

@@ -4,8 +4,8 @@ against quanto_tpu.
 - `WeightQBitsHopperArray` round-trips to the generic layout bit for bit.
 - The plain version behind each kernel wrapper (a CPU tensor takes it)
   agrees with `qbits_matmul_kernel_call(..., interpret=True)`, the JAX Pallas
-  kernels run in interpret mode: M = 8 runs `_kernel`, M = 600
-  `_prefill_kernel`.
+  kernels run in interpret mode: M = 8, 64 and 512 (the serving engine's
+  [1, 64] and [8, 64] chunks) run `_kernel`, M = 600 `_prefill_kernel`.
 
 The CUDA kernels themselves are held against their plain versions on the card
 by `tests/test_torch_gpu_kernels.py`.
@@ -71,7 +71,7 @@ def test_off_envelope_stays_generic(shape, bits):
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [8, 600])
+@pytest.mark.parametrize("m", [8, 64, 512, 600])
 def test_plain_matches_pallas_interpret(m, dtype_name):
     N, K, gs = 256, 1024, 128
     rng = np.random.default_rng(m)

@@ -56,7 +56,7 @@ CAL_BATCHES = [np.random.default_rng(20 + i).integers(0, TINY["vocab_size"], (B,
 TOL = 1e-3
 
 
-@pytest.mark.parametrize("m", [1, 4, 33, 520])
+@pytest.mark.parametrize("m", [1, 4, 33, 64, 512, 520])
 def test_plain_matches_pallas_interpret(m):
     N, K, gs = 256, 1024, 128
     rng = np.random.default_rng(m)
