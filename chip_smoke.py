@@ -4,6 +4,8 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --only sweep,serving   # phases 1-2, phase 3's small-M sweep and
                                                  # phase 15 alone (a tree's kernels, A/B)
+    python3 chip_smoke.py --only prefill         # phases 1-2, phase 3's requant and MoE rows,
+                                                 # phases 10, 8, 12, 13 (a tree's kernels, A/B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -35,8 +37,10 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    `torch.matmul` on the operands dequantized to bf16. The W4A8 requant
    kernel at M in {2048, 4096} and the four linear shapes, held EQUAL to its
    plain version (bf16 out), timed beside the exact route
-   (`qbits_mm_tiled_int8`) at the same shape; yardstick `torch._int_mm` on
-   the requantized int8 weight.
+   (`qbits_mm_tiled_int8`) at the same shape; its first pass alone
+   (`requant_pass`: the codes EQUAL to `requant_codes`, its time and its
+   workspace's bytes); yardstick `torch._int_mm` on the requantized int8
+   weight.
 5. end-to-end numerics: at full width and 2 layers, the kernel path against
    the same forward through the plain versions called explicitly: the
    prefill's last-position logits (bf16 cache), and one decode step at
@@ -74,7 +78,8 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    experts at both Mixtral-8x7B projection shapes (14336 x 4096, 4096 x
    14336), bf16 x, float32 outputs: `qbits_moe_small_m` in its selective form
    (nsel = 2), all form (S = 8 over the 8 experts) and uniq form (S = 8 over
-   a 6-expert table); `qbits_moe_tiled` over 8 slabs of M in {8, 512, 2048};
+   a 6-expert table); `qbits_moe_tiled` over 8 slabs of M in {8, 512, 2048}
+   and over 8 slabs of 2048 rows with a routed-first table and 6 live slots;
    and both kernels at phase 8's B = 4 decode shapes: M = 4 over 8 slots of a
    routed-first table with a device count of 6 or 8 live slots (gate/up over
    shared rows, down over per-slot rows). Yardstick: one `torch.bmm` over the
@@ -280,6 +285,8 @@ MOE_INT2_TILED_M = (512,)  # phase 12's B = 1 prefill: capacity slabs of 512 row
 # on the device, as `StackedSparseMoeBlock._uniq_boundary` builds them; 6 and all 8 routed.
 MOE_DECODE_M = 4
 MOE_DECODE_TABLES = [(6, [0, 2, 3, 5, 6, 7, 1, 4]), (8, list(range(8)))]
+# `qbits_moe_tiled` over a routed-first table at prefill slabs (8 x 2048, 6 of 8 live).
+MOE_PREFILL_UNIQ = MOE_DECODE_TABLES[0]
 # (form, nslots, M, N, K) of the MoE summary entries: the B = 4 decode step's gate/up call with all
 # 8 experts routed (the run its launches come from), and the prefill's gate/up GEMM.
 SUMMARY_SHAPE.update({
@@ -716,6 +723,15 @@ def phase_requant(K_mod, flush, bits: int = 4):
         shift_t = scale_t * torch.rand((G, N), device=dev, generator=g) * (2**bits - 1)
         s8 = K_mod.requant_step(scale_t, shift_t, bits)
         c8_t = K_mod.requant_codes(packed, scale_t, shift_t, s8, GS, bits).t()  # [K, N], column-major
+        # The kernel's first pass alone (its codes EQUAL to the plain version's) and its workspace;
+        # absent from trees before the two-pass design, which this script also times.
+        requant_pass = getattr(K_mod, "requant_pass", None)
+        first_pass = {}
+        if requant_pass is not None:
+            if not torch.equal(requant_pass(packed, scale_t, shift_t, s8, GS, bits), c8_t.t()):
+                raise RuntimeError(f"requant_pass int{bits} N={N} K={K}: codes differ from requant_codes")
+            first_pass = dict(pass_ms=time_ms(lambda: requant_pass(packed, scale_t, shift_t, s8, GS, bits), flush),
+                              workspace_bytes=N * K)
         for M in REQUANT_M:
             xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
             args = (xq, sx, packed, scale_t, shift_t, s8, GS, torch.bfloat16, bits)
@@ -744,7 +760,7 @@ def phase_requant(K_mod, flush, bits: int = 4):
                 ms=time_ms(lambda: K_mod.qbits_mm_requant_int8(*args), flush),
                 plain_ms=time_ms(lambda: K_mod.qbits_requant_int8_mm_plain(*args), flush),
                 library_ms=time_ms(lambda: torch._int_mm(xq, c8_t), flush),
-                **{exact_route[0]: time_ms(exact_route[1], flush)},
+                **{exact_route[0]: time_ms(exact_route[1], flush)}, **first_pass,
                 bound_ms=b_ms, bound_by=b_by,
             )
             rows.append(row)
@@ -793,11 +809,12 @@ def phase_moe(flush, bits: int = 4):
                 ("uniq", MM.qbits_moe_small_m, x8.expand(len(MOE_UNIQ_EIDS), MOE_S, K), table(MOE_UNIQ_EIDS),
                  None),
             ]
-        cases += [
-            ("experts", MM.qbits_moe_tiled,
-             torch.randn((MOE_EXPERTS, M, K), device=dev, generator=g, dtype=torch.bfloat16), None, None)
-            for M in (MOE_TILED_M if bits == 4 else MOE_INT2_TILED_M)
-        ]
+        slabs = {M: torch.randn((MOE_EXPERTS, M, K), device=dev, generator=g, dtype=torch.bfloat16)
+                 for M in (MOE_TILED_M if bits == 4 else MOE_INT2_TILED_M)}
+        cases += [("experts", MM.qbits_moe_tiled, x3, None, None) for x3 in slabs.values()]
+        if bits == 4:  # the uniq route's GEMM at prefill slabs: 6 of 8 slots live
+            n, ids = MOE_PREFILL_UNIQ
+            cases.append(("uniq", MM.qbits_moe_tiled, slabs[MOE_TILED_M[-1]], table(ids), n))
         # The B = 4 decode step: gate/up over the shared rows, down over each slot's own rows.
         x4 = torch.randn((MOE_DECODE_M, K), device=dev, generator=g, dtype=torch.bfloat16)
         h4 = torch.randn((MOE_EXPERTS, MOE_DECODE_M, K), device=dev, generator=g, dtype=torch.bfloat16)
@@ -848,7 +865,7 @@ def phase_moe(flush, bits: int = 4):
             rows.append(row)
             log("kernel " + json.dumps(row))
             del out, ref
-        del packed, scale_t, shift_t, w_bf16, cases
+        del packed, scale_t, shift_t, w_bf16, cases, slabs
         torch.cuda.empty_cache()
     return rows
 
@@ -2826,14 +2843,61 @@ def only_sweep_and_serving(K_mod, card: str) -> int:
     return 0
 
 
+def only_prefill(K_mod, card: str) -> int:
+    """`--only prefill`: the prefill paths of TPU #3 and #14. Phase 3's requant
+    and MoE rows (and the W4A8 and `flash_decode` rows phase 10 reads), phase 10
+    on phase 7's model frozen into the requant form, phase 8 and phase 12 (B =
+    4, then 1) and phase 13 (a, b); for timing a tree's kernels against
+    another's. Phase 8's and 12's 2-layer checks and phase 13's are left to the
+    full run."""
+    from quanto_tpu_torch import freeze
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+    from quanto_tpu_torch.models.serve import generate
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    rows = (phase_w4a8(K_mod, flush) + phase_flash_decode(flush) + phase_requant(K_mod, flush)
+            + phase_requant(K_mod, flush, bits=2) + phase_moe(flush) + phase_moe(flush, bits=2))
+    del flush
+    torch.cuda.empty_cache()
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    model, _ = build_model(config, seed=0, weights="qint4", activations="qint8", exclude="lm_head")
+    freeze(model, w4a8_requant_dot=True)
+    generate(model, ids, 2)  # warm-up: one M = 4096 prefill through the requant route
+    phase_engine(model, rows)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_config = MixtralConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16)
+    mixtral_ids = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
+    ).cuda()
+    for experts, bits in (("qint4", 4), ("qint2", 2)):
+        model = build_mixtral(mixtral_config, seed=0, experts=experts)
+        phase_mixtral(model, mixtral_ids, expert_bits=bits)
+        phase_mixtral(model, mixtral_ids[:1], expert_bits=bits)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_llama_w2a8(config, ids)
+    log(card)
+    log(json.dumps({"ok": True, "only": "prefill", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving"):
-        print(f"chip_smoke: --only takes sweep,serving, got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill"):
+        print(f"chip_smoke: --only takes sweep,serving or prefill, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -2851,6 +2915,8 @@ def main() -> int:
     log(f"build: {info['seconds']:.1f} s, {', '.join(info['sources'])} -> {info['path']}")
     if info["log"]:
         log(info["log"].strip())
+    if only == "prefill":
+        return only_prefill(K_mod, card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -3020,9 +3086,10 @@ def main() -> int:
         if name.startswith("qbits_moe"):
             extra = {"launches_b1": (launches_moe_int2_b1 if name.endswith("_int2") else launches_moe_b1)[name]}
         if name == "qbits_mm_requant_int8":
-            extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"]}
+            extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"],
+                     "pass_ms": rep["pass_ms"]}
         if name == "qbits_mm_requant_int8_int2":
-            extra = {"exact_ms": rep["exact_ms"]}
+            extra = {"exact_ms": rep["exact_ms"], "pass_ms": rep["pass_ms"]}
         if name in serving:
             extra["launches_phase15"] = {arm: c[name] for arm, c in serving[name].items()}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it

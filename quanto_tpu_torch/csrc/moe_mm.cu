@@ -66,15 +66,14 @@ __global__ void __launch_bounds__(SM_THREADS) qbits_moe_small_m_kernel(
 }
 
 // ---------------------------------------------------------------------------------------------
-// qbits_moe_tiled: any M, grid (N / TL_BN, ceil(M / BM), U).
+// qbits_moe_tiled at M <= 16, grid (N / TL_BN, ceil(M / 16), U); larger M runs the pipelined
+// wgmma GEMM of moe_gemm.cu.
 //
-// Replaces quanto_tpu/ops/pallas/moe_mm.py:_moe_prefill_kernel (slot u -> expert u) and
-// _moe_prefill_uniq_kernel (slot u -> expert eids[u]), the batched-expert GEMM over per-expert
-// token slabs. Bound on this card by operations at prompt lengths (a capacity slab of 2048 rows
-// uses each weight code 2048 times). Each block takes its slot from blockIdx.z, its expert from
-// the table, and runs the body of qbits_mm_tiled on that expert's weight and the slot's slab;
-// ragged M is masked by the body. Slabs of at most 16 rows (the down projection of a decode step)
-// take a 16 x 128 tile instead of 128 x 128.
+// Replaces quanto_tpu/ops/pallas/moe_mm.py:_moe_prefill_uniq_kernel (slot u -> expert eids[u]) at
+// the down projection of a decode step, slabs of at most 16 rows. Bound on this card by bytes
+// there (each routed expert's payload read once for a few rows). Each block takes its slot from
+// blockIdx.z, its expert from the table, and runs the body of qbits_mm_tiled (qbits_mm.cuh:
+// tiled_block) on that expert's weight and the slot's rows with a 16 x 128 tile.
 // ---------------------------------------------------------------------------------------------
 template <typename T, int WM, int MT, int BITS>
 __global__ void __launch_bounds__(TL_THREADS, 1) qbits_moe_tiled_kernel(
@@ -137,10 +136,6 @@ int launch_tiled(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BITS>
-int launch_tiled_for_m(const Args& a, cudaStream_t stream) {
-  return a.M <= 16 ? launch_tiled<T, 1, 1, BITS>(a, stream) : launch_tiled<T, 2, TL_MT, BITS>(a, stream);
-}
 
 Args make_args(const void* x, long long x_slot_stride, const void* eids, const void* nslots,
                const void* packed, const void* scale_t, const void* shift_t, void* out, int U,
@@ -170,18 +165,30 @@ extern "C" int qbits_moe_small_m(int device, const void* x, long long x_slot_str
   return (int)cudaErrorInvalidValue;
 }
 
+// The batched-expert GEMM at M > 16 (moe_gemm.cu); ws as there.
+extern "C" int qbits_moe_gemm(int device, const void* x, long long x_slot_stride, const void* eids,
+                              const void* nslots, const void* packed, const void* scale_t,
+                              const void* shift_t, void* out, void* ws, int E, int U, int M, int N,
+                              int K, int gs, int bits, int x_bf16, void* stream);
+
+// As qbits_moe_small_m, with E the experts of the stacked weight and ws the workspace of
+// qbits_moe_gemm (float32 x at M > 16: bf16 [2, U', M, K], U' = 1 for shared rows; else NULL).
 extern "C" int qbits_moe_tiled(int device, const void* x, long long x_slot_stride,
                                const void* eids, const void* nslots, const void* packed,
-                               const void* scale_t, const void* shift_t, void* out, int U, int M,
-                               int N, int K, int gs, int bits, int x_bf16, void* stream) {
+                               const void* scale_t, const void* shift_t, void* out, void* ws, int E,
+                               int U, int M, int N, int K, int gs, int bits, int x_bf16,
+                               void* stream) {
+  if (M > 16)
+    return qbits_moe_gemm(device, x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, ws,
+                          E, U, M, N, K, gs, bits, x_bf16, stream);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, U, M, N,
                            K, gs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 4)
-    return x_bf16 ? launch_tiled_for_m<__nv_bfloat16, 4>(a, s) : launch_tiled_for_m<float, 4>(a, s);
+    return x_bf16 ? launch_tiled<__nv_bfloat16, 1, 1, 4>(a, s) : launch_tiled<float, 1, 1, 4>(a, s);
   if (bits == 2)
-    return x_bf16 ? launch_tiled_for_m<__nv_bfloat16, 2>(a, s) : launch_tiled_for_m<float, 2>(a, s);
+    return x_bf16 ? launch_tiled<__nv_bfloat16, 1, 1, 2>(a, s) : launch_tiled<float, 1, 1, 2>(a, s);
   return (int)cudaErrorInvalidValue;
 }

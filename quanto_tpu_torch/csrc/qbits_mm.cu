@@ -14,12 +14,9 @@
 // exact in int32 within a group (|xq| <= 128, c <= 15 or 3), the epilogue in float32, then cast
 // to the weight's float dtype (bfloat16 or float32); sx is read from device memory.
 //
-// Requant route (approximate; weights requantized to per-channel int8 codes c8 with step s8):
-//
-//   y = sx * s8 * (xq . c8)   with one int32 sum over the whole K.
-//
-// This file holds the kernels for M > 512 and the requant route; the two small-M kernels (M <= 512)
-// are in qbits_mm_small_m.cu. The weight layout and the tiled body are in qbits_mm.cuh.
+// This file holds the kernels for M > 512; the two small-M kernels (M <= 512) are in
+// qbits_mm_small_m.cu and the requant route (approximate: y = sx * s8 * (xq . c8) with per-channel
+// int8 codes c8) in qbits_mm_requant.cu. The weight layout and the tiled body are in qbits_mm.cuh.
 //
 // Entry points have a plain C interface (bound with ctypes in ops/cuda/qbits_mm.py). They launch
 // on the stream they are given, allocate nothing, and return cudaGetLastError().
@@ -207,129 +204,6 @@ __global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_tiled_int8_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------------------------
-// qbits_mm_requant_int8 (W4A8 requant route: M >= 2048, weights in the requant form).
-//
-// Replaces quanto_tpu/ops/pallas/qbits_mm.py:_int8pc_kernel, the TPU's W4A8 prefill with
-// per-channel int8 requantization inside the kernel. It computes
-//
-//   y[m, n] = sx * s8[n] * sum_k xq[m, k] * c8[n, k],
-//   c8[n, k] = clip(rint(c[n, k] * rs - rz), -127, 127),   rs = s[g, n] / s8[n],  rz = z[g, n] / s8[n],
-//
-// with one int32 sum over the whole K (|sum| <= 128 * 127 * K < 2^31 for K < 132000) and no
-// per-group epilogue: on the TPU that is the route's point, since the exact kernel's per-group
-// float rescale keeps its int8 dots one group long. Bound on this card by operations: 2 M N K
-// int8 operations at 1979 TOP/s, 243 us at M = 4096, N = 14336, K = 4096.
-//
-// Design: qbits_mm_tiled_int8's 128 x 128 tile, 8 warps of 64 x 32 and mma.sync m16n8k32 s8.
-// Each K step stages the x tile as it is and requantizes the weight tile to int8 codes as it
-// stages it (each thread: 32 codes of one row, all in one group since 128 | gs). rs and rz are
-// computed in the kernel by IEEE division (__fdiv_rn) once per group from the float32 [G, N]
-// scale and shift and s8 [N], so no [G, N] copy of them is stored (about 9 % of the 8B model's
-// weight bytes). The requant uses __fmul_rn and __fsub_rn, which nvcc does not contract into an
-// fma (one rounding in place of two would move a code at a rounding tie), and rintf (half to
-// even, as jnp.round). Codes and the int32 sum are exact and the epilogue is the plain version's
-// two float32 multiplies in its order, so the output equals the plain version bit for bit.
-// int2 (W2A8): the same with s8 from qmax = 3; an int2 K step stages 8 packed bytes a thread,
-// and each byte's four crumbs are requantized into one word of four int8 codes.
-// Each block requantizes its weight tiles again, as each TPU grid row does; requantizing once
-// per N tile, wgmma and TMA are later work.
-// ---------------------------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t requant8(uint32_t c, float rs, float rz) {
-  const float v = rintf(__fsub_rn(__fmul_rn(code_to_float(c), rs), rz));
-  return (uint32_t)__float2int_rn(fminf(fmaxf(v, -127.f), 127.f)) & 0xFFu;
-}
-
-template <typename TO, int BITS>
-__global__ void __launch_bounds__(TL_THREADS, 1) qbits_mm_requant_int8_kernel(
-    const int8_t* __restrict__ x, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    const float* __restrict__ s8, const float* __restrict__ sx, TO* __restrict__ out, int M,
-    int N, int K, int gs) {
-  __shared__ __align__(16) int8_t x_s[TL_BM * TI_LD];
-  __shared__ __align__(16) int8_t w_s[TL_BN * TI_LD];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int warp_m = warp >> 2;  // 2 x 4 warps, each a 64 x 32 tile
-  const int warp_n = warp & 3;
-  const int m0 = blockIdx.y * TL_BM;
-  const int n0 = blockIdx.x * TL_BN;
-
-  // Staging: each thread stages one 32-element half row of the x tile and of the weight tile.
-  const int srow = tid >> 1;
-  const int shalf = tid & 1;
-  const bool x_valid = m0 + srow < M;
-  const int8_t* x_src = x + (size_t)(x_valid ? m0 + srow : 0) * K + shalf * 32;
-  const uint8_t* w_src = packed + (size_t)(n0 + srow) * row_bytes<BITS>(K) + shalf * 4 * BITS;
-  int8_t* x_dst = x_s + srow * TI_LD + shalf * 32;
-  int8_t* w_dst = w_s + srow * TI_LD + shalf * 32;
-  const float s8_row = __ldg(s8 + n0 + srow);
-  float rs = 0.f, rz = 0.f;
-
-  int acc[TL_MT][TL_NT][4];
-#pragma unroll
-  for (int mt = 0; mt < TL_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < TL_NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-  const int ktiles = K / TL_BK;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int kbase = kt * TL_BK;
-    if (kbase % gs == 0) {  // a new group: its factors for this thread's weight row
-      const size_t g = (size_t)(kbase / gs);
-      rs = __fdiv_rn(__ldg(scale_t + g * N + n0 + srow), s8_row);
-      rz = __fdiv_rn(__ldg(shift_t + g * N + n0 + srow), s8_row);
-    }
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    const uint4* xp = reinterpret_cast<const uint4*>(x_src + kbase);
-    reinterpret_cast<uint4*>(x_dst)[0] = x_valid ? __ldg(xp) : zero;
-    reinterpret_cast<uint4*>(x_dst)[1] = x_valid ? __ldg(xp + 1) : zero;
-    // 4 * BITS packed bytes -> 32 int8 codes, one per byte, in K order: code t of the run lies
-    // at bit BITS * t (run_code).
-    uint32_t pw[BITS];
-    load_run<BITS>(w_src + (size_t)kbase * BITS / 8, pw);
-    uint32_t cw[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)  // codes 4j .. 4j + 3
-      cw[j] = requant8(run_code<BITS>(pw, 4 * j), rs, rz) |
-              requant8(run_code<BITS>(pw, 4 * j + 1), rs, rz) << 8 |
-              requant8(run_code<BITS>(pw, 4 * j + 2), rs, rz) << 16 |
-              requant8(run_code<BITS>(pw, 4 * j + 3), rs, rz) << 24;
-    reinterpret_cast<uint4*>(w_dst)[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
-    reinterpret_cast<uint4*>(w_dst)[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
-    __syncthreads();
-
-    mma_k_step_s8(x_s, w_s, warp_m, warp_n, gid, tig, acc);
-    __syncthreads();
-  }
-
-  // Epilogue: acc as float32 (round to nearest even), times s8[n], times sx.
-  const float sxv = __ldg(sx);
-#pragma unroll
-  for (int nt = 0; nt < TL_NT; ++nt) {
-    const int col = n0 + warp_n * 32 + nt * 8 + tig * 2;
-    const float a0 = __ldg(s8 + col);
-    const float a1 = __ldg(s8 + col + 1);
-#pragma unroll
-    for (int mt = 0; mt < TL_MT; ++mt) {
-      const int r = m0 + warp_m * 64 + mt * 16 + gid;
-      const int* c = acc[mt][nt];
-      if (r < M)
-        store2(out + (size_t)r * N + col, __fmul_rn(__fmul_rn(__int2float_rn(c[0]), a0), sxv),
-               __fmul_rn(__fmul_rn(__int2float_rn(c[1]), a1), sxv));
-      if (r + 8 < M)
-        store2(out + (size_t)(r + 8) * N + col, __fmul_rn(__fmul_rn(__int2float_rn(c[2]), a0), sxv),
-               __fmul_rn(__fmul_rn(__int2float_rn(c[3]), a1), sxv));
-    }
-  }
-}
-
 template <typename T, int BITS>
 int launch_tiled(const void* x, const void* packed, const void* scale_t, const void* shift_t,
                  void* out, int M, int N, int K, int gs, cudaStream_t stream) {
@@ -356,19 +230,6 @@ int launch_tiled_int8(const void* x, const void* packed, const void* scale_t, co
   return (int)cudaGetLastError();
 }
 
-template <typename TO, int BITS>
-int launch_requant(const void* x, const void* packed, const void* scale_t, const void* shift_t,
-                   const void* s8, const void* sx, void* out, int M, int N, int K, int gs,
-                   cudaStream_t stream) {
-  const dim3 grid(N / TL_BN, (M + TL_BM - 1) / TL_BM);
-  qbits_mm_requant_int8_kernel<TO, BITS><<<grid, TL_THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale_t), static_cast<const float*>(shift_t),
-      static_cast<const float*>(s8), static_cast<const float*>(sx), static_cast<TO*>(out), M, N,
-      K, gs);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // The int8-x entry point (W4A8, W2A8): x int8 [M, K], sx float32 scalar on the device; bits 4 or 2
@@ -389,25 +250,6 @@ extern "C" int qbits_mm_tiled_int8(int device, const void* x, const void* packed
     return out_bf16
                ? launch_tiled_int8<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s)
                : launch_tiled_int8<float, 2>(x, packed, scale_t, shift_t, sx, out, M, N, K, gs, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The requant route: x int8 [M, K], s8 float32 [N], sx float32 scalar, all on the device.
-extern "C" int qbits_mm_requant_int8(int device, const void* x, const void* packed,
-                                     const void* scale_t, const void* shift_t, const void* s8,
-                                     const void* sx, void* out, int M, int N, int K, int gs,
-                                     int bits, int out_bf16, void* stream) {
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4)
-    return out_bf16
-               ? launch_requant<__nv_bfloat16, 4>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s)
-               : launch_requant<float, 4>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
-  if (bits == 2)
-    return out_bf16
-               ? launch_requant<__nv_bfloat16, 2>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s)
-               : launch_requant<float, 2>(x, packed, scale_t, shift_t, s8, sx, out, M, N, K, gs, s);
   return (int)cudaErrorInvalidValue;
 }
 

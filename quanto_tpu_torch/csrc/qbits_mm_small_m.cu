@@ -52,11 +52,13 @@
 
 #include <type_traits>
 
+#include "hopper_gemm.cuh"
 #include "qbits_mm.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
+using namespace hg;
 using namespace qbits;
 
 constexpr int TC_BK = 64;       // codes of K per sub-stage (a stage holds SUB of them)
@@ -64,10 +66,6 @@ constexpr int TC_PAD = 16;      // bytes of padding per float32 x row of the rin
 constexpr int TC_BN = 128;      // weight rows of a block: two warpgroups
 constexpr int TC_THREADS = 256;
 constexpr int TC_MAX_SPLITS = 16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, the bytes past `src_bytes` (0 or 16) zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -78,65 +76,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A run of 32 codes (4 * BITS bytes) from shared memory, as load_run reads it from global memory.
-template <int BITS>
-__device__ __forceinline__ void load_run_shared(const unsigned char* p, uint32_t (&w)[BITS]) {
-  if constexpr (BITS == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x; w[1] = v.y;
-  }
-}
-
-// A run's 32 codes as 16 bf16 pairs in K order (o[j] = codes 2j, 2j + 1), exact: each code is
-// OR-ed into the mantissa of bf16 128 (0x4300, step 1 there) and 128 is subtracted. int4: the
-// mask 0x000F000F on the word shifted by 4i takes codes i and i + 4 of its 8; int2: 0x00030003 on
-// the word shifted by 2i (or 8 + 2i) takes codes i and i + 8 (or 4 + i and 12 + i) of its 16; a
-// __byte_perm pairs neighbours.
-template <int BITS>
-__device__ __forceinline__ void codes_bf16(const uint32_t (&w)[BITS], uint32_t (&o)[16]) {
-  constexpr uint32_t kMagic = 0x43004300u;
-  const __nv_bfloat162 k128 = __floats2bfloat162_rn(128.f, 128.f);
-  uint32_t p[16];
-  if constexpr (BITS == 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t t[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) t[i] = ((w[q] >> (4 * i)) & 0x000F000Fu) | kMagic;  // codes i, i + 4
-      p[4 * q + 0] = __byte_perm(t[0], t[1], 0x5410);  // codes 0, 1
-      p[4 * q + 1] = __byte_perm(t[2], t[3], 0x5410);  // 2, 3
-      p[4 * q + 2] = __byte_perm(t[0], t[1], 0x7632);  // 4, 5
-      p[4 * q + 3] = __byte_perm(t[2], t[3], 0x7632);  // 6, 7
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      uint32_t t[4], u[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        t[i] = ((w[q] >> (2 * i)) & 0x00030003u) | kMagic;      // codes i, 8 + i
-        u[i] = ((w[q] >> (8 + 2 * i)) & 0x00030003u) | kMagic;  // codes 4 + i, 12 + i
-      }
-      p[8 * q + 0] = __byte_perm(t[0], t[1], 0x5410);  // codes 0, 1
-      p[8 * q + 1] = __byte_perm(t[2], t[3], 0x5410);  // 2, 3
-      p[8 * q + 2] = __byte_perm(u[0], u[1], 0x5410);  // 4, 5
-      p[8 * q + 3] = __byte_perm(u[2], u[3], 0x5410);  // 6, 7
-      p[8 * q + 4] = __byte_perm(t[0], t[1], 0x7632);  // 8, 9
-      p[8 * q + 5] = __byte_perm(t[2], t[3], 0x7632);  // 10, 11
-      p[8 * q + 6] = __byte_perm(u[0], u[1], 0x7632);  // 12, 13
-      p[8 * q + 7] = __byte_perm(u[2], u[3], 0x7632);  // 14, 15
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p[j]), k128);
-    o[j] = *reinterpret_cast<const uint32_t*>(&v);
-  }
 }
 
 // NB (4, 8 or multiple of 16) bytes of shared memory as 32-bit words, in the widest loads.
@@ -197,27 +136,6 @@ __host__ __device__ constexpr int x_row_bytes() {
   return XTraits<T>::planes == 2 ? TC_BK * (int)sizeof(T) + TC_PAD : op_row_bytes<T>();
 }
 
-// A stage tile of OPR-byte rows (128 for bf16, 64 for s8) in wgmma's swizzled K-major layout: the
-// 16-byte chunk q of row r at chunk q ^ (r & 7) of the row (128-byte swizzle) or q ^ ((r >> 1) & 3)
-// (64-byte swizzle), rows contiguous, the tile aligned to 1024 bytes. A row's chunks fill all 32
-// banks, and eight rows' chunk q do too. Byte b of row r:
-template <int OPR>
-__device__ __forceinline__ int sw(int r, int b) {
-  if constexpr (OPR == 128)
-    return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
-  else
-    return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
-}
-
-// The wgmma descriptor of a swizzled tile (sw<OPR>) at p: 8-row groups 8 * OPR bytes apart, the
-// layout 128-byte (1) or 64-byte (2) swizzle.
-template <int OPR>
-__device__ __forceinline__ uint64_t make_desc(const void* p) {
-  constexpr uint64_t layout = OPR == 128 ? 1 : 2;
-  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)((8 * OPR) >> 4) << 32) | (layout << 62);
-}
-
 // NB bytes of row r of a swizzled tile from byte b0 (NB 4 or 8 inside one chunk, or whole chunks).
 template <int NB, int OPR>
 __device__ __forceinline__ void load_sw(const unsigned char* base, int r, int b0, uint32_t (&w)[NB / 4]) {
@@ -242,25 +160,6 @@ __device__ __forceinline__ void store_sw(unsigned char* base, int r, int b0, con
   } else {
     store_words<NB>(base + sw<OPR>(r, b0), w);
   }
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keeps the compiler from moving accesses of the accumulators across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) asm volatile("" : "+f"(d[j])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) asm volatile("" : "+r"(d[j])::"memory");
 }
 
 // The M tile (BM x rows) by M: 8, 16, 32, 64 or 128 (float32 x at most 64: its planes need the
@@ -581,7 +480,7 @@ __global__ void __launch_bounds__(TC_THREADS, blocks_per_sm(BM)) small_m_tc_kern
     mma_issue(i, slot, fresh);
     issue(i + STAGES - 1, slot == 0 ? STAGES - 1 : slot - 1);  // stage i - 1's slot, free now
     if (i + 1 < nst) transform(i + 1, next);
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     fresh = ph == spg - 1 || i + 1 == nst;  // stage i ends a segment: the next one starts afresh
     ph = ph == spg - 1 ? 0 : ph + 1;

@@ -2,8 +2,9 @@
 plain version and their launch counts.
 
 Counterpart of `quanto_tpu/ops/pallas/moe_mm.py`. Two CUDA kernels in
-`quanto_tpu_torch/csrc/moe_mm.cu` compute, for each slot u of a [U, M, K]
-activation,
+`quanto_tpu_torch/csrc/moe_mm.cu` (and, for `qbits_moe_tiled` at M > 16, the
+pipelined tensor-core GEMM of `quanto_tpu_torch/csrc/moe_gemm.cu`) compute,
+for each slot u of a [U, M, K] activation,
 
     out[u] = x[u] @ deq(W[e_u])^T   in float32,   e_u = eids[u] (u without a table),
 
@@ -32,6 +33,9 @@ the CPU; on a CUDA tensor it launches its kernel or raises. Each wrapper's
 `launches` attribute counts its kernel launches, of either width, and
 `launches_int2` those of its int2 arm. Expert ids must lie in
 [0, E): the kernels read them on the device and do not check them.
+`qbits_moe_tiled` at M > 16 with float32 x takes a workspace of x's bytes,
+which the wrapper allocates: a first pass of the same call splits x into the
+bf16 high and low planes the tensor cores multiply.
 """
 
 from __future__ import annotations
@@ -80,14 +84,19 @@ def qbits_moe_plain(
 
 # --- wrappers ---------------------------------------------------------------
 
-# C signature of both entry points in csrc/moe_mm.cu: device, x, x_slot_stride, eids, nslots,
-# packed, scale_t, shift_t, out, U, M, N, K, gs, bits, x_bf16, stream.
-_ARGTYPES = (
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 7
-    + [ctypes.c_void_p]
-)
+# C signatures in csrc/moe_mm.cu: device, x, x_slot_stride, eids, nslots, packed, scale_t,
+# shift_t, out, U, M, N, K, gs, bits, x_bf16, stream; `qbits_moe_tiled` takes the workspace and
+# the stacked weight's expert count E after out.
+_ARGTYPES = {
+    "qbits_moe_small_m": (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p]
+    ),
+    "qbits_moe_tiled": (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p]
+    ),
+}
 
 
 def _check(name, x3, packed, scale_t, shift_t, group_size, bits, eids, nslots):
@@ -135,15 +144,24 @@ def _run(wrapper, name, x3, packed, scale_t, shift_t, group_size, bits, eids, ns
     if x3.stride(2) != 1 or (M > 1 and x3.stride(1) != K):
         raise ValueError(f"{name}: the rows of x must be contiguous")
     slot_stride = x3.stride(0) if U > 1 else 0
-    if x3.data_ptr() % 16 or (slot_stride * x3.element_size()) % 16 or packed.data_ptr() % 16:
-        raise ValueError(f"{name}: x, its slots and packed must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (x3, packed, scale_t, shift_t)) or (slot_stride * x3.element_size()) % 16:
+        raise ValueError(f"{name}: x, its slots, packed, scale_t and shift_t must be 16-byte aligned")
     out = torch.empty((U, M, N), dtype=torch.float32, device=x3.device)
-    rc = kernel(name, _ARGTYPES)(
+    extra = []
+    if name == "qbits_moe_tiled":
+        # float32 x at M > 16: its bf16 high and low planes, [2, U', M, K] (U' = 1 for shared
+        # rows), the bytes of x's own float32 [U', M, K]. Freed on return: the caching allocator
+        # hands the block only to later work on this stream, which runs after both passes.
+        planes = M > 16 and x3.dtype == torch.float32
+        ws = torch.empty((1 if slot_stride == 0 else U) * M * K if planes else 0, dtype=torch.float32,
+                         device=x3.device)
+        extra = [ws.data_ptr() if planes else None, packed.shape[0]]
+    rc = kernel(name, _ARGTYPES[name])(
         x3.device.index if x3.device.index is not None else torch.cuda.current_device(),
         x3.data_ptr(), slot_stride,
         None if eids is None else eids.data_ptr(),
         None if nslots is None else nslots.data_ptr(),
-        packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(),
+        packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(), *extra,
         U, M, N, K, group_size, bits, int(x3.dtype == torch.bfloat16),
         torch.cuda.current_stream(x3.device).cuda_stream,
     )

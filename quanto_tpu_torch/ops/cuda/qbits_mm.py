@@ -2,8 +2,9 @@
 versions and their launch counts.
 
 Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. CUDA kernels in
-`quanto_tpu_torch/csrc/qbits_mm_small_m.cu` (M <= `MAX_M`, on the tensor cores)
-and `quanto_tpu_torch/csrc/qbits_mm.cu` (larger M) compute
+`quanto_tpu_torch/csrc/qbits_mm_small_m.cu` (M <= `MAX_M`, on the tensor cores),
+`quanto_tpu_torch/csrc/qbits_mm.cu` (larger M) and
+`quanto_tpu_torch/csrc/qbits_mm_requant.cu` (the requant route) compute
 
     y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n]
 
@@ -40,7 +41,9 @@ workspace the wrapper allocates at the size the C side plans
 (`qbits_mm_small_m_workspace`): from M = 33 (bf16 and int8 x) a first pass
 of the same call sums x over each 64 values once, and where the card would
 be short of blocks K is split over them and a last pass sums the splits in a
-fixed order.
+fixed order. The requant kernel takes a workspace of N * K bytes: its first
+pass writes the requant codes there once per call (`requant_pass` runs that
+pass alone), its second multiplies them with x on the tensor cores.
 
 The kernels are built with `nvcc` into `quanto_tpu_torch/build/` at first use
 (`ops/cuda/_build.py:build`), as a shared library with a plain C interface
@@ -76,6 +79,7 @@ __all__ = [
     "requant_codes",
     "qbits_requant_int8_mm_plain",
     "qbits_mm_requant_int8",
+    "requant_pass",
     "qbits_int8_mm",
 ]
 
@@ -157,6 +161,14 @@ def _workspace_floats(device: int, M: int, N: int, K: int, group_size: int, x_f3
     return n.value
 
 
+def _small_m_ws(name, M, N, K, group_size, x_dtype):
+    """The workspace size of the small-M entry points (`_launch`'s `ws_floats`),
+    None for the others."""
+    if name not in ("qbits_mm_small_m", "qbits_mm_int8_small_m"):
+        return None
+    return lambda device: _workspace_floats(device, M, N, K, group_size, x_dtype == torch.float32)
+
+
 def _check(x, packed, scale_t, shift_t, group_size, bits):
     """Validate the operands a float-x kernel takes; returns (M, N, K)."""
     M, N, K = _check_shapes(x, packed, scale_t, shift_t, group_size, bits)
@@ -187,13 +199,14 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size, bits):
     return M, N, K
 
 
-def _launch(name, operands, out_dtype, M, N, K, group_size, bits, workspace=False):
+def _launch(name, operands, out_dtype, M, N, K, group_size, bits, ws_floats=None):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
     shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
-    output, with the code width `bits`; with `workspace` (the small-M entry
-    points) also on a new workspace. Every entry point of csrc/qbits_mm*.cu
-    takes (device, those pointers, out[, workspace], M, N, K, gs, bits,
-    bf16 flag, stream). Raises on a refused launch."""
+    output, with the code width `bits`; with `ws_floats` (the small-M and
+    requant entry points: a callable of the device giving the workspace's
+    4-byte elements) also on a new workspace. Every entry point of
+    csrc/qbits_mm*.cu takes (device, those pointers, out[, workspace], M, N,
+    K, gs, bits, bf16 flag, stream). Raises on a refused launch."""
     x, packed = operands[0], operands[1]
     if any(t.device != x.device for t in operands):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -204,10 +217,10 @@ def _launch(name, operands, out_dtype, M, N, K, group_size, bits, workspace=Fals
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ptrs = [t.data_ptr() for t in operands] + [out.data_ptr()]
-    if workspace:
+    if ws_floats is not None:
         # Freed on return: the caching allocator hands the block only to later work on this
-        # stream, which runs after both passes.
-        n_ws = _workspace_floats(device, M, N, K, group_size, x.dtype == torch.float32)
+        # stream, which runs after every pass.
+        n_ws = ws_floats(device)
         ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None
         ptrs.append(ws.data_ptr() if ws is not None else None)
     argtypes = [ctypes.c_int] + [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -235,7 +248,7 @@ def _run_float(wrapper, name, x, packed, scale_t, shift_t, group_size, bits):
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size, bits)
     out = _launch(
         name, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits,
-        workspace=name == "qbits_mm_small_m",
+        ws_floats=_small_m_ws(name, M, N, K, group_size, x.dtype),
     )
     _count(wrapper, bits)
     return out
@@ -309,7 +322,8 @@ def _run_int8(wrapper, name, xq, sx, packed, scale_t, shift_t, group_size, out_d
         return qbits_int8_mm_plain(xq, sx, packed, scale_t, shift_t, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
     out = _launch(
-        name, operands, out_dtype, M, N, K, group_size, bits, workspace=name == "qbits_mm_int8_small_m"
+        name, operands, out_dtype, M, N, K, group_size, bits,
+        ws_floats=_small_m_ws(name, M, N, K, group_size, xq.dtype),
     )
     _count(wrapper, bits)
     return out
@@ -406,12 +420,34 @@ def qbits_mm_requant_int8(xq, sx, packed, scale_t, shift_t, s8, group_size: int,
     if xq.device.type == "cpu":
         return qbits_requant_int8_mm_plain(xq, sx, packed, scale_t, shift_t, s8, group_size, out_dtype, bits)
     operands = (xq, packed, scale_t, shift_t, s8, sx.reshape(()))
-    out = _launch(name, operands, out_dtype, M, N, K, group_size, bits)
+    out = _launch(name, operands, out_dtype, M, N, K, group_size, bits, ws_floats=lambda device: N * K // 4)
     _count(qbits_mm_requant_int8, bits)
     return out
 
 
 qbits_mm_requant_int8.launches = qbits_mm_requant_int8.launches_int2 = 0
+
+
+def requant_pass(packed, scale_t, shift_t, s8, group_size: int, bits: int = 4) -> torch.Tensor:
+    """The first pass of `qbits_mm_requant_int8` alone: the requant codes int8
+    [N, K] it writes into its workspace (`requant_codes` on a CPU tensor).
+    Not a launch of the requant kernel, so not counted; for the tests and
+    `chip_smoke.py`, which hold it EQUAL to `requant_codes` and time it."""
+    N, K = packed.shape[0], packed.shape[1] * 8 // bits
+    if packed.device.type == "cpu":
+        return requant_codes(packed, scale_t, shift_t, s8, group_size, bits)
+    for t in (packed, scale_t, shift_t, s8):
+        if t.device != packed.device or not t.is_contiguous():
+            raise ValueError("requant_pass: operands must be contiguous and on one device")
+    c8 = torch.empty((N, K), dtype=torch.int8, device=packed.device)
+    device = packed.device.index if packed.device.index is not None else torch.cuda.current_device()
+    rc = kernel("qbits_requant_codes", [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+        device, packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), s8.data_ptr(), c8.data_ptr(),
+        N, K, group_size, bits, torch.cuda.current_stream(packed.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"qbits_requant_codes kernel launch failed: cudaError {rc}")
+    return c8
 
 
 def qbits_int8_mm(xq, sx, packed, scale_t, shift_t, group_size: int, out_dtype, s8=None, bits: int = 4):

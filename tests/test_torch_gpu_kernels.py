@@ -22,10 +22,13 @@ bf16 output within 1e-2 * max|ref| (one rounding) and cosine > 1 - 1e-4.
 
 The W4A8 requant kernel (`qbits_mm_requant_int8`) against
 `qbits_requant_int8_mm_plain` at the Llama-3.1-8B linear shapes (N in
-{1024, 4096, 14336}, K in {4096, 14336}), M in {2048, 2049, 4096}, group
-sizes 128 and 256: its codes and int32 sums are exact and its epilogue is
-the plain version's two float32 multiplies, so float32 and bf16 outputs are
-held EQUAL to the plain version's; and its refusals on CUDA tensors.
+{1024, 4096, 14336}, K in {4096, 14336}), M in {2048, 2049, 2111, 2176,
+4095, 4096, 4097} (both sides of its 128-row M tiles and of its 128- and
+256-wide N tiles' choice), group sizes 128 and 256: its codes and int32 sums
+are exact and its epilogue is the plain version's two float32 multiplies, so
+float32 and bf16 outputs are held EQUAL to the plain version's; its first
+pass's codes EQUAL to `requant_codes`; two launches bit-identical; and its
+refusals on CUDA tensors.
 
 `flash_decode` against `flash_decode_plain` for every pair of K and V payload
 types (float32 and bfloat16 caches; int8, int4 and the three float8 formats
@@ -38,11 +41,13 @@ The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
 `qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
 N < K), bf16 and f32 x: the selective form at nsel in {1, 2, 9, 32}, the all
 form at ragged S in {1, 3, 8, 512}, a 6-slot expert table (U < E) with and
-without a device count that skips slots; the batched-expert GEMM at ragged M
-in {1, 8, 16, 17, 130, 600} (both tile heights) with and without a table.
-Float32 outputs within 1e-4 * max|ref| (sums in another order; f32 x seen by
-the tiled kernel as a bf16 high + low pair) and cosine > 1 - 1e-5; skipped
-slots exactly zero.
+without a device count that skips slots; the batched-expert GEMM at M in
+{1, 4, 8, 16} (the 16-row tile) and at M in {17, 33, 127, 129, 130, 255,
+257, 600, 2048, 2049} (the pipelined GEMM: both sides of its 128-row M
+tiles), group sizes 64, 128 and 256, with and without a table and a device
+count. Float32 outputs within 1e-4 * max|ref| (sums in another order; f32 x
+seen as a bf16 high + low pair) and cosine > 1 - 1e-5; skipped slots
+exactly zero; two launches bit-identical; one launch counted a call.
 
 The int2 arms of the four float-x kernels, with the tolerances of their int4
 arms: `qbits_mm_small_m` and `qbits_mm_tiled` over M in 1..1024 (the int2
@@ -54,8 +59,8 @@ The int2 arms of the three int8-x kernels (W2A8) over random packed bytes
 tolerances of their int4 arms: `qbits_mm_int8_small_m` at M in 1..512 and
 `qbits_mm_tiled_int8` at M in 513..1024 (the int2 envelope of the tiled
 route) for group sizes 128, 256 and per axis, bf16 and f32 output; the
-requant kernel at the Llama-3.1-8B linear shapes, M in {2048, 2049, 4096},
-EQUAL to its plain version.
+requant kernel at the Llama-3.1-8B linear shapes, M at the requant M-tile
+edges above, EQUAL to its plain version.
 
 `qbits_mm_partitioned` (TPU kernel #5) on one rank's part of a 512 x 2048
 weight, column, row and replicated, float and int8 x, int4 and int2, against
@@ -93,6 +98,8 @@ from quanto_tpu_torch.ops.cuda.qbits_mm import (
     qbits_mm_requant_int8,
     qbits_mm_tiled_int8,
     qbits_requant_int8_mm_plain,
+    requant_codes,
+    requant_pass,
     requant_step,
 )
 from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
@@ -215,12 +222,16 @@ def requant_operands(device, m, n, k, gs, seed):
     return xq, sx, packed, scale_t, shift_t, requant_step(scale_t, shift_t)
 
 
+# M on both sides of the requant GEMM's 128-row tiles, at the route's least M and at phase 10's.
+REQUANT_EDGES = [2048, 2049, 2111, 2176, 4095, 4096, 4097]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("gs", [128, 256])
 @pytest.mark.parametrize("k", [4096, 14336])
 @pytest.mark.parametrize("n", [1024, 4096, 14336])
-@pytest.mark.parametrize("m", [2048, 2049, 4096])
+@pytest.mark.parametrize("m", REQUANT_EDGES)
 def test_requant_kernel_equals_plain(cuda_device, m, n, k, gs, out_dtype):
     xq, sx, packed, scale_t, shift_t, s8 = requant_operands(cuda_device, m, n, k, gs, seed=m + n + k + gs)
     args = (xq, sx, packed, scale_t, shift_t, s8, gs, out_dtype)
@@ -230,6 +241,38 @@ def test_requant_kernel_equals_plain(cuda_device, m, n, k, gs, out_dtype):
     assert qbits_mm_requant_int8.launches == before + 1 and out.dtype == out_dtype and out.shape == (m, n)
     ref = qbits_requant_int8_mm_plain(*args)
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("n,k,gs", [(1024, 4096, 128), (4096, 14336, 256)])
+def test_requant_pass_equals_requant_codes(cuda_device, n, k, gs, bits):
+    """The kernel's first pass writes each weight code's requant code once:
+    EQUAL to the plain `requant_codes` (the same float32 roundings)."""
+    operands = requant_operands if bits == 4 else w2a8_operands
+    _, _, packed, scale_t, shift_t, s8 = operands(cuda_device, 1, n, k, gs, seed=n + k + bits)
+    c8 = requant_pass(packed, scale_t, shift_t, s8, gs, bits)
+    assert c8.dtype == torch.int8 and c8.shape == (n, k)
+    assert torch.equal(c8, requant_codes(packed, scale_t, shift_t, s8, gs, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [2049, 4096])
+def test_requant_kernel_bit_identical_and_counted(cuda_device, m, bits):
+    """Two launches give the same bits (exact int32 sums), and each call of
+    the wrapper or of the router on the requant route is one launch."""
+    operands = requant_operands if bits == 4 else w2a8_operands
+    xq, sx, packed, scale_t, shift_t, s8 = operands(cuda_device, m, 4096, 4096, 128, seed=m + bits)
+    args = (xq, sx, packed, scale_t, shift_t, s8, 128, torch.float32, bits)
+    first = qbits_mm_requant_int8(*args)
+    assert torch.equal(first, qbits_mm_requant_int8(*args))
+    before = (qbits_mm_requant_int8.launches, qbits_mm_requant_int8.launches_int2)
+    out = qbits_int8_mm(xq, sx, packed, scale_t, shift_t, 128, torch.float32, s8=s8, bits=bits)
+    torch.cuda.synchronize()
+    assert (qbits_mm_requant_int8.launches, qbits_mm_requant_int8.launches_int2) == (
+        before[0] + 1, before[1] + (bits == 2))
+    assert torch.equal(out, first)
 
 
 @pytest.mark.gpu
@@ -322,15 +365,15 @@ def stacked_experts(device, N, K, E=8, seed=0, bits=4):
     return tuple(torch.stack([getattr(w, f) for w in ws]) for f in ("_packed", "_scale_t", "_shift_t"))
 
 
-def check_moe(wrapper, x3, weights, eids=None, nslots=None, bits=4):
+def check_moe(wrapper, x3, weights, eids=None, nslots=None, bits=4, group_size=128):
     """One launch of `wrapper` (counted in its int2 arm's count too at bits = 2)
     against the plain version."""
     before = (wrapper.launches, wrapper.launches_int2)
-    out = wrapper(x3, *weights, 128, bits, eids=eids, nslots=nslots)
+    out = wrapper(x3, *weights, group_size, bits, eids=eids, nslots=nslots)
     torch.cuda.synchronize()
     assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + (bits == 2))
     assert out.dtype == torch.float32
-    ref = MM.qbits_moe_plain(x3, *weights, 128, bits, eids=eids, nslots=nslots)
+    ref = MM.qbits_moe_plain(x3, *weights, group_size, bits, eids=eids, nslots=nslots)
     assert out.shape == ref.shape
     if nslots is not None:
         assert not out[int(nslots):].any()
@@ -368,19 +411,66 @@ def test_moe_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, dtype)
         check_moe(MM.qbits_moe_small_m, x.expand(len(MOE_TABLE), *x.shape), weights, eids, count)
 
 
+# Slab rows of the batched-expert GEMM: the 16-row tile (M <= 16), then both sides of the pipelined
+# GEMM's 128-row M tiles, up to a prefill slab of 2048.
+MOE_TILED_M = [1, 4, 8, 16, 17, 33, 127, 129, 130, 255, 257, 600, 2048, 2049]
+
+
+def random_experts(device, n, k, gs, bits, seed, E=8):
+    """E stacked weights in the Hopper layout from random packed bytes (every
+    code value in every position of a byte) and group scales and shifts
+    anywhere in [0, 2**bits - 1] steps, at any group size the kernels take
+    (the quantizer's layout takes only multiples of 128)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    packed = torch.randint(0, 256, (E, n, k * bits // 8), dtype=torch.uint8, device=device, generator=g)
+    scale_t = torch.rand((E, k // gs, n), device=device, generator=g) * 0.01 + 0.001
+    shift_t = scale_t * torch.rand((E, k // gs, n), device=device, generator=g) * (2**bits - 1)
+    return packed, scale_t, shift_t
+
+
+def moe_tiled_case(device, m, table, n, k, dtype, gs, bits):
+    """Weights of group size `gs`, x [U, m, k] and the table of one batched-expert case."""
+    weights = random_experts(device, n, k, gs, bits, seed=n + k + gs)
+    U = 8 if table == "experts" else len(MOE_TABLE)
+    rng = np.random.default_rng(m)
+    xg = torch.from_numpy(rng.standard_normal((U, m, k)).astype(np.float32)).to(device, dtype)
+    eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(device)
+    nslots = torch.tensor(4, dtype=torch.int32, device=device) if table == "uniq-n4" else None
+    return xg, weights, eids, nslots
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("gs", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("n,k", MOE_SHAPES)
 @pytest.mark.parametrize("table", ["experts", "uniq", "uniq-n4"])
-@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 130, 600])
-def test_moe_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
-    weights = stacked_experts(cuda_device, n, k, seed=n)
-    U = 8 if table == "experts" else len(MOE_TABLE)
-    rng = np.random.default_rng(m)
-    xg = torch.from_numpy(rng.standard_normal((U, m, k)).astype(np.float32)).to(cuda_device, dtype)
-    eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
-    nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
-    check_moe(MM.qbits_moe_tiled, xg, weights, eids, nslots)
+@pytest.mark.parametrize("m", MOE_TILED_M)
+def test_moe_tiled_matches_plain(cuda_device, m, table, n, k, dtype, gs):
+    xg, weights, eids, nslots = moe_tiled_case(cuda_device, m, table, n, k, dtype, gs, 4)
+    check_moe(MM.qbits_moe_tiled, xg, weights, eids, nslots, group_size=gs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [16, 130, 2049])
+def test_moe_tiled_bit_identical_and_dead_slots(cuda_device, m, dtype, bits):
+    """Two launches give the same bits; with a device count, the slots at or
+    past it are exactly zero (none, some, all) and the live ones are the same
+    bits as without a count; each call of the wrapper or of
+    `qbits_moe_prefill` is one launch."""
+    xg, weights, eids, _ = moe_tiled_case(cuda_device, m, "uniq", 512, 768, dtype, 128, bits)
+    full = MM.qbits_moe_tiled(xg, *weights, 128, bits, eids=eids)
+    assert torch.equal(full, MM.qbits_moe_tiled(xg, *weights, 128, bits, eids=eids))
+    for n in (0, 3, len(MOE_TABLE)):
+        count = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+        before = (MM.qbits_moe_tiled.launches, MM.qbits_moe_tiled.launches_int2)
+        out = MM.qbits_moe_prefill(xg, *weights, 128, bits, eids=eids, nslots=count)
+        torch.cuda.synchronize()
+        assert (MM.qbits_moe_tiled.launches, MM.qbits_moe_tiled.launches_int2) == (
+            before[0] + 1, before[1] + (bits == 2))
+        assert not out[n:].any()
+        assert torch.equal(out[:n], full[:n])
 
 
 # --- the int2 arms -----------------------------------------------------------------------------
@@ -472,7 +562,7 @@ def test_w2a8_kernels_match_plain(cuda_device, m, k, group_size, out_dtype):
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("gs", [128, 256])
 @pytest.mark.parametrize("n,k", [(1024, 4096), (14336, 4096), (4096, 14336)])
-@pytest.mark.parametrize("m", [2048, 2049, 4096])
+@pytest.mark.parametrize("m", REQUANT_EDGES)
 def test_w2a8_requant_kernel_equals_plain(cuda_device, m, n, k, gs, out_dtype):
     xq, sx, packed, scale_t, shift_t, s8 = w2a8_operands(cuda_device, m, n, k, gs, seed=m + n + k + gs)
     args = (xq, sx, packed, scale_t, shift_t, s8, gs, out_dtype, 2)
@@ -511,17 +601,14 @@ def test_moe_int2_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("gs", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("n,k", MOE_INT2_SHAPES)
-@pytest.mark.parametrize("table", ["experts", "uniq-n4"])
-@pytest.mark.parametrize("m", [1, 16, 17, 600])
-def test_moe_int2_tiled_matches_plain(cuda_device, m, table, n, k, dtype):
-    weights = stacked_experts(cuda_device, n, k, seed=n, bits=2)
-    U = 8 if table == "experts" else len(MOE_TABLE)
-    xg = torch.from_numpy(np.random.default_rng(m).standard_normal((U, m, k)).astype(np.float32))
-    eids = None if table == "experts" else torch.from_numpy(MOE_TABLE).to(cuda_device)
-    nslots = torch.tensor(4, dtype=torch.int32, device=cuda_device) if table == "uniq-n4" else None
-    check_moe(MM.qbits_moe_tiled, xg.to(cuda_device, dtype), weights, eids, nslots, bits=2)
+@pytest.mark.parametrize("table", ["experts", "uniq", "uniq-n4"])
+@pytest.mark.parametrize("m", [1, 16, 17, 33, 127, 129, 255, 257, 600, 2048, 2049])
+def test_moe_int2_tiled_matches_plain(cuda_device, m, table, n, k, dtype, gs):
+    xg, weights, eids, nslots = moe_tiled_case(cuda_device, m, table, n, k, dtype, gs, 2)
+    check_moe(MM.qbits_moe_tiled, xg, weights, eids, nslots, bits=2, group_size=gs)
 
 
 @pytest.fixture

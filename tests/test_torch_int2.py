@@ -278,8 +278,10 @@ def experts():
     return j, t
 
 
-@pytest.mark.parametrize("form", ["sel", "uniq", "prefill"])
+@pytest.mark.parametrize("form", ["sel", "uniq", "prefill", "prefill-136"])
 def test_int2_moe_plain_matches_pallas(experts, form):
+    """prefill-136: slabs of 136 rows, not a multiple of the Hopper GEMM's
+    128-row M tile."""
     jw, pw = experts
     rng = np.random.default_rng(5)
     eids = UNIQ
@@ -293,7 +295,8 @@ def test_int2_moe_plain_matches_pallas(experts, form):
         ref = jax_moe.qbits_moe_all_call(jnp.asarray(x), *jw, 2, GS, eids=jnp.asarray(eids), interpret=True)
         out = moe_mm.qbits_moe_all(torch.from_numpy(x), *pw, GS, 2, eids=torch.from_numpy(eids))
     else:
-        x = rng.standard_normal((len(eids), 8, 512)).astype(np.float32)
+        cap = 136 if form == "prefill-136" else 8
+        x = rng.standard_normal((len(eids), cap, 512)).astype(np.float32)
         ref = jax_moe.qbits_moe_prefill_call(jnp.asarray(x), *jw, 2, GS, eids=jnp.asarray(eids), interpret=True)
         out = moe_mm.qbits_moe_prefill(torch.from_numpy(x), *pw, GS, 2, eids=torch.from_numpy(eids))
     assert ref is not None and out.dtype == torch.float32

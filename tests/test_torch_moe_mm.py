@@ -9,8 +9,8 @@ here), frozen into the TPU layout on the JAX side and repacked with
 entry points take the plain version on a CPU tensor (no launch is counted).
 
 Cases: `qbits_moe_sel` at nsel in {2, 9, 30}; `qbits_moe_all` at S = 8, over
-every expert and over a 6-slot expert table; `qbits_moe_prefill` over 8-row
-and 24-row slabs, with and without a table; at both projection shapes of the
+every expert and over a 6-slot expert table; `qbits_moe_prefill` over 8-,
+24- and 136-row slabs, with and without a table; at both projection shapes of the
 tiny Mixtral (N x K = 512 x 256, 256 x 512). Tolerance: max abs error <=
 1e-5 * max|ref| in float32 (the TPU kernels sum group-factored, the plain
 version dequantizes first). The port's device count `nslots` is held to the
@@ -109,8 +109,10 @@ def test_all_matches_pallas(weights, table):
 
 
 @pytest.mark.parametrize("table", [False, True], ids=["experts", "uniq"])
-@pytest.mark.parametrize("cap", [8, 24])
+@pytest.mark.parametrize("cap", [8, 24, 136])
 def test_prefill_matches_pallas(weights, cap, table):
+    """cap 136: not a multiple of the Hopper GEMM's 128-row M tile (JAX's
+    `_moe_prefill_call` takes any multiple of 8)."""
     N, K, jw, pw = weights
     U = len(UNIQ) if table else E
     xg = np.random.default_rng(cap).standard_normal((U, cap, K)).astype(np.float32)

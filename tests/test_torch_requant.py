@@ -167,9 +167,19 @@ def test_requant_array_round_trip():
 
 @pytest.mark.parametrize("gs", [128, 256])
 def test_plain_matches_pallas_interpret(gs):
+    check_plain_against_pallas(gs, 2048)
+
+
+def test_plain_matches_pallas_interpret_ragged_m():
+    """M = 2100: not a multiple of the Hopper GEMM's 128-row M tile
+    (`_int8pc_route` pads M to its own 256-row tile)."""
+    check_plain_against_pallas(128, 2100)
+
+
+def check_plain_against_pallas(gs, M):
     # K = 1024: JAX's default (w16) layout packs 4 codes a word, and its kernel
     # envelope needs whole groups per 256 words.
-    M, N, K_ = 2048, 256, 1024
+    N, K_ = 256, 1024
     rng = np.random.default_rng(gs)
     w = rng.standard_normal((N, K_)).astype(np.float32)
     xq = rng.integers(-128, 128, (M, K_), dtype=np.int8)
