@@ -4,8 +4,10 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --only sweep,serving   # phases 1-2, phase 3's small-M sweep and
                                                  # phase 15 alone (a tree's kernels, A/B)
-    python3 chip_smoke.py --only prefill         # phases 1-2, phase 3's requant and MoE rows,
-                                                 # phases 10, 8, 12, 13 (a tree's kernels, A/B)
+    python3 chip_smoke.py --only prefill         # phases 1-2, phase 3's tiled, requant and MoE
+                                                 # rows, the prefills of phases 4 and 7, phases
+                                                 # 10, 8, 12, phase 11's B = 1 prefill, phase 13
+                                                 # (a tree's kernels, A/B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -34,7 +36,10 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {4, 256})
    and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
    {513, 4096}) at the four linear shapes, bf16 x or output, yardstick
-   `torch.matmul` on the operands dequantized to bf16. The W4A8 requant
+   `torch.matmul` on the operands dequantized to bf16 (the tiled int8 rows
+   also `torch._int_mm` on the int8 codes, `int_mm_ms`). Every row of TPU #2
+   (`qbits_mm_tiled`, `qbits_mm_tiled_int8`, both widths) carries its share of
+   its bound (`bound_share`). The W4A8 requant
    kernel at M in {2048, 4096} and the four linear shapes, held EQUAL to its
    plain version (bf16 out), timed beside the exact route
    (`qbits_mm_tiled_int8`) at the same shape; its first pass alone
@@ -198,6 +203,15 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    prints is labelled: 2 ranks sharing one H100 over gloo measure no TP
    speed. A rank that fails fails the phase.
 
+`--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
+alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
+the W4A8 and `flash_decode` rows phase 10 reads); phase 4's qint4 prefill
+(B = 4 x 1024, no decode) and phase 7's exact-form W4A8 prefill, each timed
+after a warm-up with its exact launch counts and peak memory; phase 10 on
+phase 7's model frozen into the requant form; phases 8 and 12 (B = 4, then
+1); phase 11's B = 1 prefill; phase 13 (a, b). Copied into another tree's
+checkout, it times that tree's kernels beside this one's in one call.
+
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -231,7 +245,7 @@ REPLACES = {
 }
 SOURCE = {
     "qbits_mm_small_m": "quanto_tpu_torch/csrc/qbits_mm_small_m.cu",
-    "qbits_mm_tiled": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_tiled": "quanto_tpu_torch/csrc/qbits_mm_tiled.cu",
     "flash_decode": "quanto_tpu_torch/csrc/flash_decode.cu",
 }
 REPLACES["flash_decode"] = (
@@ -256,7 +270,7 @@ SOURCE.update({
     "qbytes_mm_int8": "quanto_tpu_torch/csrc/qbytes_mm.cu",
     "qbytes_mm_e4m3fn": "quanto_tpu_torch/csrc/qbytes_mm.cu",
     "qbits_mm_int8_small_m": "quanto_tpu_torch/csrc/qbits_mm_small_m.cu",
-    "qbits_mm_tiled_int8": "quanto_tpu_torch/csrc/qbits_mm.cu",
+    "qbits_mm_tiled_int8": "quanto_tpu_torch/csrc/qbits_mm_tiled.cu",
 })
 REPLACES.update({
     "qbytes_mm_int8": "quanto_tpu/ops/pallas/qbytes_mm.py:30",
@@ -268,7 +282,7 @@ REPLACES.update({
 # The W4A8 requant kernel (phase 3): the route's least M and the M of phase 10's [8, 512] chunks.
 REQUANT_M = (2048, 4096)
 SUMMARY_SHAPE["qbits_mm_requant_int8"] = (4096, 14336, 4096)
-SOURCE["qbits_mm_requant_int8"] = "quanto_tpu_torch/csrc/qbits_mm.cu"
+SOURCE["qbits_mm_requant_int8"] = "quanto_tpu_torch/csrc/qbits_mm_requant.cu"
 REPLACES["qbits_mm_requant_int8"] = "quanto_tpu/ops/pallas/qbits_mm.py:401"
 
 # The MoE kernels (phase 3): Mixtral-8x7B's expert shapes (N, K), the forms each kernel is run in.
@@ -492,14 +506,16 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
 
 
-def phase_kernels(K_mod, flush, bits: int = 4):
-    """Phase 3: the two float-x kernels against their plain version at the
-    main path's shapes, over random codes of `bits` (every code value in every
-    position of a byte); an int2 row's name ends in `_int2`."""
+def phase_kernels(K_mod, flush, bits: int = 4, names=None):
+    """Phase 3: the two float-x kernels (or those in `names`) against their
+    plain version at the main path's shapes, over random codes of `bits`
+    (every code value in every position of a byte); an int2 row's name ends in
+    `_int2`. Each row carries its share of its bound (`bound_share`)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234 + bits)
     rows = []
     shapes, kernel_m = (SHAPES, KERNEL_M) if bits == 4 else (LINEAR_SHAPES, INT2_KERNEL_M)
+    kernel_m = {n: ms for n, ms in kernel_m.items() if names is None or n in names}
     for N, K in shapes:
         G = K // GS
         packed = torch.randint(0, 256, (N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
@@ -529,6 +545,7 @@ def phase_kernels(K_mod, flush, bits: int = 4):
                     library_ms=time_ms(lambda: torch.matmul(x, w_bf16.t()), flush),
                     bound_ms=b_ms, bound_by=b_by,
                 )
+                row["bound_share"] = b_ms / row["ms"]
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del out, ref
@@ -661,11 +678,14 @@ def phase_qbytes(flush):
     return rows
 
 
-def phase_w4a8(K_mod, flush, bits: int = 4):
-    """Phase 3, the W4A8 kernels (W2A8 at `bits` = 2): int8 x with a device
-    scalar sx against random codes of `bits` (every code value in every
-    position of a byte), bf16 output, against their plain version; an int2
-    row's name ends in `_int2`."""
+def phase_w4a8(K_mod, flush, bits: int = 4, names=None):
+    """Phase 3, the W4A8 kernels (W2A8 at `bits` = 2; or those in `names`):
+    int8 x with a device scalar sx against random codes of `bits` (every code
+    value in every position of a byte), bf16 output, against their plain
+    version; an int2 row's name ends in `_int2`. Yardsticks: `torch.matmul` on
+    the operands in bf16 (`library_ms`) and, for the tiled arm,
+    `torch._int_mm` on the int8 codes (`int_mm_ms`: the integer products
+    without the group scales). Each row carries its share of its bound."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3456 + (bits != 4))
     rows = []
@@ -676,7 +696,10 @@ def phase_w4a8(K_mod, flush, bits: int = 4):
         scale_t = torch.rand((G, N), device=dev, generator=g) * 0.01 + 0.001
         shift_t = scale_t * (2**bits - 1) / 2
         w_bf16 = K_mod.dequantize_k_codes(packed, scale_t, shift_t, GS, bits).to(torch.bfloat16)
+        codes_t = K_mod.unpack_k_codes(packed, bits).to(torch.int8).t()  # [K, N], column-major
         for name, ms in (W4A8_M if bits == 4 else W2A8_M).items():
+            if names is not None and name not in names:
+                continue
             kernel = getattr(K_mod, name)
             for M in ms:
                 xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
@@ -694,9 +717,12 @@ def phase_w4a8(K_mod, flush, bits: int = 4):
                     library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush),
                     bound_ms=b_ms, bound_by=b_by,
                 )
+                if name == "qbits_mm_tiled_int8":
+                    row["int_mm_ms"] = time_ms(lambda: torch._int_mm(xq, codes_t), flush)
+                row["bound_share"] = b_ms / row["ms"]
                 rows.append(row)
                 log("kernel " + json.dumps(row))
-        del packed, scale_t, shift_t, w_bf16
+        del packed, scale_t, shift_t, w_bf16, codes_t
         torch.cuda.empty_cache()
     return rows
 
@@ -2230,8 +2256,8 @@ def phase_llama_int2(config, ids) -> tuple:
         want_decode={"qbits_mm_small_m": step, "qbits_mm_small_m_int2": step, "flash_decode": layers * steps},
     )
 
-    counts = phase_b1_prefill(
-        "int2", "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache", model, ids,
+    counts = phase_prefill(
+        "int2", "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache", model, ids[:1],
         want={"qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin}, peak_ops=PEAK_BF16_FLOPS,
     )
     del model, qlinears
@@ -2241,31 +2267,32 @@ def phase_llama_int2(config, ids) -> tuple:
 
 
 @torch.no_grad()
-def phase_b1_prefill(tag: str, what: str, model, ids, want: dict, peak_ops: float) -> dict:
-    """Phases 11 and 13: a B = 1 prefill of T tokens (last position only) over a
+def phase_prefill(tag: str, what: str, model, ids, want: dict, peak_ops: float) -> dict:
+    """A prefill of the prompts `ids` (B x T tokens, last position only) over a
     bf16 cache, after a warm-up, with exact launch counts (`want`, 0
     elsewhere); logs its time and peak memory beside its linears' least time
-    (2 M N K operations at `peak_ops`) under the key `<tag>_prefill`. Returns
-    its launch counts."""
+    (2 M N K operations at `peak_ops`) under the key `<tag>_prefill`. Phases 11
+    and 13 (B = 1) and `--only prefill` (phases 4 and 7 at B = 4). Returns its
+    launch counts."""
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
-    x1 = ids[:1]
-    prefill(model, x1, make_cache(model, 1, T), last_only=True)  # warm-up
+    batch = ids.shape[0]
+    prefill(model, ids, make_cache(model, batch, T), last_only=True)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    cache = make_cache(model, 1, T)
+    cache = make_cache(model, batch, T)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(model, x1, cache, last_only=True)
+    logits, cache = prefill(model, ids, cache, last_only=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts = read_counts()
     if counts != {**{n: 0 for n in counts}, **want}:
-        raise RuntimeError(f"{tag} B = 1 prefill launches {counts}, want {want} and 0 elsewhere")
-    if logits.shape != (1, 1, model.config.vocab_size) or not torch.isfinite(logits).all():
-        raise RuntimeError(f"{tag} B = 1 prefill logits: shape {tuple(logits.shape)} or non-finite values")
-    ops = linears_operations(model, T)
+        raise RuntimeError(f"{tag} B = {batch} prefill launches {counts}, want {want} and 0 elsewhere")
+    if logits.shape != (batch, 1, model.config.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{tag} B = {batch} prefill logits: shape {tuple(logits.shape)} or non-finite values")
+    ops = linears_operations(model, batch * T)
     log(json.dumps({
         f"{tag}_prefill": what,
         "prefill_ms": prefill_s * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2364,8 +2391,8 @@ def phase_llama_w2a8(config, ids) -> dict:
     what = "llama-3.1-8b-config qint2 weights, qint8 activations (lm_head bf16), bf16 cache"
     counts = {"decode": phase_arm(f"w2a8: {what}", model, ids, want_prefill={}, want_decode=decode,
                                   prefill_peak_ops=PEAK_BF16_FLOPS)}
-    counts["b1_prefill"] = phase_b1_prefill(
-        "w2a8", f"{what}, B = 1 x 1024 tokens", model, ids,
+    counts["b1_prefill"] = phase_prefill(
+        "w2a8", f"{what}, B = 1 x 1024 tokens", model, ids[:1],
         want={"qbits_mm_tiled_int8": n_lin, "qbits_mm_tiled_int8_int2": n_lin}, peak_ops=PEAK_INT8_OPS,
     )
     freeze(model, w4a8_requant_dot=True)
@@ -2844,19 +2871,24 @@ def only_sweep_and_serving(K_mod, card: str) -> int:
 
 
 def only_prefill(K_mod, card: str) -> int:
-    """`--only prefill`: the prefill paths of TPU #3 and #14. Phase 3's requant
-    and MoE rows (and the W4A8 and `flash_decode` rows phase 10 reads), phase 10
-    on phase 7's model frozen into the requant form, phase 8 and phase 12 (B =
-    4, then 1) and phase 13 (a, b); for timing a tree's kernels against
-    another's. Phase 8's and 12's 2-layer checks and phase 13's are left to the
-    full run."""
+    """`--only prefill`: the prefill paths of TPU #2, #3 and #14, for timing a
+    tree's kernels against another's. Phase 3's #2 rows (both arms, both
+    widths), requant and MoE rows (and the W4A8 and `flash_decode` rows phase
+    10 reads); phase 4's qint4 prefill (B = 4 x 1024, no decode); phase 7's
+    exact-form W4A8 prefill, then phase 10 on that model frozen into the
+    requant form; phases 8 and 12 (B = 4, then 1); phase 11's B = 1 prefill;
+    phase 13 (a, b). The 2-layer checks of phases 5, 9, 11, 12 and 13 are left
+    to the full run."""
     from quanto_tpu_torch import freeze
     from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.mixtral import MixtralConfig
     from quanto_tpu_torch.models.serve import generate
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    rows = (phase_w4a8(K_mod, flush) + phase_flash_decode(flush) + phase_requant(K_mod, flush)
+    tiled = {"qbits_mm_tiled"}
+    rows = (phase_kernels(K_mod, flush, names=tiled) + phase_kernels(K_mod, flush, bits=2, names=tiled)
+            + phase_w4a8(K_mod, flush) + phase_w4a8(K_mod, flush, bits=2, names={"qbits_mm_tiled_int8"})
+            + phase_flash_decode(flush) + phase_requant(K_mod, flush)
             + phase_requant(K_mod, flush, bits=2) + phase_moe(flush) + phase_moe(flush, bits=2))
     del flush
     torch.cuda.empty_cache()
@@ -2864,7 +2896,16 @@ def only_prefill(K_mod, card: str) -> int:
         0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
     ).cuda()
     config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    n_lin = LINEARS_PER_LAYER * config.num_hidden_layers
+    model, _ = build_model(config, seed=0)
+    phase_prefill("qint4", "llama-3.1-8b-config qint4+head4, B = 4 x 1024 tokens, bf16 cache (phase 4)", model, ids,
+                  want={"qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1}, peak_ops=PEAK_BF16_FLOPS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     model, _ = build_model(config, seed=0, weights="qint4", activations="qint8", exclude="lm_head")
+    phase_prefill("w4a8", "llama-3.1-8b-config w4a8 (calibrated, exact form), B = 4 x 1024 tokens, bf16 cache "
+                  "(phase 7)", model, ids, want={"qbits_mm_tiled_int8": n_lin}, peak_ops=PEAK_INT8_OPS)
     freeze(model, w4a8_requant_dot=True)
     generate(model, ids, 2)  # warm-up: one M = 4096 prefill through the requant route
     phase_engine(model, rows)
@@ -2882,6 +2923,13 @@ def only_prefill(K_mod, card: str) -> int:
         del model
         gc.collect()
         torch.cuda.empty_cache()
+    model, _ = build_model(config, seed=0, weights="qint2", exclude="lm_head")
+    phase_prefill("int2", "llama-3.1-8b-config qint2 (lm_head bf16), B = 1 x 1024 tokens, bf16 cache (phase 11)",
+                  model, ids[:1], want={"qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin},
+                  peak_ops=PEAK_BF16_FLOPS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_llama_w2a8(config, ids)
     log(card)
     log(json.dumps({"ok": True, "only": "prefill", "device": {
@@ -3090,6 +3138,10 @@ def main() -> int:
                      "pass_ms": rep["pass_ms"]}
         if name == "qbits_mm_requant_int8_int2":
             extra = {"exact_ms": rep["exact_ms"], "pass_ms": rep["pass_ms"]}
+        if name.startswith("qbits_mm_tiled"):
+            extra["bound_share"] = rep["bound_share"]
+        if name.startswith("qbits_mm_tiled_int8"):
+            extra["int_mm_ms"] = rep["int_mm_ms"]
         if name in serving:
             extra["launches_phase15"] = {arm: c[name] for arm, c in serving[name].items()}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it

@@ -1,6 +1,7 @@
-// Building blocks of the pipelined Hopper GEMMs (sm_90a): the requant GEMM of qbits_mm_requant.cu
-// (TPU #3) and the MoE prefill GEMM of moe_gemm.cu (TPU #14), and the wgmma operand layout that
-// the small-M kernels of qbits_mm_small_m.cu share with them.
+// Building blocks of the pipelined Hopper GEMMs (sm_90a): the prefill GEMMs of qbits_mm_tiled.cu
+// (TPU #2), the requant GEMM of qbits_mm_requant.cu (TPU #3) and the MoE prefill GEMM of
+// moe_gemm.cu (TPU #14), and the wgmma operand layout that the small-M kernels of
+// qbits_mm_small_m.cu share with them.
 //
 // The pipeline they build: a ring of STAGES shared-memory stages; TMA copies (cp.async.bulk.tensor,
 // one thread issues a whole tile) complete on a "full" mbarrier per stage with the tile's byte
@@ -198,6 +199,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to shared memory,
+// completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// A ring position: stage s's slot in a ring of D and the parity of its use of that slot.
+template <int D>
+struct Ring {
+  int slot = 0;
+  uint32_t par = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == D) {
+      slot = 0;
+      par ^= 1;
+    }
+  }
+};
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");

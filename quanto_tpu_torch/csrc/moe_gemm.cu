@@ -97,26 +97,6 @@ __device__ __forceinline__ int slot_expert(const int* eids, const int* nslots, i
   return eids != nullptr ? __ldg(eids + u) : u;
 }
 
-// `bytes` (a multiple of 16) from global to shared memory, completing on bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
-
-// A ring position: stage s's slot in a ring of D and the parity of its use of that slot.
-template <int D>
-struct Ring {
-  int slot = 0;
-  uint32_t par = 0;
-  __device__ __forceinline__ void next() {
-    if (++slot == D) {
-      slot = 0;
-      par ^= 1;
-    }
-  }
-};
-
 constexpr int MG_THREADS = MG_CONSUMERS + 64;  // + two producer warps: x tiles, packed tiles
 
 template <int P, int BITS, int RAW, int WB>

@@ -1,5 +1,6 @@
-// Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm.cu and
-// qbits_mm_small_m.cu (one weight) and moe_mm.cu (a weight per slot of a stacked expert array).
+// Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm_tiled.cu,
+// qbits_mm_small_m.cu and qbits_mm_requant.cu (one weight) and moe_mm.cu (a weight per slot of a
+// stacked expert array).
 //
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
 //
@@ -222,17 +223,15 @@ __device__ __forceinline__ void small_m_block(
 // (gs % 64 == 0) stay the int4 arm's; a 128-code step would double the x tile in shared memory
 // for a kernel that is held by its tensor-core work, not by the weight bytes.
 //
-// The 8 warps form a WM x (8 / WM) grid, each warp an (MT * 16) x (NT * 8) tile: WM = 2, MT = 4
-// gives the 128 x 128 tile of prompt-sized M; WM = 1, MT = 1 a 16 x 128 tile for M <= 16, where
-// a 128-row tile would spend 8x the tensor-core work on padding rows.
+// The 8 warps form a WM x (8 / WM) grid, each warp an (MT * 16) x (NT * 8) tile. moe_mm.cu runs
+// it with WM = 1, MT = 1: a 16 x 128 tile for M <= 16, where a 128-row tile would spend 8x the
+// tensor-core work on padding rows. (The one-weight kernels at M > 512 are the pipelined wgmma
+// GEMMs of qbits_mm_tiled.cu.)
 // ---------------------------------------------------------------------------------------------
-constexpr int TL_BM = 128;
 constexpr int TL_BN = 128;
 constexpr int TL_BK = 64;
 constexpr int TL_THREADS = 256;
 constexpr int TL_LD = TL_BK + 8;  // padded shared-memory row (bf16 elements): no bank conflicts
-constexpr int TL_MT = 4;          // m16 tiles per warp of the 128 x 128 tile (warp tile 64 x 32)
-constexpr int TL_NT = 4;          // n8 tiles per warp of the 128 x 128 tile
 
 template <typename T>
 struct XPlanes;
@@ -245,7 +244,7 @@ struct XPlanes<float> {
   static constexpr int n = 2;
 };
 
-template <typename T, int BM = TL_BM>
+template <typename T, int BM>
 constexpr size_t tiled_smem_bytes() {
   return (size_t)(XPlanes<T>::n * BM + TL_BN) * TL_LD * sizeof(__nv_bfloat16) + BM * sizeof(float);
 }
@@ -311,7 +310,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 }
 
 // ---------------------------------------------------------------------------------------------
-// Codes of a run of 32 (load_run) as int8 operands of mma.sync s8.
+// Codes of a run of 32 (load_run) as int8, one code a byte (s8 tensor-core operands).
 // ---------------------------------------------------------------------------------------------
 
 // The 4 x 4 byte transpose: byte b of o_i is byte i of a_b.
@@ -356,14 +355,6 @@ __device__ __forceinline__ void codes_s8(const uint32_t (&pw)[BITS], uint32_t (&
                  code_operand<2>(pw, 4 * q + 2), code_operand<2>(pw, 4 * q + 3), cw[4 * q],
                  cw[4 * q + 1], cw[4 * q + 2], cw[4 * q + 3]);
   }
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // A fragments of a warp's MT m16 tiles of one x plane at column ks.

@@ -29,7 +29,7 @@
 // tilings: M <= 16 takes one m16 x n8 tile per warp and 8 warps per block (decode: enough
 // blocks and bytes in flight to stream the weights); larger M takes 64 x 32 per warp and 4
 // warps, so each weight byte is converted once per 64 rows of x. float32 x enters as a bf16
-// high and low part (two products), as in csrc/qbits_mm.cu:qbits_mm_tiled.
+// high and low part (two products), as the tiled body of csrc/qbits_mm.cuh does.
 //
 // int8 codes convert by 0x4B000000 | (c + 128), the float 2^23 + 128 + c exactly, minus that
 // bias. e4m3fn codes convert through the hardware (cuda_fp8.h) to f16, exactly; the NaN codes

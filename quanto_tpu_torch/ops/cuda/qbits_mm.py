@@ -3,7 +3,7 @@ versions and their launch counts.
 
 Counterpart of `quanto_tpu/ops/pallas/qbits_mm.py`. CUDA kernels in
 `quanto_tpu_torch/csrc/qbits_mm_small_m.cu` (M <= `MAX_M`, on the tensor cores),
-`quanto_tpu_torch/csrc/qbits_mm.cu` (larger M) and
+`quanto_tpu_torch/csrc/qbits_mm_tiled.cu` (larger M, pipelined wgmma GEMMs) and
 `quanto_tpu_torch/csrc/qbits_mm_requant.cu` (the requant route) compute
 
     y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n]
@@ -41,7 +41,11 @@ workspace the wrapper allocates at the size the C side plans
 (`qbits_mm_small_m_workspace`): from M = 33 (bf16 and int8 x) a first pass
 of the same call sums x over each 64 values once, and where the card would
 be short of blocks K is split over them and a last pass sums the splits in a
-fixed order. The requant kernel takes a workspace of N * K bytes: its first
+fixed order. The two tiled kernels take a workspace of
+`tiled_workspace_bytes`: a first pass writes the weight's codes there once
+per call (bf16 for float x, int8 for int8 x), a second x's group sums (and
+float32 x's bf16 high and low planes), and a TMA-fed wgmma GEMM multiplies
+them. The requant kernel takes a workspace of N * K bytes: its first
 pass writes the requant codes there once per call (`requant_pass` runs that
 pass alone), its second multiplies them with x on the tensor cores.
 
@@ -70,6 +74,7 @@ __all__ = [
     "qbits_mm_plain",
     "qbits_mm_small_m",
     "qbits_mm_tiled",
+    "tiled_workspace_bytes",
     "qbits_mm",
     "qbits_int8_mm_plain",
     "qbits_mm_int8_small_m",
@@ -91,6 +96,9 @@ MAX_M = 512
 # `_prefill_route` returns None for bits == 2 (`quanto_tpu/ops/pallas/
 # qbits_mm.py:339-344`) and the caller runs dequantize + matmul.
 INT2_MAX_M = 1024
+
+# x rows of the tiled GEMMs' output tiles (csrc/qbits_mm_tiled.cu: TG_BM).
+TILED_BM = 192
 
 # Least M of the W4A8 requant route: the JAX package's `_INT8_DOT_MIN_M`
 # (`quanto_tpu/ops/pallas/qbits_mm.py:398`).
@@ -161,12 +169,27 @@ def _workspace_floats(device: int, M: int, N: int, K: int, group_size: int, x_f3
     return n.value
 
 
-def _small_m_ws(name, M, N, K, group_size, x_dtype):
-    """The workspace size of the small-M entry points (`_launch`'s `ws_floats`),
-    None for the others."""
-    if name not in ("qbits_mm_small_m", "qbits_mm_int8_small_m"):
-        return None
-    return lambda device: _workspace_floats(device, M, N, K, group_size, x_dtype == torch.float32)
+def tiled_workspace_bytes(M: int, N: int, K: int, group_size: int, x_dtype: torch.dtype) -> int:
+    """Bytes of the workspace of `qbits_mm_tiled` (float x) or
+    `qbits_mm_tiled_int8` (int8 x) at these shapes, as csrc/qbits_mm_tiled.cu
+    lays it out (`ws_layout`): the weight's codes [N, K] (bf16 for float x,
+    int8 for int8 x), x's group sums float32 [K / group_size, M rounded up to
+    the GEMM's tile rows, TILED_BM], and for float32 x its bf16 high and low
+    planes [2, M, K]."""
+    code_bytes = 1 if x_dtype == torch.int8 else 2
+    mpad = -(-M // TILED_BM) * TILED_BM
+    planes = 2 * M * K * 2 if x_dtype == torch.float32 else 0
+    return N * K * code_bytes + (K // group_size) * mpad * 4 + planes
+
+
+def _workspace(name, M, N, K, group_size, x_dtype):
+    """The workspace size of the small-M and tiled entry points (`_launch`'s
+    `ws_floats`), None for the others."""
+    if name in ("qbits_mm_small_m", "qbits_mm_int8_small_m"):
+        return lambda device: _workspace_floats(device, M, N, K, group_size, x_dtype == torch.float32)
+    if name in ("qbits_mm_tiled", "qbits_mm_tiled_int8"):
+        return lambda device: tiled_workspace_bytes(M, N, K, group_size, x_dtype) // 4
+    return None
 
 
 def _check(x, packed, scale_t, shift_t, group_size, bits):
@@ -202,8 +225,8 @@ def _check_shapes(x, packed, scale_t, shift_t, group_size, bits):
 def _launch(name, operands, out_dtype, M, N, K, group_size, bits, ws_floats=None):
     """Launch the C entry point `name` on `operands` (x, packed, scale_t,
     shift_t and, for int8 x, the requant route's s8 and sx) into a new [M, N]
-    output, with the code width `bits`; with `ws_floats` (the small-M and
-    requant entry points: a callable of the device giving the workspace's
+    output, with the code width `bits`; with `ws_floats` (the small-M, tiled
+    and requant entry points: a callable of the device giving the workspace's
     4-byte elements) also on a new workspace. Every entry point of
     csrc/qbits_mm*.cu takes (device, those pointers, out[, workspace], M, N,
     K, gs, bits, bf16 flag, stream). Raises on a refused launch."""
@@ -248,7 +271,7 @@ def _run_float(wrapper, name, x, packed, scale_t, shift_t, group_size, bits):
         return qbits_mm_plain(x, packed, scale_t, shift_t, group_size, bits)
     out = _launch(
         name, (x, packed, scale_t, shift_t), x.dtype, M, N, K, group_size, bits,
-        ws_floats=_small_m_ws(name, M, N, K, group_size, x.dtype),
+        ws_floats=_workspace(name, M, N, K, group_size, x.dtype),
     )
     _count(wrapper, bits)
     return out
@@ -323,7 +346,7 @@ def _run_int8(wrapper, name, xq, sx, packed, scale_t, shift_t, group_size, out_d
     operands = (xq, packed, scale_t, shift_t, sx.reshape(()))
     out = _launch(
         name, operands, out_dtype, M, N, K, group_size, bits,
-        ws_floats=_small_m_ws(name, M, N, K, group_size, xq.dtype),
+        ws_floats=_workspace(name, M, N, K, group_size, xq.dtype),
     )
     _count(wrapper, bits)
     return out

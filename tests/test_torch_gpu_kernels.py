@@ -71,6 +71,14 @@ one launch a call.
 The row part's all_reduce runs over a one-rank gloo group on the card's
 tensors (gloo stages them through the host), so it returns the partial.
 
+Both arms of TPU #2 (`qbits_mm_tiled`, `qbits_mm_tiled_int8`, the pipelined
+wgmma GEMMs) over random packed bytes, int4 and int2: M on both sides of
+every 128-row tile edge (513 to 4097, 4064 included), N in {384, 1024, 1152,
+14336} and the down projection, K in {2048, 4096, 14336}, group sizes 64,
+128, 256 and K, bf16 and float32 x, bf16 and float32 output for int8 x, with
+the tolerances above; two launches give the same bits; one launch counted a
+call; refused shapes raise on CUDA tensors.
+
 The tensor-core small-M kernels (#1 `qbits_mm_small_m`, #4
 `qbits_mm_int8_small_m`) at every M-tile edge (M in 9..512), N in {1024,
 14336}, group sizes 64, 128 and 256, int4 and int2, over a K (4352) that
@@ -760,3 +768,121 @@ def test_small_m_launch_counts(cuda_device, m, bits):
         call()
         torch.cuda.synchronize()
         assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + (bits == 2))
+
+
+# TPU #2, both arms (`qbits_mm_tiled`, `qbits_mm_tiled_int8`): the pipelined wgmma GEMMs of
+# csrc/qbits_mm_tiled.cu, 128 x 128 output tiles. M on both sides of the tile edges (128-row M
+# tiles; 4064 is the ctx-8192 run's chunk of 4 x 1016 rows).
+TILED_M = [513, 640, 1023, 1024, 1025, 2047, 4064, 4096, 4097]
+
+
+def tiled_run(device, m, n, k, gs, bits, x_kind, seed):
+    """The arm's kernel and plain version on random operands (small_m_operands):
+    float x (bf16 or f32, out in x's dtype) or int8 x with sx (x_kind
+    "int8-bf16" / "int8-f32": the output dtype); returns (out, ref, f32 tol)."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}.get(x_kind, torch.int8)
+    x, packed, scale_t, shift_t = small_m_operands(device, m, n, k, gs, bits, seed, dtype)
+    if dtype == torch.int8:
+        out_dtype = torch.float32 if x_kind == "int8-f32" else torch.bfloat16
+        args = (x, torch.tensor(0.0173, device=device), packed, scale_t, shift_t, gs, out_dtype, bits)
+        out = qbits_mm_tiled_int8(*args)
+        assert out.dtype == out_dtype and out.shape == (m, n)
+        return out, qbits_int8_mm_plain(*args), 1e-5 if out_dtype == torch.float32 else None
+    args = (x, packed, scale_t, shift_t, gs, bits)
+    out = qbits_mm_tiled(*args)
+    assert out.dtype == dtype and out.shape == (m, n)
+    return out, qbits_mm_plain(*args), 1e-4 if dtype == torch.float32 else None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("x_kind", ["bf16", "f32", "int8-bf16", "int8-f32"])
+@pytest.mark.parametrize("m", TILED_M)
+def test_tiled_m_edges_match_plain(cuda_device, m, x_kind, bits):
+    """Both arms of #2 at every M-tile edge, N = 1152 (not a multiple of 256),
+    K = 2048, group size 128, over random packed bytes: float32 x within
+    1e-4 * max|ref| (a bf16 high + low pair), int8 x with a float32 output
+    within 1e-5 * max|ref| (exact int32 group sums), bf16 outputs within
+    1e-2 * max|ref| and cosine > 1 - 1e-4."""
+    out, ref, tol = tiled_run(cuda_device, m, 1152, 2048, 128, bits, x_kind, m + bits)
+    check_close(out, ref, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("x_kind", ["bf16", "f32", "int8-f32"])
+@pytest.mark.parametrize("k", [2048, 4096, 14336])
+@pytest.mark.parametrize("gs", [64, 128, 256, "K"])
+def test_tiled_group_sizes_match_plain(cuda_device, gs, k, x_kind, bits):
+    """Both arms at group sizes 64, 128, 256 and K (per axis: one fold a tile)
+    and K in {2048, 4096, 14336}, M = 1025, N = 384; tolerances as above."""
+    gs = k if gs == "K" else gs
+    out, ref, tol = tiled_run(cuda_device, 1025, 384, k, gs, bits, x_kind, gs + k + bits)
+    check_close(out, ref, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("x_kind", ["bf16", "int8-bf16"])
+@pytest.mark.parametrize("n,k", [(384, 4096), (1024, 4096), (1152, 4096), (14336, 4096), (4096, 14336)])
+def test_tiled_widths_match_plain(cuda_device, n, k, x_kind, bits):
+    """Both arms at N in {384, 1024, 1152, 14336} (K = 4096) and the down
+    projection (4096 x 14336), M = 4097; tolerances as above."""
+    out, ref, tol = tiled_run(cuda_device, 4097, n, k, 128, bits, x_kind, n + k + bits)
+    check_close(out, ref, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("x_kind", ["bf16", "f32", "int8-bf16", "int8-f32"])
+def test_tiled_bit_identical_and_counted(cuda_device, x_kind, bits):
+    """Two launches give the same bits (sums in a fixed order, no atomics),
+    and each call of the wrapper or of the router at M > MAX_M is one launch
+    in `launches` (and, for int2 codes, in `launches_int2`), whatever passes
+    it runs."""
+    m, n, k = 2047, 1024, 4096
+    out, _, _ = tiled_run(cuda_device, m, n, k, 128, bits, x_kind, 5)
+    again, _, _ = tiled_run(cuda_device, m, n, k, 128, bits, x_kind, 5)
+    assert torch.equal(out, again)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}.get(x_kind, torch.int8)
+    x, packed, scale_t, shift_t = small_m_operands(cuda_device, m, n, k, 128, bits, 5, dtype)
+    if dtype == torch.int8:
+        sx, od = torch.tensor(0.0173, device=cuda_device), out.dtype
+        wrapper = qbits_mm_tiled_int8
+        calls = [lambda: qbits_mm_tiled_int8(x, sx, packed, scale_t, shift_t, 128, od, bits),
+                 lambda: qbits_int8_mm(x, sx, packed, scale_t, shift_t, 128, od, bits=bits)]
+    else:
+        wrapper = qbits_mm_tiled
+        calls = [lambda: qbits_mm_tiled(x, packed, scale_t, shift_t, 128, bits),
+                 lambda: qbits_mm(x, packed, scale_t, shift_t, 128, bits)]
+    for call in calls:
+        before = (wrapper.launches, wrapper.launches_int2)
+        assert torch.equal(call(), out)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.launches_int2) == (before[0] + 1, before[1] + (bits == 2))
+
+
+@pytest.mark.gpu
+def test_tiled_refusals(cuda_device):
+    """Shapes off the envelope raise on CUDA tensors before any launch."""
+    x, packed, scale_t, shift_t = small_m_operands(cuda_device, 600, 384, 2048, 128, 4, 0, torch.bfloat16)
+    xq = torch.randint(-128, 128, x.shape, dtype=torch.int8, device=cuda_device)
+    sx = torch.tensor(0.0173, device=cuda_device)
+    before = (qbits_mm_tiled.launches, qbits_mm_tiled_int8.launches)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qbits_mm_tiled(x, packed[:320], scale_t[:, :320], shift_t[:, :320], 128)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        qbits_mm_tiled(x, packed, scale_t.repeat(2, 1)[:21], shift_t.repeat(2, 1)[:21], 96)
+    with pytest.raises(ValueError, match="contiguous"):
+        qbits_mm_tiled(x.t().contiguous().t(), packed, scale_t, shift_t, 128)
+    with pytest.raises(ValueError, match="one device"):
+        qbits_mm_tiled(x, packed, scale_t.cpu(), shift_t.cpu(), 128)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        qbits_mm_tiled(x.half(), packed, scale_t, shift_t, 128)
+    with pytest.raises(TypeError, match="int8"):
+        qbits_mm_tiled_int8(x, sx, packed, scale_t, shift_t, 128, torch.bfloat16)
+    with pytest.raises(TypeError, match="output dtype"):
+        qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, 128, torch.float16)
+    with pytest.raises(ValueError, match="bits"):
+        qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, 128, torch.bfloat16, 3)
+    assert (qbits_mm_tiled.launches, qbits_mm_tiled_int8.launches) == before

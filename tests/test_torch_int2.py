@@ -8,7 +8,9 @@
   byte, bytes >= 0xC0), and its codes and scales are JAX's.
 - The plain version behind each int2 kernel arm (a CPU tensor takes it)
   against JAX's Pallas kernels in interpret mode: `qbits_mm_small_m` at M = 8
-  (`_kernel`), `qbits_mm_tiled` at M = 600 (`_prefill_kernel`), the MoE
+  (`_kernel`), `qbits_mm_tiled` at M = 600 (`_prefill_kernel`), and at M =
+  513 and 1024 (a Hopper GEMM tile edge and the int2 route's largest M) with
+  group size 256, the MoE
   entry points (`_moe_sel_kernel`, `_moe_uniq_kernel`,
   `_moe_prefill_uniq_kernel`), and the W2A8 plain version at M = 8
   (`_int8_kernel`). Float32 outputs within 1e-4 * max|ref|, bf16 outputs at
@@ -164,21 +166,24 @@ def test_int2_crumbs_of_three(position):
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [8, 64, 512, 600])
+@pytest.mark.parametrize(
+    "m", [8, 64, 512, 600, pytest.param((513, 256), id="513-gs256"), pytest.param((1024, 256), id="1024-gs256")]
+)
 def test_int2_plain_matches_pallas_interpret(m, dtype_name):
+    m, gs = m if isinstance(m, tuple) else (m, GS)
     N, Kd = 256, 1024
     rng = np.random.default_rng(m + 2)
     w = rng.standard_normal((N, Kd)).astype(np.float32)
     x = rng.standard_normal((m, Kd)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype_name == "float32" else (jnp.bfloat16, torch.bfloat16)
-    tpu, hop = weight_pair(w, 2, jdt, tdt)
+    tpu, hop = weight_pair(w, 2, jdt, tdt, group_size=gs)
     ref = qbits_matmul_kernel_call(
-        jnp.asarray(x).astype(jdt), tpu._packed, tpu._scale_t, tpu._shift_t, 2, GS, interpret=True
+        jnp.asarray(x).astype(jdt), tpu._packed, tpu._scale_t, tpu._shift_t, 2, gs, interpret=True
     )
     ref = np.asarray(ref.astype(jnp.float32))
     wrapper = K.qbits_mm_small_m if m <= K.MAX_M else K.qbits_mm_tiled
     before = (wrapper.launches, wrapper.launches_int2)
-    out = wrapper(torch.from_numpy(x).to(tdt), hop._packed, hop._scale_t, hop._shift_t, GS, 2)
+    out = wrapper(torch.from_numpy(x).to(tdt), hop._packed, hop._scale_t, hop._shift_t, gs, 2)
     assert (wrapper.launches, wrapper.launches_int2) == before  # a CPU tensor takes the plain version
     assert out.dtype == tdt and out.shape == (m, N)
     if dtype_name == "float32":

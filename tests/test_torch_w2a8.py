@@ -107,17 +107,26 @@ def int2_weight():
 # --- the plain versions against the TPU kernels in interpret mode ------------------------------
 
 
-@pytest.mark.parametrize("m", [513, 1024])
+@pytest.mark.parametrize("m", [513, 1024, pytest.param((513, 256), id="513-gs256"),
+                               pytest.param((1024, 256), id="1024-gs256")])
 def test_tiled_int8_plain_matches_prefill_kernel(int2_weight, m):
+    """The W2A8 arm's plain version against JAX's integer `_prefill_kernel` in
+    interpret mode; group size 256 on a 128 x 1024 weight (at K = 512 an int2
+    group is at most 128 codes in JAX's TPU layout)."""
+    m, gs = m if isinstance(m, tuple) else (m, GS)
     tpu, hop, xq = int2_weight
+    if gs != GS:
+        rng = np.random.default_rng(8)
+        tpu, hop = weight_pair(rng.standard_normal((128, 1024)).astype(np.float32), 2, group_size=gs)
+        xq = rng.integers(-128, 128, (m, 1024), dtype=np.int8)
     ref = qbits_int8_matmul_kernel_call(
-        jnp.asarray(xq[:m]), jnp.asarray(SX), tpu._packed, tpu._scale_t, tpu._shift_t, 2, GS, jnp.float32,
+        jnp.asarray(xq[:m]), jnp.asarray(SX), tpu._packed, tpu._scale_t, tpu._shift_t, 2, gs, jnp.float32,
         interpret=True,
     )
     assert ref is not None
     before = (K.qbits_mm_tiled_int8.launches, K.qbits_mm_tiled_int8.launches_int2)
     out = K.qbits_mm_tiled_int8(
-        torch.from_numpy(xq[:m]), torch.tensor(SX), hop._packed, hop._scale_t, hop._shift_t, GS, torch.float32, 2
+        torch.from_numpy(xq[:m]), torch.tensor(SX), hop._packed, hop._scale_t, hop._shift_t, gs, torch.float32, 2
     )
     assert (K.qbits_mm_tiled_int8.launches, K.qbits_mm_tiled_int8.launches_int2) == before
     assert out.dtype == torch.float32 and out.shape == (m, 128)

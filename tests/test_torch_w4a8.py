@@ -3,7 +3,8 @@
 - The plain version behind the two W4A8 kernels (a CPU tensor takes it)
   against `qbits_int8_matmul_kernel_call(..., interpret=True)` from the same
   codes: M in {1, 4, 33} runs JAX's `_int8_kernel`, M = 520 the integer arm
-  of `_prefill_kernel`. Tolerance 1e-5 * max|ref|: the integer part of each
+  of `_prefill_kernel`, and so do M = 513 and 1030 at group size 256 (both
+  sides of the Hopper GEMM's 128-row tiles). Tolerance 1e-5 * max|ref|: the integer part of each
   group is exact in float32 (127 * 15 * 128 < 2**24), only the order of the
   float32 sums over groups differs.
 - `Calibration` on the tiny Llama: input and output scales within float32
@@ -56,9 +57,12 @@ CAL_BATCHES = [np.random.default_rng(20 + i).integers(0, TINY["vocab_size"], (B,
 TOL = 1e-3
 
 
-@pytest.mark.parametrize("m", [1, 4, 33, 64, 512, 520])
+@pytest.mark.parametrize(
+    "m", [1, 4, 33, 64, 512, 520, pytest.param((513, 256), id="513-gs256"), pytest.param((1030, 256), id="1030-gs256")]
+)
 def test_plain_matches_pallas_interpret(m):
-    N, K, gs = 256, 1024, 128
+    m, gs = m if isinstance(m, tuple) else (m, 128)
+    N, K = 256, 1024
     rng = np.random.default_rng(m)
     w = rng.standard_normal((N, K)).astype(np.float32)
     xq = rng.integers(-128, 128, (m, K), dtype=np.int8)
