@@ -8,6 +8,9 @@
                                                  # rows, the prefills of phases 4 and 7, phases
                                                  # 10, 8, 12, phase 11's B = 1 prefill, phase 13
                                                  # (a tree's kernels, A/B)
+    python3 chip_smoke.py --only qbytes,moe      # phases 1-2, phase 3's 8-bit sweep and MoE rows,
+                                                 # phase 6 and its phase-15 serial arm, phase 8
+                                                 # at B = 4 and 16 (a tree's kernels, A/B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -33,8 +36,8 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    of its last position only), then 63 greedy decode steps. Asserts the
    exact launch counts and prints prefill ms, decode ms/step, tok/s, peak
    memory, the cache's bytes and the step's byte bound.
-   The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {4, 256})
-   and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
+   The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {1, 4, 8,
+   16, 32, 64, 128, 256}) and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
    {513, 4096}) at the four linear shapes, bf16 x or output, yardstick
    `torch.matmul` on the operands dequantized to bf16 (the tiled int8 rows
    also `torch._int_mm` on the int8 codes, `int_mm_ms`). Every row of TPU #2
@@ -58,7 +61,8 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    the Llama-3.1-8B configuration, `quantize(weights="qint8",
    exclude="lm_head")`, `freeze`; the prefill and decode of phase 4, with
    exact launch counts (prefill M = 4096 takes the XLA formula, each decode
-   step 224 launches of the 8-bit kernel).
+   step 224 launches of the 8-bit kernel); then phase 15's serial arm on
+   that model (below).
 7. the `w4a8` arm: `quantize(weights="qint4", activations="qint8",
    exclude="lm_head")`, `Calibration` over 2 batches of 4 x 128 seeded
    tokens (streamline must turn output quantization off for all 224
@@ -82,8 +86,8 @@ Phases (each raises on failure; the script exits 0 only when all pass):
 3 (MoE). The two MoE kernels against their plain version over 8 stacked
    experts at both Mixtral-8x7B projection shapes (14336 x 4096, 4096 x
    14336), bf16 x, float32 outputs: `qbits_moe_small_m` in its selective form
-   (nsel = 2), all form (S = 8 over the 8 experts) and uniq form (S = 8 over
-   a 6-expert table); `qbits_moe_tiled` over 8 slabs of M in {8, 512, 2048}
+   (nsel = 2), all form (S = 8, and TPU #12's own rows at S = 9, 16 and 32,
+   over the 8 experts) and uniq form (S = 8 over a 6-expert table); `qbits_moe_tiled` over 8 slabs of M in {8, 512, 2048}
    and over 8 slabs of 2048 rows with a routed-first table and 6 live slots;
    and both kernels at phase 8's B = 4 decode shapes: M = 4 over 8 slots of a
    routed-first table with a device count of 6 or 8 live slots (gate/up over
@@ -96,15 +100,19 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    `freeze`, `convert_moe_to_stacked(capacity_factor=2.0)` on each layer;
    lm_head bf16), so the card never holds the 93 GB bf16 model. B = 4 x 1024-
    token prompts (prefill through the capacity gather, then 63 greedy decode
-   steps through the unique-expert route over a bf16 cache of 1088 slots) and
-   B = 1 (the selective route), each with exact launch counts per prefill
-   and per decode step; one MoE block's decode forward at B = 1 and B = 4
-   under `torch.cuda.set_sync_debug_mode("error")`.
+   steps through the unique-expert route over a bf16 cache of 1088 slots),
+   B = 1 (the selective route) and B = 16 x 256-token prompts (31 decode
+   steps through the all-experts route: gate and up through TPU #12,
+   `qbits_moe_all`, 64 launches a step), each with exact launch counts per
+   prefill and per decode step; one MoE block's decode forward at B = 1, 4
+   and 16 under `torch.cuda.set_sync_debug_mode("error")`.
 9. Mixtral end-to-end numerics at full width and 2 layers: the stacked model
    against the same model's dense-mask blocks (through `qbits_mm`), and
    against the stacked model through the plain versions called explicitly:
    the prefill's last-position logits and one decode step, at B = 1 and 4,
-   for two weight seeds. Every layer's routing is recorded: a row routed
+   and at B = 16 x 256 the decode step (the all-experts route) from one
+   prefill cache in every path (its prefill logits logged only), for two
+   weight seeds. Every layer's routing is recorded: a row routed
    alike by both paths needs cosine > MIXTRAL_E2E_COS and the same top-1
    token unless its two logits tie (LOGIT_TIE); a row routed differently
    needs a routing tie (ROUTE_TIE) in each layer where it differs.
@@ -112,9 +120,9 @@ Phases (each raises on failure; the script exits 0 only when all pass):
 3 (int2). The int2 arms of the four float-x kernels over random packed bytes
    (every 2-bit code in every position of a byte), bf16 x: `qbits_mm_small_m`
    at M in {4, 8} and `qbits_mm_tiled` at M = 1024 over the four linear
-   shapes; `qbits_moe_small_m` in its selective form and both MoE kernels at
-   phase 12's B = 4 decode shapes, `qbits_moe_tiled` over 8 slabs of 512
-   rows; bounds with the int2 payload's bytes.
+   shapes; `qbits_moe_small_m` in its selective form, its all form at S = 16
+   and both MoE kernels at phase 12's B = 4 decode shapes, `qbits_moe_tiled`
+   over 8 slabs of 512 rows; bounds with the int2 payload's bytes.
 11. Llama-3.1-8B in qint2 (`quantize(weights="qint2", exclude="lm_head")`,
    group size 128, `freeze`): the decode run of phase 6 (B = 4 x 1024, 63
    greedy steps; every step exactly 224 launches of `qbits_mm_small_m`'s
@@ -157,8 +165,9 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    codes over random packed bytes, at M in {1, 4, 8, 16, 32, 64, 128, 256,
    512} on 14336 x 4096 and 4096 x 14336 and at M in {1, 4} on the lm_head
    (128256 x 4096), with phase 3's check; yardstick `torch.matmul` on the bf16
-   operands. Phase 3 (MoE) also times `qbits_moe_small_m`'s all form (TPU #12:
-   every expert, no table) at S = 16.
+   operands. The 8-bit weight-only kernel (TPU #6/#7) is swept the same
+   way: both payloads at M in {1, 4, 8, 16, 32, 64, 128, 256} on the four
+   linear shapes, each row with its bound's share.
 3 (#5). `qbits_mm_partitioned`'s rank-local product (`_local_mm`: the int4
    kernel on the rank's part, cast up to float32) at each tp = 2 shard of
    Llama-3.1-8B (q 2048 x 4096, k/v 512 x 4096, o 4096 x 2048, gate/up 7168 x
@@ -181,7 +190,10 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    in the vocabulary and its first token is a standalone prefill's or at a
    logit tie. Prints the median ms per chunk beside its linears' bound, time
    to first token, decode ms/step beside the bytes a step reads, tok/s and
-   peak memory.
+   peak memory. On phase 6's int8 model (lm_head bf16) only the serial arm
+   runs, every forward exactly 224 `qbytes_mm_int8` (chunks at M = 64,
+   decode at M = 8): the batch arm's M = 512 lies outside that kernel's
+   envelope and takes JAX's XLA formula.
 14. tensor parallelism: 2 ranks (`torch.multiprocessing` spawn, a `file://`
    store) share the one card over gloo (NCCL refuses two ranks on one
    device). Each rank builds phase 4's model from phase 4's seed, each
@@ -209,7 +221,10 @@ the W4A8 and `flash_decode` rows phase 10 reads); phase 4's qint4 prefill
 (B = 4 x 1024, no decode) and phase 7's exact-form W4A8 prefill, each timed
 after a warm-up with its exact launch counts and peak memory; phase 10 on
 phase 7's model frozen into the requant form; phases 8 and 12 (B = 4, then
-1); phase 11's B = 1 prefill; phase 13 (a, b). Copied into another tree's
+1); phase 11's B = 1 prefill; phase 13 (a, b). `--only qbytes,moe` runs
+phases 1-2 and the paths of TPU #6/#7 and #11-#13 alone: phase 3's 8-bit
+sweep and MoE rows (int4 and int2), phase 6 and phase 15's serial arm on its
+model, phase 8 at B = 4 and B = 16. Copied into another tree's
 checkout, it times that tree's kernels beside this one's in one call.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
@@ -217,6 +232,7 @@ The second-to-last line is the per-kernel JSON summary; the last line is
 """
 
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -260,7 +276,9 @@ FD_SUMMARY = ("qint4", 8192)  # the long-context path's cache
 # The kernels of this slice: their phase-3 M values at the four linear shapes (no lm_head:
 # the 8-bit and W4A8 arms exclude it), summary shapes, sources and the TPU kernels they replace.
 LINEAR_SHAPES = SHAPES[:4]
-QBYTES_M = {"qbytes_mm_int8": (4, 256), "qbytes_mm_e4m3fn": (4, 256)}
+# The 8-bit weight-only kernel (TPU #6/#7): every M it takes, both payloads (phase 3's sweep).
+QBYTES_SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 256)
+QBYTES_M = {"qbytes_mm_int8": QBYTES_SWEEP_M, "qbytes_mm_e4m3fn": QBYTES_SWEEP_M}
 W4A8_M = {"qbits_mm_int8_small_m": (4, 8, 512), "qbits_mm_tiled_int8": (513, 4096)}  # M = 8: phase 10's decode
 SUMMARY_SHAPE.update({
     "qbytes_mm_int8": (4, 14336, 4096), "qbytes_mm_e4m3fn": (4, 14336, 4096),
@@ -291,7 +309,9 @@ MOE_EXPERTS = 8
 MOE_SEL_EIDS = [3, 5]  # the selective form: nsel = 2 pairs on two experts
 MOE_UNIQ_EIDS = [6, 1, 3, 0, 7, 4]  # the uniq form: 6 of the 8 experts
 MOE_S = 8
-MOE_ALL_S = 16  # TPU #12 (`_moe_all_kernel`): every expert over the same S rows
+# TPU #12 (`_moe_all_kernel`): every expert over the same S rows, at the S its route takes
+# (`parallel/moe.py`: S·K > 2E and S <= 32, so 9-32 rows at Mixtral's E = 8, top-2); int2 at S = 16.
+MOE_ALL_S = {4: (9, 16, 32), 2: (16,)}
 MOE_TILED_M = (8, 512, 2048)
 MOE_INT2_TILED_M = (512,)  # phase 12's B = 1 prefill: capacity slabs of 512 rows
 # The B = 4 decode step's unique-expert route (S = 4 rows, S·K = 8 = E): both kernels over 8 slots
@@ -303,17 +323,22 @@ MOE_DECODE_TABLES = [(6, [0, 2, 3, 5, 6, 7, 1, 4]), (8, list(range(8)))]
 MOE_PREFILL_UNIQ = MOE_DECODE_TABLES[0]
 # (form, nslots, M, N, K) of the MoE summary entries: the B = 4 decode step's gate/up call with all
 # 8 experts routed (the run its launches come from), and the prefill's gate/up GEMM.
+# `qbits_moe_all` is TPU #12's own entry: `qbits_moe_small_m`'s all form (no table), counted apart,
+# its summary row the B = 16 decode step's gate/up call.
 SUMMARY_SHAPE.update({
     "qbits_moe_small_m": ("uniq", 8, 4, 14336, 4096), "qbits_moe_tiled": ("experts", None, 2048, 14336, 4096),
+    "qbits_moe_all": ("all", None, 16, 14336, 4096),
 })
 SOURCE.update({
     "qbits_moe_small_m": "quanto_tpu_torch/csrc/moe_mm.cu",
     "qbits_moe_tiled": "quanto_tpu_torch/csrc/moe_mm.cu",
+    "qbits_moe_all": "quanto_tpu_torch/csrc/moe_mm.cu",
 })
 REPLACES.update({
     "qbits_moe_small_m": "quanto_tpu/ops/pallas/moe_mm.py:75, quanto_tpu/ops/pallas/moe_mm.py:183, "
                          "quanto_tpu/ops/pallas/moe_mm.py:225",
     "qbits_moe_tiled": "quanto_tpu/ops/pallas/moe_mm.py:330, quanto_tpu/ops/pallas/moe_mm.py:337",
+    "qbits_moe_all": "quanto_tpu/ops/pallas/moe_mm.py:183",
 })
 
 # The int2 arms of the four float-x kernels (phase 3): the small-M kernel at phase 11's decode
@@ -387,6 +412,9 @@ LLAMA31_8B = dict(
     rms_norm_eps=1e-5,
 )
 B, T, NEW = 4, 1024, 64
+# Mixtral serving 16 sequences: every decode step's MoE blocks take the all-experts route (TPU #12
+# for gate and up). 16 prompts of 256 tokens (a prefill of S = 4096, as B x T), 31 decode steps.
+B16, T16, NEW16 = 16, 256, 32
 CAL_BATCHES, CAL_T = 2, 128
 LINEARS_PER_LAYER = 7
 # Long context: the JAX package's headline decode (ctx 8192, qint4 cache).
@@ -643,8 +671,11 @@ def phase_partitioned(flush):
 
 
 def phase_qbytes(flush):
-    """Phase 3, the 8-bit weight-only kernel: both payloads against the plain
-    version, bf16 x and the bf16 [N, 1] scale of a bf16 model."""
+    """Phase 3, the 8-bit weight-only kernel (TPU #6/#7): both payloads against
+    the plain version at every M of QBYTES_SWEEP_M and the four linear
+    shapes, bf16 x and the bf16 [N, 1] scale of a bf16 model; yardstick
+    `torch.matmul` on the bf16 operands. Each row carries its share of its
+    bound (`bound_share`)."""
     import quanto_tpu_torch as qtt
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 
@@ -670,6 +701,7 @@ def phase_qbytes(flush):
                     library_ms=time_ms(lambda: torch.matmul(x, w_bf16.t()), flush),
                     bound_ms=b_ms, bound_by=b_by,
                 )
+                row["bound_share"] = b_ms / row["ms"]
                 rows.append(row)
                 log("kernel " + json.dumps(row))
             del qw, w_bf16
@@ -850,9 +882,9 @@ def phase_moe(flush, bits: int = 4):
             for kernel, x3 in ((MM.qbits_moe_small_m, x4.expand(MOE_EXPERTS, MOE_DECODE_M, K)),
                                (MM.qbits_moe_tiled, h4))
         ]
-        if bits == 4:  # TPU #12's own row: the all form over every expert, no table, S = 16
-            x16 = torch.randn((MOE_ALL_S, K), device=dev, generator=g, dtype=torch.bfloat16)
-            cases.append(("all", MM.qbits_moe_small_m, x16.expand(MOE_EXPERTS, MOE_ALL_S, K), None, None))
+        for S in MOE_ALL_S[bits]:  # TPU #12's own rows: the all form over every expert, no table
+            xs = torch.randn((S, K), device=dev, generator=g, dtype=torch.bfloat16)
+            cases.append(("all", MM.qbits_moe_small_m, xs.expand(MOE_EXPERTS, S, K), None, None))
         for form, kernel, x3, eids, count in cases:
             U, M = x3.shape[:2]
             n_live = U if count is None else count
@@ -1212,7 +1244,7 @@ def counters():
     from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
     from quanto_tpu_torch.ops.cuda import qbytes_mm as QB_mod
 
-    return {
+    wrappers = {
         "qbits_mm_partitioned": SH.qbits_mm_partitioned,
         "qbits_mm_small_m": K_mod.qbits_mm_small_m, "qbits_mm_tiled": K_mod.qbits_mm_tiled,
         "qbits_mm_int8_small_m": K_mod.qbits_mm_int8_small_m, "qbits_mm_tiled_int8": K_mod.qbits_mm_tiled_int8,
@@ -1221,6 +1253,11 @@ def counters():
         "flash_decode": FD_mod.flash_decode,
         "qbits_moe_small_m": MM.qbits_moe_small_m, "qbits_moe_tiled": MM.qbits_moe_tiled,
     }
+    # TPU #12's own count: `qbits_moe_small_m`'s launches in its all form (absent from trees
+    # before it was counted apart, which this script also times).
+    if hasattr(MM.qbits_moe_all, "launches"):
+        wrappers["qbits_moe_all"] = MM.qbits_moe_all
+    return wrappers
 
 
 def read_counts() -> dict:
@@ -1800,14 +1837,15 @@ def linears_bound(model, rows: int, T: int, x_bytes: int, peak_ops: float):
 
 
 @torch.no_grad()
-def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW) -> dict:
+def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, arms=("serial", "batch")) -> dict:
     """Phase 15: the default 8B slice of the JAX package's serving bench on
     `model`, whose linears all take `kernel` (#1 or #4) below M = 513: a
     `BatchedEngine` of 8 slots, max_len 768, chunks of 64 over a bf16 cache,
     SERVE_PROMPTS (random ids from a seed), each arm on a fresh engine:
     (a) serial `add` of each prompt ([1, 64] chunk forwards, M = 64), (b)
     `add_batch` of all ([8, 64], M = 512); then `run_to_completion(burst=16)`
-    for `new_tokens` each (decode forwards of [8, 1], M = 8). Every forward is
+    for `new_tokens` each (decode forwards of [8, 1], M = 8); `arms` picks
+    which of (a) and (b) run. Every forward is
     held to exactly 224 launches of `kernel` at its M, one more at M = its
     rows for a quantized lm_head, 32 `flash_decode` at decode and nothing
     else (a pre-hook on every quantized linear records the M it is called
@@ -1927,12 +1965,25 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW) -
 
     t0 = time.perf_counter()
     try:
-        counts = {"serial": run("serial", serial), "batch": run("batch", batched)}
+        counts = {arm: run(arm, admit) for arm, admit in (("serial", serial), ("batch", batched)) if arm in arms}
     finally:
         for h in hooks:
             h.remove()
     log(f"serving: phase 15 ({label}) took {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def phase_serving_int8(model) -> dict:
+    """Phase 15 on phase 6's int8 model (lm_head bf16): the serial `add` arm,
+    its [1, 64] chunks through #6 at M = 64 (224 launches a chunk forward),
+    its decode steps over 8 rows at M = 8 (224 a step). The batch arm's
+    [8, 64] chunks are M = 512, outside #6's envelope (M <= 256), where the
+    port takes JAX's XLA formula as JAX does: no kernel runs there, so that
+    arm is left out for this model. Returns the arm's launch counts."""
+    log("serving: phase 15 on the int8 model runs the serial arm only: the batch arm's [8, 64] chunks "
+        "(M = 512) lie outside qbytes_mm's envelope (M <= 256) and take JAX's XLA formula, no kernel")
+    return phase_serving("llama-3.1-8b-config qint8 (lm_head bf16), bf16 cache", model, "qbytes_mm_int8",
+                         arms=("serial",))
 
 
 def build_mixtral(config, seed: int, stacked: bool = True, experts: str = "qint4"):
@@ -2002,43 +2053,48 @@ def moe_step_bytes(model, routed_experts: int) -> int:
 
 
 def mixtral_want(config, batch: int, expert_bits: int = 4):
-    """Exact launches of one prefill (B x T tokens) and one decode step: the
-    attention's q/k/v/o through `qbits_mm`, the MoE block's three projections
-    through the MoE kernels on the route the shape takes (prefill: the
-    capacity gather, 3 `qbits_moe_tiled`; decode at B = 1: the selective
-    route, 3 `qbits_moe_small_m`; at B = 4: the unique-expert route, 2
-    `qbits_moe_small_m` and the down projection's `qbits_moe_tiled`). With
-    int2 experts every MoE launch is one of the int2 arm's too."""
+    """Exact launches of one prefill (4096 tokens: B x T, or B16 x T16) and
+    one decode step: the attention's q/k/v/o through `qbits_mm`, the MoE
+    block's three projections through the MoE kernels on the route the shape
+    takes (prefill: the capacity gather, 3 `qbits_moe_tiled`; decode at B = 1:
+    the selective route, 3 `qbits_moe_small_m`; at B = 4 the unique-expert
+    route and at B = 16 the all-experts route, each 2 `qbits_moe_small_m`
+    (gate, up) and the down projection's `qbits_moe_tiled`; at B = 16 the two
+    are `qbits_moe_all`'s, TPU #12). With int2 experts every MoE kernel launch
+    is one of the int2 arm's too."""
     L = config.num_hidden_layers
+    S_K, E = batch * config.num_experts_per_tok, config.num_local_experts
     prefill = {"qbits_mm_tiled": 4 * L, "qbits_moe_tiled": 3 * L}
     step = {"qbits_mm_small_m": 4 * L, "flash_decode": L}
-    if batch == 1:
+    if S_K < E:
         step["qbits_moe_small_m"] = 3 * L
     else:
         step.update(qbits_moe_small_m=2 * L, qbits_moe_tiled=L)
     if expert_bits == 2:
         for want in (prefill, step):
             want.update({f"{n}_int2": c for n, c in want.items() if n.startswith("qbits_moe")})
+    if S_K > 2 * E and "qbits_moe_all" in counters():
+        step["qbits_moe_all"] = 2 * L
     return prefill, step
 
 
 @torch.no_grad()
-def phase_mixtral(model, ids, expert_bits: int = 4) -> dict:
-    """Phase 8 (phase 12 with int2 experts) at one batch: prefill (last
-    position only) and 63 greedy decode steps over a bf16 cache of T + NEW
-    slots, with exact launch counts of every kernel in each half. Returns the
-    run's launch counts."""
+def phase_mixtral(model, ids, expert_bits: int = 4, new: int = NEW) -> dict:
+    """Phase 8 (phase 12 with int2 experts) at one batch: prefill of the
+    prompts `ids` [B, T'] (last position only) and `new` - 1 greedy decode
+    steps over a bf16 cache of T' + `new` slots, with exact launch counts of
+    every kernel in each half. Returns the run's launch counts."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
     config = model.config
-    batch = ids.shape[0]
-    steps = NEW - 1
-    ref_tokens = generate(model, ids, NEW)  # warm-up through the user-facing entry point
+    batch, prompt = ids.shape
+    steps = new - 1
+    ref_tokens = generate(model, ids, new)  # warm-up through the user-facing entry point
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    cache = make_cache(model, batch, T + NEW)
+    cache = make_cache(model, batch, prompt + new)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(model, ids, cache, last_only=True)
@@ -2047,7 +2103,7 @@ def phase_mixtral(model, ids, expert_bits: int = 4) -> dict:
     pre = read_counts()
     first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
     t0 = time.perf_counter()
-    rest, cache = decode(model, first, cache, T, steps)
+    rest, cache = decode(model, first, cache, prompt, steps)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = read_counts()
@@ -2066,13 +2122,13 @@ def phase_mixtral(model, ids, expert_bits: int = 4) -> dict:
         raise RuntimeError(f"mixtral B={batch}: generate() and prefill + decode gave different tokens")
     if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
         raise RuntimeError(f"mixtral B={batch}: decoded token ids out of the vocabulary")
-    # Least bytes of a step: top-2 of 8 reads 2 experts per layer at B = 1; at B = 4 between 2 and
-    # all 8, as the step routes (the bound is given at both ends).
+    # Least bytes of a step: top-2 of 8 reads 2 experts per layer at B = 1; at B = 4 and 16 between
+    # 2 and all 8, as the step routes (the bound is given at both ends).
     lo, hi = moe_step_bytes(model, 2), moe_step_bytes(model, 2 if batch == 1 else MOE_EXPERTS)
     log(json.dumps({
         "mixtral": f"mixtral-8x7b-config qint{expert_bits} experts, qint4 attention (lm_head bf16), "
                    "stacked MoE, bf16 cache",
-        "batch": batch, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
+        "batch": batch, "prompt": prompt, "new_tokens": new, "decode_steps": steps,
         "prefill_ms": prefill_s * 1e3,
         "decode_ms_per_step": decode_s / steps * 1e3,
         "decode_tok_s": batch * steps / decode_s,
@@ -2087,11 +2143,12 @@ def phase_mixtral(model, ids, expert_bits: int = 4) -> dict:
 
 
 def check_no_sync(model) -> None:
-    """Phase 8: one MoE block's decode forward at B = 1 (selective) and B = 4
-    (unique-expert) must not synchronize the host with the card."""
+    """Phase 8: one MoE block's decode forward at B = 1 (selective), B = 4
+    (unique-expert) and B = 16 (all-experts) must not synchronize the host
+    with the card."""
     block = model.model.layers[0].block_sparse_moe
     g = torch.Generator(device="cuda").manual_seed(21)
-    for batch in (1, 4):
+    for batch in (1, 4, B16):
         x = torch.randn((batch, 1, model.config.hidden_size), device="cuda", generator=g).to(torch.bfloat16)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2102,7 +2159,7 @@ def check_no_sync(model) -> None:
         torch.cuda.synchronize()
         if y.shape != x.shape or not torch.isfinite(y).all():
             raise RuntimeError(f"MoE block at B={batch}: output {tuple(y.shape)} or non-finite values")
-    log("mixtral: the MoE block's decode forward at B = 1 and B = 4 ran with no host sync")
+    log(f"mixtral: the MoE block's decode forward at B = 1, 4 and {B16} ran with no host sync")
 
 
 # Phase 9's limits, set from its readings on random weights (NVIDIA H100). Cosine of the stacked
@@ -2121,6 +2178,15 @@ LOGIT_TIE = 2.0 ** -7
 ROUTE_TIE = 0.02
 # Two weight seeds, so that a tie seen on one is not the whole evidence.
 MIXTRAL_E2E_SEEDS = (1, 2)
+# MIXTRAL_B16_PREFILL: the B16 x T16 prefill takes the capacity route, where an expert routed
+# more tokens than its capacity keeps those of the largest routing weights; weights that differ
+# between the paths in their last bits can keep another token there (not verified), and that
+# token's hidden state moves its sequence's later positions. Its rows read cosine down to
+# 0.99937 (seed 1) and 0.99966 (seed 2) against the plain path, 0.99991 or more against the
+# dense-mask path (NVIDIA H100 80GB HBM3), below MIXTRAL_E2E_COS on some rows against the plain
+# path, so its logits are logged, not held; the B16 decode step, the all-experts route that TPU
+# #12 carries, starts from one prefill cache in every path and is held to phase 9's limits
+# (read 0.99990 or more against both).
 
 
 def route_record(model):
@@ -2169,12 +2235,15 @@ def compare_rows(what: str, k, o, route_k, route_o) -> None:
 
 
 @torch.no_grad()
-def phase_mixtral_end_to_end(ids, seed: int, experts: str = "qint4"):
+def phase_mixtral_end_to_end(ids, ids16, seed: int, experts: str = "qint4"):
     """Phase 9 (phase 12's check with int2 experts): 2 layers at full width,
-    B = 1 and B = 4: prefill last-position logits and one decode step of the
-    stacked model, against the same model's dense-mask blocks (run first,
-    through `qbits_mm`) and against the stacked model through the plain
-    versions, row by row (`compare_rows`)."""
+    B = 1 and B = 4 (prompts `ids`): prefill last-position logits and one
+    decode step of the stacked model, against the same model's dense-mask
+    blocks (run first, through `qbits_mm`) and against the stacked model
+    through the plain versions, row by row (`compare_rows`). B = 16 (prompts
+    `ids16`): its decode step, on the all-experts route (TPU #12), from the
+    dense path's prefill cache in every path, held the same way; its prefill
+    logits are logged only (MIXTRAL_B16_PREFILL)."""
     from quanto_tpu_torch import convert_moe_to_stacked
     from quanto_tpu_torch.models.mixtral import MixtralConfig
     from quanto_tpu_torch.models.serve import make_cache, prefill
@@ -2184,33 +2253,40 @@ def phase_mixtral_end_to_end(ids, seed: int, experts: str = "qint4"):
     records, hooks = route_record(model)
     L = config.num_hidden_layers
 
+    prompts = {1: ids[:1], 4: ids[:4], B16: ids16}
+    shared = {}  # B16's prefill cache from the first path (dense), its decode step's input in all
+
     def run(batch):
         """(prefill logits, decode-step logits, routing [2, L, B, E]) at the last position."""
-        x = ids[:batch]
+        x = prompts[batch]
         records.clear()
-        pre, cache = prefill(model, x, make_cache(model, batch, T + 8), last_only=True)
-        step, _ = model(x[:, -1:], cache, T)
+        pre, cache = prefill(model, x, make_cache(model, batch, x.shape[1] + 8), last_only=True)
+        if batch == B16:
+            cache = copy.deepcopy(shared.setdefault(batch, cache))
+        step, _ = model(x[:, -1:], cache, x.shape[1])
         torch.cuda.synchronize()
         if len(records) != 2 * L:
             raise RuntimeError(f"recorded {len(records)} router calls, want {2 * L}")
         return pre[:, -1].float(), step[:, -1].float(), torch.stack(records).reshape(2, L, batch, -1)
 
-    dense = {b: run(b) for b in (1, 4)}
+    dense = {b: run(b) for b in prompts}
     if convert_moe_to_stacked(model, capacity_factor=2.0) != L:
         raise RuntimeError("convert_moe_to_stacked did not convert every block")
     reset_counts()
-    kernel = {b: run(b) for b in (1, 4)}
+    kernel = {b: run(b) for b in prompts}
     counts = read_counts()
     arms = ("qbits_moe_small_m", "qbits_moe_tiled")
+    if counts.get("qbits_moe_all", 2 * L) != 2 * L:  # the B = 16 step's gate and up, TPU #12
+        raise RuntimeError(f"the stacked model launched TPU #12 {counts['qbits_moe_all']} times, want {2 * L}")
     if not all(counts[n] for n in arms) or (experts == "qint2" and not all(counts[n + "_int2"] for n in arms)):
         raise RuntimeError(f"the stacked model did not launch both MoE kernels' {experts} arms: {counts}")
     with plain_versions():
-        plain = {b: run(b) for b in (1, 4)}
+        plain = {b: run(b) for b in prompts}
     if read_counts() != counts:
         raise RuntimeError("the plain forward launched a kernel")
     for h in hooks:
         h.remove()
-    for b in (1, 4):
+    for b in prompts:
         for i, what in enumerate(("prefill", "decode step")):
             k, d, p = kernel[b][i], dense[b][i], plain[b][i]
             rk, rd, rp = kernel[b][2][i], dense[b][2][i], plain[b][2][i]
@@ -2224,6 +2300,8 @@ def phase_mixtral_end_to_end(ids, seed: int, experts: str = "qint4"):
                 "route_max_abs_diff_vs_dense": (rk - rd).abs().max().item(),
                 "route_max_abs_diff_vs_plain": (rk - rp).abs().max().item(),
             }))
+            if b == B16 and what == "prefill":
+                continue  # logged above, not held: MIXTRAL_B16_PREFILL
             compare_rows(f"{experts} seed {seed} B={b} {what} vs dense", k, d, rk, rd)
             compare_rows(f"{experts} seed {seed} B={b} {what} vs plain", k, p, rk, rp)
     del model
@@ -2938,14 +3016,62 @@ def only_prefill(K_mod, card: str) -> int:
     return 0
 
 
+def only_qbytes_and_moe(K_mod, card: str) -> int:
+    """`--only qbytes,moe`: the paths of TPU #6/#7 and #11-#13, for timing a
+    tree's kernels against another's. Phase 3's 8-bit weight-only sweep and
+    MoE rows (int4 and int2); phase 6's int8 run (B = 4 x 1024 prefill, 63
+    decode steps) and phase 15's serial arm on that model; phase 8's Mixtral
+    runs at B = 4 and B = 16 (the all-experts route, TPU #12). The 2-layer
+    checks are left to the full run."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_qbytes(flush)
+    phase_moe(flush)
+    phase_moe(flush, bits=2)
+    del flush
+    torch.cuda.empty_cache()
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    n_lin, steps = LINEARS_PER_LAYER * config.num_hidden_layers, NEW - 1
+    model, _ = build_model(config, seed=0, weights="qint8", exclude="lm_head")
+    phase_arm("int8: llama-3.1-8b-config qint8 (lm_head bf16), bf16 cache", model, ids, want_prefill={},
+              want_decode={"qbytes_mm_int8": n_lin * steps, "flash_decode": config.num_hidden_layers * steps})
+    phase_serving_int8(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_config = MixtralConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16)
+    mixtral_ids = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
+    ).cuda()
+    mixtral_ids16 = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B16, T16), generator=torch.Generator().manual_seed(10)
+    ).cuda()
+    model = build_mixtral(mixtral_config, seed=0)
+    phase_mixtral(model, mixtral_ids)
+    phase_mixtral(model, mixtral_ids16, new=NEW16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"ok": True, "only": "qbytes,moe", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill"):
-        print(f"chip_smoke: --only takes sweep,serving or prefill, got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill or qbytes,moe, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -2965,6 +3091,8 @@ def main() -> int:
         log(info["log"].strip())
     if only == "prefill":
         return only_prefill(K_mod, card)
+    if only == "qbytes,moe":
+        return only_qbytes_and_moe(K_mod, card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -3008,6 +3136,8 @@ def main() -> int:
         "int8: llama-3.1-8b-config qint8 (lm_head bf16), bf16 cache", model, ids,
         want_prefill={}, want_decode={"qbytes_mm_int8": n_lin * steps, **fd_decode},
     )
+    # Phase 15 on this model: the int8 engine, its [1, 64] chunks and 8-row decode steps through #6.
+    serving["qbytes_mm_int8"] = phase_serving_int8(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3054,14 +3184,18 @@ def main() -> int:
     mixtral_ids = torch.randint(
         0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
     ).cuda()
+    mixtral_ids16 = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B16, T16), generator=torch.Generator().manual_seed(10)
+    ).cuda()
     launches_moe = phase_mixtral(model, mixtral_ids)
     launches_moe_b1 = phase_mixtral(model, mixtral_ids[:1])
+    launches_moe_b16 = phase_mixtral(model, mixtral_ids16, new=NEW16)
     check_no_sync(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     for seed in MIXTRAL_E2E_SEEDS:
-        phase_mixtral_end_to_end(mixtral_ids, seed)
+        phase_mixtral_end_to_end(mixtral_ids, mixtral_ids16, seed)
 
     # Phase 11: Llama-3.1-8B in qint2, and its 2-layer check.
     launches_int2_decode, launches_int2_prefill = phase_llama_int2(config, ids)
@@ -3081,7 +3215,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    phase_mixtral_end_to_end(mixtral_ids, MIXTRAL_E2E_SEEDS[0], experts="qint2")
+    phase_mixtral_end_to_end(mixtral_ids, mixtral_ids16, MIXTRAL_E2E_SEEDS[0], experts="qint2")
 
     # Phase 13: Llama-3.1-8B in W2A8, exact and requant forms, and its 2-layer check.
     t0 = time.perf_counter()
@@ -3107,6 +3241,7 @@ def main() -> int:
         "qbits_mm_requant_int8": ("phase 10 (serving engine, batch arm)", launches_engine["batch"]),
         "qbits_moe_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
         "qbits_moe_tiled": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
+        "qbits_moe_all": ("phase 8 (mixtral-8x7b, B = 16)", launches_moe_b16),
         "qbits_mm_small_m_int2": ("phase 11 (llama-3.1-8b qint2, decode run)", launches_int2_decode),
         "qbits_mm_tiled_int2": ("phase 11 (llama-3.1-8b qint2, B = 1 prefill)", launches_int2_prefill),
         "qbits_moe_small_m_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
@@ -3118,8 +3253,11 @@ def main() -> int:
     }
     kernels = []
     for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
-                 "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS), "qbits_mm_partitioned"]:
+                 "qbits_moe_all", "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS), "qbits_mm_partitioned"]:
         mine = [r for r in rows if r["name"] == name]
+        if name == "qbits_moe_all":  # `qbits_moe_small_m`'s rows in TPU #12's form
+            mine = [r for r in rows if r["name"] == "qbits_moe_small_m" and r["form"] == "all" and r["U"] == 8
+                    and r["nslots"] is None]
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
@@ -3131,8 +3269,10 @@ def main() -> int:
             shape = list(SUMMARY_SHAPE[name])
         run, counts = launch_runs.get(name, ("phase 4b (ctx 8192)", launches))
         extra = {} if name in launch_runs else {"launches_ctx1088": launches_1088[name]}
-        if name.startswith("qbits_moe"):
+        if name.startswith("qbits_moe") and name != "qbits_moe_all":
             extra = {"launches_b1": (launches_moe_int2_b1 if name.endswith("_int2") else launches_moe_b1)[name]}
+            if not name.endswith("_int2"):
+                extra["launches_b16"] = launches_moe_b16[name]
         if name == "qbits_mm_requant_int8":
             extra = {"launches_stream": launches_engine["stream"][name], "tiled_int8_ms": rep["tiled_int8_ms"],
                      "pass_ms": rep["pass_ms"]}

@@ -1,7 +1,7 @@
 // Building blocks of the pipelined Hopper GEMMs (sm_90a): the prefill GEMMs of qbits_mm_tiled.cu
 // (TPU #2), the requant GEMM of qbits_mm_requant.cu (TPU #3) and the MoE prefill GEMM of
-// moe_gemm.cu (TPU #14), and the wgmma operand layout that the small-M kernels of
-// qbits_mm_small_m.cu share with them.
+// moe_gemm.cu (TPU #14), and the wgmma operand layout and cp.async copies that the small-M kernels
+// (small_m_tc.cuh, qbytes_mm.cu) share with them.
 //
 // The pipeline they build: a ring of STAGES shared-memory stages; TMA copies (cp.async.bulk.tensor,
 // one thread issues a whole tile) complete on a "full" mbarrier per stage with the tile's byte
@@ -144,6 +144,27 @@ __device__ __forceinline__ void load_run_shared(const unsigned char* p, uint32_t
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     w[0] = v.x; w[1] = v.y;
   }
+}
+
+// ---------------------------------------------------------------------------------------------
+// cp.async: 16-byte copies global -> shared issued by every thread (the small-M kernels' rings).
+// ---------------------------------------------------------------------------------------------
+
+// 16 bytes global -> shared, the bytes past `src_bytes` (0 or 16) zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+// The same for a stream read once along rows: the L2 fetches the whole 256-byte aligned span around
+// the chunk, so a block walking K in 64-byte steps draws each span from device memory in one access
+// and finds the next steps' bytes in L2.
+__device__ __forceinline__ void cp_async16_pf256(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------------------------

@@ -17,6 +17,7 @@
 // on the stream they are given, allocate nothing, and return cudaGetLastError().
 
 #include "qbits_mm.cuh"
+#include "small_m_tc.cuh"
 
 namespace {
 
@@ -29,40 +30,45 @@ __device__ __forceinline__ int slot_expert(const int* eids, const int* nslots, i
 }
 
 // ---------------------------------------------------------------------------------------------
-// qbits_moe_small_m: decode-sized M (<= 512), grid (N / SM_ROWS, ceil(M / SM_BM), U).
+// qbits_moe_small_m: decode-sized M (<= 512), grid (N / TC_BN, ceil(M / BM), U * splits).
 //
 // Replaces quanto_tpu/ops/pallas/moe_mm.py:_moe_sel_kernel (one row per slot), _moe_all_kernel
 // (every expert over the same S rows) and _moe_uniq_kernel (the same over a table of experts).
-// Bound on this card by bytes, as qbits_mm_small_m: each routed expert's payload is read once per
-// SM_BM rows. Each block takes its slot from blockIdx.z, its expert from the table, and runs the
-// body of qbits_mm_small_m on that expert's weight. The selective form gives each slot its own
-// row, so no slot computes rows it then throws away (the TPU kernel's padded diagonal, needed by
-// Mosaic's sublane tiling, has no reason to exist here).
+// Bound on this card by bytes at the decode shapes (each routed expert's payload read once for a
+// few rows; the all form at S = 16 reads 8 experts' 235 MB of int4 codes for 16 rows, 81 us at
+// 3.35 TB/s). Each block takes its slot and its split of K from blockIdx.z, its expert from the
+// table, and runs the tensor-core body of qbits_mm_small_m (small_m_tc.cuh: out^T = deq(W) . x^T on
+// wgmma, a cp.async ring, the codes unpacked once per block under the products) on that expert's
+// weight and the slot's rows, so each code is read and unpacked once per M tile of up to 128 rows.
+// Where the slots' blocks leave the card short, K is split and a second kernel sums the splits in
+// a fixed order, as for one weight. The selective form gives each slot its own
+// row (an 8-row M tile), so no slot computes rows it then throws away (the TPU kernel's padded
+// diagonal, needed by Mosaic's sublane tiling, has no reason to exist here).
 // ---------------------------------------------------------------------------------------------
-template <typename T, int BITS>
-__global__ void __launch_bounds__(SM_THREADS) qbits_moe_small_m_kernel(
+template <typename T, int BITS, int BM, int STAGES, int SUB>
+__global__ void __launch_bounds__(TC_THREADS, blocks_per_sm(BM)) qbits_moe_small_m_kernel(
     const T* __restrict__ x, long long x_slot_stride, const int* __restrict__ eids,
     const int* __restrict__ nslots, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    float* __restrict__ out, int M, int N, int K, int gs) {
-  const int u = blockIdx.z;
-  const int n0 = blockIdx.x * SM_ROWS;
-  const int m0 = blockIdx.y * SM_BM;
+    const float* __restrict__ scale_t, const float* __restrict__ shift_t, float* __restrict__ out,
+    float* __restrict__ ws, const void* __restrict__ xs_pre, int U, int M, int N, int K, int gs,
+    int kt_per, int splits) {
+  const int u = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.y * BM;
   out += (size_t)u * M * N;
+  float* part = splits > 1 ? ws + ((size_t)split * U + u) * M * N : nullptr;
   const int e = slot_expert(eids, nslots, u);
   if (e < 0) {
-    if (threadIdx.x < SM_ROWS * SM_BM) {
-      const int r = threadIdx.x / SM_BM;
-      const int m = threadIdx.x % SM_BM;
-      if (m0 + m < M) out[(size_t)(m0 + m) * N + n0 + r] = 0.f;
-    }
+    small_m_tc_zeros<float, BM>(out, part, M, N, n0, m0);
     return;
   }
   const size_t G = (size_t)(K / gs);
-  small_m_block<T, float, BITS>(x + (size_t)u * x_slot_stride,
-                                packed + (size_t)e * N * row_bytes<BITS>(K),
-                                scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N, out, M,
-                                N, K, gs, n0, m0);
+  // The first pass's stage sums: one set for rows the slots share, else the slot's own.
+  const float* pre = static_cast<const float*>(xs_pre) + (x_slot_stride != 0 ? (size_t)u * M * (K / TC_BK) : 0);
+  small_m_tc_block<T, float, BITS, BM, STAGES, SUB>(
+      x + (size_t)u * x_slot_stride, packed + (size_t)e * N * row_bytes<BITS>(K), scale_t + (size_t)e * G * N,
+      shift_t + (size_t)e * G * N, nullptr, out, part, pre, M, N, K, gs, kt_per, split, n0, m0);
 }
 
 // ---------------------------------------------------------------------------------------------
@@ -113,13 +119,57 @@ struct Args {
   int U, M, N, K, gs;
 };
 
-template <typename T, int BITS>
-int launch_small_m(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.N / SM_ROWS, (a.M + SM_BM - 1) / SM_BM, a.U);
-  qbits_moe_small_m_kernel<T, BITS><<<grid, SM_THREADS, 0, stream>>>(
-      static_cast<const T*>(a.x), a.x_slot_stride, a.eids, a.nslots, a.packed, a.scale_t,
-      a.shift_t, a.out, a.M, a.N, a.K, a.gs);
+// Rows of x each slot has of its own: 1 set when the slots share their rows (slot stride 0).
+inline int x_slots(const Args& a) { return a.x_slot_stride != 0 ? a.U : 1; }
+
+template <typename T, int BITS, int BM, int STAGES, int SUB = 1>
+int launch_small_m_cfg(const Args& a, void* ws, int splits, int kt_per, cudaStream_t stream) {
+  constexpr size_t smem = SmemPlan<T, BITS, BM, STAGES, SUB>::bytes;
+  auto kernel = qbits_moe_small_m_kernel<T, BITS, BM, STAGES, SUB>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // The workspace: the first pass's stage sums [x_slots, M, K / 64], then the split partials
+  // [splits, U, M, N].
+  float* partials = static_cast<float*>(ws);
+  float* sums = nullptr;
+  if constexpr (x_sums<T>(BM)) {
+    const int n = x_slots(a) * a.M * (a.K / TC_BK);
+    sums = partials;
+    partials += n;
+    stage_sums_kernel<T, float><<<(n + 255) / 256, 256, 0, stream>>>(
+        static_cast<const T*>(a.x), sums, x_slots(a), a.x_slot_stride, a.M, a.K);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(a.N / TC_BN, (a.M + BM - 1) / BM, a.U * splits);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(static_cast<const T*>(a.x), a.x_slot_stride, a.eids, a.nslots,
+                                             a.packed, a.scale_t, a.shift_t, a.out, partials, sums, a.U, a.M,
+                                             a.N, a.K, a.gs, kt_per, splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const long long MN = (long long)a.U * a.M * a.N;
+  splitk_sum_kernel<float><<<(unsigned)((MN / 4 + 255) / 256), 256, 0, stream>>>(partials, nullptr, a.out, MN,
+                                                                                 splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int BITS>
+int launch_small_m(int device, const Args& a, void* ws, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  int splits = 1, kt_per = 1;
+  const cudaError_t e = plan_splits(device, a.U, a.M, a.N, a.K, a.gs, f32, &splits, &kt_per);
+  if (e != cudaSuccess) return (int)e;
+  if ((splits > 1 || x_sums<T>(tile_m(a.M, f32))) && ws == nullptr) return (int)cudaErrorInvalidValue;
+  switch (tile_m(a.M, f32)) {
+    case 8: return launch_small_m_cfg<T, BITS, 8, 6>(a, ws, splits, kt_per, stream);
+    case 16: return launch_small_m_cfg<T, BITS, 16, 6>(a, ws, splits, kt_per, stream);
+    case 32: return launch_small_m_cfg<T, BITS, 32, 5>(a, ws, splits, kt_per, stream);
+    case 64: return launch_small_m_cfg<T, BITS, 64, 4>(a, ws, splits, kt_per, stream);
+    default:
+      if constexpr (f32) return (int)cudaErrorInvalidValue;  // tile_m keeps float32 x at 64
+      else if (sub_stages(a.M, a.gs, f32) == 2) return launch_small_m_cfg<T, BITS, 128, 3, 2>(a, ws, splits, kt_per, stream);
+      else return launch_small_m_cfg<T, BITS, 128, 4>(a, ws, splits, kt_per, stream);
+  }
 }
 
 template <typename T, int WM, int MT, int BITS>
@@ -147,21 +197,34 @@ Args make_args(const void* x, long long x_slot_stride, const void* eids, const v
 
 }  // namespace
 
+// 4-byte elements of the workspace qbits_moe_small_m takes for these shapes on `device` (0: none):
+// the first pass's stage sums of x (bf16 x at M > 32; one set when the slots share their rows,
+// shared_rows = 1, else one a slot), then the split partials [splits, U, M, N] where K is split;
+// x_f32: 1 for float32 x, 0 for bfloat16.
+extern "C" int qbits_moe_small_m_workspace(int device, int U, int M, int N, int K, int gs, int x_f32,
+                                           int shared_rows, long long* floats) {
+  const int xs = shared_rows ? 1 : U;
+  return (int)(x_f32 ? small_m_tc_workspace<float>(device, U, xs, M, N, K, gs, floats)
+                     : small_m_tc_workspace<__nv_bfloat16>(device, U, xs, M, N, K, gs, floats));
+}
+
 // x [U, M, K] at slot stride `x_slot_stride` (elements); eids int32 [U] or NULL (slot u ->
-// expert u); nslots int32 scalar or NULL (every slot); out float32 [U, M, N]; bits: 4 or 2, the
-// code width (any other is refused with cudaErrorInvalidValue); x_bf16: 1 when x is bfloat16, 0
-// when it is float32.
+// expert u); nslots int32 scalar or NULL (every slot); out float32 [U, M, N]; ws float32, of
+// qbits_moe_small_m_workspace's size (NULL when 0); bits: 4 or 2, the code width (any other is
+// refused with cudaErrorInvalidValue); x_bf16: 1 when x is bfloat16, 0 when it is float32.
 extern "C" int qbits_moe_small_m(int device, const void* x, long long x_slot_stride,
                                  const void* eids, const void* nslots, const void* packed,
-                                 const void* scale_t, const void* shift_t, void* out, int U, int M,
-                                 int N, int K, int gs, int bits, int x_bf16, void* stream) {
+                                 const void* scale_t, const void* shift_t, void* out, void* ws, int U,
+                                 int M, int N, int K, int gs, int bits, int x_bf16, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a = make_args(x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, U, M, N,
                            K, gs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4) return x_bf16 ? launch_small_m<__nv_bfloat16, 4>(a, s) : launch_small_m<float, 4>(a, s);
-  if (bits == 2) return x_bf16 ? launch_small_m<__nv_bfloat16, 2>(a, s) : launch_small_m<float, 2>(a, s);
+  if (bits == 4)
+    return x_bf16 ? launch_small_m<__nv_bfloat16, 4>(device, a, ws, s) : launch_small_m<float, 4>(device, a, ws, s);
+  if (bits == 2)
+    return x_bf16 ? launch_small_m<__nv_bfloat16, 2>(device, a, ws, s) : launch_small_m<float, 2>(device, a, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 

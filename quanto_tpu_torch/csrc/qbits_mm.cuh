@@ -1,6 +1,6 @@
 // Device code shared by the int4/int2 group-wise dequant matmuls of qbits_mm_tiled.cu,
-// qbits_mm_small_m.cu and qbits_mm_requant.cu (one weight) and moe_mm.cu (a weight per slot of a
-// stacked expert array).
+// qbits_mm_small_m.cu and qbits_mm_requant.cu (one weight) and moe_mm.cu and moe_gemm.cu (a weight
+// per slot of a stacked expert array); the small-M tensor-core body is small_m_tc.cuh.
 //
 //   y[M, N] = x[M, K] @ deq(W)^T,   deq(W)[n, k] = s[g, n] * c[n, k] - z[g, n],   g = k / gs,
 //
@@ -91,117 +91,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// ---------------------------------------------------------------------------------------------
-// Small-M body (decode-sized M) of the MoE kernel qbits_moe_small_m (moe_mm.cu); the one-weight
-// small-M kernels of qbits_mm_small_m.cu run on the tensor cores instead.
-//
-// Bound on this card by bytes: at M = 4 every packed weight byte is read once and used for 4
-// rows of x, far below the ~295 operations per byte at which the tensor cores would become the
-// limit. Design: a block owns SM_ROWS weight rows (output columns) and SM_BM rows of x and walks
-// all of K inside the block, which takes the place of the TPU's sequential grid. Each thread
-// takes a run of 32 codes of each of its rows per step, coalesced along K (16 bytes for int4,
-// 8 for int2), and unpacks them in registers. The 32 codes lie in one group (gs % 32 == 0), so
-// the thread accumulates x . c and sum(x) over them in float32 and applies s_g and z_g in
-// registers. x is tiny next to the weights and stays in L1/L2. A block-wide reduction sums the
-// threads' partial outputs.
-//
-// int2: a step keeps its 32 codes and halves its bytes, rather than keeping 16 bytes and taking
-// 64 codes. At K = 4096 a 64-code step would leave 64 of the 128 threads without work, and the
-// kernel is held by its arithmetic and latency, not by its bytes (the int4 arm takes about five
-// times its byte bound), so a wider load would not pay; the register tiles, the group rule and
-// the reduction stay the int4 arm's.
-// ---------------------------------------------------------------------------------------------
-constexpr int SM_THREADS = 128;
-constexpr int SM_ROWS = 4;
-constexpr int SM_BM = 4;
-
-// Output rows m0 .. m0 + SM_BM - 1 (those below M) and columns n0 .. n0 + SM_ROWS - 1.
-template <typename T, typename TO, int BITS>
-__device__ __forceinline__ void small_m_block(
-    const T* __restrict__ x, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    TO* __restrict__ out, int M, int N, int K, int gs, int n0, int m0) {
-  const int rows_m = min(SM_BM, M - m0);
-  const size_t kp = row_bytes<BITS>(K);
-  const int nchunks = K / 32;
-
-  float y[SM_ROWS][SM_BM];
-#pragma unroll
-  for (int r = 0; r < SM_ROWS; ++r)
-#pragma unroll
-    for (int m = 0; m < SM_BM; ++m) y[r][m] = 0.f;
-
-  for (int c = threadIdx.x; c < nchunks; c += SM_THREADS) {
-    const int k0 = c * 32;
-    uint32_t w[SM_ROWS][BITS];
-#pragma unroll
-    for (int r = 0; r < SM_ROWS; ++r)
-      load_run<BITS>(packed + (size_t)(n0 + r) * kp + (size_t)c * 4 * BITS, w[r]);
-    float dot[SM_ROWS][SM_BM];
-    float xs[SM_BM];
-#pragma unroll
-    for (int m = 0; m < SM_BM; ++m) {
-      xs[m] = 0.f;
-#pragma unroll
-      for (int r = 0; r < SM_ROWS; ++r) dot[r][m] = 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // codes 8q .. 8q + 7 of the run
-      float cf[SM_ROWS][8];
-#pragma unroll
-      for (int r = 0; r < SM_ROWS; ++r)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) cf[r][i] = code_to_float(run_code<BITS>(w[r], 8 * q + i));
-#pragma unroll
-      for (int m = 0; m < SM_BM; ++m) {
-        if (m < rows_m) {
-          float xf[8];
-          load8(x + (size_t)(m0 + m) * K + k0 + 8 * q, xf);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            xs[m] += xf[i];
-#pragma unroll
-            for (int r = 0; r < SM_ROWS; ++r) dot[r][m] = fmaf(xf[i], cf[r][i], dot[r][m]);
-          }
-        }
-      }
-    }
-    const size_t g = (size_t)(k0 / gs);
-#pragma unroll
-    for (int r = 0; r < SM_ROWS; ++r) {
-      const float s = __ldg(scale_t + g * N + n0 + r);
-      const float z = __ldg(shift_t + g * N + n0 + r);
-#pragma unroll
-      for (int m = 0; m < SM_BM; ++m) y[r][m] += s * dot[r][m] - z * xs[m];
-    }
-  }
-
-  __shared__ float red[SM_THREADS / 32][SM_ROWS * SM_BM];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < SM_ROWS; ++r) {
-#pragma unroll
-    for (int m = 0; m < SM_BM; ++m) {
-      float v = y[r][m];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][r * SM_BM + m] = v;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < SM_ROWS * SM_BM) {
-    const int r = threadIdx.x / SM_BM;
-    const int m = threadIdx.x % SM_BM;
-    if (m < rows_m) {
-      float v = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < SM_THREADS / 32; ++wi) v += red[wi][threadIdx.x];
-      store1(out + (size_t)(m0 + m) * N + n0 + r, v);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------------------------

@@ -33,14 +33,21 @@ the CPU; on a CUDA tensor it launches its kernel or raises. Each wrapper's
 `launches` attribute counts its kernel launches, of either width, and
 `launches_int2` those of its int2 arm. Expert ids must lie in
 [0, E): the kernels read them on the device and do not check them.
-`qbits_moe_tiled` at M > 16 with float32 x takes a workspace of x's bytes,
-which the wrapper allocates: a first pass of the same call splits x into the
-bf16 high and low planes the tensor cores multiply.
+`qbits_moe_all` also counts, in its own `launches`, the calls of TPU #12's
+form (every expert, no table) that launched `qbits_moe_small_m`'s kernel.
+`qbits_moe_small_m` runs the tensor-core body of `qbits_mm_small_m` per slot
+(`csrc/small_m_tc.cuh`) and takes a workspace the wrapper allocates at the size
+the C side plans (`qbits_moe_small_m_workspace`): from M = 33 a first pass sums
+x over each 64 values, and where the card would be short of blocks K is split
+and a last pass sums the splits in a fixed order. `qbits_moe_tiled` at M > 16
+with float32 x takes a workspace of x's bytes: a first pass of the same call
+splits x into the bf16 high and low planes the tensor cores multiply.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -85,11 +92,12 @@ def qbits_moe_plain(
 # --- wrappers ---------------------------------------------------------------
 
 # C signatures in csrc/moe_mm.cu: device, x, x_slot_stride, eids, nslots, packed, scale_t,
-# shift_t, out, U, M, N, K, gs, bits, x_bf16, stream; `qbits_moe_tiled` takes the workspace and
-# the stacked weight's expert count E after out.
+# shift_t, out, workspace, U, M, N, K, gs, bits, x_bf16, stream; `qbits_moe_tiled` also takes the
+# stacked weight's expert count E after the workspace. `qbits_moe_small_m_workspace`: device, U,
+# M, N, K, gs, x_f32, shared_rows, the 4-byte elements (out).
 _ARGTYPES = {
     "qbits_moe_small_m": (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_void_p]
     ),
     "qbits_moe_tiled": (
@@ -97,6 +105,23 @@ _ARGTYPES = {
         + [ctypes.c_void_p]
     ),
 }
+_WS_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+@functools.lru_cache(maxsize=None)
+def _small_m_workspace_floats(device: int, U: int, M: int, N: int, K: int, group_size: int, x_f32: bool,
+                              shared_rows: bool) -> int:
+    """4-byte elements of the workspace of a `qbits_moe_small_m` launch at
+    these shapes on `device` (the first pass's sums of x, one set for rows
+    the slots share, and the split-K partials; 0: neither), as
+    csrc/moe_mm.cu plans it."""
+    n = ctypes.c_longlong()
+    rc = kernel("qbits_moe_small_m_workspace", _WS_ARGTYPES)(
+        device, U, M, N, K, group_size, int(x_f32), int(shared_rows), ctypes.byref(n)
+    )
+    if rc != 0:
+        raise RuntimeError(f"qbits_moe_small_m workspace query failed: cudaError {rc}")
+    return n.value
 
 
 def _check(name, x3, packed, scale_t, shift_t, group_size, bits, eids, nslots):
@@ -146,22 +171,27 @@ def _run(wrapper, name, x3, packed, scale_t, shift_t, group_size, bits, eids, ns
     slot_stride = x3.stride(0) if U > 1 else 0
     if any(t.data_ptr() % 16 for t in (x3, packed, scale_t, shift_t)) or (slot_stride * x3.element_size()) % 16:
         raise ValueError(f"{name}: x, its slots, packed, scale_t and shift_t must be 16-byte aligned")
+    device = x3.device.index if x3.device.index is not None else torch.cuda.current_device()
     out = torch.empty((U, M, N), dtype=torch.float32, device=x3.device)
-    extra = []
+    # The workspace, freed on return: the caching allocator hands the block only to later work on
+    # this stream, which runs after every pass.
     if name == "qbits_moe_tiled":
         # float32 x at M > 16: its bf16 high and low planes, [2, U', M, K] (U' = 1 for shared
-        # rows), the bytes of x's own float32 [U', M, K]. Freed on return: the caching allocator
-        # hands the block only to later work on this stream, which runs after both passes.
-        planes = M > 16 and x3.dtype == torch.float32
-        ws = torch.empty((1 if slot_stride == 0 else U) * M * K if planes else 0, dtype=torch.float32,
-                         device=x3.device)
-        extra = [ws.data_ptr() if planes else None, packed.shape[0]]
+        # rows), the bytes of x's own float32 [U', M, K].
+        n_ws = (1 if slot_stride == 0 else U) * M * K if M > 16 and x3.dtype == torch.float32 else 0
+        extra = [packed.shape[0]]
+    else:
+        # The first pass's sums of x and the split-K partials of the tensor-core body.
+        n_ws = _small_m_workspace_floats(device, U, M, N, K, group_size, x3.dtype == torch.float32,
+                                         slot_stride == 0)
+        extra = []
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x3.device) if n_ws else None
     rc = kernel(name, _ARGTYPES[name])(
-        x3.device.index if x3.device.index is not None else torch.cuda.current_device(),
-        x3.data_ptr(), slot_stride,
+        device, x3.data_ptr(), slot_stride,
         None if eids is None else eids.data_ptr(),
         None if nslots is None else nslots.data_ptr(),
-        packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(), *extra,
+        packed.data_ptr(), scale_t.data_ptr(), shift_t.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), *extra,
         U, M, N, K, group_size, bits, int(x3.dtype == torch.bfloat16),
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
@@ -219,7 +249,14 @@ def qbits_moe_all(
     [U, S, N]; with `nslots` as well, the slots at or past it are zeros."""
     U = eids.shape[0] if eids is not None else packed.shape[0]
     x = x.contiguous()
-    return qbits_moe_small_m(x.expand(U, *x.shape), packed, scale_t, shift_t, group_size, bits, eids, nslots)
+    launches = getattr(qbits_moe_small_m, "launches", 0)
+    out = qbits_moe_small_m(x.expand(U, *x.shape), packed, scale_t, shift_t, group_size, bits, eids, nslots)
+    if eids is None:  # TPU #12's own form: every expert over the same rows, no table
+        qbits_moe_all.launches += getattr(qbits_moe_small_m, "launches", 0) - launches
+    return out
+
+
+qbits_moe_all.launches = 0
 
 
 def qbits_moe_prefill(

@@ -15,12 +15,16 @@ x's dtype. Its two payloads have a wrapper and a launch count each:
 (`quanto_tpu/ops/pallas/qbytes_mm.py:154-168`, `:189-202`); `ops/qlinear.py`
 takes the JAX package's XLA formula (`ops/qbytes_mm.py:qbytes_mm`) outside it.
 Each wrapper takes the plain PyTorch version (`qbytes_mm_plain`) when x lies
-on the CPU; on a CUDA tensor it launches the kernel or raises.
+on the CPU; on a CUDA tensor it launches the kernel or raises. Where the card
+would be short of blocks (decode, narrow N) the kernel splits K: the wrapper
+allocates a float32 workspace of the size the C side plans
+(`qbytes_mm_workspace`) and a last pass sums the splits in a fixed order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,8 +60,21 @@ def qbytes_mm_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> to
     return ((x.float() @ w.float().t()) * scale.float().t()).to(x.dtype)
 
 
-# C signature of the entry point in csrc/qbytes_mm.cu.
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# C signatures of the entry points in csrc/qbytes_mm.cu: device, x, w, scale, out, workspace, M, N,
+# K, x_bf16, scale_bf16, w_e4m3, stream; and device, M, N, K, x_f32, the 4-byte elements (out).
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_WS_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(device: int, M: int, N: int, K: int, x_f32: bool) -> int:
+    """4-byte elements of the workspace of a launch at these shapes on
+    `device`: the split-K partials where the kernel splits K, else 0."""
+    n = ctypes.c_longlong()
+    rc = kernel("qbytes_mm_workspace", _WS_ARGTYPES)(device, M, N, K, int(x_f32), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"qbytes_mm workspace query failed: cudaError {rc}")
+    return n.value
 
 
 def _run(name: str, payload: torch.dtype, x, w, scale):
@@ -80,10 +97,15 @@ def _run(name: str, payload: torch.dtype, x, w, scale):
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{name}: x and w must be 16-byte aligned")
     (M, K), N = x.shape, w.shape[0]
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    # Freed on return: the caching allocator hands the block only to later work on this stream,
+    # which runs after both passes.
+    n_ws = _workspace_floats(device, M, N, K, x.dtype == torch.float32)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws else None
     rc = kernel("qbytes_mm", _ARGTYPES)(
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K,
+        device, x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K,
         int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
         int(payload == torch.float8_e4m3fn), torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -5,7 +5,7 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   envelope (`ops/cuda/qbytes_mm.py:eligible`: int8 or e4m3fn payload, N and
   K multiples of 128, bf16/f32 x, M <= 256) the fused kernel of
   `ops/cuda/qbytes_mm.py`, else JAX's XLA formula (`ops/qbytes_mm.py`);
-  with a quantized x (W8A8) it raises: `ROADMAP.md` Queue 1, item 2;
+  with a quantized x (W8A8) it raises: `ROADMAP.md` Queue 1, item 3;
 - `WeightQBitsHopperArray` w (int4 or int2): with a qint8
   `ActivationQBytesArray` x the W4A8/W2A8 kernels (`qbits_int8_mm`, routed
   by M: `qbits_mm_int8_small_m` at M <= 512, `qbits_mm_tiled_int8` above);
@@ -72,7 +72,7 @@ def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     elif isinstance(w, WeightQBytesArray):
         if isinstance(x, ActivationQBytesArray):
             raise NotImplementedError(
-                "qlinear: int8 x int8 (W8A8, qbytes_int_mm) is not ported yet: ROADMAP.md Queue 1, item 2"
+                "qlinear: int8 x int8 (W8A8, qbytes_int_mm) is not ported yet: ROADMAP.md Queue 1, item 3"
             )
         if cuda_qbytes.eligible(x, w._data, w._scale):
             out = cuda_qbytes.qbytes_mm(x, w._data, w._scale)

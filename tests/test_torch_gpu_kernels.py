@@ -12,8 +12,10 @@ within 1e-2 * max|ref| and cosine > 1 - 1e-4 (sums in another order, rounded
 to bf16).
 
 The 8-bit weight-only kernel (`qbytes_mm_int8`, `qbytes_mm_e4m3fn`) over
-ragged M in 1..256, N multiples of 128, several K, bf16 and f32 x (and a f32
-scale beside bf16 x), against `qbytes_mm_plain`: f32 x within 1e-4 *
+ragged M in 1..256, N multiples of 128, several K (Llama-3.1-8B's 1024 x
+4096 and 14336 x 4096 among them, and shapes that split K), bf16 and f32 x
+(and a f32 scale beside bf16 x), two launches bit-identical, against
+`qbytes_mm_plain`: f32 x within 1e-4 *
 max|ref| (a bf16 high + low pair), bf16 x within 1e-2 * max|ref| and cosine
 > 1 - 1e-4. The W4A8 kernels (`qbits_mm_int8_small_m` at M in 1..512,
 `qbits_mm_tiled_int8` at M > 512) against `qbits_int8_mm_plain`: the integer
@@ -40,8 +42,10 @@ positions including 0, float32 and bfloat16 q. Tolerances: float32 q within
 The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
 `qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
 N < K), bf16 and f32 x: the selective form at nsel in {1, 2, 9, 32}, the all
-form at ragged S in {1, 3, 8, 512}, a 6-slot expert table (U < E) with and
-without a device count that skips slots; the batched-expert GEMM at M in
+form at ragged S in {1, 3, 8, 512} and at the all-experts route's S in {9,
+16, 32} (TPU #12; also int2, through `qbits_moe_all`, whose own count ticks
+once a call without a table; and with a device count that skips slots), a
+6-slot expert table (U < E) with and without a device count that skips slots; the batched-expert GEMM at M in
 {1, 4, 8, 16} (the 16-row tile) and at M in {17, 33, 127, 129, 130, 255,
 257, 600, 2048, 2049} (the pipelined GEMM: both sides of its 128-row M
 tiles), group sizes 64, 128 and 256, with and without a table and a device
@@ -177,9 +181,12 @@ def check_close(out, ref, f32_tol):
 @pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"), ("float32", "float32"), ("bfloat16", "float32")],
                          ids=["bf16", "f32", "bf16-f32scale"])
 @pytest.mark.parametrize("payload", ["qint8", "qfloat8_e4m3fn"])
-@pytest.mark.parametrize("n,k", [(128, 128), (384, 640), (256, 2048)])
-@pytest.mark.parametrize("m", [1, 2, 5, 16, 17, 64, 100, 256])
+@pytest.mark.parametrize("n,k", [(128, 128), (384, 640), (256, 2048), (1024, 4096), (14336, 4096)])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 16, 17, 64, 100, 256])
 def test_qbytes_mm_matches_plain(cuda_device, m, n, k, payload, dtypes):
+    """Also at Llama-3.1-8B's k/v and gate/up shapes; 384 x 640, 256 x 2048 and
+    1024 x 4096 at small M split K over a cluster (2 to 8 ways). Two launches
+    give the same bits."""
     x_dtype, s_dtype = (getattr(torch, d) for d in dtypes)
     rng = np.random.default_rng(m * 7 + k)
     w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
@@ -189,8 +196,10 @@ def test_qbytes_mm_matches_plain(cuda_device, m, n, k, payload, dtypes):
     wrapper = QB.qbytes_mm_int8 if payload == "qint8" else QB.qbytes_mm_e4m3fn
     before = wrapper.launches
     out = wrapper(x, qw._data, qw._scale)
+    again = wrapper(x, qw._data, qw._scale)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1 and out.dtype == x_dtype and out.shape == (m, n)
+    assert wrapper.launches == before + 2 and out.dtype == x_dtype and out.shape == (m, n)
+    assert torch.equal(out, again)
     check_close(out, QB.qbytes_mm_plain(x, qw._data, qw._scale), 1e-4 if x_dtype == torch.float32 else None)
 
 
@@ -400,6 +409,7 @@ MOE_TABLE = np.array([6, 1, 3, 0, 7, 4], np.int32)
 @pytest.mark.parametrize("kind,size,nslots", [
     ("sel", 1, None), ("sel", 2, None), ("sel", 9, None), ("sel", 32, None),
     ("all", 1, None), ("all", 3, None), ("all", 8, None), ("all", 512, None),
+    ("all", 9, None), ("all", 16, None), ("all", 32, None), ("all", 16, 5),
     ("uniq", 4, None), ("uniq", 4, 3), ("uniq", 8, None), ("uniq", 8, 4),
 ], ids=lambda v: str(v))
 def test_moe_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, dtype):
@@ -412,11 +422,40 @@ def test_moe_small_m_matches_plain(cuda_device, kind, size, nslots, n, k, dtype)
         out = MM.qbits_moe_sel(x, eids, *weights, 128)
         torch.testing.assert_close(out, MM.qbits_moe_small_m(x[:, None, :], *weights, 128, eids=eids)[:, 0])
     elif kind == "all":
-        check_moe(MM.qbits_moe_small_m, x.expand(8, *x.shape), weights)
+        count = None if nslots is None else torch.tensor(nslots, dtype=torch.int32, device=cuda_device)
+        check_moe(MM.qbits_moe_small_m, x.expand(8, *x.shape), weights, nslots=count)
     else:
         eids = torch.from_numpy(MOE_TABLE).to(cuda_device)
         count = None if nslots is None else torch.tensor(nslots, dtype=torch.int32, device=cuda_device)
         check_moe(MM.qbits_moe_small_m, x.expand(len(MOE_TABLE), *x.shape), weights, eids, count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("rows", [9, 16, 32])
+def test_moe_all_form_counted_bit_identical(cuda_device, rows, bits):
+    """TPU #12's form through its entry point: `qbits_moe_all` without a table
+    launches `qbits_moe_small_m` once and counts it in its own `launches`
+    (with a table it counts nothing), two launches give the same bits, and the
+    int2 arm and dead slots past a device count hold against the plain
+    version."""
+    weights = stacked_experts(cuda_device, 768, 512, seed=rows, bits=bits)
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal((rows, 512)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    before = (MM.qbits_moe_all.launches, MM.qbits_moe_small_m.launches, MM.qbits_moe_small_m.launches_int2)
+    out = MM.qbits_moe_all(x, *weights, 128, bits)
+    again = MM.qbits_moe_all(x, *weights, 128, bits)
+    torch.cuda.synchronize()
+    assert (MM.qbits_moe_all.launches, MM.qbits_moe_small_m.launches, MM.qbits_moe_small_m.launches_int2) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * (bits == 2))
+    assert torch.equal(out, again)
+    ref = MM.qbits_moe_plain(x.expand(8, *x.shape), *weights, 128, bits)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    table = torch.from_numpy(MOE_TABLE).to(cuda_device)
+    MM.qbits_moe_all(x, *weights, 128, bits, eids=table)
+    assert MM.qbits_moe_all.launches == before[0] + 2
+    check_moe(MM.qbits_moe_small_m, x.expand(8, *x.shape), weights, nslots=torch.tensor(
+        5, dtype=torch.int32, device=cuda_device), bits=bits)
 
 
 # Slab rows of the batched-expert GEMM: the 16-row tile (M <= 16), then both sides of the pipelined

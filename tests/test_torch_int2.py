@@ -283,10 +283,11 @@ def experts():
     return j, t
 
 
-@pytest.mark.parametrize("form", ["sel", "uniq", "prefill", "prefill-136"])
+@pytest.mark.parametrize("form", ["sel", "uniq", "prefill", "prefill-136", "all-16"])
 def test_int2_moe_plain_matches_pallas(experts, form):
     """prefill-136: slabs of 136 rows, not a multiple of the Hopper GEMM's
-    128-row M tile."""
+    128-row M tile; all-16: every expert over 16 rows, TPU #12's form at a
+    Mixtral decode step of 16 sequences."""
     jw, pw = experts
     rng = np.random.default_rng(5)
     eids = UNIQ
@@ -299,6 +300,10 @@ def test_int2_moe_plain_matches_pallas(experts, form):
         x = rng.standard_normal((8, 512)).astype(np.float32)
         ref = jax_moe.qbits_moe_all_call(jnp.asarray(x), *jw, 2, GS, eids=jnp.asarray(eids), interpret=True)
         out = moe_mm.qbits_moe_all(torch.from_numpy(x), *pw, GS, 2, eids=torch.from_numpy(eids))
+    elif form == "all-16":
+        x = rng.standard_normal((16, 512)).astype(np.float32)
+        ref = jax_moe.qbits_moe_all_call(jnp.asarray(x), *jw, 2, GS, interpret=True)
+        out = moe_mm.qbits_moe_all(torch.from_numpy(x), *pw, GS, 2)
     else:
         cap = 136 if form == "prefill-136" else 8
         x = rng.standard_normal((len(eids), cap, 512)).astype(np.float32)

@@ -286,10 +286,12 @@ def count_launches(monkeypatch):
     return calls
 
 
-# (B, T), capacity_factor, the wrappers' calls: small_m, tiled.
+# (B, T), capacity_factor, the wrappers' calls: small_m, tiled. "all-decode-16": a decode step of
+# 16 sequences (S = 16, S·K = 32 > 2E), the all-experts route that TPU #12 carries.
 ROUTES = {
     "selective": ((2, 1), 2.0, (3, 0)),
     "all": ((2, 8), 2.0, (2, 1)),
+    "all-decode-16": ((16, 1), 2.0, (2, 1)),
     "capacity": ((2, 32), 2.0, (0, 3)),
     "capacity-exact": ((2, 260), None, (0, 3)),
 }

@@ -9,7 +9,8 @@ here), frozen into the TPU layout on the JAX side and repacked with
 entry points take the plain version on a CPU tensor (no launch is counted).
 
 Cases: `qbits_moe_sel` at nsel in {2, 9, 30}; `qbits_moe_all` at S = 8, over
-every expert and over a 6-slot expert table; `qbits_moe_prefill` over 8-,
+every expert and over a 6-slot expert table, and at the rows of the
+all-experts route (S = 16, 32: TPU #12's own shapes at decode); `qbits_moe_prefill` over 8-,
 24- and 136-row slabs, with and without a table; at both projection shapes of the
 tiny Mixtral (N x K = 512 x 256, 256 x 512). Tolerance: max abs error <=
 1e-5 * max|ref| in float32 (the TPU kernels sum group-factored, the plain
@@ -105,6 +106,23 @@ def test_all_matches_pallas(weights, table):
     kw_p = dict(eids=torch.from_numpy(UNIQ)) if table else {}
     ref = jax_moe.qbits_moe_all_call(jnp.asarray(x), *jw, 4, GS, interpret=True, **kw_j)
     out = no_launch(moe_mm.qbits_moe_all, torch.from_numpy(x), *pw, GS, **kw_p)
+    close(out, ref)
+
+
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("table", [False, True], ids=["all", "uniq"])
+def test_all_matches_pallas_at_route_rows(weights, table, rows):
+    """`test_all_matches_pallas` at the rows the all-experts route takes (a
+    Mixtral decode step of 9-32 sequences: S·K > 2E, S <= 32), where the
+    kernel's M tile is 16 or 32 rows."""
+    N, K, jw, pw = weights
+    x = np.random.default_rng(rows).standard_normal((rows, K)).astype(np.float32)
+    kw_j = dict(eids=jnp.asarray(UNIQ)) if table else {}
+    kw_p = dict(eids=torch.from_numpy(UNIQ)) if table else {}
+    ref = jax_moe.qbits_moe_all_call(jnp.asarray(x), *jw, 4, GS, interpret=True, **kw_j)
+    before = moe_mm.qbits_moe_all.launches
+    out = no_launch(moe_mm.qbits_moe_all, torch.from_numpy(x), *pw, GS, **kw_p)
+    assert moe_mm.qbits_moe_all.launches == before
     close(out, ref)
 
 

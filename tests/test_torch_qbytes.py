@@ -6,14 +6,21 @@
 - `quantize_activation` codes, bit for bit.
 - The plain version behind the 8-bit weight-only kernel (a CPU tensor takes
   it) against `qbytes_matmul_kernel_call` and `qbytes_fp8_matmul_kernel_call`
-  run in interpret mode, and the port's `qlinear` beyond the kernel's
-  envelope against JAX's `qbytes_mm`. Tolerance 1e-5 * max|ref| in float32:
-  only the order of the float32 sums differs.
+  run in interpret mode (M from 1 to 256, the engine's chunk M = 64 and 128
+  among them), and the port's `qlinear` beyond the kernel's envelope against
+  JAX's `qbytes_mm`. Tolerance 1e-5 * max|ref| in float32: only the order of
+  the float32 sums differs.
+- e4m3fn NaN codes (0x7F, 0xFF): NaN through the port's `qlinear` and JAX's,
+  inside the kernel's envelope and outside it; only the dormant Pallas kernel
+  gives a finite value there.
 
 The CUDA kernel itself is held against its plain version on the card by
 `tests/test_torch_gpu_kernels.py`.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ import quanto_tpu as qt
 import quanto_tpu_torch as qtt
 from quanto_tpu.ops.pallas.qbytes_mm import qbytes_fp8_matmul_kernel_call, qbytes_matmul_kernel_call
 from quanto_tpu.ops.qbytes_mm import qbytes_mm as jax_qbytes_mm
+from quanto_tpu.ops.qlinear import qlinear as jax_qlinear
 from quanto_tpu.ops.quantize import quantize_symmetric as jax_quantize_symmetric
 from quanto_tpu.tensor.activations import quantize_activation as jax_quantize_activation
 from quanto_tpu_torch.ops.cuda import qbytes_mm as K
@@ -111,7 +119,7 @@ def quantized_pair(qtype_name, shape=(256, 512), seed=5):
     )
 
 
-@pytest.mark.parametrize("m", [1, 4, 9, 256])
+@pytest.mark.parametrize("m", [1, 4, 9, 64, 128, 256])
 @pytest.mark.parametrize("qtype_name", ["qint8", "qfloat8_e4m3fn"])
 def test_plain_matches_pallas_interpret(qtype_name, m):
     wj, wt = quantized_pair(qtype_name)
@@ -164,6 +172,35 @@ def test_outside_envelope_matches_jax_qbytes_mm(qtype_name, m, dtype_name):
     assert differ.mean() <= 1e-4, differ.mean()
     ulp = np.exp2(np.floor(np.log2(np.abs(r[differ]))) - 7)
     assert np.all(np.abs(o[differ] - r[differ]) <= ulp)
+
+
+@pytest.mark.parametrize("m", [4, 300], ids=["kernel-envelope", "xla-formula"])
+def test_e4m3fn_nan_codes_match_jax_qlinear(m):
+    """A qfloat8 weight whose codes include the e4m3fn NaN codes 0x7F and
+    0xFF (the quantizer never writes them: it clips to +-448; a loaded
+    checkpoint could carry them). JAX's `qlinear` converts the codes
+    (`FP8_DECODE = "convert"`) and gives NaN in those codes' output columns;
+    so does the port's, at M = 4 through the kernel wrapper (its plain
+    version on a CPU tensor; the CUDA kernel converts through the hardware,
+    also NaN) and at M = 300 through JAX's XLA formula. Only the dormant
+    Pallas kernel, whose integer decode reads them as +-480, stays finite."""
+    wj, wt = quantized_pair("qfloat8_e4m3fn")  # [256, 512]
+    codes = codes_of(wt._data).copy()
+    np.testing.assert_array_equal(codes, codes_of(wj._data))
+    codes[5, 7], codes[200, 300] = 0x7F, 0xFF
+    wt = dataclasses.replace(wt, _data=torch.from_numpy(codes).view(torch.float8_e4m3fn))
+    wj = dataclasses.replace(wj, _data=jax.lax.bitcast_convert_type(jnp.asarray(codes), jnp.float8_e4m3fn))
+    xj, xt = inputs((m, 512), "float32", m)
+    assert K.eligible(xt, wt._data, wt._scale) == (m <= K.MAX_M)
+    out, ref = qlinear(xt, wt), np.asarray(jax_qlinear(xj, wj))
+    nan_cols = np.zeros(256, bool)
+    nan_cols[[5, 200]] = True
+    np.testing.assert_array_equal(np.isnan(ref), np.broadcast_to(nan_cols, ref.shape))
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(ref))
+    close(out[:, ~nan_cols], ref[:, ~nan_cols])
+    if m <= K.MAX_M:
+        pallas = qbytes_fp8_matmul_kernel_call(xj, wj._data, wj._scale, interpret=True)
+        assert np.isfinite(np.asarray(pallas)).all()
 
 
 def test_wrapper_refusals():
