@@ -11,6 +11,9 @@
     python3 chip_smoke.py --only qbytes,moe      # phases 1-2, phase 3's 8-bit sweep and MoE rows,
                                                  # phase 6 and its phase-15 serial arm, phase 8
                                                  # at B = 4 and 16 (a tree's kernels, A/B)
+    python3 chip_smoke.py --only decode          # phases 1-2, phase 3's flash_decode and TPU #15
+                                                 # rows, the decode steps of phases 4, 4b, 10 and
+                                                 # 8 (B = 4 and 16) (a tree's kernels, A/B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -23,9 +26,11 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    int4 matmuls: bf16 x, group size 128, yardstick `torch.matmul` on the
    dequantized bf16 weight. `flash_decode`: B = 4, Hkv = 8, G = 4, D = 128,
    bf16 q, caches bf16, qint8, qint4, k8v4 and qint4a of 1088 and 8192 slots,
-   every slot visible; yardstick `scaled_dot_product_attention` (GQA, boolean
-   mask) on the cache dequantized to bf16. Times are CUDA-event medians with
-   the L2 cache flushed before each launch, as the main path finds it.
+   every slot visible, and float32 q (the CUDA-core arm) over the bf16 and
+   qint4 caches of 8192 slots; yardstick `scaled_dot_product_attention` (GQA,
+   boolean mask) on the cache dequantized to bf16; each row also gives the
+   host's µs a call (`host_us`). Times are CUDA-event medians with the L2
+   cache flushed before each launch, as the main path finds it.
 4. main path: the Llama-3.1-8B configuration in bf16 (32 layers, full width,
    random weights from a seed), `quantize(weights="qint4")` with the lm_head
    included, `freeze`; B = 4 prompts of 1024 tokens: prefill (last position
@@ -91,9 +96,11 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    and over 8 slabs of 2048 rows with a routed-first table and 6 live slots;
    and both kernels at phase 8's B = 4 decode shapes: M = 4 over 8 slots of a
    routed-first table with a device count of 6 or 8 live slots (gate/up over
-   shared rows, down over per-slot rows). Yardstick: one `torch.bmm` over the
-   live slots' experts, gathered and dequantized to bf16 beforehand. Bound:
-   the live experts' bytes once.
+   shared rows, down over per-slot rows); `qbits_moe_tiled` also at the B = 16
+   step's down call (8 slots of 16 rows of their own, no table; its M <= 16
+   arm, TPU #15, as at B = 4). Yardstick: one `torch.bmm` over the live slots'
+   experts, gathered and dequantized to bf16 beforehand. Bound: the live
+   experts' bytes once. Each row also gives the host's µs a call.
 8. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json; 32 layers, full
    width, 8 experts, top-2), random weights from a seed, built on "meta" and
    materialized one decoder layer at a time (`quantize(weights="qint4")`,
@@ -224,8 +231,14 @@ phase 7's model frozen into the requant form; phases 8 and 12 (B = 4, then
 1); phase 11's B = 1 prefill; phase 13 (a, b). `--only qbytes,moe` runs
 phases 1-2 and the paths of TPU #6/#7 and #11-#13 alone: phase 3's 8-bit
 sweep and MoE rows (int4 and int2), phase 6 and phase 15's serial arm on its
-model, phase 8 at B = 4 and B = 16. Copied into another tree's
-checkout, it times that tree's kernels beside this one's in one call.
+model, phase 8 at B = 4 and B = 16. `--only decode` runs phases 1-2 and
+the decode paths of TPU #8-#10 and #15 alone: phase 3's `flash_decode` rows
+and the MoE rows at M <= 16 (int4 and int2; the W4A8 small-M rows phase 10
+reads), phase 4's qint4 run at ctx 1088 and phase 4b's at ctx 8192 (each
+prefill, then 63 decode steps, exact counts), phase 10 on phase 7's model
+frozen into the requant form, and phase 8 at B = 4 and B = 16. Copied into
+another tree's checkout, each of these modes times that tree's kernels beside
+this one's in one call.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -273,6 +286,7 @@ FD_HEADS = (8, 4, 128)
 FD_CACHES = ["bf16", "qint8", "qint4", "k8v4", "qint4a"]
 FD_SLOTS = [1088, 8192]
 FD_SUMMARY = ("qint4", 8192)  # the long-context path's cache
+FD_F32_Q = ["bf16", "qint4"]  # caches of 8192 slots also read with float32 q (the CUDA-core arm)
 # The kernels of this slice: their phase-3 M values at the four linear shapes (no lm_head:
 # the 8-bit and W4A8 arms exclude it), summary shapes, sources and the TPU kernels they replace.
 LINEAR_SHAPES = SHAPES[:4]
@@ -333,13 +347,19 @@ SOURCE.update({
     "qbits_moe_small_m": "quanto_tpu_torch/csrc/moe_mm.cu",
     "qbits_moe_tiled": "quanto_tpu_torch/csrc/moe_mm.cu",
     "qbits_moe_all": "quanto_tpu_torch/csrc/moe_mm.cu",
+    "qbits_moe_tiled_small_m": "quanto_tpu_torch/csrc/moe_mm.cu",
 })
 REPLACES.update({
     "qbits_moe_small_m": "quanto_tpu/ops/pallas/moe_mm.py:75, quanto_tpu/ops/pallas/moe_mm.py:183, "
                          "quanto_tpu/ops/pallas/moe_mm.py:225",
     "qbits_moe_tiled": "quanto_tpu/ops/pallas/moe_mm.py:330, quanto_tpu/ops/pallas/moe_mm.py:337",
     "qbits_moe_all": "quanto_tpu/ops/pallas/moe_mm.py:183",
+    "qbits_moe_tiled_small_m": "quanto_tpu/ops/pallas/moe_mm.py:337 (qbits_moe_tiled at M <= 16)",
 })
+# TPU #15 on the main path: `qbits_moe_tiled`'s M <= 16 arm, counted apart (`launches_small_m`), its
+# summary row the B = 4 decode step's down call with all 8 experts routed. The B = 16 step's down
+# call (8 slots of 16 rows, no table) is a phase-3 row of its own.
+SUMMARY_SHAPE["qbits_moe_tiled_small_m"] = ("uniq", 8, 4, 4096, 14336)
 
 # The int2 arms of the four float-x kernels (phase 3): the small-M kernel at phase 11's decode
 # (M = 4) and at M = 8, the tiled one at its B = 1 prefill (M = 1024, the int2 route's largest M),
@@ -351,11 +371,12 @@ INT2_KERNEL_M = {"qbits_mm_small_m": (4, 8), "qbits_mm_tiled": (1024,)}
 # (M = 1024), the requant kernel at REQUANT_M (phase 13's requant prefill is M = 4096).
 W2A8_M = {"qbits_mm_int8_small_m": (4, 8), "qbits_mm_tiled_int8": (513, 1024)}
 INT2_ARMS = ["qbits_mm_small_m", "qbits_mm_tiled", "qbits_moe_small_m", "qbits_moe_tiled",
-             "qbits_mm_int8_small_m", "qbits_mm_tiled_int8", "qbits_mm_requant_int8"]
+             "qbits_moe_tiled_small_m", "qbits_mm_int8_small_m", "qbits_mm_tiled_int8", "qbits_mm_requant_int8"]
 SUMMARY_SHAPE.update({
     "qbits_mm_small_m_int2": (4, 14336, 4096), "qbits_mm_tiled_int2": (1024, 14336, 4096),
     "qbits_moe_small_m_int2": ("uniq", 8, 4, 14336, 4096),
     "qbits_moe_tiled_int2": ("experts", None, 512, 14336, 4096),
+    "qbits_moe_tiled_small_m_int2": ("uniq", 8, 4, 4096, 14336),
     "qbits_mm_int8_small_m_int2": (4, 14336, 4096), "qbits_mm_tiled_int8_int2": (1024, 14336, 4096),
     "qbits_mm_requant_int8_int2": (4096, 14336, 4096),
 })
@@ -829,13 +850,14 @@ def phase_requant(K_mod, flush, bits: int = 4):
     return rows
 
 
-def phase_moe(flush, bits: int = 4):
+def phase_moe(flush, bits: int = 4, decode_tiled: bool = False):
     """Phase 3, the MoE kernels: each form against the plain version over 8
     stacked experts with random codes of `bits`, bf16 x, float32 outputs held
     within 1e-4 * max|ref| and cosine > 1 - 1e-5 (sums in another order). The
     int2 arms run at the selective form of phase 12's B = 1 step, its B = 4
     decode shapes and its B = 1 prefill's slabs (MOE_INT2_TILED_M); their rows'
-    names end in `_int2`."""
+    names end in `_int2`. `decode_tiled`: only `qbits_moe_tiled`'s rows at
+    M <= 16 (TPU #15)."""
     from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda.qbits_mm import dequantize_k_codes
 
@@ -882,9 +904,14 @@ def phase_moe(flush, bits: int = 4):
             for kernel, x3 in ((MM.qbits_moe_small_m, x4.expand(MOE_EXPERTS, MOE_DECODE_M, K)),
                                (MM.qbits_moe_tiled, h4))
         ]
+        # The B = 16 decode step's down call: every expert over its own 16 rows, no table.
+        h16 = torch.randn((MOE_EXPERTS, B16, K), device=dev, generator=g, dtype=torch.bfloat16)
+        cases.append(("all", MM.qbits_moe_tiled, h16, None, None))
         for S in MOE_ALL_S[bits]:  # TPU #12's own rows: the all form over every expert, no table
             xs = torch.randn((S, K), device=dev, generator=g, dtype=torch.bfloat16)
             cases.append(("all", MM.qbits_moe_small_m, xs.expand(MOE_EXPERTS, S, K), None, None))
+        if decode_tiled:
+            cases = [c for c in cases if c[1] is MM.qbits_moe_tiled and c[2].shape[1] <= 16]
         for form, kernel, x3, eids, count in cases:
             U, M = x3.shape[:2]
             n_live = U if count is None else count
@@ -919,6 +946,7 @@ def phase_moe(flush, bits: int = 4):
                 plain_ms=time_ms(lambda: MM.qbits_moe_plain(x3, *weights, eids=eids, nslots=nslots), flush),
                 library_ms=time_ms(lambda: torch.bmm(x_lib, w_lib.transpose(1, 2)), flush),
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                host_us=host_us(lambda: kernel(x3, *weights, eids=eids, nslots=nslots), n=20),
             )
             rows.append(row)
             log("kernel " + json.dumps(row))
@@ -928,15 +956,15 @@ def phase_moe(flush, bits: int = 4):
     return rows
 
 
-def fd_bound(slots: int, batch: int, k_row: int, v_row: int, per_slot: int):
+def fd_bound(slots: int, batch: int, k_row: int, v_row: int, per_slot: int, q_bytes: int = 2):
     """Least time (ms) of one flash_decode call over `batch` rows that see
     `slots` cache slots in all (each row its positions up to its own): each
     visible slot's K and V rows (`k_row` + `v_row` bytes per head) and
-    per-slot factors (`per_slot` bytes per head) read once, bf16 q read and
-    the output written once; two dots of D per slot and query at the bf16
-    tensor-core rate."""
+    per-slot factors (`per_slot` bytes per head) read once, q read and the
+    output written once (`q_bytes` a value); two dots of D per slot and query
+    at the bf16 tensor-core rate."""
     Hkv, G, D = FD_HEADS
-    nbytes = slots * Hkv * (k_row + v_row + per_slot) + 2 * 2 * batch * Hkv * G * D
+    nbytes = slots * Hkv * (k_row + v_row + per_slot) + 2 * q_bytes * batch * Hkv * G * D
     flops = 4 * Hkv * G * D * slots
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -958,8 +986,9 @@ def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B):
 
 def phase_flash_decode(flush):
     """Phase 3, flash_decode: the kernel against its plain version and SDPA,
-    at B = 4 with every slot visible over each cache type, and at phase 10's
-    decode step (bf16, 8 ragged rows, `FD_ENGINE_POS`)."""
+    at B = 4 with every slot visible over each cache type (and with float32 q
+    over FD_F32_Q at 8192 slots), and at phase 10's decode step (bf16, 8
+    ragged rows, `FD_ENGINE_POS`)."""
     from quanto_tpu_torch.ops.attention import decode_attention
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
     from quanto_tpu_torch.tensor.kv_cache import kv_read
@@ -967,13 +996,14 @@ def phase_flash_decode(flush):
     Hkv, G, D = FD_HEADS
     g = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
-    # (cache, S, positions, the engine arm they stand for or None)
-    cases = [(kind, S, [S - 1] * B, None) for S in FD_SLOTS for kind in FD_CACHES]
-    cases += [("bf16", ENGINE_MAX_LEN, p, arm) for arm, p in FD_ENGINE_POS.items()]
-    for kind, S, positions, arm in cases:
+    # (cache, S, positions, the engine arm they stand for or None, q's dtype)
+    cases = [(kind, S, [S - 1] * B, None, torch.bfloat16) for S in FD_SLOTS for kind in FD_CACHES]
+    cases += [(kind, FD_SLOTS[-1], [FD_SLOTS[-1] - 1] * B, None, torch.float32) for kind in FD_F32_Q]
+    cases += [("bf16", ENGINE_MAX_LEN, p, arm, torch.bfloat16) for arm, p in FD_ENGINE_POS.items()]
+    for kind, S, positions, arm, q_dtype in cases:
         nb = len(positions)
         cache = fd_cache(kind, S, g, nb)
-        q = torch.randn((nb, Hkv, G, D), device="cuda", generator=g).to(torch.bfloat16)
+        q = torch.randn((nb, Hkv, G, D), device="cuda", generator=g).to(q_dtype)
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
         if kind == "bf16":
             args = (q, *cache, None, None, pos)
@@ -1000,10 +1030,10 @@ def phase_flash_decode(flush):
             raise RuntimeError(
                 f"flash_decode {kind} S={S} positions={positions}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})"
             )
-        # Yardstick: SDPA over the cache dequantized to bf16, q [B, H, 1, D].
+        # Yardstick: SDPA over the cache dequantized to bf16, q [B, H, 1, D] in bf16.
         kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
         kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-        qs = q.reshape(nb, Hkv * G, 1, D)
+        qs = q.reshape(nb, Hkv * G, 1, D).to(torch.bfloat16)
         mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
 
         def sdpa():
@@ -1011,9 +1041,11 @@ def phase_flash_decode(flush):
 
         lib = sdpa().reshape(nb, Hkv, G, D)
         lib_cos = cosine(lib, ref)
-        b_ms, b_by = fd_bound(sum(p + 1 for p in positions), nb, k_row, v_row, per_slot)
+        # float32 q reads q and writes the output in 4 bytes a value.
+        b_ms, b_by = fd_bound(sum(p + 1 for p in positions), nb, k_row, v_row, per_slot, q.element_size())
         row = dict(
             name="flash_decode", cache=kind, S=S, B=nb, engine_arm=arm, Hkv=Hkv, G=G, D=D,
+            q="f32" if q_dtype == torch.float32 else "bf16",
             max_abs_err=err, cosine=cos, sdpa_cosine=lib_cos,
             ms=time_ms(lambda: flash_decode(*args, **kw), flush),
             plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
@@ -1233,6 +1265,20 @@ def phase_long_context(K_mod, FD_mod, model, qlinears):
     return launches
 
 
+class ArmCount:
+    """One arm of a kernel wrapper counted apart: the wrapper's `<attr>` and
+    `<attr>_int2` read and set as this object's `launches` and
+    `launches_int2`."""
+
+    def __init__(self, wrapper, attr: str):
+        self.wrapper, self.attr = wrapper, attr
+
+    launches = property(lambda self: getattr(self.wrapper, self.attr),
+                        lambda self, v: setattr(self.wrapper, self.attr, v))
+    launches_int2 = property(lambda self: getattr(self.wrapper, self.attr + "_int2"),
+                             lambda self, v: setattr(self.wrapper, self.attr + "_int2", v))
+
+
 @functools.lru_cache(maxsize=None)
 def counters():
     """Every kernel wrapper of the port, by name; each counts its launches.
@@ -1257,13 +1303,17 @@ def counters():
     # before it was counted apart, which this script also times).
     if hasattr(MM.qbits_moe_all, "launches"):
         wrappers["qbits_moe_all"] = MM.qbits_moe_all
+    # TPU #15's own count: `qbits_moe_tiled`'s M <= 16 arm (absent from trees before it was
+    # counted apart).
+    if hasattr(MM.qbits_moe_tiled, "launches_small_m"):
+        wrappers["qbits_moe_tiled_small_m"] = ArmCount(MM.qbits_moe_tiled, "launches_small_m")
     return wrappers
 
 
 def read_counts() -> dict:
     """Each wrapper's launches, and those of each int2 arm under `<name>_int2`."""
     counts = {name: w.launches for name, w in counters().items()}
-    counts.update({f"{name}_int2": counters()[name].launches_int2 for name in INT2_ARMS})
+    counts.update({f"{name}_int2": counters()[name].launches_int2 for name in INT2_ARMS if name in counters()})
     return counts
 
 
@@ -1271,7 +1321,8 @@ def reset_counts() -> None:
     for w in counters().values():
         w.launches = 0
     for name in INT2_ARMS:
-        counters()[name].launches_int2 = 0
+        if name in counters():
+            counters()[name].launches_int2 = 0
 
 
 @contextlib.contextmanager
@@ -2059,9 +2110,10 @@ def mixtral_want(config, batch: int, expert_bits: int = 4):
     takes (prefill: the capacity gather, 3 `qbits_moe_tiled`; decode at B = 1:
     the selective route, 3 `qbits_moe_small_m`; at B = 4 the unique-expert
     route and at B = 16 the all-experts route, each 2 `qbits_moe_small_m`
-    (gate, up) and the down projection's `qbits_moe_tiled`; at B = 16 the two
-    are `qbits_moe_all`'s, TPU #12). With int2 experts every MoE kernel launch
-    is one of the int2 arm's too."""
+    (gate, up) and the down projection's `qbits_moe_tiled`, whose M <= 16 arm
+    is TPU #15 (`qbits_moe_tiled_small_m`); at B = 16 the two are
+    `qbits_moe_all`'s, TPU #12). With int2 experts every MoE kernel launch is
+    one of the int2 arm's too."""
     L = config.num_hidden_layers
     S_K, E = batch * config.num_experts_per_tok, config.num_local_experts
     prefill = {"qbits_mm_tiled": 4 * L, "qbits_moe_tiled": 3 * L}
@@ -2070,6 +2122,8 @@ def mixtral_want(config, batch: int, expert_bits: int = 4):
         step["qbits_moe_small_m"] = 3 * L
     else:
         step.update(qbits_moe_small_m=2 * L, qbits_moe_tiled=L)
+        if "qbits_moe_tiled_small_m" in counters():  # the down call at M = B <= 16: TPU #15
+            step["qbits_moe_tiled_small_m"] = L
     if expert_bits == 2:
         for want in (prefill, step):
             want.update({f"{n}_int2": c for n, c in want.items() if n.startswith("qbits_moe")})
@@ -3064,14 +3118,74 @@ def only_qbytes_and_moe(K_mod, card: str) -> int:
     return 0
 
 
+def only_decode(K_mod, FD_mod, card: str) -> int:
+    """`--only decode`: the decode paths of TPU #8-#10 (`flash_decode`) and #15
+    (`qbits_moe_tiled` at M <= 16), for timing a tree's kernels against
+    another's. Phase 3's `flash_decode` rows and `qbits_moe_tiled` rows at M <=
+    16 (int4 and int2), and the W4A8 small-M rows phase 10 reads; phase 4's
+    qint4 run at ctx 1088 (prefill, 63 decode steps) and phase 4b's at ctx
+    8192 on the same model; phase 10 on phase 7's model frozen into the
+    requant form; phase 8 at B = 4 and B = 16. Exact launch counts throughout;
+    the 2-layer checks are left to the full run."""
+    from quanto_tpu_torch import freeze
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+    from quanto_tpu_torch.models.serve import generate
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    rows = (phase_flash_decode(flush) + phase_moe(flush, decode_tiled=True) + phase_moe(flush, bits=2, decode_tiled=True)
+            + phase_w4a8(K_mod, flush, names={"qbits_mm_int8_small_m"}))
+    del flush
+    torch.cuda.empty_cache()
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    L = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * L, NEW - 1
+    model, qlinears = build_model(config, seed=0)
+    phase_arm("qint4: llama-3.1-8b-config qint4+head4, bf16 cache (phase 4)", model, ids,
+              want_prefill={"qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1},
+              want_decode={"qbits_mm_small_m": (n_lin + 1) * steps, "flash_decode": L * steps})
+    phase_long_context(K_mod, FD_mod, model, qlinears)
+    del model, qlinears
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _ = build_model(config, seed=0, weights="qint4", activations="qint8", exclude="lm_head")
+    freeze(model, w4a8_requant_dot=True)
+    generate(model, ids, 2)  # warm-up: one M = 4096 prefill through the requant route
+    phase_engine(model, rows)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_config = MixtralConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16)
+    mixtral_ids = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
+    ).cuda()
+    mixtral_ids16 = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B16, T16), generator=torch.Generator().manual_seed(10)
+    ).cuda()
+    model = build_mixtral(mixtral_config, seed=0)
+    phase_mixtral(model, mixtral_ids)
+    phase_mixtral(model, mixtral_ids16, new=NEW16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"ok": True, "only": "decode", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill", "qbytes,moe"):
-        print(f"chip_smoke: --only takes sweep,serving, prefill or qbytes,moe, got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe or decode, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -3093,6 +3207,8 @@ def main() -> int:
         return only_prefill(K_mod, card)
     if only == "qbytes,moe":
         return only_qbytes_and_moe(K_mod, card)
+    if only == "decode":
+        return only_decode(K_mod, FD_mod, card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -3241,11 +3357,13 @@ def main() -> int:
         "qbits_mm_requant_int8": ("phase 10 (serving engine, batch arm)", launches_engine["batch"]),
         "qbits_moe_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
         "qbits_moe_tiled": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
+        "qbits_moe_tiled_small_m": ("phase 8 (mixtral-8x7b, B = 4)", launches_moe),
         "qbits_moe_all": ("phase 8 (mixtral-8x7b, B = 16)", launches_moe_b16),
         "qbits_mm_small_m_int2": ("phase 11 (llama-3.1-8b qint2, decode run)", launches_int2_decode),
         "qbits_mm_tiled_int2": ("phase 11 (llama-3.1-8b qint2, B = 1 prefill)", launches_int2_prefill),
         "qbits_moe_small_m_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
         "qbits_moe_tiled_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
+        "qbits_moe_tiled_small_m_int2": ("phase 12 (mixtral-8x7b qint2 experts, B = 4)", launches_moe_int2),
         "qbits_mm_int8_small_m_int2": ("phase 13 (llama-3.1-8b w2a8, decode run)", launches_w2a8["decode"]),
         "qbits_mm_tiled_int8_int2": ("phase 13 (llama-3.1-8b w2a8, B = 1 prefill)", launches_w2a8["b1_prefill"]),
         "qbits_mm_requant_int8_int2": ("phase 13 (llama-3.1-8b w2a8, requant form)", launches_w2a8["requant"]),
@@ -3253,13 +3371,16 @@ def main() -> int:
     }
     kernels = []
     for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
-                 "qbits_moe_all", "qbits_moe_tiled", *(f"{arm}_int2" for arm in INT2_ARMS), "qbits_mm_partitioned"]:
+                 "qbits_moe_all", "qbits_moe_tiled", "qbits_moe_tiled_small_m", *(f"{arm}_int2" for arm in INT2_ARMS),
+                 "qbits_mm_partitioned"]:
         mine = [r for r in rows if r["name"] == name]
         if name == "qbits_moe_all":  # `qbits_moe_small_m`'s rows in TPU #12's form
             mine = [r for r in rows if r["name"] == "qbits_moe_small_m" and r["form"] == "all" and r["U"] == 8
                     and r["nslots"] is None]
+        if name.startswith("qbits_moe_tiled_small_m"):  # `qbits_moe_tiled`'s rows at M <= 16: TPU #15
+            mine = [r for r in rows if r["name"] == name.replace("_small_m", "") and r["M"] <= 16]
         if name == "flash_decode":
-            rep = next(r for r in mine if (r["cache"], r["S"]) == FD_SUMMARY)
+            rep = next(r for r in mine if (r["cache"], r["S"], r["q"]) == (*FD_SUMMARY, "bf16"))
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
         elif name.startswith("qbits_moe"):
             rep = next(r for r in mine if (r["form"], r["nslots"], r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])

@@ -1,5 +1,5 @@
-// Split-S flash decoding for Hopper (sm_90a): single-token grouped-query attention over a float
-// or quantized KV cache.
+// Flash decoding for Hopper (sm_90a): single-token grouped-query attention over a float or
+// quantized KV cache, planned on the device and run in one launch.
 //
 // Replaces the three TPU decode-attention kernels of the JAX package, which compute one function
 // and differ only in how they block for VMEM and the (8, 128) tiling:
@@ -13,513 +13,546 @@
 // with c the stored codes (or the float values of a float cache), s the per-slot scales and m
 // the per-slot shifts of the asymmetric specs. The scales and shifts are factored out of the
 // dots as in quanto_tpu/ops/attention.py:gqa_attention, so the payload is decoded, never
-// dequantized into memory. Softmax and sums are float32 (exponentials by __expf, a few ulp);
+// dequantized into memory. Softmax and sums are float32 (exponentials by ex2.approx, a few ulp);
 // the softmax is normalised once, at the end, as in v3; the output is cast to q's dtype.
 //
 // Cache layout (quanto_tpu_torch/tensor/kv_cache.py): payload [B, S, Hkv, D] as float32,
 // bfloat16, int8 or float8 (decoded through a 256-entry table of the format's values), or int4
 // as uint8 [B, S, Hkv, D/2] with code 2j + 8 in the low nibble of byte j and code 2j + 1 + 8 in
-// its high nibble; scales and shifts float32 [B, S, Hkv, 1] (one float per slot and head, so the
-// kernel gathers them with a stride of Hkv floats; they are 1/32 of an int4 row's bytes).
+// its high nibble; scales and shifts float32 [B, S, Hkv, 1].
 //
-// Bound on this card by bytes: at B = 4, S = 8192, Hkv = 8, D = 128 a layer's call does about
-// 0.54 GFLOP against 35.7 MB of an int4 cache, 15 operations per byte, far below the ~295 at which
-// the tensor cores would be the limit. So the dots run on CUDA cores and the design is about
-// reading every byte once with wide coalesced loads and enough of them in flight:
-// - Split S. On the TPU, v3 walks the S chunks of one (b, h) in order on one core, carrying
-//   (m, l, acc) in VMEM. Here B * Hkv = 32 blocks would leave 100 of the 132 SMs idle, so pass 1
-//   runs a grid (B * Hkv * ceil(G / 4), n_split): each block owns up to 4 query rows of one KV
-//   head and one contiguous range of slots. plan_splits picks n_split so that the grid fills
-//   one wave of MIN_BLOCKS blocks per SM, the most the registers allow (a partial second wave
-//   costs more than longer ranges do). A block whose range lies past pos[b] writes an empty
-//   partial (m = -inf, l = 0) and reads nothing.
-// - Inside a block, a slot row is read by D / 8 neighbouring lanes, each taking 8 elements
-//   of the head dim in one load (32 B of float32, 16 B of bf16, 8 B of int8/fp8, 4 B of int4),
-//   so 2 (D = 128) or 4 (D = 64) slots go through each warp per step and every lane owns the
-//   same 8 output columns throughout. Each group of D / 8 lanes runs its own online softmax over
-//   its slots (slot s0 + i * groups + grp), U slots per step, all loads of a step issued before
-//   their first use. The groups are merged through shared memory at the end of the block.
-// - Pass 2 (a second kernel, launched by the same C call) merges the n_split partials of each
-//   query row, divides by the softmax sum and writes the output.
+// Bound on this card by bytes at every shape the port runs: a visible slot of a head costs
+// 4 G D = 2048 operations (G = 4, D = 128) against 512 bytes of a bf16 cache, 264 of qint8, 200 of
+// k8v4, 136 of qint4 and 144 of qint4a, at most 15 operations a byte where the tensor cores need
+// 295. Llama-3.1-8B's phase-3 calls (B = 4, Hkv = 8): bf16 40.08 us at 4 x 8192 and 5.34 at
+// 4 x 1088, qint4 10.66 and 1.43; the engine's B = 8 over 4352 slots 36.20 (every row at
+// 3200-4224) and 23.90 (four rows at ~1060). The design is about reading each visible byte once,
+// with enough bytes in flight, and keeping the arithmetic of a tile short enough to hide under its
+// copies:
+// - The two dots run on the tensor cores (mma.sync m16n8k16, bf16 -> f32), slots on the 16-row
+//   side and a KV head's query rows on the 8-wide side, G > 8 in a second n-tile:
+//   logits^T = C_k . q^T, then out^T += C_v^T . (p s_v)^T. mma.sync rather than wgmma: a warp owns
+//   its slots and runs its own online softmax, so no warpgroup waits on another, the products need
+//   no shared-memory operand, and at 4-8 operations a byte the tensor cores are far from the limit
+//   either way. Int4, int8 and float8 codes are exact in bf16 and q is bf16 already, so the only
+//   operand to round is p s_v: it goes in as three bf16 parts, each the rounding of what the ones
+//   before left, three products, its 24 bits (one part, 8 bits, moved the output by up to a bf16
+//   step and two, 16 bits, still moved it enough that a W4A8 model's activation quantizer carried
+//   it into the next layer's int8 codes, chip_smoke.py phase 5); s_k, (sum q) m_k, s_v and sum
+//   p m_v stay float32 outside the products. The head dim inside a product may be visited in any order as long as both
+//   operands agree, so each thread's K fragments are whole 16-byte (or 8-byte) runs of one slot
+//   row, decoded in registers (int4: two codes a register by a mask and the exact 2^7 bias;
+//   int8: the exact 2^23 bias; float8 through the table), and q's fragments follow the same
+//   order. The first product's accumulator holds a query column per thread pair, the second's
+//   B fragment a query row per lane group, so p moves between them by four shuffles an m tile.
+//   Two m tiles (32 slots) share one online-softmax step: one max, one rescale of out.
+// - Float32 q or a float32 cache stays on CUDA-core arithmetic (flash_decode_cc.cu) inside the
+//   same schedule: the float32-q limit of 1e-5 * max|ref| is beyond a bf16 product, and the models
+//   run bf16 q over bf16 or quantized caches, so that arm is off the main path.
+// - The cache goes through shared memory (flash_decode.cuh): a tile is 4 TS slots of one head
+//   (TS = 16-128 a warp, about 4 KB of its K and V rows: 32 slots of qint4, 16 of bf16), and each
+//   warp copies its TS slots' rows and factors by cp.async (16 bytes a copy, factors 4),
+//   zero-filled past the visible slots, into a ring of 4 stages (3 where a stage passes 20 KB), and
+//   waits for its own copies only: the warps of a block meet at the end of a segment and nowhere
+//   else, so one warp's arithmetic hides under the others' copies. 2 blocks an SM, 96-144 KB in
+//   flight. A head's rows lie Hkv rows apart in the cache (64 bytes of qint4 every 512); reading
+//   4 heads' rows side by side (the whole 256 bytes) was slower, its pairs fewer and their merges
+//   longer. The rows are swizzled (flash_decode.cuh:swz) so that the fragment reads meet no bank
+//   conflict.
+// - The work is planned on the device from the positions. A fixed grid of one wave (the SMs times
+//   the blocks of an arm that fit on one) reads positions[B]; every block computes the same plan:
+//   the items are the tiles of each (b, h, query group) over row b's visible slots only, and
+//   block i takes the i-th of gridDim.x equal runs of them. A run of one pair's tiles is one
+//   segment, one online softmax a warp; so no tile past pos[b] is ever read, and a row at 1060 of
+//   4352 costs its own tiles, not a share of the cache. The host knows nothing it did not (B, Hkv,
+//   G, S, D), so a call makes no host sync and can be captured in a CUDA graph.
+// - One launch per call. A block that saw a pair whole writes its output. Otherwise it writes a
+//   partial (max, sum, out) into its slot of the workspace, and the last of the pair's blocks to
+//   arrive (an atomic counter per pair, the only atomic) merges the partials in block order, 16 in
+//   flight, and writes the output, so two calls give the same bits; it then sets the counter back
+//   to 0, so the counters (kept by the wrapper, zeroed once) need no memset between calls.
 //
 // The entry points have a plain C interface (bound with ctypes in ops/cuda/flash_decode.py).
-// flash_decode_workspace gives the size of the float32 workspace the wrapper allocates;
-// flash_decode launches both kernels on the stream it is given, allocates nothing and returns
-// cudaGetLastError().
+// flash_decode_workspace gives the float32 elements of the partials' workspace and the query
+// groups a head is cut into (the wrapper caches both per device and shapes); flash_decode launches
+// the kernel on the stream it is given, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-#include <algorithm>
 #include <cmath>
 
+#include "flash_decode.cuh"
+
+namespace fd {
 namespace {
 
-enum PayloadType { F32 = 0, BF16 = 1, I8 = 2, I4 = 3, FP8 = 4 };
-// Scale and shift modes: a float cache has neither, a symmetric spec scales, "...a" specs shift.
-enum Mode { NONE = 0, SCALED = 1, SHIFTED = 2 };
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-constexpr int THREADS = 128;
-constexpr int MIN_BLOCKS = 3;  // blocks per SM the register budget allows
-constexpr int WARPS = THREADS / 32;
-constexpr int GB = 4;   // query rows per block
-constexpr int EPL = 8;  // head-dim elements per lane
-constexpr int MIN_SPLIT_LEN = 64;  // fewest slots per split
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) { return bf16_bits(__floats2bfloat162_rn(lo, hi)); }
+__device__ __forceinline__ float2 bf16_pair(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
 
-// One lane's 8 elements of a slot row: the raw load and its decode to float.
+// Two int4 codes (stored + 8) at bits 0-3 and 16-19 of t as a bf16 pair, exact: OR-ed into the
+// mantissa of bf16 128 (step 1 there), then 136 subtracted.
+__device__ __forceinline__ uint32_t nib_pair(uint32_t t) {
+  const uint32_t u = (t & 0x000F000Fu) | 0x43004300u;
+  return bf16_bits(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&u), __floats2bfloat162_rn(136.f, 136.f)));
+}
+
+// Byte k of a word of int8 codes as a float, exact; wx is the word ^ 0x80808080 (code + 128):
+// 0x4B000000 | byte is 2^23 + code + 128.
+__device__ __forceinline__ float s8_at(uint32_t wx, int k) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7440 | k)) - 8388736.0f;
+}
+
+// Code byte ka of word x and code byte kb of word y as a bf16 pair (x's low), exact.
 template <int T>
-struct Raw;
-
-template <>
-struct Raw<F32> {
-  static constexpr int kBytes = 32;
-  float4 a, b;
-  __device__ __forceinline__ void load(const uint8_t* p) {
-    a = reinterpret_cast<const float4*>(p)[0];
-    b = reinterpret_cast<const float4*>(p)[1];
-  }
-  __device__ __forceinline__ void decode(float* f, const float*) const {
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-};
-
-template <>
-struct Raw<BF16> {
-  static constexpr int kBytes = 16;
-  uint4 w;
-  __device__ __forceinline__ void load(const uint8_t* p) { w = *reinterpret_cast<const uint4*>(p); }
-  __device__ __forceinline__ void decode(float* f, const float*) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-// An unsigned integer u < 2^23 as a float: 0x4B000000 | u is the float 2^23 + u exactly, so a code
-// decodes with one logic op and one add instead of a (quarter-rate) integer-to-float conversion.
-__device__ __forceinline__ float biased_to_float(uint32_t u, float bias) {
-  return __uint_as_float(0x4B000000u | u) - (8388608.0f + bias);
-}
-
-template <>
-struct Raw<I8> {
-  static constexpr int kBytes = 8;
-  uint2 w;
-  __device__ __forceinline__ void load(const uint8_t* p) { w = *reinterpret_cast<const uint2*>(p); }
-  // Byte b holds a two's-complement code; b ^ 0x80 is the code + 128.
-  __device__ __forceinline__ void decode(float* f, const float*) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[i] = biased_to_float(((w.x >> (8 * i)) & 0xFFu) ^ 0x80u, 128.0f);
-      f[4 + i] = biased_to_float(((w.y >> (8 * i)) & 0xFFu) ^ 0x80u, 128.0f);
-    }
-  }
-};
-
-template <>
-struct Raw<I4> {
-  static constexpr int kBytes = 4;
-  uint32_t w;
-  __device__ __forceinline__ void load(const uint8_t* p) { w = *reinterpret_cast<const uint32_t*>(p); }
-  // Element i is nibble i of the little-endian word (low nibble first), stored as code + 8.
-  __device__ __forceinline__ void decode(float* f, const float*) const {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = biased_to_float((w >> (4 * i)) & 0xFu, 8.0f);
-  }
-};
-
-template <>
-struct Raw<FP8> {
-  static constexpr int kBytes = 8;
-  uint2 w;
-  __device__ __forceinline__ void load(const uint8_t* p) { w = *reinterpret_cast<const uint2*>(p); }
-  // `lut` holds the 256 values of the float8 format in shared memory.
-  __device__ __forceinline__ void decode(float* f, const float* lut) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[i] = lut[(w.x >> (8 * i)) & 0xFFu];
-      f[4 + i] = lut[(w.y >> (8 * i)) & 0xFFu];
-    }
-  }
-};
-
-// Bytes of a slot row of D elements.
-template <int T, int D>
-__host__ __device__ constexpr int row_bytes() {
-  return T == I4 ? D / 2 : D * (T == F32 ? 4 : T == BF16 ? 2 : 1);
-}
-
-// Slots per lane group and step: up to 64 payload bytes in flight per lane, 2 to 4 slots. Four
-// slots keep a step's registers under the 168 a thread may hold at 3 blocks per SM.
-template <int KT, int VT>
-__host__ __device__ constexpr int unroll() {
-  constexpr int u = 64 / (Raw<KT>::kBytes + Raw<VT>::kBytes);
-  return u < 2 ? 2 : (u > 4 ? 4 : u);
-}
-
-struct Args {
-  const void* q;
-  const uint8_t* k;
-  const uint8_t* v;
-  const float* k_scale;
-  const float* v_scale;
-  const float* k_shift;
-  const float* v_shift;
-  const int* pos;
-  const float* k_lut;
-  const float* v_lut;
-  float* ws_ml;   // [B * Hkv * G, n_split] (m, l) pairs
-  float* ws_acc;  // [B * Hkv * G, n_split, D]
-  void* out;
-  int B, Hkv, G, S, D, n_split, split_len, k_type, v_type, mode, q_bf16;
-  float scale;
-};
-
-// (n_split, split_len): as many slot ranges as fill one wave of MIN_BLOCKS blocks per SM with the
-// grid of pass 1, each range at least MIN_SPLIT_LEN slots.
-cudaError_t plan_splits(int device, int B, int Hkv, int G, int S, int* n_split, int* split_len) {
-  int sms = 0;
-  const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  const int blocks_per_split = B * Hkv * ((G + GB - 1) / GB);
-  const int n = std::max(1, std::min(MIN_BLOCKS * sms / blocks_per_split,
-                                     (S + MIN_SPLIT_LEN - 1) / MIN_SPLIT_LEN));
-  *split_len = (S + n - 1) / n;
-  *n_split = (S + *split_len - 1) / *split_len;
-  return cudaSuccess;
-}
-
-// Pass 1: one block per (b, h, 4 query rows) and range of split_len slots.
-template <int KT, int VT, int MODE, int D>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_decode_split_kernel(const Args a) {
-  constexpr int L = D / EPL;          // lanes per slot row
-  constexpr int SPW = 32 / L;         // slot rows per warp and step
-  constexpr int NGRP = WARPS * SPW;   // lane groups per block
-  constexpr int U = unroll<KT, VT>();
-
-  __shared__ float lut_k[KT == FP8 ? 256 : 1];
-  __shared__ float lut_v[VT == FP8 ? 256 : 1];
-  __shared__ float s_m[NGRP][GB];
-  __shared__ float s_l[NGRP][GB];
-  __shared__ __align__(16) float s_acc[NGRP][GB][D];
-
-  const int ngb = (a.G + GB - 1) / GB;
-  const int bh = blockIdx.x / ngb;
-  const int g0 = (blockIdx.x % ngb) * GB;
-  const int b = bh / a.Hkv;
-  const int h = bh % a.Hkv;
-  const int split = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int c = lane % L;
-  const int grp = (threadIdx.x / 32) * SPW + lane / L;
-
-  const int s_begin = split * a.split_len;
-  const int s_end = min(min(s_begin + a.split_len, a.S), a.pos[b] + 1);
-
-  if (s_begin >= s_end) {  // nothing visible in this range: an empty partial
-    for (int idx = threadIdx.x; idx < GB * D; idx += THREADS) {
-      const int g = g0 + idx / D;
-      if (g >= a.G) continue;
-      const size_t part = (size_t)(bh * a.G + g) * a.n_split + split;
-      a.ws_acc[part * D + idx % D] = 0.0f;
-      if (idx % D == 0) {
-        a.ws_ml[2 * part] = -CUDART_INF_F;
-        a.ws_ml[2 * part + 1] = 0.0f;
-      }
-    }
-    return;
-  }
-
-  if (KT == FP8)
-    for (int i = threadIdx.x; i < 256; i += THREADS) lut_k[i] = a.k_lut[i];
-  if (VT == FP8)
-    for (int i = threadIdx.x; i < 256; i += THREADS) lut_v[i] = a.v_lut[i];
-
-  // This lane's 8 columns of the block's query rows, in float32 (zero past G).
-  float qr[GB][EPL];
-  float qsum[GB];
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    const int g = g0 + gi;
-    const size_t off = (size_t)(bh * a.G + g) * D + c * EPL;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      float x = 0.0f;
-      if (g < a.G)
-        x = a.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[off + i])
-                     : static_cast<const float*>(a.q)[off + i];
-      qr[gi][i] = x;
-    }
-    qsum[gi] = 0.0f;
-    if (MODE == SHIFTED) {
-      float t = 0.0f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) t += qr[gi][i];
-#pragma unroll
-      for (int o = L / 2; o > 0; o /= 2) t += __shfl_xor_sync(0xffffffffu, t, o);
-      qsum[gi] = t;
-    }
-  }
-  if (KT == FP8 || VT == FP8) __syncthreads();
-
-  float m[GB], l[GB], acc[GB][EPL], accm[GB];
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    m[gi] = -CUDART_INF_F;
-    l[gi] = 0.0f;
-    accm[gi] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[gi][i] = 0.0f;
-  }
-
-  constexpr int KROW = row_bytes<KT, D>();
-  constexpr int VROW = row_bytes<VT, D>();
-  const size_t slot0 = (size_t)b * a.S;  // slot index of (b, 0)
-
-  // The loop bounds are the block's, so every lane runs every step and the shuffles below see
-  // the full warp: a lane whose slots lie past s_end takes part with masked slots.
-  for (int base = s_begin; base < s_end; base += NGRP * U) {
-    Raw<KT> rk[U];
-    Raw<VT> rv[U];
-    float sk[U], sv[U], mk[U], mv[U];
-    bool valid[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int s = base + u * NGRP + grp;
-      valid[u] = s < s_end;
-      sk[u] = sv[u] = 1.0f;
-      mk[u] = mv[u] = 0.0f;
-      if (valid[u]) {
-        const size_t row = (slot0 + s) * a.Hkv + h;
-        rk[u].load(a.k + row * KROW + c * Raw<KT>::kBytes);
-        rv[u].load(a.v + row * VROW + c * Raw<VT>::kBytes);
-        if (MODE != NONE) {
-          sk[u] = a.k_scale[row];
-          sv[u] = a.v_scale[row];
-        }
-        if (MODE == SHIFTED) {
-          mk[u] = a.k_shift[row];
-          mv[u] = a.v_shift[row];
-        }
-      }
-    }
-
-    // Logits: partial dots over this lane's 8 columns, summed over the group's L lanes.
-    float lg[U][GB];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[EPL];
-      if (valid[u]) {
-        rk[u].decode(kf, lut_k);
-      } else {
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) kf[i] = 0.0f;
-      }
-#pragma unroll
-      for (int gi = 0; gi < GB; ++gi) {
-        float t = 0.0f;
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) t = fmaf(qr[gi][i], kf[i], t);
-        lg[u][gi] = t;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int gi = 0; gi < GB; ++gi)
-#pragma unroll
-        for (int o = L / 2; o > 0; o /= 2) lg[u][gi] += __shfl_xor_sync(0xffffffffu, lg[u][gi], o);
-
-    // Online softmax: rescale the running state once per step, then add the step's slots.
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float t = lg[u][gi];
-        if (MODE != NONE) t *= sk[u];
-        if (MODE == SHIFTED) t += qsum[gi] * mk[u];
-        t *= a.scale;
-        t = valid[u] ? t : -CUDART_INF_F;
-        lg[u][gi] = t;
-        mx = fmaxf(mx, t);
-      }
-      const float m_new = fmaxf(m[gi], mx);
-      // m_new = -inf only for a group with no valid slot in this step and none before.
-      const float alpha = m_new == -CUDART_INF_F ? 1.0f : __expf(m[gi] - m_new);
-      l[gi] *= alpha;
-      accm[gi] *= alpha;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[gi][i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = valid[u] ? __expf(lg[u][gi] - m_new) : 0.0f;
-        l[gi] += p;
-        if (MODE == SHIFTED) accm[gi] = fmaf(p, mv[u], accm[gi]);
-        lg[u][gi] = MODE != NONE ? p * sv[u] : p;  // the weight of the slot's codes
-      }
-      m[gi] = m_new;
-    }
-
-    // acc += p * s_v * c_v over the step's slots.
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (!valid[u]) continue;
-      float vf[EPL];
-      rv[u].decode(vf, lut_v);
-#pragma unroll
-      for (int gi = 0; gi < GB; ++gi)
-#pragma unroll
-        for (int i = 0; i < EPL; ++i) acc[gi][i] = fmaf(lg[u][gi], vf[i], acc[gi][i]);
-    }
-  }
-
-  // Merge the lane groups of the block.
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    if (c == 0) {
-      s_m[grp][gi] = m[gi];
-      s_l[grp][gi] = l[gi];
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) s_acc[grp][gi][c * EPL + i] = acc[gi][i] + accm[gi];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < GB * D; idx += THREADS) {
-    const int gi = idx / D, d = idx % D;
-    const int g = g0 + gi;
-    if (g >= a.G) continue;
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < NGRP; ++j) mx = fmaxf(mx, s_m[j][gi]);
-    float lsum = 0.0f, asum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NGRP; ++j) {
-      if (s_m[j][gi] == -CUDART_INF_F) continue;
-      const float w = __expf(s_m[j][gi] - mx);
-      lsum = fmaf(s_l[j][gi], w, lsum);
-      asum = fmaf(s_acc[j][gi][d], w, asum);
-    }
-    const size_t part = (size_t)(bh * a.G + g) * a.n_split + split;
-    a.ws_acc[part * D + d] = asum;
-    if (d == 0) {
-      a.ws_ml[2 * part] = mx;
-      a.ws_ml[2 * part + 1] = lsum;
-    }
-  }
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// Pass 2: one block of D threads per query row merges the row's n_split partials.
-template <typename TO>
-__global__ void flash_decode_combine_kernel(const Args a) {
-  const int row = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = a.ws_ml + (size_t)row * a.n_split * 2;
-  float mx = -CUDART_INF_F;
-#pragma unroll 8
-  for (int j = 0; j < a.n_split; ++j) mx = fmaxf(mx, ml[2 * j]);
-  float lsum = 0.0f, asum = 0.0f;
-#pragma unroll 8
-  for (int j = 0; j < a.n_split; ++j) {
-    if (ml[2 * j] == -CUDART_INF_F) continue;
-    const float w = __expf(ml[2 * j] - mx);
-    lsum = fmaf(ml[2 * j + 1], w, lsum);
-    asum = fmaf(a.ws_acc[((size_t)row * a.n_split + j) * a.D + d], w, asum);
-  }
-  store_out(static_cast<TO*>(a.out) + (size_t)row * a.D + d, asum / lsum);
-}
-
-template <int KT, int VT, int MODE, int D>
-int launch_split(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.B * a.Hkv * ((a.G + GB - 1) / GB), a.n_split);
-  flash_decode_split_kernel<KT, VT, MODE, D><<<grid, THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int KT, int VT, int MODE>
-int launch_d(const Args& a, cudaStream_t stream) {
-  return a.D == 64 ? launch_split<KT, VT, MODE, 64>(a, stream)
-                   : launch_split<KT, VT, MODE, 128>(a, stream);
-}
-
-// A float cache is one float type for K and V and has no scales; a quantized cache pairs any
-// two code types and has scales, with or without shifts.
-template <int KT, int VT>
-int launch_mode(const Args& a, cudaStream_t stream) {
-  if constexpr (KT == F32 || KT == BF16 || VT == F32 || VT == BF16) {
-    if constexpr (KT == VT) {
-      if (a.mode == NONE) return launch_d<KT, VT, NONE>(a, stream);
-    }
+__device__ __forceinline__ uint32_t byte_pair(uint32_t x, int ka, uint32_t y, int kb, const uint16_t* lut) {
+  if constexpr (T == I8) {
+    return pack_bf16(s8_at(x ^ 0x80808080u, ka), s8_at(y ^ 0x80808080u, kb));
   } else {
-    if (a.mode == SCALED) return launch_d<KT, VT, SCALED>(a, stream);
-    if (a.mode == SHIFTED) return launch_d<KT, VT, SHIFTED>(a, stream);
+    return (uint32_t)lut[(x >> (8 * ka)) & 0xFFu] | ((uint32_t)lut[(y >> (8 * kb)) & 0xFFu] << 16);
   }
-  return (int)cudaErrorInvalidValue;
 }
 
-template <int KT>
-int launch_v(const Args& a, cudaStream_t stream) {
-  switch (a.v_type) {
-    case F32: return launch_mode<KT, F32>(a, stream);
-    case BF16: return launch_mode<KT, BF16>(a, stream);
-    case I8: return launch_mode<KT, I8>(a, stream);
-    case I4: return launch_mode<KT, I4>(a, stream);
-    case FP8: return launch_mode<KT, FP8>(a, stream);
+template <int NB>
+__device__ __forceinline__ void lds(const unsigned char* p, uint32_t (&w)[NB / 4]) {
+  if constexpr (NB == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (NB == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
-  return (int)cudaErrorInvalidValue;
 }
 
-int launch_k(const Args& a, cudaStream_t stream) {
-  switch (a.k_type) {
-    case F32: return launch_v<F32>(a, stream);
-    case BF16: return launch_v<BF16>(a, stream);
-    case I8: return launch_v<I8>(a, stream);
-    case I4: return launch_v<I4>(a, stream);
-    case FP8: return launch_v<FP8>(a, stream);
+// The tensor-core arm: bf16 q over a bf16 cache, or over any two of int8, int4 and float8 codes.
+template <int KT, int VT, int D_, int NT>
+struct TcArm {
+  static constexpr int D = D_;
+  static constexpr int GR = 8 * NT;  // query rows of a group: NT n-tiles of 8
+  static constexpr int KROW = row_bytes<KT, D>(), VROW = row_bytes<VT, D>();
+  static constexpr int TS = tile_slots(KROW + VROW);
+  static constexpr bool SCALES = KT > BF16;  // a quantized cache has per-slot factors
+  using SL = StageLayout<TS, KROW, VROW, SCALES>;
+  static constexpr int STAGES = SL::bytes <= 20480 ? 4 : 3;
+  static constexpr int LUT_BYTES = (KT == FP8 || VT == FP8) ? 2 * 256 * 2 : 16;
+  static constexpr int KS = D / 16;  // k steps of the logits product, m tiles of the output product
+
+  struct State {
+    uint32_t qb[NT][KS][2];  // q^T B fragments, in the K fragments' head-dim order
+    float qsum[NT][2];       // sum_d q of this thread's two query columns
+    float m[NT][2], l[NT][2], accm[NT][2];
+    float o[NT][KS][4];      // out^T: m tile i, rows (head dims) dv(i, 0/1), columns 2 tig + 0/1
+  };
+
+  // The head dim of position r (0-3: a0 low, high, a2 low, high) of k step j of thread tig's K
+  // fragments: whole 16-byte runs of a slot row (bf16: 8 values, 2 steps; int8/float8: 16 values,
+  // 4 steps; int4: 32 or 16 codes, the registers pairing codes i and i + 4 of a word).
+  static __device__ __forceinline__ int kmap(int j, int r, int tig) {
+    if constexpr (KT == BF16) return 8 * (tig + 4 * (j >> 1)) + 4 * (j & 1) + r;
+    else if constexpr (KT == I4) return (D / 4) * tig + 8 * (j >> 1) + 2 * (j & 1) + ((r & 1) << 2) + (r >> 1);
+    else return 16 * (tig + 4 * (j >> 2)) + 4 * (j & 3) + r;
   }
-  return (int)cudaErrorInvalidValue;
+  // The head dim of output row gid (r = 0) or gid + 8 (r = 1) of m tile i: the V run of lane
+  // group gid (bf16: chunks gid and gid + 8; else D / 8 values from (D / 8) gid), two a tile.
+  static __device__ __forceinline__ int dmap(int i, int r, int gid) {
+    if constexpr (VT == BF16) return 8 * (gid + 8 * (i >> 2)) + 2 * (i & 3) + r;
+    else return (D / 8) * gid + 2 * i + r;
+  }
+
+  static __device__ __forceinline__ void load_luts(const Args& a, unsigned char* lut) {
+    if constexpr (KT == FP8 || VT == FP8) {
+      uint16_t* t = reinterpret_cast<uint16_t*>(lut);
+      for (int i = threadIdx.x; i < 512; i += THREADS) {
+        const float* src = i < 256 ? a.k_lut : a.v_lut;
+        if (src != nullptr) t[i] = __bfloat16_as_ushort(__float2bfloat16(src[i & 255]));
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void begin(State& s, const Args& a, int b, int h, int grp) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int g = grp * GR + 8 * nt + gid;
+      const bool ok = g < a.G && h < a.Hkv;
+      const __nv_bfloat16* row = q + (((size_t)b * a.Hkv + (ok ? h : 0)) * a.G + (ok ? g : 0)) * D;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t h[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const __nv_bfloat16 x = ok ? row[kmap(j, r, tig)] : __float2bfloat16(0.0f);
+          sum += __bfloat162float(x);
+          h[r] = __bfloat16_as_ushort(x);
+        }
+        s.qb[nt][j][0] = h[0] | (h[1] << 16);
+        s.qb[nt][j][1] = h[2] | (h[3] << 16);
+      }
+      // sum_d q of row gid, then each thread takes those of its columns 2 tig, 2 tig + 1.
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s.qsum[nt][e] = __shfl_sync(0xffffffffu, sum, (2 * tig + e) * 4);
+        s.m[nt][e] = -CUDART_INF_F;
+        s.l[nt][e] = 0.0f;
+        s.accm[nt][e] = 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < KS; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s.o[nt][i][c] = 0.0f;
+    }
+  }
+
+  // A fragments of the logits product: K rows r0 and r0 + 8 (slots), this thread's run of each.
+  static __device__ __forceinline__ void k_frags(const unsigned char* K, int r0, int tig, const uint16_t* lut,
+                                                 uint32_t (&f)[KS][4]) {
+    const int r1 = r0 + 8;
+    if constexpr (KT == BF16) {
+#pragma unroll
+      for (int k = 0; k < D / 32; ++k) {
+        uint32_t x[4], y[4];
+        lds<16>(K + swz<KROW>(r0, (tig + 4 * k) * 16), x);
+        lds<16>(K + swz<KROW>(r1, (tig + 4 * k) * 16), y);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          f[2 * k + h][0] = x[2 * h];
+          f[2 * k + h][1] = y[2 * h];
+          f[2 * k + h][2] = x[2 * h + 1];
+          f[2 * k + h][3] = y[2 * h + 1];
+        }
+      }
+    } else if constexpr (KT == I4) {
+      constexpr int NW = D / 32;  // words of 8 codes in the run
+      uint32_t x[NW], y[NW];
+      lds<NW * 4>(K + swz<KROW>(r0, tig * NW * 4), x);
+      lds<NW * 4>(K + swz<KROW>(r1, tig * NW * 4), y);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          f[2 * w + h][0] = nib_pair(x[w] >> (8 * h));
+          f[2 * w + h][1] = nib_pair(y[w] >> (8 * h));
+          f[2 * w + h][2] = nib_pair(x[w] >> (8 * h + 4));
+          f[2 * w + h][3] = nib_pair(y[w] >> (8 * h + 4));
+        }
+    } else {
+#pragma unroll
+      for (int k = 0; k < D / 64; ++k) {
+        uint32_t x[4], y[4];
+        lds<16>(K + swz<KROW>(r0, (tig + 4 * k) * 16), x);
+        lds<16>(K + swz<KROW>(r1, (tig + 4 * k) * 16), y);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          f[4 * k + h][0] = byte_pair<KT>(x[h], 0, x[h], 1, lut);
+          f[4 * k + h][1] = byte_pair<KT>(y[h], 0, y[h], 1, lut);
+          f[4 * k + h][2] = byte_pair<KT>(x[h], 2, x[h], 3, lut);
+          f[4 * k + h][3] = byte_pair<KT>(y[h], 2, y[h], 3, lut);
+        }
+      }
+    }
+  }
+
+  // A fragments of the output product: V rows (slots) rA, rA + 8 (k 2 tig, 2 tig + 1) and rA + 4,
+  // rA + 12 (k 2 tig + 8, 2 tig + 9) at the head dims of lane group gid; a register pairs two
+  // slots at one head dim.
+  static __device__ __forceinline__ void v_frags(const unsigned char* V, int rA, int gid, const uint16_t* lut,
+                                                 uint32_t (&f)[KS][4]) {
+    const int rows[4] = {rA, rA + 8, rA + 4, rA + 12};
+    if constexpr (VT == BF16) {
+      uint32_t w[4][KS];  // per row: the words of chunks gid (and gid + 8)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < D / 64; ++k) {
+          uint32_t x[4];
+          lds<16>(V + swz<VROW>(rows[q], (gid + 8 * k) * 16), x);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) w[q][4 * k + t] = x[t];
+        }
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        f[i][0] = __byte_perm(w[0][i], w[1][i], 0x5410);
+        f[i][1] = __byte_perm(w[0][i], w[1][i], 0x7632);
+        f[i][2] = __byte_perm(w[2][i], w[3][i], 0x5410);
+        f[i][3] = __byte_perm(w[2][i], w[3][i], 0x7632);
+      }
+    } else if constexpr (VT == I4) {
+      constexpr int NW = D / 64;  // words of 8 codes: D / 8 codes of each row
+      uint32_t w[4][NW];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) lds<NW * 4>(V + swz<VROW>(rows[q], gid * NW * 4), w[q]);
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t sel = half ? 0x7632 : 0x5410;  // codes 0-3 or 4-7 of both words
+          const uint32_t ab = __byte_perm(w[0][wi], w[1][wi], sel), cd = __byte_perm(w[2][wi], w[3][wi], sel);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {  // m tile 4 wi + 2 half + t: codes 2 t, 2 t + 1 of the half
+            const int i = 4 * wi + 2 * half + t;
+            f[i][0] = nib_pair(ab >> (8 * t));
+            f[i][1] = nib_pair(ab >> (8 * t + 4));
+            f[i][2] = nib_pair(cd >> (8 * t));
+            f[i][3] = nib_pair(cd >> (8 * t + 4));
+          }
+        }
+    } else {
+      constexpr int NW = D / 32;  // words of 4 codes: D / 8 codes of each row
+      uint32_t w[4][NW];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) lds<NW * 4>(V + swz<VROW>(rows[q], gid * NW * 4), w[q]);
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int wi = i >> 1, k = 2 * (i & 1);  // codes 2 i, 2 i + 1: bytes k, k + 1 of word wi
+        f[i][0] = byte_pair<VT>(w[0][wi], k, w[1][wi], k, lut);
+        f[i][1] = byte_pair<VT>(w[0][wi], k + 1, w[1][wi], k + 1, lut);
+        f[i][2] = byte_pair<VT>(w[2][wi], k, w[3][wi], k, lut);
+        f[i][3] = byte_pair<VT>(w[2][wi], k + 1, w[3][wi], k + 1, lut);
+      }
+    }
+  }
+
+  // This warp's TS slots of one head: K and V rows from K, V (row r: slot r), the factors of slot r
+  // at sc[r] (k_scale; v_scale, k_shift, v_shift SL::rows floats apart), the first n visible.
+  // MJ m tiles of 16 slots at a time: their products are independent, and one online-softmax step
+  // (one max, one rescale of out) covers them all.
+  static constexpr int MJ = TS >= 32 ? 2 : 1;
+  static constexpr int PARTS = 3;  // bf16 parts of p s_v in the output product
+  static __device__ __forceinline__ void tile(State& s, const Args& a, const unsigned char* K, const unsigned char* V,
+                                              const float* sc, int n, const unsigned char* lut) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const uint16_t* lut_k = reinterpret_cast<const uint16_t*>(lut);
+    const uint16_t* lut_v = lut_k + 256;
+#pragma unroll 1
+    for (int r0 = 0; r0 < TS && r0 < n; r0 += 16 * MJ) step(s, a, K, V, sc, r0, n, lut_k, lut_v, gid, tig);
+  }
+
+  // Slots r0 .. r0 + 16 MJ - 1.
+  static __device__ __forceinline__ void step(State& s, const Args& a, const unsigned char* K, const unsigned char* V,
+                                              const float* sc, int r0, int n, const uint16_t* lut_k,
+                                              const uint16_t* lut_v, int gid, int tig) {
+    // logits^T [16 slots, 8 queries] of each m tile and n tile, the k steps in two chains.
+    float c[MJ][NT][4];
+#pragma unroll
+    for (int mj = 0; mj < MJ; ++mj) {
+      uint32_t f[KS][4];
+      k_frags(K, r0 + 16 * mj + gid, tig, lut_k, f);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float c2[2][4] = {};
+#pragma unroll
+        for (int j = 0; j < KS; ++j) mma_bf16(c2[j & 1], f[j], s.qb[nt][j][0], s.qb[nt][j][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mj][nt][i] = c2[0][i] + c2[1][i];
+      }
+    }
+
+    // This thread's slots: rows gid and gid + 8 of each m tile (h = 0, 1).
+    bool ok[MJ][2];
+    float sk[MJ][2], sv[MJ][2], mk[MJ][2], mv[MJ][2];
+#pragma unroll
+    for (int mj = 0; mj < MJ; ++mj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * mj + gid + 8 * h;
+        ok[mj][h] = r < n;
+        sk[mj][h] = sv[mj][h] = 1.0f;
+        mk[mj][h] = mv[mj][h] = 0.0f;
+        if constexpr (SCALES) {
+          sk[mj][h] = sc[r];
+          sv[mj][h] = sc[SL::rows + r];
+          if (a.mode == SHIFTED) {
+            mk[mj][h] = sc[2 * SL::rows + r];
+            mv[mj][h] = sc[3 * SL::rows + r];
+          }
+        }
+      }
+
+    // Online softmax per query column; p s_v goes to the B fragments of the output product as
+    // PARTS bf16 parts, each the bf16 rounding of what the ones before left (pb[..][part]): three
+    // products carry its 24 bits, where one would round it to 8 and move the output by up to a
+    // bf16 step.
+    uint32_t pb[MJ][NT][PARTS][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float w[MJ][2][2];  // [m tile][row h][column e]
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float t[MJ][2];
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int mj = 0; mj < MJ; ++mj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = fmaf(c[mj][nt][2 * h + e], sk[mj][h], s.qsum[nt][e] * mk[mj][h]);
+            t[mj][h] = ok[mj][h] ? x * a.scale : -CUDART_INF_F;
+            mx = fmaxf(mx, t[mj][h]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float mn = fmaxf(s.m[nt][e], mx);
+        // mn = -inf only while none of the warp's slots so far was visible.
+        const bool none = mn == -CUDART_INF_F;
+        const float alpha = none ? 1.0f : fast_exp2(s.m[nt][e] - mn);
+        float lsum = 0.0f, msum = 0.0f;
+#pragma unroll
+        for (int mj = 0; mj < MJ; ++mj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float p = none ? 0.0f : fast_exp2(t[mj][h] - mn);
+            lsum += p;
+            msum = fmaf(p, mv[mj][h], msum);
+            w[mj][h][e] = p * sv[mj][h];
+          }
+        s.m[nt][e] = mn;
+        s.l[nt][e] = fmaf(s.l[nt][e], alpha, lsum);
+        s.accm[nt][e] = fmaf(s.accm[nt][e], alpha, msum);
+#pragma unroll
+        for (int i = 0; i < KS; ++i) {
+          s.o[nt][i][e] *= alpha;
+          s.o[nt][i][2 + e] *= alpha;
+        }
+      }
+      // Lane (gid, tig) needs query gid's weights of slots tig, tig + 8 (b0) and tig + 4, tig + 12
+      // (b1); lane (s, g / 2) holds slots s and s + 8 of queries 2 (g / 2) and 2 (g / 2) + 1.
+      const int src = 4 * tig + (gid >> 1);
+#pragma unroll
+      for (int mj = 0; mj < MJ; ++mj)
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part) {
+          const uint32_t even = pack_bf16(w[mj][0][0], w[mj][1][0]), odd = pack_bf16(w[mj][0][1], w[mj][1][1]);
+          const uint32_t e0 = __shfl_sync(0xffffffffu, even, src), o0 = __shfl_sync(0xffffffffu, odd, src);
+          const uint32_t e1 = __shfl_sync(0xffffffffu, even, src + 16), o1 = __shfl_sync(0xffffffffu, odd, src + 16);
+          pb[mj][nt][part][0] = (gid & 1) ? o0 : e0;
+          pb[mj][nt][part][1] = (gid & 1) ? o1 : e1;
+          if (part + 1 < PARTS) {  // what this part left: w - bf16(w), exact in float32
+            const float2 he = bf16_pair(even), ho = bf16_pair(odd);
+            w[mj][0][0] -= he.x; w[mj][1][0] -= he.y;
+            w[mj][0][1] -= ho.x; w[mj][1][1] -= ho.y;
+          }
+        }
+    }
+
+    // out^T [D, 8 queries] += C_v^T [D, 16 slots] . (p s_v)^T, each m tile.
+#pragma unroll
+    for (int mj = 0; mj < MJ; ++mj) {
+      uint32_t f[KS][4];
+      v_frags(V, r0 + 16 * mj + tig, gid, lut_v, f);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part)
+#pragma unroll
+          for (int i = 0; i < KS; ++i) mma_bf16(s.o[nt][i], f[i], pb[mj][nt][part][0], pb[mj][nt][part][1]);
+    }
+  }
+
+  static __device__ __forceinline__ void export_(State& s, float* mine) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float l = s.l[nt][e], am = s.accm[nt][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          l += __shfl_xor_sync(0xffffffffu, l, o);
+          am += __shfl_xor_sync(0xffffffffu, am, o);
+        }
+        const int g = 8 * nt + 2 * tig + e;
+        if (gid == 0) {
+          mine[g] = s.m[nt][e];
+          mine[GR + g] = l;
+        }
+#pragma unroll
+        for (int i = 0; i < KS; ++i) {
+          mine[2 * GR + g * D + dmap(i, 0, gid)] = s.o[nt][i][e] + am;
+          mine[2 * GR + g * D + dmap(i, 1, gid)] = s.o[nt][i][2 + e] + am;
+        }
+      }
+  }
+};
+
+template <int KT, int VT, int D>
+using TcArm1 = TcArm<KT, VT, D, 1>;
+template <int KT, int VT, int D>
+using TcArm2 = TcArm<KT, VT, D, 2>;
+
+template <class F>
+int tc_visit(int G, int kt, int vt, int D, F&& f) {
+  return G > 8 ? visit<TcArm2, BF16, BF16>(kt, vt, D, f) : visit<TcArm1, BF16, BF16>(kt, vt, D, f);
 }
 
 }  // namespace
 
-// *floats: the float32 elements of flash_decode's workspace for these shapes on `device`,
-// B * Hkv * G * n_split * (D + 2).
-extern "C" int flash_decode_workspace(int device, int B, int Hkv, int G, int S, int D,
-                                      long long* floats) {
-  if (B < 1 || Hkv < 1 || G < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  int n_split = 0, split_len = 0;
-  const cudaError_t e = plan_splits(device, B, Hkv, G, S, &n_split, &split_len);
+int tc_launch(int device, const Args& a, int kt, int vt, int D, cudaStream_t stream) {
+  return tc_visit(a.G, kt, vt, D, [&](auto arm) { return arm_launch<decltype(arm)>(device, a, stream); });
+}
+
+int tc_workspace(int device, int G, int kt, int vt, int D, long long* ws_floats, int* groups) {
+  return tc_visit(G, kt, vt, D, [&](auto arm) { return arm_workspace<decltype(arm)>(device, G, ws_floats, groups); });
+}
+
+}  // namespace fd
+
+namespace {
+
+// Whether the call takes the tensor-core arm: bf16 q over a cache without float32 payloads.
+bool tensor_cores(int k_type, int v_type, int q_bf16) { return q_bf16 && k_type != fd::F32 && v_type != fd::F32; }
+
+// A float cache is one float type for K and V and has no scales; a quantized cache pairs any two
+// code types and has scales, with or without shifts.
+bool valid_types(int k_type, int v_type, int mode) {
+  const bool kf = k_type == fd::F32 || k_type == fd::BF16, vf = v_type == fd::F32 || v_type == fd::BF16;
+  if (kf || vf) return k_type == v_type && mode == fd::NONE;
+  return k_type >= fd::I8 && k_type <= fd::FP8 && v_type >= fd::I8 && v_type <= fd::FP8 &&
+         (mode == fd::SCALED || mode == fd::SHIFTED);
+}
+
+}  // namespace
+
+// *floats: the float32 elements of flash_decode's workspace (the partials of its grid), *groups:
+// the query groups a KV head is cut into (the arrival counters are [B, Hkv, groups]); both depend
+// on the device, G, D, the payload types and q's dtype only.
+extern "C" int flash_decode_workspace(int device, int G, int D, int k_type, int v_type, int q_bf16,
+                                      long long* floats, int* groups) {
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  *floats = (long long)B * Hkv * G * n_split * (D + 2);
-  return 0;
+  if (G < 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  return tensor_cores(k_type, v_type, q_bf16) ? fd::tc_workspace(device, G, k_type, v_type, D, floats, groups)
+                                              : fd::cc_workspace(device, G, k_type, v_type, D, floats, groups);
 }
 
 // k_type / v_type: 0 float32, 1 bfloat16, 2 int8, 3 int4 nibbles, 4 float8 (through k_lut /
 // v_lut, 256 float32 values). mode: 0 no scales, 1 scales, 2 scales and shifts. q_bf16: 1 when q
-// and out are bfloat16, 0 when they are float32. ws: float32, of flash_decode_workspace's size.
+// and out are bfloat16, 0 when they are float32. ws: float32, of flash_decode_workspace's size;
+// counters: int32 [B, Hkv, groups], zero (the kernel leaves them zero).
 extern "C" int flash_decode(int device, const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale, const void* k_shift,
                             const void* v_shift, const void* positions, const void* k_lut,
-                            const void* v_lut, void* ws, void* out, int B, int Hkv, int G, int S,
-                            int D, int k_type, int v_type, int mode, int q_bf16, void* stream) {
+                            const void* v_lut, void* ws, void* counters, void* out, int B, int Hkv,
+                            int G, int S, int D, int k_type, int v_type, int mode, int q_bf16,
+                            void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || G < 1 || S < 1)
+  if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || G < 1 || S < 1 || !valid_types(k_type, v_type, mode))
     return (int)cudaErrorInvalidValue;
-  int n_split = 0, split_len = 0;
-  e = plan_splits(device, B, Hkv, G, S, &n_split, &split_len);
-  if (e != cudaSuccess) return (int)e;
-  Args a;
+  fd::Args a;
   a.q = q;
   a.k = static_cast<const uint8_t*>(k);
   a.v = static_cast<const uint8_t*>(v);
@@ -530,20 +563,13 @@ extern "C" int flash_decode(int device, const void* q, const void* k, const void
   a.pos = static_cast<const int*>(positions);
   a.k_lut = static_cast<const float*>(k_lut);
   a.v_lut = static_cast<const float*>(v_lut);
-  const size_t rows = (size_t)B * Hkv * G;
-  a.ws_ml = static_cast<float*>(ws);
-  a.ws_acc = a.ws_ml + rows * n_split * 2;
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
   a.out = out;
-  a.B = B; a.Hkv = Hkv; a.G = G; a.S = S; a.D = D;
-  a.n_split = n_split; a.split_len = split_len;
-  a.k_type = k_type; a.v_type = v_type; a.mode = mode; a.q_bf16 = q_bf16;
-  a.scale = (float)(1.0 / std::sqrt((double)D));
+  a.B = B; a.Hkv = Hkv; a.G = G; a.S = S; a.ng = 1;
+  a.mode = mode; a.q_bf16 = q_bf16;
+  a.scale = (float)(1.4426950408889634 / std::sqrt((double)D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_k(a, s);
-  if (rc != 0) return rc;
-  if (q_bf16)
-    flash_decode_combine_kernel<__nv_bfloat16><<<(unsigned)rows, D, 0, s>>>(a);
-  else
-    flash_decode_combine_kernel<float><<<(unsigned)rows, D, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  return tensor_cores(k_type, v_type, q_bf16) ? fd::tc_launch(device, a, k_type, v_type, D, s)
+                                              : fd::cc_launch(device, a, k_type, v_type, D, s);
 }

@@ -33,7 +33,9 @@ __device__ __forceinline__ int slot_expert(const int* eids, const int* nslots, i
 // qbits_moe_small_m: decode-sized M (<= 512), grid (N / TC_BN, ceil(M / BM), U * splits).
 //
 // Replaces quanto_tpu/ops/pallas/moe_mm.py:_moe_sel_kernel (one row per slot), _moe_all_kernel
-// (every expert over the same S rows) and _moe_uniq_kernel (the same over a table of experts).
+// (every expert over the same S rows) and _moe_uniq_kernel (the same over a table of experts), and,
+// through qbits_moe_tiled at M <= 16, _moe_prefill_uniq_kernel at a decode step's down projection
+// (each slot its own rows).
 // Bound on this card by bytes at the decode shapes (each routed expert's payload read once for a
 // few rows; the all form at S = 16 reads 8 experts' 235 MB of int4 codes for 16 rows, 81 us at
 // 3.35 TB/s). Each block takes its slot and its split of K from blockIdx.z, its expert from the
@@ -69,42 +71,6 @@ __global__ void __launch_bounds__(TC_THREADS, blocks_per_sm(BM)) qbits_moe_small
   small_m_tc_block<T, float, BITS, BM, STAGES, SUB>(
       x + (size_t)u * x_slot_stride, packed + (size_t)e * N * row_bytes<BITS>(K), scale_t + (size_t)e * G * N,
       shift_t + (size_t)e * G * N, nullptr, out, part, pre, M, N, K, gs, kt_per, split, n0, m0);
-}
-
-// ---------------------------------------------------------------------------------------------
-// qbits_moe_tiled at M <= 16, grid (N / TL_BN, ceil(M / 16), U); larger M runs the pipelined
-// wgmma GEMM of moe_gemm.cu.
-//
-// Replaces quanto_tpu/ops/pallas/moe_mm.py:_moe_prefill_uniq_kernel (slot u -> expert eids[u]) at
-// the down projection of a decode step, slabs of at most 16 rows. Bound on this card by bytes
-// there (each routed expert's payload read once for a few rows). Each block takes its slot from
-// blockIdx.z, its expert from the table, and runs the body of qbits_mm_tiled (qbits_mm.cuh:
-// tiled_block) on that expert's weight and the slot's rows with a 16 x 128 tile.
-// ---------------------------------------------------------------------------------------------
-template <typename T, int WM, int MT, int BITS>
-__global__ void __launch_bounds__(TL_THREADS, 1) qbits_moe_tiled_kernel(
-    const T* __restrict__ x, long long x_slot_stride, const int* __restrict__ eids,
-    const int* __restrict__ nslots, const uint8_t* __restrict__ packed,
-    const float* __restrict__ scale_t, const float* __restrict__ shift_t,
-    float* __restrict__ out, int M, int N, int K, int gs) {
-  constexpr int BM = WM * MT * 16;
-  const int u = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * TL_BN;
-  out += (size_t)u * M * N;
-  const int e = slot_expert(eids, nslots, u);
-  if (e < 0) {
-    for (int i = threadIdx.x; i < BM * TL_BN; i += TL_THREADS) {
-      const int r = m0 + i / TL_BN;
-      if (r < M) out[(size_t)r * N + n0 + i % TL_BN] = 0.f;
-    }
-    return;
-  }
-  const size_t G = (size_t)(K / gs);
-  tiled_block<T, float, WM, MT, BITS>(x + (size_t)u * x_slot_stride,
-                                      packed + (size_t)e * N * row_bytes<BITS>(K),
-                                      scale_t + (size_t)e * G * N, shift_t + (size_t)e * G * N,
-                                      out, M, N, K, gs, m0, n0);
 }
 
 struct Args {
@@ -172,21 +138,6 @@ int launch_small_m(int device, const Args& a, void* ws, cudaStream_t stream) {
   }
 }
 
-template <typename T, int WM, int MT, int BITS>
-int launch_tiled(const Args& a, cudaStream_t stream) {
-  constexpr int BM = WM * MT * 16;
-  constexpr size_t smem = tiled_smem_bytes<T, BM>();
-  const cudaError_t e = cudaFuncSetAttribute(qbits_moe_tiled_kernel<T, WM, MT, BITS>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.N / TL_BN, (a.M + BM - 1) / BM, a.U);
-  qbits_moe_tiled_kernel<T, WM, MT, BITS><<<grid, TL_THREADS, smem, stream>>>(
-      static_cast<const T*>(a.x), a.x_slot_stride, a.eids, a.nslots, a.packed, a.scale_t,
-      a.shift_t, a.out, a.M, a.N, a.K, a.gs);
-  return (int)cudaGetLastError();
-}
-
-
 Args make_args(const void* x, long long x_slot_stride, const void* eids, const void* nslots,
                const void* packed, const void* scale_t, const void* shift_t, void* out, int U,
                int M, int N, int K, int gs) {
@@ -234,8 +185,13 @@ extern "C" int qbits_moe_gemm(int device, const void* x, long long x_slot_stride
                               const void* shift_t, void* out, void* ws, int E, int U, int M, int N,
                               int K, int gs, int bits, int x_bf16, void* stream);
 
-// As qbits_moe_small_m, with E the experts of the stacked weight and ws the workspace of
-// qbits_moe_gemm (float32 x at M > 16: bf16 [2, U', M, K], U' = 1 for shared rows; else NULL).
+// qbits_moe_tiled: slot u . deq(W[e_u])^T over slabs of M rows, as qbits_moe_small_m, with E the
+// experts of the stacked weight. At M > 16 the batched-expert GEMM of moe_gemm.cu (TPU #14), ws its
+// workspace (float32 x: bf16 [2, U', M, K], U' = 1 for shared rows; else NULL). At M <= 16, where
+// the main path runs it for a decode step's down projection (TPU #15, _moe_prefill_uniq_kernel:
+// each slot its own rows of h, a routed-first table, a device count), qbits_moe_small_m's
+// tensor-core body per slot, ws of qbits_moe_small_m_workspace's size (shared_rows as the slot
+// stride says).
 extern "C" int qbits_moe_tiled(int device, const void* x, long long x_slot_stride,
                                const void* eids, const void* nslots, const void* packed,
                                const void* scale_t, const void* shift_t, void* out, void* ws, int E,
@@ -244,14 +200,6 @@ extern "C" int qbits_moe_tiled(int device, const void* x, long long x_slot_strid
   if (M > 16)
     return qbits_moe_gemm(device, x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, ws,
                           E, U, M, N, K, gs, bits, x_bf16, stream);
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const Args a = make_args(x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, U, M, N,
-                           K, gs);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 4)
-    return x_bf16 ? launch_tiled<__nv_bfloat16, 1, 1, 4>(a, s) : launch_tiled<float, 1, 1, 4>(a, s);
-  if (bits == 2)
-    return x_bf16 ? launch_tiled<__nv_bfloat16, 1, 1, 2>(a, s) : launch_tiled<float, 1, 1, 2>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return qbits_moe_small_m(device, x, x_slot_stride, eids, nslots, packed, scale_t, shift_t, out, ws, U, M,
+                           N, K, gs, bits, x_bf16, stream);
 }

@@ -3,7 +3,8 @@ plain version and its launch count.
 
 Counterpart of the three TPU kernels `quanto_tpu/ops/pallas/flash_decode.py`,
 `flash_decode2.py` and `flash_decode3.py`, which compute one function; one
-split-S flash-decoding kernel in `quanto_tpu_torch/csrc/flash_decode.cu`
+flash-decoding kernel in `quanto_tpu_torch/csrc/flash_decode.cu` (its
+CUDA-core arm for float32 q or a float32 cache in `flash_decode_cc.cu`)
 replaces all three. For each batch row b, KV head h and query g, over the
 cache slots s <= positions[b]:
 
@@ -19,13 +20,19 @@ It returns [B, Hkv, G, D] in q's dtype.
 
 `flash_decode` takes the plain version when q lies on the CPU; on a CUDA
 tensor it launches the kernel or raises. `flash_decode.launches` counts its
-calls that launched the kernel (one C call runs the split pass and the merge
-pass, and counts once).
+calls that launched the kernel: one C call, one launch. The kernel plans its
+work from `positions` on the device, so a call reads nothing back to the
+host. It takes a float32 workspace for the partials of its grid (its size
+depends on the device, G, D, the payload types and q's dtype only, and is
+asked of the C side once per such key) and int32 arrival counters, one per
+(b, h, query group), which the wrapper keeps per device and stream: zeroed
+once, left zero by every call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -132,8 +139,34 @@ def _fp8_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 # C signatures of `flash_decode_workspace` and `flash_decode` in csrc/flash_decode.cu.
-_WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, G: int, D: int, k_type: int, v_type: int, q_bf16: bool):
+    """(float32 elements of the partials' workspace, query groups a KV head
+    is cut into) of a launch on `device`, as csrc/flash_decode.cu plans it."""
+    floats, groups = ctypes.c_longlong(), ctypes.c_int()
+    rc = kernel("flash_decode_workspace", _WS_ARGTYPES)(
+        device, G, D, k_type, v_type, int(q_bf16), ctypes.byref(floats), ctypes.byref(groups)
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_decode workspace query failed: cudaError {rc}")
+    return floats.value, groups.value
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least `n` int32 arrival counters for launches on `stream`, all zero:
+    made zero once, and every launch leaves them so."""
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
 
 
 def flash_decode(
@@ -164,15 +197,13 @@ def flash_decode(
     if positions.dtype != torch.int32:
         raise TypeError(f"flash_decode: positions must be int32, got {positions.dtype}")
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    # Partials of the split pass, read by the merge pass; the kernel's source
-    # picks the number of splits and so the size. Freed when this returns: the
-    # caching allocator hands the block only to later work on the same
-    # stream, which runs after both passes.
-    n_ws = ctypes.c_longlong()
-    rc = kernel("flash_decode_workspace", _WS_ARGTYPES)(device, B, Hkv, G, S, D, ctypes.byref(n_ws))
-    if rc != 0:
-        raise RuntimeError(f"flash_decode workspace query failed: cudaError {rc}")
-    ws = torch.empty(n_ws.value, dtype=torch.float32, device=q.device)
+    q_bf16 = q.dtype == torch.bfloat16
+    n_ws, groups = _plan(device, G, D, k_type, v_type, q_bf16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # The partials, freed when this returns: the caching allocator hands the
+    # block only to later work on the same stream, which runs after the kernel.
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, stream, B * Hkv * groups)
     out = torch.empty_like(q)
     k_lut = _fp8_table(k.dtype, q.device) if k_type == _FP8 else None
     v_lut = _fp8_table(v.dtype, q.device) if v_type == _FP8 else None
@@ -183,9 +214,8 @@ def flash_decode(
     rc = kernel("flash_decode", _ARGTYPES)(
         device,
         ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale), ptr(k_shift), ptr(v_shift),
-        ptr(positions), ptr(k_lut), ptr(v_lut), ptr(ws), ptr(out),
-        B, Hkv, G, S, D, k_type, v_type, mode, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        ptr(positions), ptr(k_lut), ptr(v_lut), ptr(ws), ptr(counters), ptr(out),
+        B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")

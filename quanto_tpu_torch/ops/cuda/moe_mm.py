@@ -1,10 +1,8 @@
 """Stacked-expert int4/int2 matmuls (the MoE kernels): the Hopper kernels, their
 plain version and their launch counts.
 
-Counterpart of `quanto_tpu/ops/pallas/moe_mm.py`. Two CUDA kernels in
-`quanto_tpu_torch/csrc/moe_mm.cu` (and, for `qbits_moe_tiled` at M > 16, the
-pipelined tensor-core GEMM of `quanto_tpu_torch/csrc/moe_gemm.cu`) compute,
-for each slot u of a [U, M, K] activation,
+Counterpart of `quanto_tpu/ops/pallas/moe_mm.py`. Two kernels compute, for
+each slot u of a [U, M, K] activation,
 
     out[u] = x[u] @ deq(W[e_u])^T   in float32,   e_u = eids[u] (u without a table),
 
@@ -12,10 +10,13 @@ over a stacked weight in the Hopper layout of `WeightQBitsHopperArray`:
 `packed` uint8 [E, N, K * bits / 8], `scale_t`/`shift_t` float32 [E, G, N],
 int4 or int2 codes (`bits`; every M takes the kernels at either width: the
 JAX MoE kernels have no int2 gate on M).
-- `qbits_moe_small_m` (M <= `MAX_M`) replaces the TPU kernels
+- `qbits_moe_small_m` (M <= `MAX_M`; `csrc/moe_mm.cu`, the tensor-core
+  small-M body of `csrc/small_m_tc.cuh` per slot) replaces the TPU kernels
   `_moe_sel_kernel`, `_moe_all_kernel` and `_moe_uniq_kernel`;
 - `qbits_moe_tiled` (any M) replaces `_moe_prefill_kernel` and
-  `_moe_prefill_uniq_kernel`.
+  `_moe_prefill_uniq_kernel`: above 16 rows the pipelined tensor-core GEMM of
+  `csrc/moe_gemm.cu`, at M <= 16 (a decode step's down projection, each slot
+  its own rows) the same per-slot body as `qbits_moe_small_m`.
 
 x's slots may share their rows (slot stride 0, the all and uniq forms) or
 each hold their own (the selective form and the batched-expert GEMM). With
@@ -31,17 +32,19 @@ The three entry points keep the semantics of the JAX calls:
 Each wrapper takes the plain PyTorch version `qbits_moe_plain` when x lies on
 the CPU; on a CUDA tensor it launches its kernel or raises. Each wrapper's
 `launches` attribute counts its kernel launches, of either width, and
-`launches_int2` those of its int2 arm. Expert ids must lie in
+`launches_int2` those of its int2 arm; `qbits_moe_tiled` also counts its
+M <= 16 arm (TPU #15 on the main path) in `launches_small_m` and
+`launches_small_m_int2`. Expert ids must lie in
 [0, E): the kernels read them on the device and do not check them.
 `qbits_moe_all` also counts, in its own `launches`, the calls of TPU #12's
 form (every expert, no table) that launched `qbits_moe_small_m`'s kernel.
-`qbits_moe_small_m` runs the tensor-core body of `qbits_mm_small_m` per slot
-(`csrc/small_m_tc.cuh`) and takes a workspace the wrapper allocates at the size
-the C side plans (`qbits_moe_small_m_workspace`): from M = 33 a first pass sums
-x over each 64 values, and where the card would be short of blocks K is split
-and a last pass sums the splits in a fixed order. `qbits_moe_tiled` at M > 16
-with float32 x takes a workspace of x's bytes: a first pass of the same call
-splits x into the bf16 high and low planes the tensor cores multiply.
+The per-slot tensor-core body takes a workspace the wrapper allocates at the
+size the C side plans (`qbits_moe_small_m_workspace`): from M = 33 a first
+pass sums x over each 64 values, and where the card would be short of blocks
+K is split and a last pass sums the splits in a fixed order. `qbits_moe_tiled`
+at M > 16 with float32 x takes a workspace of x's bytes: a first pass of the
+same call splits x into the bf16 high and low planes the tensor cores
+multiply.
 """
 
 from __future__ import annotations
@@ -175,16 +178,15 @@ def _run(wrapper, name, x3, packed, scale_t, shift_t, group_size, bits, eids, ns
     out = torch.empty((U, M, N), dtype=torch.float32, device=x3.device)
     # The workspace, freed on return: the caching allocator hands the block only to later work on
     # this stream, which runs after every pass.
-    if name == "qbits_moe_tiled":
-        # float32 x at M > 16: its bf16 high and low planes, [2, U', M, K] (U' = 1 for shared
-        # rows), the bytes of x's own float32 [U', M, K].
-        n_ws = (1 if slot_stride == 0 else U) * M * K if M > 16 and x3.dtype == torch.float32 else 0
-        extra = [packed.shape[0]]
-    else:
-        # The first pass's sums of x and the split-K partials of the tensor-core body.
+    small = name == "qbits_moe_small_m" or M <= 16
+    if small:  # the per-slot tensor-core body: the first pass's sums of x and the split-K partials
         n_ws = _small_m_workspace_floats(device, U, M, N, K, group_size, x3.dtype == torch.float32,
                                          slot_stride == 0)
-        extra = []
+    else:
+        # The GEMM with float32 x: its bf16 high and low planes, [2, U', M, K] (U' = 1 for
+        # shared rows), the bytes of x's own float32 [U', M, K].
+        n_ws = (1 if slot_stride == 0 else U) * M * K if x3.dtype == torch.float32 else 0
+    extra = [packed.shape[0]] if name == "qbits_moe_tiled" else []
     ws = torch.empty(n_ws, dtype=torch.float32, device=x3.device) if n_ws else None
     rc = kernel(name, _ARGTYPES[name])(
         device, x3.data_ptr(), slot_stride,
@@ -199,6 +201,9 @@ def _run(wrapper, name, x3, packed, scale_t, shift_t, group_size, bits, eids, ns
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     wrapper.launches += 1
     wrapper.launches_int2 += bits == 2
+    if name == "qbits_moe_tiled" and small:
+        wrapper.launches_small_m += 1
+        wrapper.launches_small_m_int2 += bits == 2
     return out
 
 
@@ -224,6 +229,7 @@ def qbits_moe_tiled(
 
 qbits_moe_small_m.launches = qbits_moe_small_m.launches_int2 = 0
 qbits_moe_tiled.launches = qbits_moe_tiled.launches_int2 = 0
+qbits_moe_tiled.launches_small_m = qbits_moe_tiled.launches_small_m_int2 = 0
 
 
 # --- entry points (the JAX calls' semantics) -----------------------------------

@@ -34,10 +34,16 @@ refusals on CUDA tensors.
 
 `flash_decode` against `flash_decode_plain` for every pair of K and V payload
 types (float32 and bfloat16 caches; int8, int4 and the three float8 formats
-paired freely, with and without shifts), S in {1, 127, 1088, 8192}, ragged
-positions including 0, float32 and bfloat16 q. Tolerances: float32 q within
-1e-5 * max|ref| (float32 sums in another order, `__expf`); bfloat16 q within
-1e-2 * max|ref| and cosine > 1 - 1e-4 (the same, then rounded to bf16).
+paired freely, with and without shifts), S in {1, 63, 64, 65, 127, 1088,
+8192}, ragged positions including 0, float32 and bfloat16 q (bfloat16 q over
+a cache without float32 payloads takes the tensor-core arm, the rest the
+CUDA-core arm), G in {1, 3, 6, 8, 12}; positions that leave most tiles empty
+(rows at 0, rows inside the first tile, one row at S - 1 beside rows at 0,
+the engine's three decode steps over 4352 slots) and 40 or 100 rows at random
+positions; each call one launch, two calls the same bits. Tolerances: float32 q within 1e-5 * max|ref| (float32 sums in
+another order, ex2.approx); bfloat16 q within 1e-2 * max|ref| and cosine > 1 -
+1e-4 (the same, p s_v rounded to bf16 inside the tensor-core product, the
+output rounded to bf16).
 
 The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
 `qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
@@ -46,12 +52,15 @@ form at ragged S in {1, 3, 8, 512} and at the all-experts route's S in {9,
 16, 32} (TPU #12; also int2, through `qbits_moe_all`, whose own count ticks
 once a call without a table; and with a device count that skips slots), a
 6-slot expert table (U < E) with and without a device count that skips slots; the batched-expert GEMM at M in
-{1, 4, 8, 16} (the 16-row tile) and at M in {17, 33, 127, 129, 130, 255,
+{1, 4, 8, 16} (the per-slot small-M body) and at M in {17, 33, 127, 129, 130, 255,
 257, 600, 2048, 2049} (the pipelined GEMM: both sides of its 128-row M
 tiles), group sizes 64, 128 and 256, with and without a table and a device
-count. Float32 outputs within 1e-4 * max|ref| (sums in another order; f32 x
-seen as a bf16 high + low pair) and cosine > 1 - 1e-5; skipped slots
-exactly zero; two launches bit-identical; one launch counted a call.
+count; its M <= 16 arm (TPU #15 on the main path, the per-slot tensor-core
+body) at M in {1, 4, 16} with each slot's own rows, a table and dead slots,
+int4 and int2, counted in `launches_small_m`. Float32 outputs within 1e-4 *
+max|ref| (sums in another order; f32 x seen as a bf16 high + low pair) and
+cosine > 1 - 1e-5; skipped slots exactly zero; two launches bit-identical; one
+launch counted a call.
 
 The int2 arms of the four float-x kernels, with the tolerances of their int4
 arms: `qbits_mm_small_m` and `qbits_mm_tiled` over M in 1..1024 (the int2
@@ -308,34 +317,42 @@ def test_requant_kernel_refusals(cuda_device):
         qbits_mm_requant_int8(xq.float(), sx, *w, s8, 128, torch.bfloat16)
 
 
-def cache_operands(k_type, v_type, shifted, S, D, device, seed):
+def cache_operands(k_type, v_type, shifted, S, D, device, seed, B=3, Hkv=2):
     """(k, v, k_scale, v_scale, k_shift, v_shift) of one cache layer, B = 3,
-    Hkv = 2, written by the port's `kv_update` from seeded K/V."""
+    Hkv = 2 unless given, written by the port's `kv_update` from seeded K/V."""
     rng = np.random.default_rng(seed)
-    k = torch.from_numpy(rng.standard_normal((3, S, 2, D)).astype(np.float32) * 2 + 0.5).to(device)
-    v = torch.from_numpy(rng.standard_normal((3, S, 2, D)).astype(np.float32)).to(device)
+    k = torch.from_numpy(rng.standard_normal((B, S, Hkv, D)).astype(np.float32) * 2 + 0.5).to(device)
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, D)).astype(np.float32)).to(device)
     if k_type in ("float32", "bfloat16"):
         dtype = getattr(torch, k_type)
         return k.to(dtype), v.to(dtype), None, None, None, None
     suffix = "a" if shifted else ""
-    ck = tkv.init_quantized_kv_cache(1, 3, S, 2, D, k_type + suffix, device=device)[0]
-    cv = tkv.init_quantized_kv_cache(1, 3, S, 2, D, v_type + suffix, device=device)[0]
+    ck = tkv.init_quantized_kv_cache(1, B, S, Hkv, D, k_type + suffix, device=device)[0]
+    cv = tkv.init_quantized_kv_cache(1, B, S, Hkv, D, v_type + suffix, device=device)[0]
     tkv.kv_update(ck, k, v, 0)
     tkv.kv_update(cv, k, v, 0)
     return ck._k_data, cv._v_data, ck._k_scale, cv._v_scale, ck._k_shift, cv._v_shift
 
 
-def check_flash_decode(device, cache, S, D, dtype, G=4):
+def check_flash_decode(device, cache, S, D, dtype, G=4, positions=None, Hkv=2, seed=None):
+    """One cache layer (B = len(positions), rows at S - 1, S // 2 and 0 unless
+    given): each call one launch, two calls the same bits, and the result
+    against the plain version: float32 q within 1e-5 * max|ref|, bfloat16 q
+    within 1e-2 * max|ref| and cosine > 1 - 1e-4."""
+    positions = [S - 1, S // 2, 0] if positions is None else positions
+    seed = S + D if seed is None else seed
     k_type, v_type, shifted = cache
-    ops = cache_operands(k_type, v_type, shifted, S, D, device, seed=S + D)
-    rng = np.random.default_rng(D)
-    q = torch.from_numpy(rng.standard_normal((3, 2, G, D)).astype(np.float32)).to(device, dtype)
-    pos = torch.tensor([S - 1, S // 2, 0], dtype=torch.int32, device=device)
-    k, v, ks, vs, km, vm = ops
+    B = len(positions)
+    k, v, ks, vs, km, vm = cache_operands(k_type, v_type, shifted, S, D, device, seed=seed, B=B, Hkv=Hkv)
+    rng = np.random.default_rng(seed + 1)
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D)).astype(np.float32)).to(device, dtype)
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
     before = flash_decode.launches
-    out = flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm).float()
-    torch.cuda.synchronize()
+    out = flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm)
     assert flash_decode.launches == before + 1
+    assert torch.equal(out, flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm))
+    torch.cuda.synchronize()
+    out = out.float()
     ref = flash_decode_plain(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm).float()
     err = (out - ref).abs().max().item()
     if dtype == torch.float32:
@@ -347,7 +364,7 @@ def check_flash_decode(device, cache, S, D, dtype, G=4):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
-@pytest.mark.parametrize("S", [1, 127, 1088, 8192])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 1088, 8192])
 @pytest.mark.parametrize("cache", CACHES, ids=cache_id)
 def test_flash_decode_matches_plain(cuda_device, cache, S, dtype):
     check_flash_decode(cuda_device, cache, S, 128, dtype)
@@ -360,12 +377,54 @@ def test_flash_decode_head_dim_64(cuda_device, cache):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 3, 6, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("G", [1, 3, 6, 8, 12])
 @pytest.mark.parametrize("cache", [("bfloat16", "bfloat16", False), ("qint4", "qint8", True)],
                          ids=["bf16", "k4v8-shifted"])
-def test_flash_decode_query_groups(cuda_device, cache, G):
-    """Query groups that fill part of a block's 4 rows, or span two blocks."""
-    check_flash_decode(cuda_device, cache, 1088, 128, torch.float32, G=G)
+def test_flash_decode_query_groups(cuda_device, cache, G, dtype):
+    """Query groups that fill part of a group of rows, or take a second one
+    (bf16 q: 8 rows an n tile, two from G = 9; float32 q: 4 rows a group)."""
+    check_flash_decode(cuda_device, cache, 1088, 128, dtype, G=G)
+
+
+# Caches of the ragged-position cases: a float cache, symmetric and asymmetric int4, k8v4 and a
+# float8 pair, so both arms (bf16 q: tensor cores; float32 q: CUDA cores) meet every decode path.
+RAGGED_CACHES = [("bfloat16", "bfloat16", False), ("qint4", "qint4", False), ("qint4", "qint4", True),
+                 ("qint8", "qint4", False), ("qfloat8_e4m3fn", "qfloat8_e5m2", True)]
+# Positions whose visible slots leave most tiles of the cache empty (S = 1088): every row at 0,
+# rows inside the first 64 slots, one row at S - 1 beside rows at 0; and the engine's decode
+# step (B = 8 over 4352 slots; chip_smoke.py's FD_ENGINE_POS): every row decoding a long prompt,
+# four rows at a 1024-token prompt's positions beside four long ones, four free rows at 0.
+RAGGED = {
+    "zeros": (1088, [0, 0, 0]),
+    "first_tile": (1088, [5, 63, 0]),
+    "one_full": (1088, [1087, 0, 0]),
+    "engine_batch": (4352, [3200, 4224, 3712, 3456, 4096, 3328, 3968, 3584]),
+    "engine_stream": (4352, [1040, 3400, 1056, 3700, 1072, 3950, 1088, 4200]),
+    "engine_free": (4352, [0, 3200, 0, 3712, 0, 4224, 0, 3968]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("case", list(RAGGED))
+@pytest.mark.parametrize("cache", RAGGED_CACHES, ids=cache_id)
+def test_flash_decode_ragged_positions(cuda_device, cache, case, dtype):
+    """Positions that leave most tiles empty: the device plan visits only the
+    visible tiles of each row."""
+    S, positions = RAGGED[case]
+    check_flash_decode(cuda_device, cache, S, 128, dtype, positions=positions, seed=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("B", [40, 100])
+def test_flash_decode_many_rows(cuda_device, B, dtype):
+    """More rows than a warp scans at once (and, at B = 100, than the grid's
+    occupancy allows for), at random positions: blocks that see whole pairs
+    between partial ones, and pairs split over many blocks."""
+    positions = np.random.default_rng(B).integers(0, 520, B).tolist()
+    check_flash_decode(cuda_device, ("qint4", "qint4", True), 520, 128, dtype, positions=positions, Hkv=8, seed=B)
 
 
 def stacked_experts(device, N, K, E=8, seed=0, bits=4):
@@ -458,7 +517,7 @@ def test_moe_all_form_counted_bit_identical(cuda_device, rows, bits):
         5, dtype=torch.int32, device=cuda_device), bits=bits)
 
 
-# Slab rows of the batched-expert GEMM: the 16-row tile (M <= 16), then both sides of the pipelined
+# Slab rows of the batched-expert GEMM: the per-slot small-M body (M <= 16), then both sides of the pipelined
 # GEMM's 128-row M tiles, up to a prefill slab of 2048.
 MOE_TILED_M = [1, 4, 8, 16, 17, 33, 127, 129, 130, 255, 257, 600, 2048, 2049]
 
@@ -500,22 +559,25 @@ def test_moe_tiled_matches_plain(cuda_device, m, table, n, k, dtype, gs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [4, 2])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("m", [16, 130, 2049])
+@pytest.mark.parametrize("m", [1, 4, 16, 130, 2049])
 def test_moe_tiled_bit_identical_and_dead_slots(cuda_device, m, dtype, bits):
     """Two launches give the same bits; with a device count, the slots at or
     past it are exactly zero (none, some, all) and the live ones are the same
     bits as without a count; each call of the wrapper or of
-    `qbits_moe_prefill` is one launch."""
+    `qbits_moe_prefill` is one launch, one of the M <= 16 arm's (TPU #15:
+    `launches_small_m`, `launches_small_m_int2`) at m <= 16."""
     xg, weights, eids, _ = moe_tiled_case(cuda_device, m, "uniq", 512, 768, dtype, 128, bits)
     full = MM.qbits_moe_tiled(xg, *weights, 128, bits, eids=eids)
     assert torch.equal(full, MM.qbits_moe_tiled(xg, *weights, 128, bits, eids=eids))
+    tiled = MM.qbits_moe_tiled
     for n in (0, 3, len(MOE_TABLE)):
         count = torch.tensor(n, dtype=torch.int32, device=cuda_device)
-        before = (MM.qbits_moe_tiled.launches, MM.qbits_moe_tiled.launches_int2)
+        before = (tiled.launches, tiled.launches_int2, tiled.launches_small_m, tiled.launches_small_m_int2)
         out = MM.qbits_moe_prefill(xg, *weights, 128, bits, eids=eids, nslots=count)
         torch.cuda.synchronize()
-        assert (MM.qbits_moe_tiled.launches, MM.qbits_moe_tiled.launches_int2) == (
-            before[0] + 1, before[1] + (bits == 2))
+        small = m <= 16
+        assert (tiled.launches, tiled.launches_int2, tiled.launches_small_m, tiled.launches_small_m_int2) == (
+            before[0] + 1, before[1] + (bits == 2), before[2] + small, before[3] + (small and bits == 2))
         assert not out[n:].any()
         assert torch.equal(out[:n], full[:n])
 
