@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only decode          # phases 1-2, phase 3's flash_decode and TPU #15
                                                  # rows, the decode steps of phases 4, 4b, 10 and
                                                  # 8 (B = 4 and 16) (a tree's kernels, A/B)
+    python3 chip_smoke.py --only checkpoint      # phases 1-2 and 16 (save, load, run again)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -221,6 +222,22 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    calibrated W4A8 arms on each rank, sharded after freezing. Every time it
    prints is labelled: 2 ranks sharing one H100 over gloo measure no TP
    speed. A rank that fails fails the phase.
+16. checkpoints: for phase 4's qint4 model and phase 7's calibrated W4A8
+   model (full depth), phase 6's qint8 quantization and Mixtral-8x7B qint4
+   (lm_head bf16, per-expert modules) at full width and CKPT_LAYERS layers,
+   each built anew: `QuantizedModelForCausalLM(model).save_pretrained` into a
+   `tempfile.mkdtemp()` (its free space printed; under twice the model's
+   bytes raises), fsync'd and dropped from the page cache; the run of the
+   phase that built it on the original (phase 4's, 7's and 6's: prefill of B
+   = 4 x 1024 and 63 decode steps; phase 8's at B = 4, after
+   `convert_moe_to_stacked`); the model freed; `from_pretrained` on the card
+   (peak device memory within the loaded model's bytes + CKPT_LOAD_MARGIN);
+   the streamline flags set from the original's (quanto's format does not
+   hold them); Mixtral converted again; every tensor a forward reads, the
+   prefill logits, the tokens and the launch counts EQUAL to the original's;
+   the W4A8 model frozen into the requant form with the original's `_s8`
+   (phase 10's conversion). One JSON line per model: saved bytes, shards,
+   save and load seconds, load GB/s, peak device memory during the load.
 
 `--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
 alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
@@ -238,7 +255,7 @@ reads), phase 4's qint4 run at ctx 1088 and phase 4b's at ctx 8192 (each
 prefill, then 63 decode steps, exact counts), phase 10 on phase 7's model
 frozen into the requant form, and phase 8 at B = 4 and B = 16. Copied into
 another tree's checkout, each of these modes times that tree's kernels beside
-this one's in one call.
+this one's in one call. `--only checkpoint` runs phases 1-2 and 16 alone.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -246,11 +263,17 @@ The second-to-last line is the per-kernel JSON summary; the last line is
 
 import contextlib
 import copy
+import ctypes
+import dataclasses
 import functools
 import gc
 import json
+import mmap
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1567,12 +1590,14 @@ def step_weight_bytes(model) -> int:
 
 
 @torch.no_grad()
-def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, prefill_peak_ops=None) -> dict:
+def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, prefill_peak_ops=None,
+              record=None) -> dict:
     """Phases 6 and 7: the 8B model's prefill (last position only) and 63 greedy
     decode steps over a bf16 cache of T + NEW slots, with exact launch counts of
     every kernel in each half. With `prefill_peak_ops` it also logs the
     prefill's linears' least time (2 M N K operations at that rate). Returns
-    the run's launch counts."""
+    the run's launch counts; a `record` dict takes the prefill logits, the
+    tokens and the counts (phase 16)."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
@@ -1608,6 +1633,8 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
         raise RuntimeError(f"{label}: generate() and prefill + decode gave different tokens")
     if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
         raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
+    if record is not None:
+        record.update(logits=logits.cpu(), tokens=torch.cat([first, rest], dim=1).cpu(), launches=launches)
     weight_bytes = step_weight_bytes(model)
     prefill_bound = {}
     if prefill_peak_ops is not None:
@@ -2133,11 +2160,12 @@ def mixtral_want(config, batch: int, expert_bits: int = 4):
 
 
 @torch.no_grad()
-def phase_mixtral(model, ids, expert_bits: int = 4, new: int = NEW) -> dict:
+def phase_mixtral(model, ids, expert_bits: int = 4, new: int = NEW, record=None) -> dict:
     """Phase 8 (phase 12 with int2 experts) at one batch: prefill of the
     prompts `ids` [B, T'] (last position only) and `new` - 1 greedy decode
     steps over a bf16 cache of T' + `new` slots, with exact launch counts of
-    every kernel in each half. Returns the run's launch counts."""
+    every kernel in each half. Returns the run's launch counts; a `record`
+    dict takes the prefill logits, the tokens and the counts (phase 16)."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
@@ -2176,6 +2204,8 @@ def phase_mixtral(model, ids, expert_bits: int = 4, new: int = NEW) -> dict:
         raise RuntimeError(f"mixtral B={batch}: generate() and prefill + decode gave different tokens")
     if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
         raise RuntimeError(f"mixtral B={batch}: decoded token ids out of the vocabulary")
+    if record is not None:
+        record.update(logits=logits.cpu(), tokens=torch.cat([first, rest], dim=1).cpu(), launches=launches)
     # Least bytes of a step: top-2 of 8 reads 2 experts per layer at B = 1; at B = 4 and 16 between
     # 2 and all 8, as the step routes (the bound is given at both ends).
     lo, hi = moe_step_bytes(model, 2), moe_step_bytes(model, 2 if batch == 1 else MOE_EXPERTS)
@@ -2972,6 +3002,231 @@ def phase_tp(ref_forced: torch.Tensor, ref_tokens: torch.Tensor) -> dict:
     return ranks[0]
 
 
+# Phase 16: how far the peak device memory of `from_pretrained` may pass the loaded model's own
+# bytes: one module's generic tensors and one block of unpacked codes (`from_generic`) at a time.
+CKPT_LOAD_MARGIN = 1e9
+CKPT_LAYERS = 4  # phase 16's qint8 Llama and Mixtral: full width, 4 layers
+
+
+def weight_tensors(model) -> dict:
+    """Every tensor a forward reads, by name: parameters, buffers and the
+    fields of each frozen weight (`_packed`, `_scale_t`, `_shift_t`, `_data`,
+    `_scale`, ...)."""
+    from quanto_tpu_torch.tensor.packed import PackedArray
+    from quanto_tpu_torch.tensor.qarray import QArray
+
+    out = {}
+    for name, m in model.named_modules():
+        for n, t in [*m.named_parameters(recurse=False), *m.named_buffers(recurse=False)]:
+            out[f"{name}.{n}"] = t
+        w = getattr(m, "weight", None)
+        if isinstance(w, QArray):
+            for f in dataclasses.fields(w):
+                v = getattr(w, f.name)
+                v = v.packed_data if isinstance(v, PackedArray) else v
+                if isinstance(v, torch.Tensor):
+                    out[f"{name}.weight.{f.name}"] = v
+    return out
+
+
+def sync_and_evict(directory: str) -> None:
+    """fsync every file of a saved checkpoint, then ask the kernel to drop
+    its pages from the page cache (posix_fadvise DONTNEED, advisory), so that
+    the load reads the disk rather than the memory the save just wrote."""
+    for name in os.listdir(directory):
+        fd = os.open(os.path.join(directory, name), os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def page_cache_share(paths) -> float:
+    """The share of the files' pages in the page cache (mincore(2) over a
+    private mapping of each): whether a load will read the disk or memory."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    page = mmap.PAGESIZE
+    resident = total = 0
+    for path in paths:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            mm = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_COPY)
+        anchor = ctypes.c_char.from_buffer(mm)
+        pages = -(-size // page)
+        vec = (ctypes.c_ubyte * pages)()
+        if libc.mincore(ctypes.c_void_p(ctypes.addressof(anchor)), ctypes.c_size_t(size), vec) != 0:
+            raise OSError(ctypes.get_errno(), "mincore failed")
+        resident += sum(v & 1 for v in vec)
+        total += pages
+        del anchor
+        mm.close()
+    return resident / max(total, 1)
+
+
+def phase_checkpoint(label: str, build, run, stacked: bool = False, requant: bool = False) -> dict:
+    """Phase 16 for one model: `build()` gives it quantized and frozen (a
+    Mixtral with per-expert modules); `QuantizedModelForCausalLM(model)
+    .save_pretrained` into a fresh `tempfile.mkdtemp()` (fsync'd, then its
+    pages dropped from the page cache, the share still cached measured);
+    `run(model, record, when)` (the run
+    of the phase that built the model, its launch counts asserted) on the original,
+    converted by `convert_moe_to_stacked` when `stacked`; the model freed;
+    `from_pretrained` on the card, its peak device memory within the loaded
+    model's bytes + CKPT_LOAD_MARGIN; Calibration's streamline flags (not in
+    quanto's format) set from the original's; converted as the original;
+    every tensor a forward reads EQUAL to the original's; the same run with
+    prefill logits, tokens and launch counts EQUAL to the original's; with
+    `requant`, `freeze(loaded, w4a8_requant_dot=True)` gives the original's
+    requant form and `_s8` (phase 10's conversion). Prints one JSON line and
+    returns the loaded run's launch counts."""
+    from quanto_tpu_torch import (
+        WeightQBitsHopperArray, WeightQBitsRequantArray, convert_moe_to_stacked, freeze, named_qmodules,
+    )
+    from quanto_tpu_torch.models.transformers_models import QuantizedModelForCausalLM
+
+    model = build()
+    need = 2 * sum(t.numel() * t.element_size() for t in weight_tensors(model).values())
+    directory = tempfile.mkdtemp(prefix="quanto-tpu-torch-ckpt-")
+    try:
+        free = shutil.disk_usage(directory).free
+        log(f"checkpoint {label}: {free / 1e9:.1f} GB free where tempfile writes ({directory})")
+        if free < need:
+            raise RuntimeError(f"checkpoint {label}: {free / 1e9:.1f} GB free, under twice the model's "
+                               f"{need / 2e9:.1f} GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        QuantizedModelForCausalLM(model).save_pretrained(directory)
+        t1 = time.perf_counter()
+        sync_and_evict(directory)
+        save_s, fsync_s = time.perf_counter() - t0, time.perf_counter() - t1
+        shards = [os.path.join(directory, n) for n in os.listdir(directory) if n.endswith(".safetensors")]
+        saved = sum(os.path.getsize(p) for p in shards)
+
+        flags = {n: m.quantize_outputs for n, m in named_qmodules(model)}
+        if stacked and convert_moe_to_stacked(model, capacity_factor=2.0) != model.config.num_hidden_layers:
+            raise RuntimeError(f"checkpoint {label}: convert_moe_to_stacked missed a block")
+        original = {}
+        run(model, original, "original")
+        want = {k: t.cpu() for k, t in weight_tensors(model).items()}
+        s8 = {}
+        if requant:
+            s8 = {n: WeightQBitsRequantArray.from_hopper(m.weight)._s8.cpu() for n, m in model.named_modules()
+                  if type(getattr(m, "weight", None)) is WeightQBitsHopperArray}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cached = page_cache_share(shards)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded = QuantizedModelForCausalLM.from_pretrained(directory)._wrapped
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak, held = torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base
+        if peak > held + CKPT_LOAD_MARGIN:
+            raise RuntimeError(f"checkpoint {label}: from_pretrained peaked at {peak / 1e9:.2f} GB for a model "
+                               f"of {held / 1e9:.2f} GB")
+        for n, m in named_qmodules(loaded):
+            m.quantize_outputs = flags[n]
+        if stacked:
+            convert_moe_to_stacked(loaded, capacity_factor=2.0)
+        got = weight_tensors(loaded)
+        if list(got) != list(want):
+            raise RuntimeError(f"checkpoint {label}: the loaded model's tensors are not the original's")
+        unequal = [k for k, t in want.items() if got[k].dtype != t.dtype or not torch.equal(got[k].cpu(), t)]
+        if unequal:
+            raise RuntimeError(f"checkpoint {label}: loaded tensors differ from the original's: {unequal[:5]}")
+        again = {}
+        run(loaded, again, "loaded")
+        if not torch.equal(again["logits"], original["logits"]):
+            raise RuntimeError(f"checkpoint {label}: the loaded model's prefill logits differ from the original's")
+        if not torch.equal(again["tokens"], original["tokens"]):
+            raise RuntimeError(f"checkpoint {label}: the loaded model decoded other tokens")
+        if again["launches"] != original["launches"]:
+            raise RuntimeError(f"checkpoint {label}: launches {again['launches']}, the original's "
+                               f"{original['launches']}")
+        if requant:
+            freeze(loaded, w4a8_requant_dot=True)
+            forms = {n: m.weight for n, m in loaded.named_modules() if n in s8}
+            if len(forms) != len(s8) or not all(isinstance(w, WeightQBitsRequantArray) and torch.equal(w._s8.cpu(), s8[n])
+                                               for n, w in forms.items()):
+                raise RuntimeError(f"checkpoint {label}: the reloaded requant form's _s8 is not the original's")
+        log(json.dumps({
+            "checkpoint": label, "saved_bytes": saved, "shards": len(shards), "save_s": save_s,
+            "save_fsync_s": fsync_s, "page_cache_share_at_load": cached, "load_s": load_s,
+            "load_gb_s": saved / load_s / 1e9, "load_peak_gb": peak / 1e9, "loaded_model_gb": held / 1e9,
+            "disk_free_gb": free / 1e9, "tensors_equal": len(want), "logits_equal": True, "tokens_equal": True,
+            "launches_equal": True, **({"requant_s8_equal": len(s8)} if requant else {}),
+        }))
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        return again["launches"]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def phase_checkpoints(ids, mixtral_ids) -> dict:
+    """Phase 16: `phase_checkpoint` for phase 4's qint4 model and phase 7's
+    calibrated W4A8 model (then its requant form) at full depth, phase 6's
+    qint8 quantization at CKPT_LAYERS layers (TPU #6), and Mixtral-8x7B
+    (qint4) at CKPT_LAYERS layers, built with per-expert modules and stacked
+    after the load (B = 4 decode: #13 and #15). Each run is its phase's, with
+    its launch counts. Returns {model label: the loaded run's launch counts}."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+    from quanto_tpu_torch.models.mixtral import MixtralConfig
+
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    config4 = LlamaConfig(**dict(LLAMA31_8B, num_hidden_layers=CKPT_LAYERS), dtype=torch.bfloat16)
+    mixtral4 = MixtralConfig(**dict(MIXTRAL_8X7B, num_hidden_layers=CKPT_LAYERS), dtype=torch.bfloat16)
+    L, L4, steps = config.num_hidden_layers, CKPT_LAYERS, NEW - 1
+    n, n4 = LINEARS_PER_LAYER * L, LINEARS_PER_LAYER * L4
+
+    def llama_run(label, want_prefill, want_decode):
+        return lambda model, record, when: phase_arm(
+            f"checkpoint {label} ({when})", model, ids, want_prefill, want_decode, record=record)
+
+    models = [
+        ("llama-3.1-8b-config qint4+head4 (phase 4)", lambda: build_model(config, seed=0)[0],
+         {"qbits_mm_tiled": n, "qbits_mm_small_m": 1},
+         {"qbits_mm_small_m": (n + 1) * steps, "flash_decode": L * steps}, {}),
+        ("llama-3.1-8b-config w4a8, calibrated, lm_head bf16 (phase 7)",
+         lambda: build_model(config, seed=0, weights="qint4", activations="qint8", exclude="lm_head")[0],
+         {"qbits_mm_tiled_int8": n}, {"qbits_mm_int8_small_m": n * steps, "flash_decode": L * steps},
+         {"requant": True}),
+        (f"llama-3.1-8b-config qint8, lm_head bf16 (phase 6), {L4} layers",
+         lambda: build_model(config4, seed=0, weights="qint8", exclude="lm_head")[0],
+         {}, {"qbytes_mm_int8": n4 * steps, "flash_decode": L4 * steps}, {}),
+    ]
+    t0 = time.perf_counter()
+    runs = {label: phase_checkpoint(label, build, llama_run(label, pre, dec), **kw)
+            for label, build, pre, dec, kw in models}
+    label = f"mixtral-8x7b-config qint4, lm_head bf16 (phase 8), {L4} layers"
+    runs[label] = phase_checkpoint(
+        label, lambda: build_mixtral(mixtral4, seed=0, stacked=False),
+        lambda model, record, when: phase_mixtral(model, mixtral_ids, record=record), stacked=True)
+    log(f"checkpoint: phase 16 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def only_checkpoint(card: str) -> int:
+    """`--only checkpoint`: phase 16 alone (after phases 1-2)."""
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    mixtral_ids = torch.randint(
+        0, MIXTRAL_8X7B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(9)
+    ).cuda()
+    phase_checkpoints(ids, mixtral_ids)
+    log(card)
+    log(json.dumps({"ok": True, "only": "checkpoint", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def only_sweep_and_serving(K_mod, card: str) -> int:
     """`--only sweep,serving`: phase 3's small-M sweep and phase 15 on both of
     its models, built as phases 4 and 7 build them; for timing a tree's
@@ -3184,8 +3439,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode"):
-        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe or decode, got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode or checkpoint, got {only}",
+              file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -3209,6 +3465,8 @@ def main() -> int:
         return only_qbytes_and_moe(K_mod, card)
     if only == "decode":
         return only_decode(K_mod, FD_mod, card)
+    if only == "checkpoint":
+        return only_checkpoint(card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -3346,6 +3604,11 @@ def main() -> int:
     tp = phase_tp(*phase4_reference)
     log(f"tp: phase 14 took {time.perf_counter() - t0:.1f} s ({TP_LABEL})")
 
+    # Phase 16: checkpoints, save -> free -> load -> each model's run again.
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoints = phase_checkpoints(ids, mixtral_ids)
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -3405,6 +3668,9 @@ def main() -> int:
             extra["int_mm_ms"] = rep["int_mm_ms"]
         if name in serving:
             extra["launches_phase15"] = {arm: c[name] for arm, c in serving[name].items()}
+        phase16 = {label: c[name] for label, c in checkpoints.items() if c.get(name)}
+        if phase16:
+            extra["launches_phase16"] = phase16
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(

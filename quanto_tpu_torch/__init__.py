@@ -8,7 +8,7 @@ tensor each kernel wrapper computes its plain PyTorch version instead.
 
 from .calibrate import Calibration, absmax_scale
 from .parallel import StackedSparseMoeBlock, convert_moe_to_stacked
-from .quantize import freeze, named_qmodules, quantize
+from .quantize import freeze, named_qmodules, quantization_map, quantize, requantize
 from .tensor.activations import ActivationQBytesArray, quantize_activation
 from .tensor.optimizers import AbsmaxOptimizer, MaxOptimizer
 from .tensor.qtype import qfloat8, qint2, qint4, qint8, qtype, qtypes
@@ -28,7 +28,9 @@ __all__ = [
     "convert_moe_to_stacked",
     "freeze",
     "named_qmodules",
+    "quantization_map",
     "quantize",
+    "requantize",
     "ActivationQBytesArray",
     "quantize_activation",
     "AbsmaxOptimizer",

@@ -15,14 +15,15 @@ vocabulary rows: the embedding is a masked lookup of the rank's rows summed
 over the ranks, and a vocabulary-sharded lm_head's logits are gathered to
 the full vocabulary on every rank, so that every rank samples the same
 tokens. Bias, tied-embedding, yarn/dynamic rope
-and Gemma options of the JAX config wait for the models that need them.
+and Gemma options of the JAX config wait for the models that need them
+(`LlamaConfig.from_hf` refuses a `config.json` that asks for one).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,6 +42,13 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "init_kv_cache", "rope_params"]
 _INIT_STD = 0.02
 
 
+_ROPE_TYPES = ("default", "linear", "llama3")  # `rope_params`
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md Queue 1, item 4)")
+
+
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     vocab_size: int = 32000
@@ -49,11 +57,16 @@ class LlamaConfig:
     num_hidden_layers: int = 32
     num_attention_heads: int = 32
     num_key_value_heads: Optional[int] = None
+    max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     # HF `rope_scaling`: a dict, or its (key, value) pairs; None for default rope.
     rope_scaling: Optional[Any] = None
     dtype: torch.dtype = torch.float32
+
+    # What `to_hf` writes as `model_type` and `architectures`.
+    hf_model_type = "llama"
+    hf_architecture = "LlamaForCausalLM"
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -62,6 +75,77 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf(cls, hf: Mapping[str, Any], dtype=torch.bfloat16) -> "LlamaConfig":
+        """From the plain dict of a Hugging Face `config.json` (llama, mistral),
+        the keys `quanto_tpu/models/llama.py:69-101` reads from a
+        `PretrainedConfig`. Raises `NotImplementedError` on an option the port
+        does not implement: tied embeddings, attention or MLP biases, a
+        `head_dim` other than hidden / heads, an activation other than silu,
+        a rope other than default, linear and llama3."""
+        if hf.get("tie_word_embeddings", False):
+            _not_ported("tie_word_embeddings")
+        for key in ("attention_bias", "mlp_bias"):
+            if hf.get(key, False):
+                _not_ported(key)
+        act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
+        if act != "silu":
+            _not_ported(f"hidden_act {act!r}")
+        head_dim = hf.get("head_dim")
+        if head_dim is not None and head_dim != hf["hidden_size"] // hf["num_attention_heads"]:
+            _not_ported(f"head_dim {head_dim} beside hidden_size / num_attention_heads")
+        rope = hf.get("rope_scaling") or None
+        if rope is not None:
+            rope_type = rope.get("rope_type", rope.get("type", "default"))
+            if rope_type not in _ROPE_TYPES:
+                _not_ported(f"rope_scaling type {rope_type!r}")
+            rope = tuple(sorted((k, tuple(v) if isinstance(v, list) else v) for k, v in rope.items()))
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get("num_key_value_heads"),
+            max_position_embeddings=hf.get("max_position_embeddings", 4096),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_scaling=rope,
+            dtype=dtype,
+            **cls._hf_extra(hf),
+        )
+
+    @classmethod
+    def _hf_extra(cls, hf: Mapping[str, Any]) -> dict:
+        """A subclass's own fields from a `config.json` dict."""
+        return {}
+
+    def to_hf(self) -> dict:
+        """This configuration as a `config.json` dict, plain JSON that
+        `transformers.AutoConfig` reads (and so the JAX package's
+        `from_pretrained`) and that `from_hf` inverts."""
+        rope = {k: list(v) if isinstance(v, tuple) else v for k, v in dict(self.rope_scaling or {}).items()}
+        return {
+            "architectures": [self.hf_architecture],
+            "model_type": self.hf_model_type,
+            "vocab_size": self.vocab_size,
+            "hidden_size": self.hidden_size,
+            "intermediate_size": self.intermediate_size,
+            "num_hidden_layers": self.num_hidden_layers,
+            "num_attention_heads": self.num_attention_heads,
+            "num_key_value_heads": self.num_key_value_heads,
+            "head_dim": self.head_dim,
+            "max_position_embeddings": self.max_position_embeddings,
+            "rms_norm_eps": self.rms_norm_eps,
+            "rope_theta": self.rope_theta,
+            "rope_scaling": rope or None,
+            "hidden_act": "silu",
+            "attention_bias": False,
+            "mlp_bias": False,
+            "tie_word_embeddings": False,
+            "torch_dtype": str(self.dtype).removeprefix("torch."),
+        }
 
 
 def rope_params(head_dim: int, theta: float, scaling: Optional[Any] = None) -> torch.Tensor:
@@ -295,6 +379,10 @@ class LlamaForCausalLM(nn.Module):
             _init_weights(part, generator)
             if layer_fn is not None and isinstance(part, self.layer_cls):
                 layer_fn(part)
+        self.init_rope_(device)
+
+    def init_rope_(self, device) -> None:
+        """The rotary inverse frequencies on `device` (a buffer no checkpoint holds)."""
         c = self.config
         self.inv_freq = rope_params(c.head_dim, c.rope_theta, c.rope_scaling).to(device)
 

@@ -1,13 +1,17 @@
-"""Carry float weights and KV caches across from numpy arrays.
+"""Hugging Face checkpoint interop: torch-convention state dicts.
 
-Counterpart of the loading half of `quanto_tpu/models/loading.py` for float
-weights: `load_hf_numpy_state_dict` fills a port model from a torch-convention
-dict of numpy arrays (`weight` in [out, in]; the activation scales of a
-calibrated model), such as the one `quanto_tpu.models.loading.hf_state_dict`
-produces after `np.asarray`.
-`qkv_layer_from_numpy` turns the fields of a JAX `QKVCacheLayer`, as numpy
-arrays, into the port's cache layer. Quantized checkpoints wait for the
-serialization slice.
+Counterpart of `quanto_tpu/models/loading.py`. The port's modules already
+hold torch's conventions (`weight` in [out, in], quantized weights in quanto's
+flattened form, `serialization.py`), so `hf_state_dict` is the model's flat
+state and `load_hf_state_dict` fills a model from one: float weights, the
+activation scales of a calibrated model, and quantized weights (rebuilt
+frozen, and repacked into the Hopper layout on a CUDA device), from torch
+tensors, numpy arrays (`quanto_tpu.models.loading.hf_state_dict` after
+`np.asarray`) or a lazily read checkpoint. A model built on "meta" is
+allocated a tensor at a time on `device`, so a checkpoint larger than the
+device in float loads within its own bytes. `qkv_layer_from_numpy` turns the
+fields of a JAX `QKVCacheLayer`, as numpy arrays, into the port's cache
+layer.
 """
 
 from __future__ import annotations
@@ -18,24 +22,31 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.moe import StackedSparseMoeBlock
+from ..serialization import load_tensors_into, numpy_to_torch, state_dict
 from ..tensor.kv_cache import QKVCacheLayer, pack_int4_codes
 
 
-__all__ = ["numpy_to_torch", "load_hf_numpy_state_dict", "qkv_layer_from_numpy"]
-
-_FP8 = ("float8_e4m3fn", "float8_e4m3fnuz", "float8_e5m2")
+__all__ = ["hf_state_dict", "load_hf_state_dict", "qkv_layer_from_numpy"]
 
 
-def numpy_to_torch(a: np.ndarray) -> torch.Tensor:
-    """numpy array -> CPU tensor. bfloat16 and float8 arrays (numpy has no
-    such dtypes of its own) come across by bit pattern: view(uint16) ->
-    view(bfloat16), view(uint8) -> view(float8_*)."""
-    a = np.require(a, requirements=["C", "W"])  # copies only read-only or strided arrays
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    if a.dtype.name in _FP8:
-        return torch.from_numpy(a.view(np.uint8)).view(getattr(torch, a.dtype.name))
-    return torch.from_numpy(a)
+def _refuse_stacked(model: nn.Module) -> None:
+    """quanto's names hold per-expert linears (`block_sparse_moe.experts.{e}.w1`);
+    JAX's `hf_state_dict` has none for a stacked block."""
+    if any(isinstance(m, StackedSparseMoeBlock) for m in model.modules()):
+        raise ValueError(
+            "a StackedSparseMoeBlock has no Hugging Face names: save and load the model with per-expert "
+            "modules, and call convert_moe_to_stacked after loading"
+        )
+
+
+def hf_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model as a torch-convention state dict with quanto keys for its
+    quantized modules (`serialization.state_dict`), in the JAX package's
+    order; equal, tensor by tensor, to `quanto_tpu.models.loading.hf_state_dict`
+    of the same model."""
+    _refuse_stacked(model)
+    return state_dict(model)
 
 
 def qkv_layer_from_numpy(fields: Mapping[str, np.ndarray], qtype_name: str) -> QKVCacheLayer:
@@ -64,28 +75,12 @@ def qkv_layer_from_numpy(fields: Mapping[str, np.ndarray], qtype_name: str) -> Q
     )
 
 
-_SCALE_BUFFERS = ("input_scale", "output_scale")
-
-
 @torch.no_grad()
-def load_hf_numpy_state_dict(model: nn.Module, tensors: Mapping[str, np.ndarray]) -> Dict[str, list]:
-    """Copy each named float tensor into the model parameter of that name, or
-    into a quantized module's `input_scale` / `output_scale` buffer (the keys
-    `quanto_tpu.models.loading.hf_state_dict` emits for a calibrated model),
-    cast to its dtype and device. Returns {"missing", "unexpected"} names."""
-    params = dict(model.named_parameters())
-    params.update(
-        (name, b) for name, b in model.named_buffers() if name.rpartition(".")[2] in _SCALE_BUFFERS
-    )
-    unexpected = []
-    for name, arr in tensors.items():
-        p = params.get(name)
-        if p is None:
-            unexpected.append(name)
-            continue
-        t = numpy_to_torch(np.asarray(arr))
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != parameter {tuple(p.shape)}")
-        p.copy_(t)
-    missing = [name for name in params if name not in tensors]
-    return {"missing": missing, "unexpected": unexpected}
+def load_hf_state_dict(model: nn.Module, tensors: Mapping, device=None) -> Dict[str, list]:
+    """Fill the model from a torch-convention state dict (float or
+    quanto-quantized: `serialization.load_tensors_into`): each parameter and
+    activation scale cast to its dtype, each quantized module's weight rebuilt
+    frozen. `device` places the tensors (by default where the model's are; a
+    model on "meta" needs it). Returns {"missing", "unexpected"} names."""
+    _refuse_stacked(model)
+    return load_tensors_into(model, tensors, device)

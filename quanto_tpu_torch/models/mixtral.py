@@ -16,6 +16,7 @@ stacked-expert dispatch through the MoE kernels.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,24 @@ __all__ = ["MixtralConfig", "MixtralForCausalLM", "MixtralSparseMoeBlock", "rout
 class MixtralConfig(LlamaConfig):
     num_local_experts: int = 8
     num_experts_per_tok: int = 2
+
+    hf_model_type = "mixtral"
+    hf_architecture = "MixtralForCausalLM"
+
+    @classmethod
+    def _hf_extra(cls, hf: Mapping[str, Any]) -> dict:
+        """The expert keys (`quanto_tpu/models/mixtral.py:47-53`)."""
+        return {
+            "num_local_experts": hf.get("num_local_experts", 8),
+            "num_experts_per_tok": hf.get("num_experts_per_tok", 2),
+        }
+
+    def to_hf(self) -> dict:
+        return {
+            **super().to_hf(),
+            "num_local_experts": self.num_local_experts,
+            "num_experts_per_tok": self.num_experts_per_tok,
+        }
 
 
 def route(gate: nn.Module, x: torch.Tensor, top_k: int):

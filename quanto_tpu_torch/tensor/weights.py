@@ -205,22 +205,27 @@ class WeightQBitsHopperArray(QArray):
 
     @classmethod
     def from_generic(cls, w: WeightQBitsArray) -> Optional["WeightQBitsHopperArray"]:
-        """Repack a generic weight, or None when it is off the envelope."""
+        """Repack a generic weight, or None when it is off the envelope. The
+        codes are repacked a block of rows at a time (`_repack_generic`), so
+        the device holds at most one block of unpacked codes beside the two
+        payloads: what lets a checkpoint load a module at a time within its
+        weights' bytes plus a margin."""
         if w.axis != 0 or not cls.eligible(w.orig_shape, w.qtype.bits, w.group_size):
             return None
-        return cls._from_codes(*_codes_scales(w), w, w.shard)
+        return cls._from_packed(_repack_generic(w), *_scales_shifts(w), w, w.shard)
 
     @classmethod
-    def _from_codes(cls, codes, scale, shift, like, shard=None) -> "WeightQBitsHopperArray":
-        """From uint8 codes [N, K] and float32 scale/shift [N, G], with the
-        qtype, group size and float dtype of `like`; no envelope check."""
+    def _from_packed(cls, packed, scale, shift, like, shard=None) -> "WeightQBitsHopperArray":
+        """From the Hopper payload uint8 [N, K * bits / 8] and float32
+        scale/shift [N, G], with the qtype, group size and float dtype of
+        `like`; no envelope check."""
         return cls(
-            _packed=pack_k_codes(codes, like.qtype.bits),
+            _packed=packed,
             _scale_t=scale.t().contiguous(),
             _shift_t=shift.t().contiguous(),
             qtype=like.qtype,
             group_size=like.group_size,
-            orig_shape=tuple(codes.shape),
+            orig_shape=(packed.shape[0], packed.shape[1] * 8 // like.qtype.bits),
             float_dtype=like.float_dtype,
             shard=shard,
         )
@@ -297,23 +302,58 @@ class WeightQBitsRequantArray(WeightQBitsHopperArray):
         return cls(**fields, _s8=requant_step(w._scale_t, w._shift_t, w.qtype.bits))
 
 
-def _codes_scales(w) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """An int4/int2 weight (generic layout, axis 0, or Hopper layout) as uint8
-    codes [N, K] and float32 scale and float shift [N, G]."""
+_REPACK_BLOCK_BYTES = 64 << 20  # unpacked codes per block of `_repack_generic`
+
+
+def _repack_generic(w: WeightQBitsArray) -> torch.Tensor:
+    """The Hopper payload uint8 [N, K * bits / 8] of a generic weight (axis 0,
+    on the envelope), a block of rows at a time. quanto's `PackedArray` packs
+    the grouped rows [N * G, gs] along axis 0: grouped row g lies in packed
+    row g % (N * G / per) at bit plane g // (N * G / per), per = 8 / bits
+    (`ops/pack.py`). Output rows [p N / per, (p + 1) N / per) are plane p,
+    so a block of rows within one plane is one slice of packed rows and one
+    shift."""
+    N, K = w.orig_shape
+    bits = w.qtype.bits
+    per, mask = 8 // bits, (1 << bits) - 1
+    G = K // (w.group_size if w.group_size is not None else K)
+    src = w._data.packed_data
+    out = torch.empty((N, K // per), dtype=torch.uint8, device=src.device)
+    plane_rows = N // per
+    block = max(1, _REPACK_BLOCK_BYTES // K)
+    for p in range(per):
+        for r0 in range(0, plane_rows, block):
+            r1 = min(r0 + block, plane_rows)
+            codes = (src[r0 * G : r1 * G] >> (bits * p)) & mask
+            out[p * plane_rows + r0 : p * plane_rows + r1] = pack_k_codes(codes.reshape(r1 - r0, K), bits)
+    return out
+
+
+def _scales_shifts(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An int4/int2 weight's (generic layout, axis 0, or Hopper layout)
+    float32 scale and float shift [N, G]."""
     if isinstance(w, WeightQBitsHopperArray):
-        return unpack_k_codes(w._packed, w.bits), w._scale_t.t(), w._shift_t.t()
+        return w._scale_t.t(), w._shift_t.t()
     if w.axis != 0:
         raise ValueError("an int4/int2 weight quantized along axis -1 has no Hopper layout")
     N, K = w.orig_shape
     G = K // (w.group_size if w.group_size is not None else K)
-    codes = ungroup(w._data.unpack(), w.axis, w.orig_shape)
     scale = w._scale.float().reshape(N, G)
     if w._shift.is_floating_point():
         shift = w._shift.float().reshape(N, G)
     else:
         # Integer zero-point: deq = scale*(code - zp) = scale*code - scale*zp.
         shift = scale * w._shift.float().reshape(N, G)
-    return codes, scale, shift
+    return scale, shift
+
+
+def _codes_scales(w) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An int4/int2 weight (generic layout, axis 0, or Hopper layout) as uint8
+    codes [N, K] and float32 scale and float shift [N, G]."""
+    scale, shift = _scales_shifts(w)
+    if isinstance(w, WeightQBitsHopperArray):
+        return unpack_k_codes(w._packed, w.bits), scale, shift
+    return ungroup(w._data.unpack(), w.axis, w.orig_shape), scale, shift
 
 
 def shard_qbits(w, mode: str, group):
@@ -348,7 +388,8 @@ def shard_qbits(w, mode: str, group):
             scale, shift = scale[:, g], shift[:, g]
     elif mode != "replicated":
         raise ValueError(f"shard_qbits: mode must be column, row or replicated, got {mode!r}")
-    local = WeightQBitsHopperArray._from_codes(codes.contiguous(), scale, shift, w, Shard(mode, group))
+    packed = pack_k_codes(codes, w.qtype.bits)
+    local = WeightQBitsHopperArray._from_packed(packed, scale, shift, w, Shard(mode, group))
     if WeightQBitsHopperArray.eligible(local.orig_shape, local.bits, local.group_size):
         return local
     return local.to_generic()

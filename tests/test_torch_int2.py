@@ -47,7 +47,7 @@ from quanto_tpu.ops.pallas.qbits_mm import qbits_int8_matmul_kernel_call, qbits_
 from quanto_tpu.ops.qlinear import qlinear as jax_qlinear
 from quanto_tpu.tensor.weights import WeightQBitsTpuArray
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_kv_cache
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, route
 from quanto_tpu_torch.models.serve import generate
 from quanto_tpu_torch.nn import QLinear
@@ -407,7 +407,7 @@ def test_tiny_llama_qint2_matches():
     ref = jax_reference(jmodel, ids)
 
     model = LlamaForCausalLM(LlamaConfig(**LLAMA), device="cpu")
-    assert load_hf_numpy_state_dict(model, state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(model, state) == {"missing": [], "unexpected": []}
     qtt.quantize(model, weights="qint2", exclude="lm_head")
     qtt.freeze(model)
     to_hopper(model)
@@ -428,7 +428,7 @@ def test_tiny_mixtral_qint2_experts_matches():
     ref = jax_reference(jmodel, ids)
 
     model = MixtralForCausalLM(MixtralConfig(**MIXTRAL), device="cpu")
-    assert load_hf_numpy_state_dict(model, state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(model, state) == {"missing": [], "unexpected": []}
     qtt.quantize(model, weights="qint2", include="*experts*")
     qtt.quantize(model, weights="qint4", exclude="lm_head")
     qtt.freeze(model)

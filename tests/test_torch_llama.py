@@ -1,7 +1,7 @@
 """The port's main path on a tiny float32 Llama against quanto_tpu.
 
 The JAX model's weights come across through `hf_state_dict` -> numpy ->
-`load_hf_numpy_state_dict`; then float logits, qint4 weights (bit for bit),
+`load_hf_state_dict`; then float logits, qint4 weights (bit for bit),
 qint4 logits, cached prefill with `logits_indices`, a per-row decode step and
 greedy `generate` tokens are compared. The qint4 port runs in both weight
 layouts: the generic one (dequantize + matmul, as frozen on a CPU) and the
@@ -46,7 +46,7 @@ from quanto_tpu.models.loading import hf_state_dict
 from quanto_tpu.models.serve import generate as jax_generate
 from quanto_tpu.tensor.weights import WeightQBytesArray as JaxWeightQBytesArray
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_kv_cache, rope_params
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.serve import decode, generate, prefill
 from quanto_tpu_torch.nn import QLinear
 from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
@@ -175,7 +175,7 @@ def jax_kv_side():
 
 def port_model(state, layout=None):
     model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
-    report = load_hf_numpy_state_dict(model, state)
+    report = load_hf_state_dict(model, state)
     assert report == {"missing": [], "unexpected": []}
     if layout is not None:
         qtt.quantize(model, weights="qint4")

@@ -2,7 +2,7 @@
 
 Model (1 layer, hidden and intermediate 256, 8 experts, top-2, float32): the JAX model's
 weights come across through `hf_state_dict` -> numpy ->
-`load_hf_numpy_state_dict`. Against JAX's dense-mask model, float and qint4
+`load_hf_state_dict`. Against JAX's dense-mask model, float and qint4
 (lm_head excluded), the port's dense-mask model and its stacked model
 (`convert_moe_to_stacked(capacity_factor=None)`, experts repacked to the
 Hopper layout; the kernels' plain versions on a CPU tensor) give the same
@@ -40,7 +40,7 @@ from quanto_tpu.models.serve import generate as jax_generate
 from quanto_tpu.ops import config as jax_ops_config
 from quanto_tpu.parallel import StackedSparseMoeBlock as JaxStackedBlock
 from quanto_tpu_torch.models.llama import init_kv_cache
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, MixtralSparseMoeBlock, route
 from quanto_tpu_torch.models.serve import generate
 from quanto_tpu_torch.nn import QLinear
@@ -152,7 +152,7 @@ def to_hopper(model) -> None:
 
 def port_model(state, layout):
     model = MixtralForCausalLM(MixtralConfig(**TINY), device="cpu")
-    assert load_hf_numpy_state_dict(model, state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(model, state) == {"missing": [], "unexpected": []}
     if layout != "float":
         qtt.quantize(model, weights="qint4", exclude="lm_head")
         qtt.freeze(model)
@@ -259,7 +259,7 @@ def blocks(jax_model):
     finally:
         jax_ops_config.set_backend()
     pblock = MixtralSparseMoeBlock(MixtralConfig(**TINY), device="cpu", dtype=torch.float32)
-    assert load_hf_numpy_state_dict(pblock, state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(pblock, state) == {"missing": [], "unexpected": []}
     qtt.quantize(pblock, weights="qint4")
     qtt.freeze(pblock)
     to_hopper(pblock)

@@ -2,7 +2,7 @@
 
 `quanto_tpu_torch.models.serving.BatchedEngine` against
 `quanto_tpu.models.serving.BatchedEngine` on a tiny qint8 Llama (lm_head
-float), its float weights carried across by `load_hf_numpy_state_dict`
+float), its float weights carried across by `load_hf_state_dict`
 before both packages quantize and freeze it. The config is the one of
 `tests/models/test_serving.py` (vocab 128, 2 layers, 4 heads over 2 KV
 heads, intermediate 112) with hidden 256 in place of 64: the port's decode
@@ -36,7 +36,7 @@ from quanto_tpu.models.loading import hf_state_dict
 from quanto_tpu.models.sampling import make_logits_warp as jax_make_logits_warp
 from quanto_tpu.models.serving import BatchedEngine as JaxEngine
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.sampling import greedy, make_logits_warp, make_sampler
 from quanto_tpu_torch.models.serving import BatchedEngine
 
@@ -75,7 +75,7 @@ def models():
     qt.quantize(jax_model, weights="qint8", exclude="lm_head")
     qt.freeze(jax_model)
     port_model = LlamaForCausalLM(LlamaConfig(**CFG), device="cpu")
-    assert load_hf_numpy_state_dict(port_model, state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(port_model, state) == {"missing": [], "unexpected": []}
     qtt.quantize(port_model, weights="qint8", exclude="lm_head")
     qtt.freeze(port_model)
     return JaxEngines(jax_model), port_model

@@ -50,7 +50,7 @@ from torch import nn
 
 import quanto_tpu_torch as qtt
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.sampling import greedy
 from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 from quanto_tpu_torch.models.serving import BatchedEngine
@@ -130,12 +130,12 @@ def port_model(arm: str, d, group=None) -> LlamaForCausalLM:
     state = dict(np.load(d / f"{arm}.npz"))
     if arm == "w4a8":
         qtt.quantize(model, **ARMS[arm])
-        assert load_hf_numpy_state_dict(model, state) == {"missing": [], "unexpected": []}
+        assert load_hf_state_dict(model, state) == {"missing": [], "unexpected": []}
         flags = json.loads((d / "flags.json").read_text())
         for name, m in qtt.named_qmodules(model):
             m.quantize_outputs = flags[name]
     else:
-        assert load_hf_numpy_state_dict(model, state) == {"missing": [], "unexpected": []}
+        assert load_hf_state_dict(model, state) == {"missing": [], "unexpected": []}
         qtt.quantize(model, **ARMS[arm])
     qtt.freeze(model)
     if group is not None:

@@ -57,7 +57,7 @@ from quanto_tpu.ops.pallas.qbits_mm import qbits_int8_matmul_kernel_call
 from quanto_tpu.ops.qlinear import qlinear as jax_qlinear
 from quanto_tpu.tensor.activations import ActivationQBytesArray as JaxActivation
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_kv_cache
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.nn import QLinear
 from quanto_tpu_torch.ops import qlinear as QL
 from quanto_tpu_torch.ops.cuda import qbits_mm as K
@@ -271,7 +271,7 @@ def port_w2a8(cal_state, flags):
     into the Hopper layout (a CPU freeze keeps the generic one)."""
     model = LlamaForCausalLM(LlamaConfig(**LLAMA), device="cpu")
     qtt.quantize(model, **W2A8)
-    assert load_hf_numpy_state_dict(model, cal_state) == {"missing": [], "unexpected": []}
+    assert load_hf_state_dict(model, cal_state) == {"missing": [], "unexpected": []}
     for name, m in qtt.named_qmodules(model):
         m.quantize_outputs = flags[name]
     qtt.freeze(model)

@@ -11,7 +11,7 @@
   rounding of JAX's on the same batches (the activations they are taken
   from are float32 sums in another order), and the same streamline flags.
 - The calibrated tiny Llama, its float weights and activation scales carried
-  over by `load_hf_numpy_state_dict` (the scales bit for bit), then frozen:
+  over by `load_hf_state_dict` (the scales bit for bit), then frozen:
   logits, cached prefill, a per-row decode step and 8 greedy tokens against
   `quanto_tpu`, in the generic layout (x dequantized, as JAX on the CPU
   does) and the Hopper layout (the W4A8 kernels' plain versions), and the
@@ -34,13 +34,14 @@ import quanto_tpu as qt
 import quanto_tpu_torch as qtt
 from quanto_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from quanto_tpu.models.llama import LlamaForCausalLM as JaxLlama
-from quanto_tpu.models.loading import hf_state_dict, load_hf_state_dict
+from quanto_tpu.models.loading import hf_state_dict
+from quanto_tpu.models.loading import load_hf_state_dict as jax_load_hf_state_dict
 from quanto_tpu.models.serve import generate as jax_generate
 from quanto_tpu.ops import config as jax_ops_config
 from quanto_tpu.ops.pallas.qbits_mm import qbits_int8_matmul_kernel_call
 from quanto_tpu.tensor.weights import WeightQBitsTpuArray
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from quanto_tpu_torch.models.loading import load_hf_numpy_state_dict
+from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.nn import QLinear
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
     MAX_M,
@@ -128,7 +129,7 @@ def jax_w4a8():
 
     kernel_model = JaxLlama(JaxLlamaConfig(**TINY), rngs=nnx.Rngs(1))
     qt.quantize(kernel_model, **W4A8)
-    assert load_hf_state_dict(kernel_model, cal_state)["missing"] == []
+    assert jax_load_hf_state_dict(kernel_model, cal_state)["missing"] == []
     for n, m in qt.named_qmodules(kernel_model):
         m.quantize_outputs = flags[n]
     jax_ops_config.set_backend(pallas_qbits=True)
@@ -144,7 +145,7 @@ def port_calibrated(cal_state, flags, layout):
     """The port's W4A8 model from JAX's calibrated state, frozen in `layout`."""
     model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
     qtt.quantize(model, **W4A8)
-    report = load_hf_numpy_state_dict(model, cal_state)
+    report = load_hf_state_dict(model, cal_state)
     assert report == {"missing": [], "unexpected": []}
     for name, m in qtt.named_qmodules(model):
         for key in ("input_scale", "output_scale"):
@@ -162,7 +163,7 @@ def port_calibrated(cal_state, flags, layout):
 def test_calibration_matches(jax_w4a8):
     float_state, scales, flags, _, _, _ = jax_w4a8
     model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
-    load_hf_numpy_state_dict(model, float_state)
+    load_hf_state_dict(model, float_state)
     qtt.quantize(model, **W4A8)
     with qtt.Calibration(model):
         for batch in CAL_BATCHES:
