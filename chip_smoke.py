@@ -15,6 +15,8 @@
                                                  # rows, the decode steps of phases 4, 4b, 10 and
                                                  # 8 (B = 4 and 16) (a tree's kernels, A/B)
     python3 chip_smoke.py --only checkpoint      # phases 1-2 and 16 (save, load, run again)
+    python3 chip_smoke.py --only numerics        # phases 1-2, phase 3's W8A8, padded and small-head
+                                                 # rows, phases 17-19 (W8A8, SmolLM2, Qwen2.5)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -238,6 +240,34 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    the W4A8 model frozen into the requant form with the original's `_s8`
    (phase 10's conversion). One JSON line per model: saved bytes, shards,
    save and load seconds, load GB/s, peak device memory during the load.
+3 (numerics). The W8A8 route (`ops/qbytes_mm.py`: `torch._int_mm` for
+   int8 x int8, `torch._scaled_mm` for e4m3fn x e4m3fn, no TPU kernel) at M
+   in W8A8_M over the four linear shapes against its plain formula (int8
+   EQUAL); #1, #2 (both arms) and #4 at SmolLM2-360M's and Qwen2.5-0.5B's
+   linears off the envelope, zero-padded (`PADDED_SHAPES`; the bound on the
+   true bytes, the padded bytes' ratio and `pad_activations`' time beside
+   it); `flash_decode` at (Hkv, G, D) = (5, 3, 64) and (2, 7, 64) over bf16,
+   qint8 and qint4 caches of 1088 slots.
+17. W8A8 Llama-3.1-8B at full depth and width (lm_head bf16): qint8, then
+   qfloat8_e4m3fn, weights and activations, calibrated as phase 7: phase 6's
+   run with exactly 224 W8A8 library calls a forward and 32 `flash_decode` a
+   step, no other kernel and no weight dequantized (the hidden state is
+   float32 after the first W8A8 linear, as in JAX); the prefill logits
+   against the plain formula's: int8 EQUAL, e4m3fn within W8A8_FP8_COS (and
+   at 2 layers within W8A8_FP8_COS_2L with the same top-1 tokens).
+18. SmolLM2-360M (published config, random weights; every linear padded):
+   (a) qint4 with `HqqOptimizer()`, its error at most `MaxOptimizer`'s for
+   every linear (seconds of each), phase 6's run (224 `qbits_mm_tiled` in
+   the prefill, 224 `qbits_mm_small_m` + 32 `flash_decode` a step) and the
+   prefill against the plain versions (SMALL_E2E_COS); (b) calibrated W4A8
+   through #2's int8 arm and #4, the same; (c) QAT in float32 (qint4 +
+   qint8 activations, calibrated), QAT_STEPS steps with finite gradients and
+   a falling loss, then `freeze` onto the padded kernels, its logits against
+   the QAT forward's within QAT_FROZEN_COS.
+19. Qwen2.5-0.5B (published config, random weights and q/k/v biases), qint4
+   (the K = 896 linears padded, `down_proj` not): phase 6's run (168
+   `qbits_mm_tiled`; 168 `qbits_mm_small_m` + 24 `flash_decode` a step), the
+   plain-version check, and phase 16's save -> load -> run again.
 
 `--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
 alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
@@ -256,6 +286,7 @@ prefill, then 63 decode steps, exact counts), phase 10 on phase 7's model
 frozen into the requant form, and phase 8 at B = 4 and B = 16. Copied into
 another tree's checkout, each of these modes times that tree's kernels beside
 this one's in one call. `--only checkpoint` runs phases 1-2 and 16 alone.
+`--only numerics` runs phases 1-2, phase 3's numerics rows and phases 17-19.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -497,6 +528,78 @@ SERVE_TOP1_GAP = 0.05
 # 128 new tokens each, decode bursts of 16.
 SERVE_PROMPTS = [512, 384, 448, 256, 512, 320, 192, 448]
 SERVE_MAX_LEN, SERVE_CHUNK, SERVE_NEW, SERVE_BURST = 768, 64, 128, 16
+
+# Phases 17-19 and their phase-3 rows (`--only numerics`).
+# HuggingFaceTB/SmolLM2-360M config.json: tied embeddings, hidden 960 (quanto's auto group size
+# 96, so every linear is off the kernels' envelope and padded), 15 heads over 5 KV heads of 64.
+SMOLLM2_360M = dict(
+    model_type="llama",
+    vocab_size=49152,
+    hidden_size=960,
+    intermediate_size=2560,
+    num_hidden_layers=32,
+    num_attention_heads=15,
+    num_key_value_heads=5,
+    max_position_embeddings=8192,
+    rope_theta=100000.0,
+    rms_norm_eps=1e-5,
+    tie_word_embeddings=True,
+    hidden_act="silu",
+)
+# Qwen/Qwen2.5-0.5B config.json: qwen2 (q/k/v biases), tied embeddings, hidden 896 (K = 896 is
+# off the int4 envelope: K / 2 = 448 bytes), 14 heads over 2 KV heads of 64, no sliding window.
+QWEN25_05B = dict(
+    model_type="qwen2",
+    vocab_size=151936,
+    hidden_size=896,
+    intermediate_size=4864,
+    num_hidden_layers=24,
+    num_attention_heads=14,
+    num_key_value_heads=2,
+    max_position_embeddings=32768,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-6,
+    tie_word_embeddings=True,
+    use_sliding_window=False,
+    hidden_act="silu",
+)
+# Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, `torch._scaled_mm`
+# for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
+W8A8_M = (1, 4, 16, 17, 64, 4096)
+# Phase 3's padded rows: SmolLM2-360M's and Qwen2.5-0.5B's linears off the envelope, true (N, K,
+# group size); #1 and #4 at the decode step's M = 4, #2's two arms at the prefill's M = 4096.
+PADDED_SHAPES = {
+    "smollm2-360m": [(960, 960, 96), (320, 960, 96), (2560, 960, 96), (960, 2560, 128)],
+    "qwen2.5-0.5b": [(896, 896, 128), (128, 896, 128), (4864, 896, 128)],
+}
+PADDED_M = {"qbits_mm_small_m": 4, "qbits_mm_int8_small_m": 4, "qbits_mm_tiled": 4096, "qbits_mm_tiled_int8": 4096}
+# Phase 3's flash_decode rows at the two small models' heads, (Hkv, G, D), over the decode run's
+# 1088 slots.
+FD_NEW_HEADS = [(5, 3, 64), (2, 7, 64)]
+FD_NEW_CACHES = ["bf16", "qint8", "qint4"]
+# Phase 17(b): the e4m3fn W8A8 model's prefill logits against the plain formula's (exact fp8
+# products summed in float32). Hopper's fp8 tensor cores do not keep a full float32 sum: one
+# product reads 6e-4 to 1.8e-3 abs. error against it at outputs of |y| <~ 5 (phase 3's rows),
+# and 32 random-weight layers, each quantizing its activations to fp8 again, carry that to a
+# logits cosine of 0.9386-0.9500 with every top-1 token moved, and 2 layers (as phase 5) to
+# 0.9967-0.9976 with the same top-1 tokens (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6):
+# a sum a little off moves an fp8 activation code by a whole step (1/16 of its value)
+# where it lies near a rounding half. So the full depth is held to its cosine only,
+# W8A8_FP8_COS, and two layers to W8A8_FP8_COS_2L and the same top-1 token or a logit tie.
+W8A8_FP8_COS = 0.9
+W8A8_FP8_COS_2L = 0.99
+# Phases 18 and 19: the full-depth kernel path against the plain versions, last-position
+# prefill logits: each row's cosine above SMALL_E2E_COS, top-1 equal or at a logit tie.
+# Readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): SmolLM2 qint4 0.99988-0.99990,
+# W4A8 1 - 5e-6, Qwen2.5 qint4 0.99980-0.99984, the same in every run.
+SMALL_E2E_COS = 0.999
+# Phase 18(c): QAT of SmolLM2-360M in float32, qint4 weights and qint8 activations (calibrated
+# over CAL_BATCHES x 4 x 128 tokens first): QAT_STEPS AdamW steps at QAT_LR on one seeded batch
+# of B x QAT_T tokens, then `freeze`; the frozen model's logits on a held batch against the QAT
+# forward's, each row's cosine above QAT_FROZEN_COS (reading: 1 - 5e-7 in every run; PERF.md
+# section 6).
+QAT_STEPS, QAT_T, QAT_LR = 16, 256, 1e-3
+QAT_FROZEN_COS = 0.999
 
 
 def log(msg: str) -> None:
@@ -979,26 +1082,26 @@ def phase_moe(flush, bits: int = 4, decode_tiled: bool = False):
     return rows
 
 
-def fd_bound(slots: int, batch: int, k_row: int, v_row: int, per_slot: int, q_bytes: int = 2):
+def fd_bound(slots: int, batch: int, k_row: int, v_row: int, per_slot: int, q_bytes: int = 2, heads=FD_HEADS):
     """Least time (ms) of one flash_decode call over `batch` rows that see
     `slots` cache slots in all (each row its positions up to its own): each
     visible slot's K and V rows (`k_row` + `v_row` bytes per head) and
     per-slot factors (`per_slot` bytes per head) read once, q read and the
     output written once (`q_bytes` a value); two dots of D per slot and query
-    at the bf16 tensor-core rate."""
-    Hkv, G, D = FD_HEADS
+    at the bf16 tensor-core rate. `heads`: (Hkv, G, D)."""
+    Hkv, G, D = heads
     nbytes = slots * Hkv * (k_row + v_row + per_slot) + 2 * q_bytes * batch * Hkv * G * D
     flops = 4 * Hkv * G * D * slots
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B):
+def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B, heads=FD_HEADS):
     """One layer's cache of `kind` with every slot written by `kv_update`
     from random K (skewed, as RoPE'd K heads are) and V."""
     from quanto_tpu_torch.tensor.kv_cache import init_quantized_kv_cache, kv_update
 
-    Hkv, _, D = FD_HEADS
+    Hkv, _, D = heads
     k = torch.randn((batch, S, Hkv, D), device="cuda", generator=g) * 2 + 0.5
     v = torch.randn((batch, S, Hkv, D), device="cuda", generator=g)
     if kind == "bf16":
@@ -1007,25 +1110,29 @@ def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B):
     return kv_update(layer, k, v, 0)
 
 
-def phase_flash_decode(flush):
+def phase_flash_decode(flush, heads=FD_HEADS):
     """Phase 3, flash_decode: the kernel against its plain version and SDPA,
     at B = 4 with every slot visible over each cache type (and with float32 q
     over FD_F32_Q at 8192 slots), and at phase 10's decode step (bf16, 8
-    ragged rows, `FD_ENGINE_POS`)."""
+    ragged rows, `FD_ENGINE_POS`). With other `heads` (Hkv, G, D): B = 4
+    over FD_NEW_CACHES of T + NEW slots, the decode run of phases 18 and 19."""
     from quanto_tpu_torch.ops.attention import decode_attention
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
     from quanto_tpu_torch.tensor.kv_cache import kv_read
 
-    Hkv, G, D = FD_HEADS
+    Hkv, G, D = heads
     g = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
     # (cache, S, positions, the engine arm they stand for or None, q's dtype)
-    cases = [(kind, S, [S - 1] * B, None, torch.bfloat16) for S in FD_SLOTS for kind in FD_CACHES]
-    cases += [(kind, FD_SLOTS[-1], [FD_SLOTS[-1] - 1] * B, None, torch.float32) for kind in FD_F32_Q]
-    cases += [("bf16", ENGINE_MAX_LEN, p, arm, torch.bfloat16) for arm, p in FD_ENGINE_POS.items()]
+    if heads != FD_HEADS:
+        cases = [(kind, T + NEW, [T + NEW - 1] * B, None, torch.bfloat16) for kind in FD_NEW_CACHES]
+    else:
+        cases = [(kind, S, [S - 1] * B, None, torch.bfloat16) for S in FD_SLOTS for kind in FD_CACHES]
+        cases += [(kind, FD_SLOTS[-1], [FD_SLOTS[-1] - 1] * B, None, torch.float32) for kind in FD_F32_Q]
+        cases += [("bf16", ENGINE_MAX_LEN, p, arm, torch.bfloat16) for arm, p in FD_ENGINE_POS.items()]
     for kind, S, positions, arm, q_dtype in cases:
         nb = len(positions)
-        cache = fd_cache(kind, S, g, nb)
+        cache = fd_cache(kind, S, g, nb, heads)
         q = torch.randn((nb, Hkv, G, D), device="cuda", generator=g).to(q_dtype)
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
         if kind == "bf16":
@@ -1065,7 +1172,7 @@ def phase_flash_decode(flush):
         lib = sdpa().reshape(nb, Hkv, G, D)
         lib_cos = cosine(lib, ref)
         # float32 q reads q and writes the output in 4 bytes a value.
-        b_ms, b_by = fd_bound(sum(p + 1 for p in positions), nb, k_row, v_row, per_slot, q.element_size())
+        b_ms, b_by = fd_bound(sum(p + 1 for p in positions), nb, k_row, v_row, per_slot, q.element_size(), heads)
         row = dict(
             name="flash_decode", cache=kind, S=S, B=nb, engine_arm=arm, Hkv=Hkv, G=G, D=D,
             q="f32" if q_dtype == torch.float32 else "bf16",
@@ -1089,9 +1196,11 @@ def calibration_batches(config):
     return [torch.randint(0, config.vocab_size, (B, CAL_T), generator=g).cuda() for _ in range(CAL_BATCHES)]
 
 
-def build_model(config, seed: int, weights: str = "qint4", activations=None, exclude=None):
-    """The configuration with random weights from `seed`, quantized, calibrated
-    when activations are quantized (streamline must turn every linear's output
+def build_model(config, seed: int, weights: str = "qint4", activations=None, exclude=None, optimizer=None,
+                init=None):
+    """The configuration with random weights from `seed` (then `init(model)`,
+    if given), quantized (with `optimizer`, if given), calibrated when
+    activations are quantized (streamline must turn every linear's output
     quantization off, as it does in JAX on this model), and frozen."""
     from quanto_tpu_torch import Calibration, freeze, named_qmodules, quantize
     from quanto_tpu_torch.models.llama import LlamaForCausalLM
@@ -1099,7 +1208,9 @@ def build_model(config, seed: int, weights: str = "qint4", activations=None, exc
     from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray, WeightQBytesArray
 
     model = LlamaForCausalLM(config, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
-    quantize(model, weights=weights, activations=activations, exclude=exclude)
+    if init is not None:
+        init(model)
+    quantize(model, weights=weights, activations=activations, exclude=exclude, optimizer=optimizer)
     if activations is not None:
         with torch.no_grad(), Calibration(model):
             for batch in calibration_batches(config):
@@ -1109,8 +1220,8 @@ def build_model(config, seed: int, weights: str = "qint4", activations=None, exc
             raise RuntimeError(f"streamline left output quantization on for {still_on}")
     freeze(model)
     qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
-    expected = LINEARS_PER_LAYER * config.num_hidden_layers + (0 if exclude else 1)
-    layout = WeightQBytesArray if weights in ("qint8", "qfloat8") else WeightQBitsHopperArray
+    expected = LINEARS_PER_LAYER * config.num_hidden_layers + (0 if exclude or model.lm_head is None else 1)
+    layout = WeightQBytesArray if weights in ("qint8", "qfloat8", "qfloat8_e4m3fn") else WeightQBitsHopperArray
     if len(qlinears) != expected or not all(isinstance(m.weight, layout) for m in qlinears):
         raise RuntimeError(f"expected {expected} QLinears holding {layout.__name__}")
     return model, qlinears
@@ -1330,6 +1441,12 @@ def counters():
     # counted apart).
     if hasattr(MM.qbits_moe_tiled, "launches_small_m"):
         wrappers["qbits_moe_tiled_small_m"] = ArmCount(MM.qbits_moe_tiled, "launches_small_m")
+    # The W8A8 route's library calls (`torch._int_mm`, `torch._scaled_mm`), counted where they are
+    # made (absent from trees before W8A8 was ported).
+    from quanto_tpu_torch.ops import qbytes_mm as W8A8
+
+    if hasattr(W8A8, "qbytes_int_mm"):
+        wrappers["qbytes_int_mm"], wrappers["qbytes_fp8_mm"] = W8A8.qbytes_int_mm, W8A8.qbytes_fp8_mm
     return wrappers
 
 
@@ -1376,9 +1493,17 @@ def plain_versions():
     K_mod.qbits_mm_requant_int8 = K_mod.qbits_requant_int8_mm_plain
     MM.qbits_moe_small_m = MM.qbits_moe_tiled = MM.qbits_moe_plain
     SH._local_mm = SH._local_mm_plain  # a rank's part of a sharded weight (phase 14)
+    # The W8A8 route (phase 17): outside its library calls' envelopes it takes the plain formula.
+    import quanto_tpu_torch.ops.qbytes_mm as W8A8
+
+    w8a8 = {n: getattr(W8A8, n) for n in ("int_mm_eligible", "scaled_mm_eligible") if hasattr(W8A8, n)}
+    for n in w8a8:
+        setattr(W8A8, n, lambda K, N: False)
     try:
         yield
     finally:
+        for n, fn in w8a8.items():
+            setattr(W8A8, n, fn)
         (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
          K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8, SH._local_mm) = saved
 
@@ -1573,19 +1698,27 @@ def linears_operations(model, M: int) -> int:
     return 2 * M * sum(m.out_features * m.in_features for m in model.modules() if isinstance(m, QLinear))
 
 
-def step_weight_bytes(model) -> int:
+def step_weight_bytes(model, padded: bool = False) -> int:
     """Bytes of every weight a decode step reads: the quantized linears'
-    payloads, scales and shifts, and a float lm_head."""
+    payloads, scales and shifts, and a float lm_head or, tied, the embedding.
+    A weight zero-padded onto the kernels' envelope counts its true bytes
+    (the bound's), or with `padded` the padded bytes the kernels read."""
     from quanto_tpu_torch.nn import QLinear
 
     total = 0
     for m in model.modules():
         if isinstance(m, QLinear):
             w = m.weight
-            fields = (w._data, w._scale) if hasattr(w, "_data") else (w._packed, w._scale_t, w._shift_t)
-            total += sum(t.numel() * t.element_size() for t in fields)
-    if not isinstance(model.lm_head, QLinear):
-        total += model.lm_head.weight.numel() * model.lm_head.weight.element_size()
+            if hasattr(w, "_data"):
+                total += sum(t.numel() * t.element_size() for t in (w._data, w._scale))
+            elif getattr(w, "pad", None) is not None and not padded:
+                N, K = w.shape
+                total += N * K * w.bits // 8 + 2 * 4 * N * (K // (w.group_size or K))
+            else:
+                total += sum(t.numel() * t.element_size() for t in (w._packed, w._scale_t, w._shift_t))
+    head = model.lm_head if model.lm_head is not None else model.model.embed_tokens
+    if not isinstance(head, QLinear):
+        total += head.weight.numel() * head.weight.element_size()
     return total
 
 
@@ -1635,7 +1768,7 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
         raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
     if record is not None:
         record.update(logits=logits.cpu(), tokens=torch.cat([first, rest], dim=1).cpu(), launches=launches)
-    weight_bytes = step_weight_bytes(model)
+    weight_bytes, padded_bytes = step_weight_bytes(model), step_weight_bytes(model, padded=True)
     prefill_bound = {}
     if prefill_peak_ops is not None:
         ops = linears_operations(model, B * T)
@@ -1650,6 +1783,7 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
         "decode_launches": {n: c for n, c in dec.items() if c},
         "decode_step_weight_bytes": weight_bytes,
         "decode_step_bound_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3,
+        **({"decode_step_padded_weight_bytes": padded_bytes} if padded_bytes != weight_bytes else {}),
     }))
     del cache, logits
     return launches
@@ -2103,8 +2237,12 @@ def build_mixtral(config, seed: int, stacked: bool = True, experts: str = "qint4
                            for e in moe.experts for w in (e.w1.weight, e.w2.weight, e.w3.weight)}
         if expert_bits != {bits}:
             raise RuntimeError(f"experts of widths {expert_bits} in the Hopper layout, want {{{bits}}}")
-        if not isinstance(moe.gate.weight, WeightQBitsArray):  # N = 8: off the kernels' envelope
-            raise RuntimeError("the router should stay in the generic int4 layout")
+        # The router (N = 8) is off the kernels' envelope: zero-padded onto it, where the tree has the
+        # padding rule (before it, the router kept the generic layout).
+        router, padding = moe.gate.weight, hasattr(WeightQBitsHopperArray, "pad_geometry")
+        if not isinstance(router, WeightQBitsHopperArray if padding else WeightQBitsArray) or (
+                padding and router.pad is None):
+            raise RuntimeError(f"the router is in the {type(router).__name__} layout")
         if stacked != isinstance(moe, StackedSparseMoeBlock):
             raise RuntimeError(f"MoE block {type(moe).__name__}, stacked={stacked}")
     if isinstance(model.lm_head, QLinear):
@@ -2130,7 +2268,7 @@ def moe_step_bytes(model, routed_experts: int) -> int:
     return total + model.lm_head.weight.numel() * model.lm_head.weight.element_size()
 
 
-def mixtral_want(config, batch: int, expert_bits: int = 4):
+def mixtral_want(config, batch: int, expert_bits: int = 4, router_kernel: bool = True):
     """Exact launches of one prefill (4096 tokens: B x T, or B16 x T16) and
     one decode step: the attention's q/k/v/o through `qbits_mm`, the MoE
     block's three projections through the MoE kernels on the route the shape
@@ -2140,11 +2278,14 @@ def mixtral_want(config, batch: int, expert_bits: int = 4):
     (gate, up) and the down projection's `qbits_moe_tiled`, whose M <= 16 arm
     is TPU #15 (`qbits_moe_tiled_small_m`); at B = 16 the two are
     `qbits_moe_all`'s, TPU #12). With int2 experts every MoE kernel launch is
-    one of the int2 arm's too."""
+    one of the int2 arm's too. The router (N = 8, off the envelope) is
+    zero-padded onto it and takes `qbits_mm` too, once a layer, where
+    `router_kernel` (trees before the padding rule kept it generic)."""
     L = config.num_hidden_layers
     S_K, E = batch * config.num_experts_per_tok, config.num_local_experts
-    prefill = {"qbits_mm_tiled": 4 * L, "qbits_moe_tiled": 3 * L}
-    step = {"qbits_mm_small_m": 4 * L, "flash_decode": L}
+    dense = (5 if router_kernel else 4) * L
+    prefill = {"qbits_mm_tiled": dense, "qbits_moe_tiled": 3 * L}
+    step = {"qbits_mm_small_m": dense, "flash_decode": L}
     if S_K < E:
         step["qbits_moe_small_m"] = 3 * L
     else:
@@ -2191,7 +2332,8 @@ def phase_mixtral(model, ids, expert_bits: int = 4, new: int = NEW, record=None)
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dec = {n: launches[n] - pre[n] for n in launches}
-    want_pre, want_step = mixtral_want(config, batch, expert_bits)
+    router = model.model.layers[0].block_sparse_moe.gate.weight
+    want_pre, want_step = mixtral_want(config, batch, expert_bits, router_kernel=hasattr(router, "_packed"))
     zeros = {n: 0 for n in launches}
     if pre != {**zeros, **want_pre}:
         raise RuntimeError(f"mixtral B={batch}: prefill launches {pre}, want {want_pre} and 0 elsewhere")
@@ -3211,6 +3353,514 @@ def phase_checkpoints(ids, mixtral_ids) -> dict:
     return runs
 
 
+# --- Phases 17-19 and their phase-3 rows: W8A8, the padded layout, HQQ, QAT, the small models -------
+
+
+def phase_w8a8(flush):
+    """Phase 3, the W8A8 route of `ops/qbytes_mm.py` (no TPU kernel: JAX
+    computes it as an XLA dot): int8 x int8 through `torch._int_mm` and
+    e4m3fn x e4m3fn through `torch._scaled_mm`, at W8A8_M over the four
+    linear shapes, with the activation's scale times the weight's per-channel
+    one in float32 and a float32 output, against the plain formula: int8
+    EQUAL, e4m3fn within `check_kernel`'s limits. Bound: the int8/fp8
+    operands, the scale and the float32 output once; 2MNK at the int8/fp8
+    tensor-core rate. Yardstick `torch.matmul` on the operands dequantized
+    to bf16."""
+    import quanto_tpu_torch as qtt
+    from quanto_tpu_torch.ops import qbytes_mm as W8A8
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5678)
+    rows = []
+    for N, K in LINEAR_SHAPES:
+        w = torch.randn((N, K), device=dev, generator=g, dtype=torch.bfloat16) * 0.02
+        for name, qtype, plain, count in (
+            ("w8a8_int8", qtt.qint8, W8A8.qbytes_int_mm_plain, "qbytes_int_mm"),
+            ("w8a8_e4m3fn", qtt.qtypes["qfloat8_e4m3fn"], W8A8.qbytes_fp8_mm_plain, "qbytes_fp8_mm"),
+        ):
+            qw = qtt.quantize_weight(w, qtype, 0, qtt.AbsmaxOptimizer()(w, qtype, 0))
+            w_bf16 = qw.dequantize()
+            for M in W8A8_M:
+                x = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
+                qx = qtt.quantize_activation(x, qtype, (x.float().abs().amax() / qtype.qmax).reshape(()))
+                x_bf16 = qx.dequantize()
+                scale = qx._scale * qw._scale.float()
+
+                def route():
+                    return W8A8.qbytes_mm(qx._data, qw._data, scale)
+
+                def reference():
+                    return plain(qx._data, qw._data) * scale.t()
+
+                before = read_counts()[count]
+                out = route()
+                if read_counts()[count] != before + 1:
+                    raise RuntimeError(f"{name} M={M} N={N} K={K}: the route made no {count} call")
+                ref = reference()
+                if name == "w8a8_int8":
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        raise RuntimeError(f"{name} M={M} N={N} K={K}: the route is not EQUAL to the plain formula")
+                    err, cos = 0.0, 1.0
+                else:
+                    err, cos = check_kernel(f"{name} M={M} N={N} K={K}", out, ref)
+                nbytes = M * K + N * K + 4 * N + 4 + 4 * M * N
+                t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 2 * M * N * K / PEAK_INT8_OPS * 1e3
+                row = dict(
+                    name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
+                    ms=time_ms(route, flush), plain_ms=time_ms(reference, flush),
+                    library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush),
+                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                )
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+                log("w8a8 " + json.dumps(row))
+                del out, ref
+            del qw, w_bf16
+        del w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_padded(K_mod, flush):
+    """Phase 3, TPU #1, #2 (both arms) and #4 at the linears of SmolLM2-360M
+    and Qwen2.5-0.5B that are off the envelope (`PADDED_SHAPES`): a random
+    bf16 weight quantized qint4 with its group size and repacked by
+    `from_generic`, zero-padded onto the envelope; each kernel on x padded by
+    `pad_activations` against its plain version on the same padded operands,
+    at the M of `PADDED_M`. The bound counts the true bytes and operations;
+    `padded_bytes_ratio` is what the kernel reads beside them, `pad_ms` the
+    time of `pad_activations`. Yardstick `torch.matmul` on the true operands
+    in bf16."""
+    import quanto_tpu_torch as qtt
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6789)
+    sx = torch.tensor(0.0173, device=dev)
+    rows = []
+    for model_name, shapes in PADDED_SHAPES.items():
+        for N, K, gs in shapes:
+            w = torch.randn((N, K), device=dev, generator=g, dtype=torch.bfloat16) * 0.02
+            scale, shift = qtt.MaxOptimizer()(w, qtt.qint4, axis=0, group_size=gs)
+            hw = WeightQBitsHopperArray.from_generic(qtt.quantize_weight(w, qtt.qint4, 0, scale, shift=shift,
+                                                                         group_size=gs))
+            if hw is None or hw.pad is None:
+                raise RuntimeError(f"{model_name} [{N}, {K}] gs {gs}: not in the padded Hopper layout")
+            (Np, Kp), gsp = hw.kernel_shape, hw.kernel_group_size
+            side = 2 * (K // gs) * N * 4
+            ratio = (Np * Kp // 2 + 2 * (Kp // gsp) * Np * 4) / (N * K // 2 + side)
+            w_bf16 = hw.dequantize()
+            for name, M in PADDED_M.items():
+                kernel = getattr(K_mod, name)
+                int8 = "int8" in name
+                if int8:
+                    x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev, generator=g)
+                    x_lib = (x.float() * sx).to(torch.bfloat16)
+                else:
+                    x = x_lib = torch.randn((M, K), device=dev, generator=g, dtype=torch.bfloat16)
+                xp = hw.pad_activations(x)
+                ops = (hw._packed, hw._scale_t, hw._shift_t, gsp)
+                args = (xp, sx, *ops, torch.bfloat16, 4) if int8 else (xp, *ops, 4)
+                plain = K_mod.qbits_int8_mm_plain if int8 else K_mod.qbits_mm_plain
+                err, cos = check_kernel(f"{name} {model_name} padded M={M} N={N} K={K}", kernel(*args), plain(*args))
+                b_ms, b_by = bound(M, N, K, x_bytes=1 if int8 else 2, side_bytes=side + (4 if int8 else 0),
+                                   peak_ops=PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
+                row = dict(
+                    name=name, padded=model_name, M=M, N=N, K=K, group_size=gs, Npad=Np, Kpad=Kp, gs_pad=gsp,
+                    padded_bytes_ratio=ratio, max_abs_err=err, cosine=cos,
+                    ms=time_ms(lambda: kernel(*args), flush), plain_ms=time_ms(lambda: plain(*args), flush),
+                    library_ms=time_ms(lambda: torch.matmul(x_lib, w_bf16.t()), flush),
+                    pad_ms=time_ms(lambda: hw.pad_activations(x), flush),
+                    bound_ms=b_ms, bound_by=b_by,
+                )
+                row["bound_share"] = b_ms / row["ms"]
+                rows.append(row)
+                log("kernel " + json.dumps(row))
+            del w, hw, w_bf16
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def count_dequantize():
+    """Count the `dequantize` calls of every quantized weight type while the
+    block runs (the routes of phases 17-19 dequantize no weight)."""
+    from quanto_tpu_torch.tensor import weights as W
+
+    counter = types.SimpleNamespace(calls=0)
+    saved = {c: c.__dict__["dequantize"] for c in (W.WeightQBytesArray, W.WeightQBitsArray, W.WeightQBitsHopperArray)}
+
+    def counted(fn):
+        def run(self, *args, **kw):
+            counter.calls += 1
+            return fn(self, *args, **kw)
+        return run
+
+    for c, fn in saved.items():
+        c.dequantize = counted(fn)
+    try:
+        yield counter
+    finally:
+        for c, fn in saved.items():
+            c.dequantize = fn
+
+
+def check_plain_prefill(tag: str, model, ids, kernel_logits, min_cos=None, top1: bool = True):
+    """The prefill (last position, over a cache of T + NEW slots) through the
+    plain versions, no kernel launched, against the kernel path's logits
+    `kernel_logits` [B, 1, V] (on the host): EQUAL when `min_cos` is None,
+    else `check_rows` (without `top1`: each row's cosine alone)."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    before = read_counts()
+    with plain_versions():
+        plain_logits, _ = prefill(model, ids, make_cache(model, ids.shape[0], T + NEW), last_only=True)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise RuntimeError(f"{tag}: the plain forward launched a kernel")
+    k, p = kernel_logits[:, -1].float(), plain_logits[:, -1].float().cpu()
+    if min_cos is None:
+        equal = torch.equal(kernel_logits, plain_logits.cpu())
+        log(json.dumps({f"{tag}_end_to_end": "prefill", "equal": equal, "max_abs_diff": (k - p).abs().max().item()}))
+        if not equal:
+            raise RuntimeError(f"{tag}: prefill logits of the route are not EQUAL to the plain formula's")
+    elif top1:
+        check_rows(tag, "prefill", k, p, min_cos)
+    else:
+        cos = F.cosine_similarity(k, p, dim=-1)
+        log(json.dumps({f"{tag}_end_to_end": "prefill", "cosine": cos.tolist(), "top1_kernel": k.argmax(-1).tolist(),
+                        "top1_plain": p.argmax(-1).tolist()}))
+        if not bool((cos > min_cos).all()):
+            raise RuntimeError(f"{tag} prefill: cosine {cos.tolist()} <= {min_cos}")
+
+
+@torch.no_grad()
+def phase_llama_w8a8(config, ids) -> dict:
+    """Phase 17: Llama-3.1-8B in W8A8 at full depth and width, lm_head bf16:
+    (a) qint8 weights and activations, (b) qfloat8_e4m3fn ones, each built,
+    quantized, calibrated as phase 7 and frozen; phase 6's run (B = 4 x 1024
+    prefill, 63 greedy decode steps over a bf16 cache), every forward exactly
+    224 W8A8 library calls (`torch._int_mm` / `torch._scaled_mm`) and each
+    step 32 `flash_decode`, no other kernel and no weight dequantized; then
+    the prefill through the plain formula: (a) EQUAL, (b) each row's cosine
+    above W8A8_FP8_COS, and at 2 layers (as phase 5) above W8A8_FP8_COS_2L
+    with the same top-1 token or a tie. Returns each run's launch counts."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    L = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * L, NEW - 1
+    runs = {}
+    for label, qtype, count in (("int8", "qint8", "qbytes_int_mm"), ("e4m3fn", "qfloat8_e4m3fn", "qbytes_fp8_mm")):
+        t0 = time.perf_counter()
+        model, _ = build_model(config, seed=0, weights=qtype, activations=qtype, exclude="lm_head")
+        torch.cuda.synchronize()
+        log(f"w8a8 {label}: built + quantized + calibrated + frozen in {time.perf_counter() - t0:.1f} s")
+        record = {}
+        with count_dequantize() as deq:
+            runs[f"phase 17 ({label})"] = phase_arm(
+                f"w8a8 {label}: llama-3.1-8b-config {qtype} weights and activations (lm_head bf16), bf16 cache",
+                model, ids, want_prefill={count: n_lin}, want_decode={count: n_lin * steps, "flash_decode": L * steps},
+                prefill_peak_ops=PEAK_INT8_OPS, record=record,
+            )
+        if deq.calls:
+            raise RuntimeError(f"w8a8 {label}: the run dequantized a weight {deq.calls} times")
+        check_plain_prefill(f"w8a8_{label}", model, ids, record["logits"],
+                            None if label == "int8" else W8A8_FP8_COS, top1=False)
+        del model, record
+        gc.collect()
+        torch.cuda.empty_cache()
+        if label == "e4m3fn":
+            model, _ = build_model(dataclasses.replace(config, num_hidden_layers=2), seed=1, weights=qtype,
+                                   activations=qtype, exclude="lm_head")
+            logits, _ = prefill(model, ids, make_cache(model, B, T + NEW), last_only=True)
+            check_plain_prefill("w8a8_e4m3fn_2_layers", model, ids, logits.cpu(), W8A8_FP8_COS_2L)
+            del model, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    return runs
+
+
+def small_ids(config, seed: int, batch: int = B, length: int = T) -> torch.Tensor:
+    return torch.randint(0, config.vocab_size, (batch, length), generator=torch.Generator().manual_seed(seed)).cuda()
+
+
+def check_padded(model, label: str, want_padded) -> None:
+    """Every quantized linear in the Hopper layout, none generic, and padded
+    exactly where `want_padded(name)` says."""
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    bad = [n for n, m in model.named_modules() if isinstance(m, QLinear)
+           and (not isinstance(m.weight, WeightQBitsHopperArray) or (m.weight.pad is not None) != want_padded(n))]
+    if bad:
+        raise RuntimeError(f"{label}: linears out of the expected (padded) Hopper layout: {bad[:5]}")
+
+
+def hqq_against_max(model) -> dict:
+    """Phase 18(a): each float linear of `model` quantized qint4 at its group
+    size by `HqqOptimizer()` and by `MaxOptimizer()`: the mean |W - deq(W)| of
+    each, HQQ's no larger than Max's for every linear (JAX's
+    `test_hqq_beats_max`), and the seconds each optimizer took over all of
+    them."""
+    import quanto_tpu_torch as qtt
+    from quanto_tpu_torch.nn.qmodule import _auto_group_size
+
+    linears = [(n, m) for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)]
+    seconds, errors = {}, {}
+    for opt_name, opt in (("hqq", qtt.HqqOptimizer()), ("max", qtt.MaxOptimizer())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found = [opt(m.weight, qtt.qint4, 0, group_size=_auto_group_size(m.in_features)) for _, m in linears]
+        torch.cuda.synchronize()
+        seconds[opt_name] = time.perf_counter() - t0
+        errors[opt_name] = torch.stack([
+            (qtt.quantize_weight(m.weight, qtt.qint4, 0, s, shift=z, group_size=_auto_group_size(m.in_features))
+             .dequantize().float() - m.weight.float()).abs().mean()
+            for (_, m), (s, z) in zip(linears, found)
+        ]).cpu()
+    worse = [linears[i][0] for i in (errors["hqq"] > errors["max"] + 1e-6).nonzero().flatten().tolist()]
+    out = {"hqq_vs_max": "smollm2-360m", "linears": len(linears), "hqq_s": seconds["hqq"], "max_s": seconds["max"],
+           "mean_error_hqq": errors["hqq"].mean().item(), "mean_error_max": errors["max"].mean().item(),
+           "largest_error_ratio": (errors["hqq"] / errors["max"]).max().item(), "hqq_worse": worse}
+    log(json.dumps(out))
+    if worse:
+        raise RuntimeError(f"HqqOptimizer's error above MaxOptimizer's for {worse[:5]}")
+    return out
+
+
+def phase_qat(config) -> dict:
+    """Phase 18(c): QAT of SmolLM2-360M (float32, random weights from a seed):
+    `quantize(weights="qint4", activations="qint8")`, `Calibration` over
+    CAL_BATCHES x 4 x 128 tokens, `qat` on every QLinear and every parameter
+    trained: QAT_STEPS AdamW steps of next-token loss on one seeded batch of
+    B x QAT_T tokens, every gradient finite, none on the activation scales,
+    the last loss below the first. Then the QAT forward's logits on a held
+    batch, `freeze` (every linear in the padded Hopper layout), `qat` off, and
+    the frozen model's logits on the same batch through exactly 224
+    `qbits_mm_tiled_int8` (M = B x QAT_T = 1024): each row's last-position
+    cosine above QAT_FROZEN_COS, top-1 equal or at a logit tie."""
+    from quanto_tpu_torch import Calibration, freeze, quantize
+    from quanto_tpu_torch.models.llama import LlamaForCausalLM
+    from quanto_tpu_torch.nn import QLinear
+
+    config = dataclasses.replace(config, dtype=torch.float32)
+    V = config.vocab_size
+    model = LlamaForCausalLM(config, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    quantize(model, weights="qint4", activations="qint8")
+    with torch.no_grad(), Calibration(model):
+        for batch in calibration_batches(config):
+            model(batch)
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    for m in qlinears:
+        m.qat = True
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    opt = torch.optim.AdamW(params, lr=QAT_LR)
+    batch, held = small_ids(config, 17, length=QAT_T + 1), small_ids(config, 18, length=QAT_T)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QAT_STEPS):
+        logits, _ = model(batch[:, :-1])
+        loss = F.cross_entropy(logits.float().reshape(-1, V), batch[:, 1:].reshape(-1))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        bad = [n for n, p in model.named_parameters() if p.grad is None or not torch.isfinite(p.grad).all()]
+        if bad:
+            raise RuntimeError(f"qat: gradients missing or not finite: {bad[:5]}")
+        if any(b.grad is not None for b in model.buffers()):
+            raise RuntimeError("qat: a buffer (activation scale) took a gradient")
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del opt, logits, loss
+    for p in params:
+        p.requires_grad_(False)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"qat: the loss did not fall: {losses}")
+    with torch.no_grad():
+        qat_logits = model(held)[0][:, -1].float().cpu()
+    freeze(model)
+    for m in qlinears:
+        m.qat = False
+    check_padded(model, "qat", lambda n: True)
+    reset_counts()
+    with torch.no_grad():
+        frozen_logits = model(held)[0][:, -1].float().cpu()
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in read_counts().items() if c}
+    want = {"qbits_mm_tiled_int8": LINEARS_PER_LAYER * config.num_hidden_layers}
+    if counts != want:
+        raise RuntimeError(f"qat: the frozen forward launched {counts}, want {want}")
+    out = {"qat": "smollm2-360m float32 qint4 + qint8 activations", "steps": QAT_STEPS, "batch": B, "tokens": QAT_T,
+           "losses": losses, "train_s": train_s, "frozen_launches": counts}
+    log(json.dumps(out))
+    check_rows("qat_frozen", "held batch, frozen vs QAT forward", frozen_logits, qat_logits, QAT_FROZEN_COS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+@torch.no_grad()
+def phase_smollm2() -> dict:
+    """Phase 18: SmolLM2-360M (its published config.json, SMOLLM2_360M;
+    random weights from a seed; every linear off the envelope and padded).
+    (a) qint4 with `HqqOptimizer()` (against `MaxOptimizer` per linear,
+    `hqq_against_max`), all 224 linears in the padded Hopper layout, phase
+    6's run (B = 4 x 1024 prefill through exactly 224 `qbits_mm_tiled`,
+    63 decode steps of 224 `qbits_mm_small_m` and 32 `flash_decode` each, no
+    weight dequantized) and its prefill through the plain versions (each row
+    within SMALL_E2E_COS, top-1 or a tie). (b) Calibrated W4A8 (qint4 + qint8
+    activations, as phase 7): the same run through #2's int8 arm and #4, and
+    the same check. (c) QAT (`phase_qat`). Returns each run's launch counts."""
+    from quanto_tpu_torch import HqqOptimizer
+    from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    config = LlamaConfig.from_hf(SMOLLM2_360M, dtype=torch.bfloat16)
+    L = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * L, NEW - 1
+    ids = small_ids(config, 13)
+    runs = {}
+    float_model = LlamaForCausalLM(config, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    hqq_against_max(float_model)
+    del float_model
+    t0 = time.perf_counter()
+    model, _ = build_model(config, seed=0, optimizer=HqqOptimizer())
+    torch.cuda.synchronize()
+    log(f"smollm2: built + quantized (HQQ) + frozen in {time.perf_counter() - t0:.1f} s")
+    check_padded(model, "smollm2 qint4", lambda n: True)
+    record = {}
+    with count_dequantize() as deq:
+        runs["phase 18 (smollm2-360m qint4, hqq)"] = phase_arm(
+            "smollm2-360m qint4 (HqqOptimizer, tied, padded), bf16 cache", model, ids,
+            want_prefill={"qbits_mm_tiled": n_lin},
+            want_decode={"qbits_mm_small_m": n_lin * steps, "flash_decode": L * steps},
+            prefill_peak_ops=PEAK_BF16_FLOPS, record=record,
+        )
+    if deq.calls:
+        raise RuntimeError(f"smollm2 qint4: the run dequantized a weight {deq.calls} times")
+    check_plain_prefill("smollm2_qint4", model, ids, record["logits"], SMALL_E2E_COS)
+    del model, record
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, _ = build_model(config, seed=0, weights="qint4", activations="qint8")
+    check_padded(model, "smollm2 w4a8", lambda n: True)
+    record = {}
+    with count_dequantize() as deq:
+        runs["phase 18 (smollm2-360m w4a8)"] = phase_arm(
+            "smollm2-360m w4a8 (calibrated, tied, padded), bf16 cache", model, ids,
+            want_prefill={"qbits_mm_tiled_int8": n_lin},
+            want_decode={"qbits_mm_int8_small_m": n_lin * steps, "flash_decode": L * steps},
+            prefill_peak_ops=PEAK_INT8_OPS, record=record,
+        )
+    if deq.calls:
+        raise RuntimeError(f"smollm2 w4a8: the run dequantized a weight {deq.calls} times")
+    check_plain_prefill("smollm2_w4a8", model, ids, record["logits"], SMALL_E2E_COS)
+    del model, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        runs["phase 18 (smollm2-360m qat, frozen forward)"] = phase_qat(config)
+    return runs
+
+
+def qwen_biases(model) -> None:
+    """Random q/k/v biases (the model's init zeroes them), so that phase 19 runs real ones."""
+    g = torch.Generator("cuda").manual_seed(19)
+    for layer in model.model.layers:
+        for proj in (layer.self_attn.q_proj, layer.self_attn.k_proj, layer.self_attn.v_proj):
+            proj.bias.normal_(0.0, 0.02, generator=g)
+
+
+def phase_qwen25() -> dict:
+    """Phase 19: Qwen2.5-0.5B (its published config.json, QWEN25_05B: qwen2,
+    q/k/v biases, tied; random weights and biases from a seed), qint4: the
+    six K = 896 linears of each layer padded (Kpad 1024), `down_proj` on the
+    envelope. Through `phase_checkpoint` (phase 16 for this model): phase 6's
+    run (B = 4 x 1024 prefill, exactly 168 `qbits_mm_tiled`; 63 decode steps
+    of 168 `qbits_mm_small_m` and 24 `flash_decode` each) and the prefill
+    through the plain versions, then `save_pretrained` -> `from_pretrained`
+    on the card: the loaded model equal to the original in tensors, logits,
+    tokens and launch counts. Returns the original's and the loaded run's
+    launch counts."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+
+    config = LlamaConfig.from_hf(QWEN25_05B, dtype=torch.bfloat16)
+    L = config.num_hidden_layers
+    n_lin, steps = LINEARS_PER_LAYER * L, NEW - 1
+    ids = small_ids(config, 14)
+    label = "qwen2.5-0.5b qint4 (tied, q/k/v biases, K = 896 padded), bf16 cache"
+    runs = {}
+
+    def build():
+        model, _ = build_model(config, seed=0, init=qwen_biases)
+        check_padded(model, "qwen2.5", lambda n: "down_proj" not in n)
+        return model
+
+    def run(model, record, when):
+        with count_dequantize() as deq:
+            counts = phase_arm(
+                f"{label} ({when})", model, ids, want_prefill={"qbits_mm_tiled": n_lin},
+                want_decode={"qbits_mm_small_m": n_lin * steps, "flash_decode": L * steps},
+                prefill_peak_ops=PEAK_BF16_FLOPS, record=record,
+            )
+        if deq.calls:
+            raise RuntimeError(f"qwen2.5 ({when}): the run dequantized a weight {deq.calls} times")
+        if when == "original":
+            runs["phase 19 (qwen2.5-0.5b qint4)"] = counts
+            check_plain_prefill("qwen25_qint4", model, ids, record["logits"], SMALL_E2E_COS)
+
+    runs["phase 19 (qwen2.5-0.5b qint4, loaded)"] = phase_checkpoint(label, build, run)
+    return runs
+
+
+def phases_numerics() -> dict:
+    """Phases 17, 18 and 19. Returns {run label: launch counts}."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    runs = {}
+    for phase, fn in (("17", lambda: phase_llama_w8a8(config, ids)), ("18", phase_smollm2), ("19", phase_qwen25)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        runs.update(fn())
+        log(f"numerics: phase {phase} took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def numerics_rows(K_mod, flush) -> list:
+    """Phase 3's rows of this slice: the W8A8 route, the padded kernels and
+    `flash_decode` at the small models' heads."""
+    rows = phase_w8a8(flush) + phase_padded(K_mod, flush)
+    for heads in FD_NEW_HEADS:
+        rows += phase_flash_decode(flush, heads=heads)
+    return rows
+
+
+def only_numerics(K_mod, card: str) -> int:
+    """`--only numerics`: phase 3's rows of this slice (`numerics_rows`) and
+    phases 17-19."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    numerics_rows(K_mod, flush)
+    del flush
+    torch.cuda.empty_cache()
+    phases_numerics()
+    log(card)
+    log(json.dumps({"ok": True, "only": "numerics", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def only_checkpoint(card: str) -> int:
     """`--only checkpoint`: phase 16 alone (after phases 1-2)."""
     ids = torch.randint(
@@ -3439,9 +4089,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint"):
-        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode or checkpoint, got {only}",
-              file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint or numerics, "
+              f"got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -3467,6 +4117,8 @@ def main() -> int:
         return only_decode(K_mod, FD_mod, card)
     if only == "checkpoint":
         return only_checkpoint(card)
+    if only == "numerics":
+        return only_numerics(K_mod, card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -3476,7 +4128,8 @@ def main() -> int:
             + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
-            + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush))
+            + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush)
+            + numerics_rows(K_mod, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -3609,6 +4262,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     checkpoints = phase_checkpoints(ids, mixtral_ids)
 
+    # Phases 17-19: W8A8 Llama-3.1-8B, SmolLM2-360M (HQQ, W4A8, QAT; padded), Qwen2.5-0.5B.
+    numerics = phases_numerics()
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -3643,7 +4299,7 @@ def main() -> int:
         if name.startswith("qbits_moe_tiled_small_m"):  # `qbits_moe_tiled`'s rows at M <= 16: TPU #15
             mine = [r for r in rows if r["name"] == name.replace("_small_m", "") and r["M"] <= 16]
         if name == "flash_decode":
-            rep = next(r for r in mine if (r["cache"], r["S"], r["q"]) == (*FD_SUMMARY, "bf16"))
+            rep = next(r for r in mine if (r["cache"], r["S"], r["q"], r["Hkv"]) == (*FD_SUMMARY, "bf16", FD_HEADS[0]))
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
         elif name.startswith("qbits_moe"):
             rep = next(r for r in mine if (r["form"], r["nslots"], r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
@@ -3671,6 +4327,9 @@ def main() -> int:
         phase16 = {label: c[name] for label, c in checkpoints.items() if c.get(name)}
         if phase16:
             extra["launches_phase16"] = phase16
+        phases17_19 = {label: c[name] for label, c in numerics.items() if c.get(name)}
+        if phases17_19:
+            extra["launches_phases_17_19"] = phases17_19
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(

@@ -10,7 +10,7 @@ from .calibrate import Calibration, absmax_scale
 from .parallel import StackedSparseMoeBlock, convert_moe_to_stacked
 from .quantize import freeze, named_qmodules, quantization_map, quantize, requantize
 from .tensor.activations import ActivationQBytesArray, quantize_activation
-from .tensor.optimizers import AbsmaxOptimizer, MaxOptimizer
+from .tensor.optimizers import AbsmaxOptimizer, HqqOptimizer, MaxOptimizer
 from .tensor.qtype import qfloat8, qint2, qint4, qint8, qtype, qtypes
 from .tensor.weights import (
     WeightQBitsArray,
@@ -34,6 +34,7 @@ __all__ = [
     "ActivationQBytesArray",
     "quantize_activation",
     "AbsmaxOptimizer",
+    "HqqOptimizer",
     "MaxOptimizer",
     "qtype",
     "qtypes",

@@ -1,4 +1,5 @@
-"""Llama-family causal LM in PyTorch (RMSNorm + rotary + GQA + SwiGLU MLP).
+"""Llama-family causal LM in PyTorch (RMSNorm + rotary + GQA + SwiGLU MLP):
+Llama 2/3, Mistral and Qwen2-style configurations.
 
 Counterpart of `quanto_tpu/models/llama.py`, built from `nn.Linear` /
 `nn.Embedding` so that `quanto_tpu_torch.quantize()` swaps the projections for
@@ -14,16 +15,23 @@ come in through `models/loading.py`. Under tensor parallelism
 vocabulary rows: the embedding is a masked lookup of the rank's rows summed
 over the ranks, and a vocabulary-sharded lm_head's logits are gathered to
 the full vocabulary on every rank, so that every rank samples the same
-tokens. Bias, tied-embedding, yarn/dynamic rope
-and Gemma options of the JAX config wait for the models that need them
-(`LlamaConfig.from_hf` refuses a `config.json` that asks for one).
+tokens.
+
+The options of the JAX config (`quanto_tpu/models/llama.py:36-101`) are
+ported but Gemma's: tied embeddings (no `lm_head`; the logits come from the
+embedding), attention biases (q/k/v/o), Qwen2's q/k/v-only biases, MLP
+biases, an explicit `head_dim`, and the `default`, `linear`, `llama3`,
+`dynamic` and `yarn` ropes, with the attention factor that yarn multiplies
+into cos and sin. `LlamaConfig.from_hf` refuses Gemma (`rms_norm_unit_offset`,
+`scale_embeddings`, head_dim 256, which `flash_decode` does not take), an
+activation other than silu and a sliding window (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,11 +50,11 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "init_kv_cache", "rope_params"]
 _INIT_STD = 0.02
 
 
-_ROPE_TYPES = ("default", "linear", "llama3")  # `rope_params`
+_ROPE_TYPES = ("default", "linear", "llama3", "dynamic", "yarn")  # `rope_params`
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md Queue 1, item 4)")
+def _not_ported(what: str, item: int = 4):
+    raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md Queue 1, item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +65,16 @@ class LlamaConfig:
     num_hidden_layers: int = 32
     num_attention_heads: int = 32
     num_key_value_heads: Optional[int] = None
+    head_dim: Optional[int] = None  # None: hidden_size // num_attention_heads
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     # HF `rope_scaling`: a dict, or its (key, value) pairs; None for default rope.
     rope_scaling: Optional[Any] = None
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False  # biases on q/k/v/o
+    qkv_bias: bool = False  # Qwen2: biases on q/k/v only
+    mlp_bias: bool = False
     dtype: torch.dtype = torch.float32
 
     # What `to_hf` writes as `model_type` and `architectures`.
@@ -71,30 +84,27 @@ class LlamaConfig:
     def __post_init__(self):
         if self.num_key_value_heads is None:
             object.__setattr__(self, "num_key_value_heads", self.num_attention_heads)
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_attention_heads
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.hidden_size // self.num_attention_heads)
 
     @classmethod
     def from_hf(cls, hf: Mapping[str, Any], dtype=torch.bfloat16) -> "LlamaConfig":
-        """From the plain dict of a Hugging Face `config.json` (llama, mistral),
-        the keys `quanto_tpu/models/llama.py:69-101` reads from a
-        `PretrainedConfig`. Raises `NotImplementedError` on an option the port
-        does not implement: tied embeddings, attention or MLP biases, a
-        `head_dim` other than hidden / heads, an activation other than silu,
-        a rope other than default, linear and llama3."""
-        if hf.get("tie_word_embeddings", False):
-            _not_ported("tie_word_embeddings")
-        for key in ("attention_bias", "mlp_bias"):
-            if hf.get(key, False):
-                _not_ported(key)
+        """From the plain dict of a Hugging Face `config.json` (llama, mistral,
+        qwen2), the keys `quanto_tpu/models/llama.py:69-101` reads from a
+        `PretrainedConfig`; a qwen2 config has q/k/v biases whatever its
+        `attention_bias` says, as Hugging Face's Qwen2 hardcodes them. Raises
+        `NotImplementedError` on what the port does not implement: Gemma, an
+        activation other than silu, a sliding window, a rope other than
+        default, linear, llama3, dynamic and yarn."""
+        model_type = hf.get("model_type", "llama")
+        if model_type in ("gemma", "gemma2"):
+            _not_ported(f"model_type {model_type!r} (rms_norm_unit_offset, scale_embeddings; its head_dim 256 is "
+                        "outside flash_decode's {64, 128}, ROADMAP.md Queue 2)")
         act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
         if act != "silu":
             _not_ported(f"hidden_act {act!r}")
-        head_dim = hf.get("head_dim")
-        if head_dim is not None and head_dim != hf["hidden_size"] // hf["num_attention_heads"]:
-            _not_ported(f"head_dim {head_dim} beside hidden_size / num_attention_heads")
+        if hf.get("use_sliding_window", False):
+            _not_ported("use_sliding_window (sliding.py)", item=5)
         rope = hf.get("rope_scaling") or None
         if rope is not None:
             rope_type = rope.get("rope_type", rope.get("type", "default"))
@@ -108,10 +118,15 @@ class LlamaConfig:
             num_hidden_layers=hf["num_hidden_layers"],
             num_attention_heads=hf["num_attention_heads"],
             num_key_value_heads=hf.get("num_key_value_heads"),
+            head_dim=hf.get("head_dim"),
             max_position_embeddings=hf.get("max_position_embeddings", 4096),
             rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
             rope_theta=hf.get("rope_theta", 10000.0),
             rope_scaling=rope,
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            attention_bias=hf.get("attention_bias", False),
+            qkv_bias=model_type == "qwen2" or hf.get("attention_bias", False),
+            mlp_bias=hf.get("mlp_bias", False),
             dtype=dtype,
             **cls._hf_extra(hf),
         )
@@ -124,11 +139,13 @@ class LlamaConfig:
     def to_hf(self) -> dict:
         """This configuration as a `config.json` dict, plain JSON that
         `transformers.AutoConfig` reads (and so the JAX package's
-        `from_pretrained`) and that `from_hf` inverts."""
+        `from_pretrained`) and that `from_hf` inverts. q/k/v biases without an
+        o_proj bias are Qwen2's, so such a config is written as qwen2."""
         rope = {k: list(v) if isinstance(v, tuple) else v for k, v in dict(self.rope_scaling or {}).items()}
+        qwen2 = self.qkv_bias and not self.attention_bias
         return {
-            "architectures": [self.hf_architecture],
-            "model_type": self.hf_model_type,
+            "architectures": ["Qwen2ForCausalLM" if qwen2 else self.hf_architecture],
+            "model_type": "qwen2" if qwen2 else self.hf_model_type,
             "vocab_size": self.vocab_size,
             "hidden_size": self.hidden_size,
             "intermediate_size": self.intermediate_size,
@@ -141,19 +158,28 @@ class LlamaConfig:
             "rope_theta": self.rope_theta,
             "rope_scaling": rope or None,
             "hidden_act": "silu",
-            "attention_bias": False,
-            "mlp_bias": False,
-            "tie_word_embeddings": False,
+            "attention_bias": self.attention_bias,
+            "mlp_bias": self.mlp_bias,
+            "tie_word_embeddings": self.tie_word_embeddings,
             "torch_dtype": str(self.dtype).removeprefix("torch."),
         }
 
 
-def rope_params(head_dim: int, theta: float, scaling: Optional[Any] = None) -> torch.Tensor:
-    """Per-dim rotary inverse frequencies (float32), computed in numpy from the
-    config: the `default`, `linear` and `llama3` variants of
-    `quanto_tpu/models/llama.py:rope_params` (whose attention scale factor is
-    1 for all three)."""
+def rope_params(
+    head_dim: int, theta: float, scaling: Optional[Any] = None, max_position_embeddings: int = 0
+) -> Tuple[torch.Tensor, float]:
+    """Per-dim rotary inverse frequencies (float32) and the attention scale
+    factor, computed in numpy from the config: the `default`, `linear`,
+    `llama3`, `dynamic` and `yarn` variants of
+    `quanto_tpu/models/llama.py:rope_params` (Hugging Face's
+    `ROPE_INIT_FUNCTIONS`). The factor is 1 but for yarn.
+
+    `dynamic`, as in JAX: the frequencies are the defaults within the
+    pretraining window, and the NTK formula is evaluated once at a fixed
+    length only where the scaling dict names a `seq_len` beyond
+    `max_position_embeddings`."""
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    attn_scale = 1.0
     s = dict(scaling) if scaling else {}
     rope_type = s.get("rope_type", s.get("type", "default"))
     factor = float(s.get("factor", 1.0))
@@ -161,6 +187,12 @@ def rope_params(head_dim: int, theta: float, scaling: Optional[Any] = None) -> t
         pass
     elif rope_type == "linear":
         inv_freq = inv_freq / factor
+    elif rope_type == "dynamic":
+        seq_len = int(s.get("seq_len", 0))
+        orig = int(max_position_embeddings)
+        if seq_len > orig > 0:
+            base = theta * ((factor * seq_len / orig) - (factor - 1)) ** (head_dim / (head_dim - 2))
+            inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
     elif rope_type == "llama3":
         low_freq_factor = float(s["low_freq_factor"])
         high_freq_factor = float(s["high_freq_factor"])
@@ -173,17 +205,46 @@ def rope_params(head_dim: int, theta: float, scaling: Optional[Any] = None) -> t
         smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
         is_medium = (wavelen >= high_freq_wavelen) & (wavelen <= low_freq_wavelen)
         inv_freq = np.where(is_medium, smoothed, scaled)
+    elif rope_type == "yarn":
+        orig = float(s.get("original_max_position_embeddings") or max_position_embeddings)
+        beta_fast = float(s.get("beta_fast") or 32.0)
+        beta_slow = float(s.get("beta_slow") or 1.0)
+
+        def mscale(scale, m=1.0):
+            return 0.1 * m * math.log(scale) + 1.0 if scale > 1.0 else 1.0
+
+        attn = s.get("attention_factor")
+        if attn is None:
+            ms, ms_all = s.get("mscale"), s.get("mscale_all_dim")
+            attn = mscale(factor, ms) / mscale(factor, ms_all) if ms and ms_all else mscale(factor)
+        attn_scale = float(attn)
+
+        def correction_dim(n_rot):
+            return head_dim * math.log(orig / (n_rot * 2 * math.pi)) / (2 * math.log(theta))
+
+        low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+        if s.get("truncate", True):  # Hugging Face's truthiness: None and 0 also skip the rounding
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, head_dim - 1)
+        if low == high:
+            high += 0.001
+        ramp = np.clip((np.arange(head_dim // 2, dtype=np.float64) - low) / (high - low), 0.0, 1.0)
+        extrap = 1.0 - ramp
+        inv_freq = (inv_freq / factor) * (1.0 - extrap) + inv_freq * extrap
     else:
         raise ValueError(f"unsupported rope_scaling type: {rope_type!r}")
-    return torch.from_numpy(inv_freq.astype(np.float32))
+    return torch.from_numpy(inv_freq.astype(np.float32)), attn_scale
 
 
-def _rope(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
+def _rope(positions: torch.Tensor, inv_freq: torch.Tensor, dtype, attn_scale: float = 1.0):
     """cos/sin tables [B, T, D] for the positions, HF 'half-rotation' layout,
-    cast to the model dtype."""
+    times the attention scale factor in float32, cast to the model dtype."""
     angles = positions.float()[..., None] * inv_freq
     emb = torch.cat([angles, angles], dim=-1)
-    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+    cos, sin = torch.cos(emb), torch.sin(emb)
+    if attn_scale != 1.0:
+        cos, sin = cos * attn_scale, sin * attn_scale
+    return cos.to(dtype), sin.to(dtype)
 
 
 def _deq(a):
@@ -262,10 +323,11 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.head_dim
         q_out, kv_out = self.num_heads * self.head_dim, self.num_kv_heads * self.head_dim
-        self.q_proj = nn.Linear(c.hidden_size, q_out, bias=False, **kw)
-        self.k_proj = nn.Linear(c.hidden_size, kv_out, bias=False, **kw)
-        self.v_proj = nn.Linear(c.hidden_size, kv_out, bias=False, **kw)
-        self.o_proj = nn.Linear(q_out, c.hidden_size, bias=False, **kw)
+        qkv_bias = c.attention_bias or c.qkv_bias
+        self.q_proj = nn.Linear(c.hidden_size, q_out, bias=qkv_bias, **kw)
+        self.k_proj = nn.Linear(c.hidden_size, kv_out, bias=qkv_bias, **kw)
+        self.v_proj = nn.Linear(c.hidden_size, kv_out, bias=qkv_bias, **kw)
+        self.o_proj = nn.Linear(q_out, c.hidden_size, bias=c.attention_bias, **kw)
 
     def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None, decode_pos=None):
         """`decode_pos` int32 [B]: each row's position in a T == 1 step over a
@@ -295,9 +357,9 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, c: LlamaConfig, **kw):
         super().__init__()
-        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=False, **kw)
-        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=False, **kw)
-        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=False, **kw)
+        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
+        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
+        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=c.mlp_bias, **kw)
 
     def forward(self, x):
         g, u = _deq(self.gate_proj(x)), _deq(self.up_proj(x))
@@ -334,6 +396,8 @@ def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
             m.weight.normal_(0.0, _INIT_STD, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
         elif isinstance(m, RMSNorm):
             m.weight.fill_(1.0)
 
@@ -358,8 +422,13 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         kw = dict(device="meta", dtype=config.dtype)
         self.model = LlamaModel(config, self.layer_cls, **kw)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+        # Tied embeddings: no lm_head, the logits come from the embedding (`llama.py:454-460`).
+        self.lm_head = (
+            None if config.tie_word_embeddings
+            else nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+        )
         self.register_buffer("inv_freq", torch.empty(config.head_dim // 2, device="meta"), persistent=False)
+        self.attn_scale = 1.0
         self.requires_grad_(False)
         if torch.device(device).type != "meta":
             self.materialize_(device, generator or torch.Generator(device=device).manual_seed(0))
@@ -374,7 +443,7 @@ class LlamaForCausalLM(nn.Module):
         it), so the device holds one float layer beyond what `layer_fn`
         leaves: the way a model larger than the device in float is built."""
         parts = [self.model.embed_tokens, *self.model.layers, self.model.norm, self.lm_head]
-        for part in parts:
+        for part in filter(None, parts):
             part.to_empty(device=device)
             _init_weights(part, generator)
             if layer_fn is not None and isinstance(part, self.layer_cls):
@@ -382,9 +451,11 @@ class LlamaForCausalLM(nn.Module):
         self.init_rope_(device)
 
     def init_rope_(self, device) -> None:
-        """The rotary inverse frequencies on `device` (a buffer no checkpoint holds)."""
+        """The rotary inverse frequencies on `device` (a buffer no checkpoint
+        holds) and the attention scale factor."""
         c = self.config
-        self.inv_freq = rope_params(c.head_dim, c.rope_theta, c.rope_scaling).to(device)
+        inv_freq, self.attn_scale = rope_params(c.head_dim, c.rope_theta, c.rope_scaling, c.max_position_embeddings)
+        self.inv_freq = inv_freq.to(device)
 
     @property
     def device(self) -> torch.device:
@@ -417,7 +488,7 @@ class LlamaForCausalLM(nn.Module):
             x = _vocab_parallel_embed(embed, input_ids.long(), self.tp)
         pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
-        cos, sin = _rope(positions, self.inv_freq, x.dtype)
+        cos, sin = _rope(positions, self.inv_freq, x.dtype, self.attn_scale)
         neg = torch.finfo(torch.float32).min
         mask = decode_pos = None
         if cache is None:
@@ -440,7 +511,19 @@ class LlamaForCausalLM(nn.Module):
         if logits_indices is not None:
             idx = torch.as_tensor(logits_indices, device=dev).reshape(-1).expand(B)
             x = x[torch.arange(B, device=dev), idx][:, None, :]
-        logits = _deq(self.lm_head(x))
+        logits = self._logits(x)
         if logits.shape[-1] != V:
             logits = _gather_vocab(logits, self.tp, V)
         return logits, (tuple(new_cache) if new_cache is not None else None)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of the final hidden states: from the embedding when tied
+        (`llama.py:454-460`), else from the lm_head. A float head or
+        embedding meets a hidden state of another dtype (float32 after a W8A8
+        linear) in that dtype, as JAX's dtype promotion has it."""
+        head = self.lm_head
+        if head is None:
+            return torch.matmul(x, self.model.embed_tokens.weight.to(x.dtype).t())
+        if isinstance(head, nn.Linear) and head.weight.dtype != x.dtype:
+            return F.linear(x, head.weight.to(x.dtype))
+        return _deq(head(x))

@@ -10,8 +10,8 @@ bytes are the JAX package's.
 The model families are the port's own (`models/llama.py`,
 `models/mixtral.py`), chosen by `model_type` in `config.json`, which is read
 and written as plain JSON (no `transformers` on the card's machine); the
-port writes one that `transformers.AutoConfig` reads. Only `llama`,
-`mistral` and `mixtral` are ported.
+port writes one that `transformers.AutoConfig` reads. `llama`, `mistral`,
+`qwen2` (`models/llama.py` with q/k/v biases) and `mixtral` are ported.
 
 Where it differs from JAX: JAX builds the float model and then swaps in the
 quantized modules (`transformers_models.py:403-417`); Mixtral-8x7B is 93 GB
@@ -53,6 +53,7 @@ CONFIG_NAME = "config.json"
 _FAMILIES = {
     "llama": (LlamaConfig, LlamaForCausalLM),
     "mistral": (LlamaConfig, LlamaForCausalLM),
+    "qwen2": (LlamaConfig, LlamaForCausalLM),
     "mixtral": (MixtralConfig, MixtralForCausalLM),
 }
 
@@ -102,8 +103,9 @@ def _finish(model, report: dict, directory: str, device, hf_config: dict):
 def from_pretrained_float(
     name_or_path: str, dtype=torch.bfloat16, device="cuda", revision=None, cache_dir=None
 ):
-    """A float Hugging Face checkpoint (llama, mistral, mixtral) in the port's
-    model, allocated on `device` a tensor at a time."""
+    """A float Hugging Face checkpoint (llama, mistral, qwen2, mixtral) in the
+    port's model, allocated on `device` a tensor at a time; a tied one needs
+    no `lm_head.weight`."""
     directory = resolve_model_path(name_or_path, revision=revision, cache_dir=cache_dir)
     hf_config = _load_config(directory)
     model = build_model(hf_config, dtype=dtype)

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `quanto_tpu/nn/qlinear.py`: weights always quantized,
 bias never, inputs (and outputs, unless calibration streamlined them away)
-quantized when an activation qtype is set. The weight keeps the torch linear
+quantized when an activation qtype is set; with `qat` set and not frozen, a
+float product with the fake-quantized weight (`QModuleMixin.fake_qweight`). The weight keeps the torch linear
 convention `[out_features, in_features]`, so per-output-channel (axis 0)
 scales and the generic layout match quanto checkpoints bit for bit.
 """
@@ -76,4 +77,11 @@ class QLinear(QModuleMixin, nn.Module):
 
     def forward(self, x):
         x = self.maybe_quantize_input(x)
-        return self.maybe_quantize_output(qlinear(x, self.qweight, self.bias))
+        if self.qat and not self.frozen:
+            # QAT (`quanto_tpu/nn/qlinear.py:87-90`): a float product with the fake-quantized weight.
+            out = torch.matmul(x, self.fake_qweight().t().to(x.dtype))
+            if self.bias is not None:
+                out = out + self.bias
+        else:
+            out = qlinear(x, self.qweight, self.bias)
+        return self.maybe_quantize_output(out)

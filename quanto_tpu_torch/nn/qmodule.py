@@ -6,12 +6,17 @@ PyTorch counterpart of `quanto_tpu/nn/qmodule.py`. Workflow states:
 - **calibrated**: the `input_scale` / `output_scale` buffers (0-d float32,
   1 until calibrated) updated by `Calibration` (`quanto_tpu_torch/calibrate.py`);
 - **frozen**: `weight` is a `QArray`, repacked into the Hopper kernel layout
-  when it is int4 or int2 and lies on a CUDA device (an int4 one into its
+  when it is int4 or int2 and lies on a CUDA device, zero-padded onto the
+  kernels' envelope where its shape is off it (an int4 one into its
   W4A8 requant form, `WeightQBitsRequantArray`, when frozen with
   `w4a8_requant_dot=True`).
 
-The `qat` flag and `fake_qweight` of the JAX package wait for the training
-slice.
+Quantization-aware training (`quanto_tpu/nn/qmodule.py:135-195`): with
+`qat` set, a module that is not frozen computes in float with
+`fake_qweight()` (the weight quantized and dequantized, straight-through
+gradients) and fake-quantized activations; its float `weight` Parameter is
+trained as any other (the caller turns on its `requires_grad`), and
+`freeze` then quantizes it as it would without QAT.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..tensor.activations import mark_quantized_use, quantize_activation
+from ..tensor.activations import fake_quantize_activation, mark_quantized_use, quantize_activation
 from ..tensor.optimizers import AbsmaxOptimizer, MaxOptimizer, Optimizer
 from ..tensor.qarray import QArray
 from ..tensor.qtype import qtype, qtypes
@@ -28,6 +33,7 @@ from ..tensor.weights import (
     WeightQBitsArray,
     WeightQBitsHopperArray,
     WeightQBitsRequantArray,
+    fake_quantize_weight,
     quantize_weight,
 )
 
@@ -105,6 +111,8 @@ class QModuleMixin:
         self.quantize_outputs = activations is not None
         self.calibrating = False
         self._calibration = None
+        # QAT: float compute with fake quantization and straight-through gradients.
+        self.qat = False
 
     def _init_scales(self, device) -> None:
         """Activation scales: 0-d float32 buffers, 1 until calibrated."""
@@ -134,11 +142,30 @@ class QModuleMixin:
             w, self.weight_qtype, 0, scale, shift=shift, group_size=self.weight_group_size
         )
 
+    def fake_qweight(self) -> torch.Tensor:
+        """The weight quantized and dequantized, differentiable with respect to
+        the float weight (straight-through), the QAT path: the scale and shift
+        come from the optimizer on the detached weight, as their gradient is
+        zero in JAX's `fake_quantize_weight`."""
+        w = self.weight
+        if isinstance(w, QArray):
+            return w.dequantize()
+        if self.weight_qtype is None:
+            return w
+        wd = w.detach()
+        if self.weight_qtype.bits == 8:
+            scale = self.optimizer(wd, self.weight_qtype, axis=0)
+            return fake_quantize_weight(w, self.weight_qtype, 0, scale, None, None)
+        scale, shift = self.optimizer(wd, self.weight_qtype, axis=0, group_size=self.weight_group_size)
+        return fake_quantize_weight(w, self.weight_qtype, 0, scale, shift, self.weight_group_size)
+
     @torch.no_grad()
     def freeze(self, w4a8_requant_dot: bool = False) -> None:
         """Replace the float weight with its quantized form. An int4 or int2
-        weight on a CUDA device is repacked into the Hopper layout when it fits
-        the envelope; an 8-bit weight keeps its [N, K] layout, which the kernel
+        weight on a CUDA device is repacked into the Hopper layout, zero-padded
+        onto the envelope where its shape is off it; it stays generic only
+        where JAX's `from_generic` returns None (a group size that does not
+        divide K). An 8-bit weight keeps its [N, K] layout, which the kernel
         reads as it is.
 
         `w4a8_requant_dot`: a Hopper-layout weight, int4 or int2, takes its
@@ -177,6 +204,8 @@ class QModuleMixin:
             return x
         if self.calibrating and self._calibration is not None:
             self._calibration.calibrate_input(self, x)
+        if self.qat:
+            return fake_quantize_activation(x, self.activation_qtype, self.input_scale)
         return quantize_activation(x, self.activation_qtype, self.input_scale)
 
     def maybe_quantize_output(self, out):
@@ -192,4 +221,6 @@ class QModuleMixin:
             return qout
         if not self.quantize_outputs:
             return out
+        if self.qat:
+            return fake_quantize_activation(out, self.activation_qtype, self.output_scale)
         return quantize_activation(out, self.activation_qtype, self.output_scale)

@@ -13,7 +13,9 @@ counterpart of XLA's psum:
   columns, no collective;
 - row (K sharded, whole groups): each rank computes a float32 partial
   product from its own K slice of x and the weight, then all_reduce;
-- replicated: each rank computes the whole product (batch-parallel only).
+- replicated: each rank computes the whole product (batch-parallel only);
+  a weight zero-padded onto the envelope is only ever replicated, and x is
+  padded and the output sliced around the kernel as `ops/qlinear.py` does.
 
 No kernel of its own: what bounds it is its local kernel's bound (bytes at
 decode, operations at prefill) plus the all_reduce of the [M, N] float32
@@ -61,12 +63,13 @@ def _local_mm(x2: torch.Tensor, w) -> torch.Tensor:
     if not _kernel_route(x2, w):
         return _fallback(x2, w)
     args = (w._packed, w._scale_t, w._shift_t, w.kernel_group_size)
+    xk = w.pad_activations(x2)
     if x2.dtype == torch.int8:
-        out = qbits_int8_mm(x2, _unit_scale(x2.device), *args, torch.float32, bits=w.bits)
+        out = qbits_int8_mm(xk, _unit_scale(x2.device), *args, torch.float32, bits=w.bits)
     else:
-        out = qbits_mm(x2, *args, w.bits).float()
+        out = qbits_mm(xk, *args, w.bits).float()
     qbits_mm_partitioned.launches += x2.is_cuda
-    return out
+    return w.slice_out(out)
 
 
 def _local_mm_plain(x2: torch.Tensor, w) -> torch.Tensor:
@@ -75,9 +78,10 @@ def _local_mm_plain(x2: torch.Tensor, w) -> torch.Tensor:
     if not _kernel_route(x2, w):
         return _fallback(x2, w)
     args = (w._packed, w._scale_t, w._shift_t, w.kernel_group_size)
+    xk = w.pad_activations(x2)
     if x2.dtype == torch.int8:
-        return qbits_int8_mm_plain(x2, _unit_scale(x2.device), *args, torch.float32, w.bits)
-    return qbits_mm_plain(x2, *args, w.bits).float()
+        return w.slice_out(qbits_int8_mm_plain(xk, _unit_scale(x2.device), *args, torch.float32, w.bits))
+    return w.slice_out(qbits_mm_plain(xk, *args, w.bits).float())
 
 
 def qbits_mm_partitioned(x, w) -> torch.Tensor:
@@ -97,6 +101,10 @@ def qbits_mm_partitioned(x, w) -> torch.Tensor:
         )
     int8_x = isinstance(x, ActivationQBytesArray)
     xd = x._data if int8_x else x
+    if w.shard.mode == "row" and xd.shape[-1] != w.shape[1]:
+        # A replicated (padded) producer gave the whole K: take this rank's columns.
+        k = w.shape[1]
+        xd = xd[..., w.shard.group.rank * k : (w.shard.group.rank + 1) * k]
     lead = xd.shape[:-1]
     out = _local_mm(xd.reshape(-1, xd.shape[-1]).contiguous(), w)
     if w.shard.mode == "row":

@@ -1,12 +1,37 @@
-"""8-bit weight-only matmul outside the kernel's envelope.
+"""8-bit matmuls outside the weight-only kernel: W8A8 and the XLA formula.
 
-PyTorch counterpart of the weight-only arm of `quanto_tpu/ops/qbytes_mm.py:87-119`
-(XLA's convert-fused dot on the TPU): `dot(x, w^T)` with both operands in the
-scale's dtype and float32 sums and result (`preferred_element_type`), then the
-per-output-channel scale applied to the output in float32, then one rounding
-to the scale's dtype. `ops/qlinear.py` takes it where the Hopper kernel of
-`ops/cuda/qbytes_mm.py` does not (prefill M > 256, e5m2 and e4m3fnuz
-payloads): a plain large product, as the JAX package left it to XLA.
+PyTorch counterpart of `quanto_tpu/ops/qbytes_mm.py:67-119`. The JAX package
+computes these as XLA dots outside any Pallas kernel, so the port computes
+them with PyTorch's own calls on the card:
+
+- `qbytes_int_mm` (int8 x int8, `qbytes_mm.py:67-84`): the exact int32
+  product, then the float32 scale product as JAX orders it. On a CUDA tensor
+  the product is `torch._int_mm` where its envelope takes the shapes
+  (`int_mm_eligible`: K and N multiples of 8; fewer than 17 rows are padded
+  with zero rows to 17 and sliced, which is exact); its plain version, the
+  CPU's route and the card's outside that envelope, sums in float64, which
+  is exact for int8 while 127 * 128 * K < 2**53. Both round the integer sum
+  to float32 once, so the card equals the plain version bit for bit.
+- `qbytes_fp8_mm` (e4m3fn x e4m3fn, JAX's `use_native_fp8_dot` branch,
+  `:105-113`): on a CUDA tensor `torch._scaled_mm` with unit scales and
+  float32 output (`use_fast_accum=False`), where K and N are multiples of
+  16 (`scaled_mm_eligible`); its plain version is JAX's convert formula,
+  exact products with float32 sums in another order. Hopper's fp8 tensor
+  cores do not accumulate in full float32, so the two differ by more than
+  the order of a float32 sum (`PERF.md`, the W8A8 rows).
+- `qbytes_mm`, the dispatch of `qbytes_mm.py:87-119`: int8 x int8 and
+  e4m3fn x e4m3fn as above; any other pair (fp8 x int8, other fp8 formats,
+  a float x with an 8-bit weight outside the Hopper kernel's envelope) takes
+  the convert formula: both operands in the scale's dtype, a dot with
+  float32 sums and result, the per-output-channel scale applied to the
+  output in float32, one rounding to the scale's dtype.
+
+The output dtype is the scale's, as in JAX: W8A8 passes the combined scale
+x.scale * w.scale, float32 (the activation's scale is float32), so a W8A8
+linear returns float32, as JAX's does.
+
+`qbytes_int_mm.launches` and `qbytes_fp8_mm.launches` count the library
+calls made on a CUDA tensor, so that a run shows the W8A8 route it took.
 """
 
 from __future__ import annotations
@@ -14,7 +39,26 @@ from __future__ import annotations
 import torch
 
 
-__all__ = ["qbytes_mm"]
+__all__ = [
+    "INT_MM_MIN_M",
+    "int_mm_eligible",
+    "scaled_mm_eligible",
+    "qbytes_int_mm_plain",
+    "qbytes_int_mm",
+    "qbytes_fp8_mm_plain",
+    "qbytes_fp8_mm",
+    "qbytes_mm",
+]
+
+# `torch._int_mm` on CUDA takes more than 16 rows.
+INT_MM_MIN_M = 17
+
+
+def _row_scales(output_scales: torch.Tensor) -> torch.Tensor:
+    """The scale broadcast over the output's last dimension: [N, 1] -> [1, N],
+    a scalar as it is, in float32."""
+    s = output_scales.t() if output_scales.dim() == 2 else output_scales
+    return s.float()
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -26,11 +70,106 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(x.float(), w.float().t())
 
 
-def qbytes_mm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """y[..., N] = (x[..., K] @ w[N, K]^T) * scale^T in the scale's dtype; the
-    scale is [N, 1] (per output channel) or a scalar."""
+def int_mm_eligible(K: int, N: int) -> bool:
+    """The shapes `torch._int_mm` takes on CUDA (rows padded to INT_MM_MIN_M)."""
+    return K % 8 == 0 and N % 8 == 0
+
+
+def scaled_mm_eligible(K: int, N: int) -> bool:
+    """The shapes `torch._scaled_mm` takes on CUDA (rows padded to a multiple of 16)."""
+    return K % 16 == 0 and N % 16 == 0
+
+
+def _pad_rows(x2: torch.Tensor, m: int) -> torch.Tensor:
+    """x2 [M, K] with zero rows added up to m rows (exact: each output row
+    depends on its own x row only)."""
+    if x2.shape[0] >= m:
+        return x2
+    return torch.cat([x2, x2.new_zeros((m - x2.shape[0], x2.shape[1]))])
+
+
+def qbytes_int_mm_plain(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The int32 product x2 [M, K] @ w [N, K]^T of int8 operands, exact, as
+    float32 [M, N] rounded once from the exact sum (float64 sums are exact
+    while 127 * 128 * K < 2**53)."""
+    return (x2.double() @ w.double().t()).float()
+
+
+def _int_mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact int8 product as float32: `torch._int_mm` on a CUDA tensor
+    inside its envelope (counted), else the plain version."""
+    M, K = x2.shape
+    N = w.shape[0]
+    if not x2.is_cuda or not int_mm_eligible(K, N):
+        return qbytes_int_mm_plain(x2, w)
+    acc = torch._int_mm(_pad_rows(x2, INT_MM_MIN_M), w.t())
+    qbytes_int_mm.launches += 1
+    return acc[:M].float()
+
+
+def qbytes_int_mm(activations: torch.Tensor, weights: torch.Tensor, output_scales: torch.Tensor) -> torch.Tensor:
+    """int8 activations [..., K] x int8 weights [N, K] -> [..., N] in the scale's
+    dtype: the exact int32 product converted to float32, times the scale in
+    float32 ([N, 1] per output channel, or a scalar), cast to the scale's
+    dtype (`quanto_tpu/ops/qbytes_mm.py:67-84`)."""
+    lead = activations.shape[:-1]
+    x2 = activations.reshape(-1, activations.shape[-1]).contiguous()
+    out = _int_mm_f32(x2, weights) * _row_scales(output_scales)
+    return out.to(output_scales.dtype).reshape(*lead, weights.shape[0])
+
+
+qbytes_int_mm.launches = 0
+
+
+def qbytes_fp8_mm_plain(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp8 x2 [M, K] @ fp8 w [N, K]^T as float32 [M, N]: JAX's convert formula
+    (both operands to float32, exact, float32 sums)."""
+    return x2.float() @ w.float().t()
+
+
+def qbytes_fp8_mm(activations: torch.Tensor, weights: torch.Tensor, output_scales: torch.Tensor) -> torch.Tensor:
+    """e4m3fn activations [..., K] x e4m3fn weights [N, K] -> [..., N] in the
+    scale's dtype: the product in float32, times the scale in float32, cast to
+    the scale's dtype (`quanto_tpu/ops/qbytes_mm.py:105-113`). On a CUDA
+    tensor inside `scaled_mm_eligible` the product is `torch._scaled_mm`
+    with unit scales (counted); elsewhere its plain version."""
+    lead = activations.shape[:-1]
+    x2 = activations.reshape(-1, activations.shape[-1]).contiguous()
+    M, K = x2.shape
+    N = weights.shape[0]
+    if x2.is_cuda and scaled_mm_eligible(K, N):
+        one = torch.ones((), dtype=torch.float32, device=x2.device)
+        acc = torch._scaled_mm(
+            _pad_rows(x2, -(-M // 16) * 16), weights.t(), scale_a=one, scale_b=one,
+            out_dtype=torch.float32, use_fast_accum=False,
+        )[:M]
+        qbytes_fp8_mm.launches += 1
+    else:
+        acc = qbytes_fp8_mm_plain(x2, weights)
+    out = acc * _row_scales(output_scales)
+    return out.to(output_scales.dtype).reshape(*lead, N)
+
+
+qbytes_fp8_mm.launches = 0
+
+
+def _convert_mm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """JAX's convert formula (`qbytes_mm.py:115-119`): both operands in the
+    scale's dtype, float32 sums and result, the scale applied to the output
+    in float32, one rounding to the scale's dtype."""
     dtype = scale.dtype
     x2 = x.reshape(-1, x.shape[-1]).to(dtype)
     out = _dot_f32(x2, w.to(dtype)).reshape(*x.shape[:-1], w.shape[0])
-    scales = scale.t() if scale.dim() == 2 else scale
-    return (out * scales.float()).to(dtype)
+    return (out * _row_scales(scale)).to(dtype)
+
+
+def qbytes_mm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """y[..., N] = (x[..., K] @ w[N, K]^T) * scale^T in the scale's dtype; the
+    scale is [N, 1] (per output channel) or a scalar. int8 x int8 takes
+    `qbytes_int_mm`, e4m3fn x e4m3fn `qbytes_fp8_mm`, anything else the
+    convert formula."""
+    if x.dtype == torch.int8 and w.dtype == torch.int8:
+        return qbytes_int_mm(x, w, scale)
+    if x.dtype == torch.float8_e4m3fn and w.dtype == torch.float8_e4m3fn:
+        return qbytes_fp8_mm(x, w, scale)
+    return _convert_mm(x, w, scale)

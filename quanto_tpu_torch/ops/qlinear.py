@@ -5,7 +5,11 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   envelope (`ops/cuda/qbytes_mm.py:eligible`: int8 or e4m3fn payload, N and
   K multiples of 128, bf16/f32 x, M <= 256) the fused kernel of
   `ops/cuda/qbytes_mm.py`, else JAX's XLA formula (`ops/qbytes_mm.py`);
-  with a quantized x (W8A8) it raises: `ROADMAP.md` Queue 1, item 3;
+- `WeightQBytesArray` w with an `ActivationQBytesArray` x (W8A8, `qlinear.py:
+  87-96`): `ops/qbytes_mm.py:qbytes_mm` of the two payloads with the
+  combined scale x.scale * w.scale in float32, so the output is float32 as
+  in JAX: int8 x int8 through `torch._int_mm`, e4m3fn x e4m3fn through
+  `torch._scaled_mm` on the card, other pairs through the convert formula;
 - `WeightQBitsHopperArray` w (int4 or int2): with a qint8
   `ActivationQBytesArray` x the W4A8/W2A8 kernels (`qbits_int8_mm`, routed
   by M: `qbits_mm_int8_small_m` at M <= 512, `qbits_mm_tiled_int8` above);
@@ -20,6 +24,11 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
   qint8 x at M >= 2048 (`INT8_DOT_MIN_M`, `requant_route`) `qbits_int8_mm`
   takes the approximate requant kernel `qbits_mm_requant_int8`, at either
   width: JAX tries `_int8pc_route` before `_prefill_route`'s int2 gate;
+- a padded Hopper-layout w (`pad` set, a shape off the envelope): x is
+  zero-padded to the payload's K (`pad_activations`, int8 codes too) before
+  the kernel and the padded output columns are dropped after it
+  (`slice_out`), as `quanto_tpu/ops/qlinear.py:45`, `:64` and `:97` do; the
+  routes are chosen on the payload's K and group size;
 - `WeightQBitsArray` w (generic layout): dequantize + `torch.matmul`, the JAX
   package's own XLA path (`qlinear.py:74-75`), x dequantized first;
 - a plain tensor w: `torch.matmul`, x dequantized first;
@@ -71,10 +80,10 @@ def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
             mark_quantized_use(x)
     elif isinstance(w, WeightQBytesArray):
         if isinstance(x, ActivationQBytesArray):
-            raise NotImplementedError(
-                "qlinear: int8 x int8 (W8A8, qbytes_int_mm) is not ported yet: ROADMAP.md Queue 1, item 3"
-            )
-        if cuda_qbytes.eligible(x, w._data, w._scale):
+            # Combined scale: the activation's per-tensor scale times the weight's, in float32.
+            out = xla_qbytes.qbytes_mm(x._data, w._data, x._scale.float() * w._scale.float())
+            mark_quantized_use(x)
+        elif cuda_qbytes.eligible(x, w._data, w._scale):
             out = cuda_qbytes.qbytes_mm(x, w._data, w._scale)
         else:
             out = xla_qbytes.qbytes_mm(x, w._data, w._scale)
@@ -82,21 +91,23 @@ def qlinear(x, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         M = math.prod(x.shape[:-1])
         int8_x = isinstance(x, ActivationQBytesArray) and x.qtype == qint8
         s8 = w._s8 if isinstance(w, WeightQBitsRequantArray) else None
-        requant = int8_x and requant_route(M, w.shape[1], w.kernel_group_size, s8)
+        requant = int8_x and requant_route(M, w.kernel_shape[1], w.kernel_group_size, s8)
         if w.bits == 2 and M > INT2_MAX_M and not requant:
             if isinstance(x, QArray):
                 x = x.dequantize()
             out = torch.matmul(x, w.dequantize().to(x.dtype).t())
         elif int8_x:
-            out = qbits_int8_mm(
-                x._data, x._scale, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.float_dtype,
-                s8=s8, bits=w.bits,
-            )
+            out = w.slice_out(qbits_int8_mm(
+                w.pad_activations(x._data), x._scale, w._packed, w._scale_t, w._shift_t, w.kernel_group_size,
+                w.float_dtype, s8=s8, bits=w.bits,
+            ))
             mark_quantized_use(x)
         else:
             if isinstance(x, QArray):
                 x = x.dequantize()
-            out = qbits_mm(x, w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.bits)
+            out = w.slice_out(qbits_mm(
+                w.pad_activations(x), w._packed, w._scale_t, w._shift_t, w.kernel_group_size, w.bits
+            ))
     else:
         if isinstance(x, QArray):
             x = x.dequantize()

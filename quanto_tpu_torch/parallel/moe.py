@@ -60,6 +60,8 @@ class _StackedProj(nn.Module):
             raise ValueError("stacked experts must share their shape and group size")
         if any(w.bits != w0.bits for w in weights):
             raise ValueError(f"stacked experts must share their bits, got {sorted({w.bits for w in weights})}")
+        if any(w.pad is not None for w in weights):
+            raise NotImplementedError("stacked experts off the kernels' envelope (padded) are not ported yet")
         self.group_size = w0.kernel_group_size
         self.bits = w0.bits
         for name in ("packed", "scale_t", "shift_t"):

@@ -17,7 +17,8 @@ explicitly (Megatron-style):
   the same logits everywhere.
 
 Pad-free rule (`_put`, `sharding.py:203-212`): where the world size does not
-divide the sharded dimension, the weight is replicated. Float linears stay
+divide the sharded dimension, the weight is replicated. A weight zero-padded
+onto the kernels' envelope is replicated too (`sharding.py:237-241`). Float linears stay
 whole on every rank (sharding float weights is a later slice): a float
 lm_head then computes every logit on every rank, which is what the gather
 gives.
@@ -33,7 +34,7 @@ from torch import nn
 
 from ..models.llama import LlamaAttention, LlamaForCausalLM
 from ..nn.qmodule import QModuleMixin
-from ..tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, shard_qbits
+from ..tensor.weights import WeightQBitsArray, WeightQBitsHopperArray, padded, shard_qbits
 
 
 __all__ = ["LLAMA_TP_RULES", "shard_model"]
@@ -72,8 +73,8 @@ def _shard_qlinear(m: QModuleMixin, name: str, spec, group) -> None:
         return  # sharded already
     axis = 0 if spec[0] is not None else 1
     mode = "column" if axis == 0 else "row"
-    if w.shape[axis] % group.world_size:
-        mode = "replicated"  # pad-free rule
+    if w.shape[axis] % group.world_size or padded(w):
+        mode = "replicated"  # pad-free rule; a padded weight is replicated
     m.weight = shard_qbits(w, mode, group)
     if m.bias is not None and mode == "column":
         n = m.weight.shape[0]

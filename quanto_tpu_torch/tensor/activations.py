@@ -9,8 +9,9 @@ for the card.
 Consumption cells serve `Calibration`'s streamline pass
 (`quanto_tpu_torch/calibrate.py`): a consumer that uses a quantized output as
 quantized data marks `quantized_use`, `dequantize()` marks `dequantized`.
-`fake_quantize_activation` (quantization-aware training) waits for the
-training slice.
+`fake_quantize_activation` is the quantize-dequantize round trip of
+quantization-aware training, with a straight-through gradient
+(`activations.py:111-129`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .qtype import qtype
 __all__ = [
     "ActivationQBytesArray",
     "quantize_activation",
+    "fake_quantize_activation",
     "attach_consumption_cell",
     "mark_dequantized",
     "mark_quantized_use",
@@ -87,3 +89,25 @@ def quantize_activation(t: torch.Tensor, qt: qtype, scale: torch.Tensor) -> Acti
     return ActivationQBytesArray(
         _data=quantize_symmetric(t, qt, None, scale), _scale=scale, qtype=qt, float_dtype=t.dtype
     )
+
+
+class _FakeQuantizeActivation(torch.autograd.Function):
+    """`fake_quantize_activation`'s straight-through round trip: the gradient
+    passes to the tensor unchanged, the scale gets zeros (JAX's `_fake_qa_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, t, qt, scale):
+        ctx.save_for_backward(scale)
+        return quantize_activation(t, qt, scale).dequantize()
+
+    @staticmethod
+    def backward(ctx, g):
+        (scale,) = ctx.saved_tensors
+        return g, None, torch.zeros_like(scale)
+
+
+def fake_quantize_activation(t: torch.Tensor, qt: qtype, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize round trip with a straight-through estimator
+    (`quanto_tpu/tensor/activations.py:111-121`): gradients flow unchanged to
+    `t`, the scale receives zeros."""
+    return _FakeQuantizeActivation.apply(t, qt, scale)

@@ -434,27 +434,31 @@ def test_config_json_both_ways(tmp_path, family):
 @pytest.mark.parametrize(
     "extra",
     [
-        {"tie_word_embeddings": True},
-        {"attention_bias": True},
-        {"mlp_bias": True},
-        {"head_dim": 256},
+        {"model_type": "gemma"},
+        {"model_type": "gemma2"},
+        {"use_sliding_window": True},
         {"hidden_act": "gelu"},
-        {"rope_scaling": {"rope_type": "yarn", "factor": 4.0}},
+        {"hidden_activation": "gelu_pytorch_tanh"},
+        {"rope_scaling": {"rope_type": "longrope", "factor": 4.0}},
     ],
-    ids=lambda e: next(iter(e)),
+    ids=lambda e: "-".join(f"{k}={v}" for k, v in e.items() if k != "rope_scaling") or "rope_scaling",
 )
 def test_config_refuses_what_the_port_lacks(extra):
     hf = dict(LlamaConfig(**LLAMA31_8B).to_hf(), **extra)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item [45]\)"):
         LlamaConfig.from_hf(hf)
 
 
 def test_unported_model_type_raises():
-    hf = dict(LlamaConfig(**LLAMA).to_hf(), model_type="qwen2")
+    hf = dict(LlamaConfig(**LLAMA).to_hf(), model_type="phi3")
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         build_model(hf)
     model = build_model(dict(LlamaConfig(**LLAMA).to_hf(), model_type="mistral"), dtype=torch.float32)
     assert type(model) is LlamaForCausalLM and model.lm_head.weight.is_meta
+    # qwen2 is ported: a Llama with q/k/v biases.
+    model = build_model(dict(LlamaConfig(**LLAMA).to_hf(), model_type="qwen2"), dtype=torch.float32)
+    attn = model.model.layers[0].self_attn
+    assert attn.q_proj.bias is not None and attn.v_proj.bias is not None and attn.o_proj.bias is None
 
 
 def test_resolve_model_path_matches_jax(tmp_path, monkeypatch):

@@ -92,12 +92,22 @@ every 128-row tile edge (513 to 4097, 4064 included), N in {384, 1024, 1152,
 the tolerances above; two launches give the same bits; one launch counted a
 call; refused shapes raise on CUDA tensors.
 
+The W8A8 route (`ops/qbytes_mm.py`: `torch._int_mm`, `torch._scaled_mm`; no
+TPU kernel) at M in {1, 4, 16, 17, 64, 4096} against its plain formula (int8
+EQUAL, e4m3fn within the bf16 tolerances below); `qlinear` over weights
+zero-padded onto the envelope (SmolLM2-360M's and Qwen2.5-0.5B's linears,
+float and int8 x, M in {4, 600, 4096}) against the same call on the CPU;
+`flash_decode` at the small models' heads, (Hkv, G, D) = (5, 3, 64) and
+(2, 7, 64).
+
 The tensor-core small-M kernels (#1 `qbits_mm_small_m`, #4
 `qbits_mm_int8_small_m`) at every M-tile edge (M in 9..512), N in {1024,
 14336}, group sizes 64, 128 and 256, int4 and int2, over a K (4352) that
 leaves a split-K remainder, with the tolerances above; two launches give the
 same bits; one launch counted a call.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -987,3 +997,97 @@ def test_tiled_refusals(cuda_device):
     with pytest.raises(ValueError, match="bits"):
         qbits_mm_tiled_int8(xq, sx, packed, scale_t, shift_t, 128, torch.bfloat16, 3)
     assert (qbits_mm_tiled.launches, qbits_mm_tiled_int8.launches) == before
+
+
+# --- W8A8, the padded layout and the small models' attention heads -----------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("payload", ["qint8", "qfloat8_e4m3fn"])
+@pytest.mark.parametrize("n,k", [(1024, 4096), (14336, 4096), (4096, 14336), (96, 200)])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 4096])
+def test_w8a8_route_matches_plain(cuda_device, m, n, k, payload):
+    """The W8A8 route of `ops/qbytes_mm.py` (`torch._int_mm`, `torch._scaled_mm`,
+    rows padded to their least M) against its plain formula: int8 EQUAL (the
+    int32 sum is exact on both), e4m3fn within 1e-2 * max|ref| and cosine >
+    1 - 1e-4 (Hopper's fp8 tensor cores do not keep a full float32 sum). One
+    library call counted a call inside the envelope; none outside it (K = 200
+    takes no `_scaled_mm`, N = 96 and K = 200 do take `_int_mm`)."""
+    from quanto_tpu_torch.ops import qbytes_mm as W8A8
+
+    qtype = qtt.qtypes[payload]
+    rng = np.random.default_rng(m + n)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((2, m, k)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    qw = qtt.quantize_weight(w, qtype, 0, qtt.AbsmaxOptimizer()(w, qtype, 0))
+    qx = qtt.quantize_activation(x, qtype, (x.float().abs().amax() / qtype.qmax).reshape(()))
+    scale = qx._scale * qw._scale.float()
+    fn, plain, eligible = (
+        (W8A8.qbytes_int_mm, W8A8.qbytes_int_mm_plain, W8A8.int_mm_eligible) if payload == "qint8"
+        else (W8A8.qbytes_fp8_mm, W8A8.qbytes_fp8_mm_plain, W8A8.scaled_mm_eligible)
+    )
+    before = fn.launches
+    out = W8A8.qbytes_mm(qx._data, qw._data, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + eligible(k, n)
+    assert out.shape == (2, m, n) and out.dtype == torch.float32
+    ref = (plain(qx._data.reshape(-1, k), qw._data) * scale.t()).reshape(2, m, n)
+    if payload == "qint8" or not eligible(k, n):
+        assert torch.equal(out, ref)
+    else:
+        check_close(out, ref, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xk", ["bf16", "int8"])
+@pytest.mark.parametrize("n,k,gs", [(960, 960, 96), (320, 960, 96), (960, 2560, 128), (896, 896, 128),
+                                    (128, 896, 128), (4864, 896, 128)])
+@pytest.mark.parametrize("m", [4, 600, 4096])
+def test_padded_qlinear_matches_plain(cuda_device, m, n, k, gs, xk):
+    """`qlinear` over a weight zero-padded onto the envelope (SmolLM2-360M's and
+    Qwen2.5-0.5B's linears): one launch of #1 / #2 (float x) or #4 / #2's int8
+    arm (int8 x) on x padded by `pad_activations`, the padded columns dropped,
+    against the same `qlinear` on the CPU (the plain versions), with the
+    tolerances of the unpadded kernels (bf16 output: 1e-2 * max|ref| and
+    cosine > 1 - 1e-4)."""
+    from quanto_tpu_torch.ops.qlinear import qlinear
+
+    rng = np.random.default_rng(m + n + k)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(torch.bfloat16)
+    scale, shift = qtt.MaxOptimizer()(w, qtt.qint4, axis=0, group_size=gs)
+    generic = qtt.quantize_weight(w, qtt.qint4, 0, scale, shift=shift, group_size=gs)
+    cpu = WeightQBitsHopperArray.from_generic(generic)
+    hop = WeightQBitsHopperArray.from_generic(dataclasses.replace(
+        generic, _data=dataclasses.replace(generic._data, _data=generic._data._data.to(cuda_device)),
+        _scale=generic._scale.to(cuda_device), _shift=generic._shift.to(cuda_device),
+    ))
+    assert hop.pad is not None and hop.pad == cpu.pad
+    assert torch.equal(hop._packed.cpu(), cpu._packed) and torch.equal(hop._scale_t.cpu(), cpu._scale_t)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    if xk == "int8":
+        x = qtt.quantize_activation(x, qtt.qint8, (x.float().abs().amax() / 127).reshape(()))
+        xd = ActivationQBytesArray(_data=x._data.to(cuda_device), _scale=x._scale.to(cuda_device),
+                                   qtype=x.qtype, float_dtype=x.float_dtype)
+        wrapper = qbits_mm_int8_small_m if m <= MAX_M else qbits_mm_tiled_int8
+    else:
+        xd = x.to(cuda_device)
+        wrapper = qbits_mm_small_m if m <= MAX_M else qbits_mm_tiled
+    before = wrapper.launches
+    out = qlinear(xd, hop)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and out.shape == (m, n) and out.is_contiguous()
+    # Compared on the card: a float32 cosine over millions of elements summed on the CPU is itself
+    # off by about 1e-4 (0.99994 for two equal vectors of 4096 x 960).
+    check_close(out, qlinear(x, cpu).to(cuda_device), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("heads", [(5, 3), (2, 7)], ids=["smollm2-5x3", "qwen2.5-2x7"])
+@pytest.mark.parametrize("cache", [("bfloat16", "bfloat16", False), ("qint8", "qint8", False),
+                                   ("qint4", "qint4", False)], ids=["bf16", "qint8", "qint4"])
+def test_flash_decode_small_model_heads(cuda_device, cache, heads, dtype):
+    """`flash_decode` at SmolLM2-360M's (Hkv, G) = (5, 3) and Qwen2.5-0.5B's
+    (2, 7), D = 64, over the decode run's 1088 slots."""
+    Hkv, G = heads
+    check_flash_decode(cuda_device, cache, 1088, 64, dtype, G=G, Hkv=Hkv)

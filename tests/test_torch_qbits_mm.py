@@ -82,14 +82,18 @@ def test_hopper_layout_roundtrip(shape, dtype, group_size, zeropoint):
 
 @pytest.mark.parametrize("shape,bits", [((96, 512), 4), ((256, 384), 4), ((256, 384), 2)])
 def test_off_envelope_stays_generic(shape, bits):
-    """Shapes the JAX layout pads (int4, and int2 at K / 4 = 96) keep the
-    generic layout."""
+    """Shapes off the envelope (int4, and int2 at K / 4 = 96): the JAX layout
+    pads them, and so does the Hopper layout now, to JAX's geometry (the
+    name is from when they kept the generic layout; `test_torch_padding.py`
+    holds the padded layout against JAX's)."""
     w = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     qtype = qtt.qtypes[f"qint{bits}"]
     scale, shift = qtt.MaxOptimizer()(w, qtype, axis=0, group_size=128)
     generic = qtt.quantize_weight(w, qtype, 0, scale, shift=shift, group_size=128)
-    assert WeightQBitsHopperArray.from_generic(generic) is None
     assert not WeightQBitsTpuArray.eligible(shape, bits, 128)
+    hop = WeightQBitsHopperArray.from_generic(generic)
+    assert hop is not None and hop.pad == WeightQBitsTpuArray.pad_geometry(shape, bits, 128)
+    torch.testing.assert_close(hop.dequantize(), generic.dequantize(), rtol=0, atol=0)
 
 
 # M, or (M, group size) where it is not 128: the tiled route's 128-row tile edges at group size 256.
