@@ -17,6 +17,8 @@
     python3 chip_smoke.py --only checkpoint      # phases 1-2 and 16 (save, load, run again)
     python3 chip_smoke.py --only numerics        # phases 1-2, phase 3's W8A8, padded and small-head
                                                  # rows, phases 17-19 (W8A8, SmolLM2, Qwen2.5)
+    python3 chip_smoke.py --only paged           # phases 1-2, phase 3's rows of the paged arm of
+                                                 # flash_decode, phase 20 (PagedEngine)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -241,16 +243,18 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    (phase 10's conversion). One JSON line per model: saved bytes, shards,
    save and load seconds, load GB/s, peak device memory during the load.
 3 (numerics). The W8A8 route (`ops/qbytes_mm.py`: `torch._int_mm` for
-   int8 x int8, `torch._scaled_mm` for e4m3fn x e4m3fn, no TPU kernel) at M
-   in W8A8_M over the four linear shapes against its plain formula (int8
-   EQUAL); #1, #2 (both arms) and #4 at SmolLM2-360M's and Qwen2.5-0.5B's
+   int8 x int8, JAX's convert formula on bf16 operands for e4m3fn x e4m3fn,
+   no TPU kernel) at M in W8A8_M over the four linear shapes against its
+   plain formula (int8 EQUAL, e4m3fn within 1e-5 * max|ref|; beside it
+   `torch._scaled_mm`'s error and time); #1, #2 (both arms) and #4 at SmolLM2-360M's and Qwen2.5-0.5B's
    linears off the envelope, zero-padded (`PADDED_SHAPES`; the bound on the
    true bytes, the padded bytes' ratio and `pad_activations`' time beside
    it); `flash_decode` at (Hkv, G, D) = (5, 3, 64) and (2, 7, 64) over bf16,
    qint8 and qint4 caches of 1088 slots.
 17. W8A8 Llama-3.1-8B at full depth and width (lm_head bf16): qint8, then
    qfloat8_e4m3fn, weights and activations, calibrated as phase 7: phase 6's
-   run with exactly 224 W8A8 library calls a forward and 32 `flash_decode` a
+   run with exactly 224 W8A8 library calls a forward (`torch._int_mm`; the
+   e4m3fn product on the bf16 tensor cores) and 32 `flash_decode` a
    step, no other kernel and no weight dequantized (the hidden state is
    float32 after the first W8A8 linear, as in JAX); the prefill logits
    against the plain formula's: int8 EQUAL, e4m3fn within W8A8_FP8_COS (and
@@ -268,6 +272,27 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    (the K = 896 linears padded, `down_proj` not): phase 6's run (168
    `qbits_mm_tiled`; 168 `qbits_mm_small_m` + 24 `flash_decode` a step), the
    plain-version check, and phase 16's save -> load -> run again.
+
+3 (paged). The paged arm of `flash_decode` (`flash_decode_paged`, TPU #8-#10
+   over a paged cache): Hkv = 8, G = 4, D = 128, B = 8 rows at their last
+   slot over 768 and 4352 slots a row, pages of 64 and 16 behind a table that
+   is a random permutation of the pool's pages, bf16, qint8, qint4 and qint4a
+   caches, and float32 q over qint4; each row EQUAL to the dense arm on the
+   pages gathered through the table and within the dense rows' limits of its
+   plain version, timed beside that dense call, the gather + dense call
+   (JAX's route) and SDPA on the gathered cache dequantized to bf16.
+20. `PagedEngine` (run right after phase 15, on phase 4's model): phase 15's
+   requests admitted by `add` (bursts of 16). (b) pages of 64 over a bf16
+   cache, reserved in full, no sharing, 65 pages: tokens EQUAL to phase 15's
+   serial arm or a recorded tie within SERVE_TOP1_GAP. (c) the prompts
+   sharing their first 128 ids, over a qint4 cache, pages reserved for the
+   prompt and grown on demand, prefix sharing on, 41 pages: at least one
+   preemption and one prefix hit, tokens held to the unshared full-reserve
+   run the same way. Every forward exactly 224 + 1 `qbits_mm_small_m`, every
+   decode forward 32 `flash_decode_paged`, no dense `flash_decode` and no
+   gathered view of the pages. Prints ms per chunk beside its bound, time to
+   first token, decode ms/step beside its bytes, peak memory, the pool's KV
+   bytes beside `BatchedEngine`'s 8 x 768 and the three counters.
 
 `--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
 alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
@@ -287,6 +312,8 @@ frozen into the requant form, and phase 8 at B = 4 and B = 16. Copied into
 another tree's checkout, each of these modes times that tree's kernels beside
 this one's in one call. `--only checkpoint` runs phases 1-2 and 16 alone.
 `--only numerics` runs phases 1-2, phase 3's numerics rows and phases 17-19.
+`--only paged` runs phases 1-2, phase 3's paged rows and phase 20 (with phase
+15's serial arm as its reference).
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -529,6 +556,22 @@ SERVE_TOP1_GAP = 0.05
 SERVE_PROMPTS = [512, 384, 448, 256, 512, 320, 192, 448]
 SERVE_MAX_LEN, SERVE_CHUNK, SERVE_NEW, SERVE_BURST = 768, 64, 128, 16
 
+# Phase 3's rows of the paged arm of flash_decode (`flash_decode_paged`, TPU #8-#10 over a paged
+# cache): phase 15's and phase 10's slots a row, pages of 64 (the engines of phase 20) and 16.
+FD_PAGED_SLOTS = [SERVE_MAX_LEN, ENGINE_MAX_LEN]
+FD_PAGE_SIZES = [64, 16]
+FD_PAGED_CACHES = ["bf16", "qint8", "qint4", "qint4a"]
+FD_PAGED_SUMMARY = ("bf16", SERVE_MAX_LEN, 64)  # phase 20(b)'s pool: its decode step's call
+SOURCE["flash_decode_paged"] = "quanto_tpu_torch/csrc/flash_decode.cu (paged arm: flash_decode.cuh:CacheRows)"
+REPLACES["flash_decode_paged"] = REPLACES["flash_decode"] + " (over JAX's gathered view of the pages)"
+# Phase 20: `PagedEngine` on phase 4's model, serving phase 15's requests. (b) pages of 64, every
+# request's pages reserved at admission, no sharing: 64 usable pages hold the 8 requests' 4096
+# tokens. (c) the prompts share their first PAGED_SHARED ids, over a qint4 cache, with pages of
+# 64 reserved for the prompt only and grown on demand: PAGED_PRESSURE_PAGES usable pages hold
+# every prompt (34 pages with the shared ones mapped once) but not every request's growth (50).
+PAGED_PAGE_SIZE, PAGED_FULL_PAGES = 64, 65
+PAGED_SHARED, PAGED_PRESSURE_PAGES, PAGED_KV = 128, 41, "qint4"
+
 # Phases 17-19 and their phase-3 rows (`--only numerics`).
 # HuggingFaceTB/SmolLM2-360M config.json: tied embeddings, hidden 960 (quanto's auto group size
 # 96, so every linear is off the kernels' envelope and padded), 15 heads over 5 KV heads of 64.
@@ -563,8 +606,8 @@ QWEN25_05B = dict(
     use_sliding_window=False,
     hidden_act="silu",
 )
-# Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, `torch._scaled_mm`
-# for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
+# Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, JAX's convert
+# formula on bf16 operands for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
 W8A8_M = (1, 4, 16, 17, 64, 4096)
 # Phase 3's padded rows: SmolLM2-360M's and Qwen2.5-0.5B's linears off the envelope, true (N, K,
 # group size); #1 and #4 at the decode step's M = 4, #2's two arms at the prefill's M = 4096.
@@ -578,16 +621,18 @@ PADDED_M = {"qbits_mm_small_m": 4, "qbits_mm_int8_small_m": 4, "qbits_mm_tiled":
 FD_NEW_HEADS = [(5, 3, 64), (2, 7, 64)]
 FD_NEW_CACHES = ["bf16", "qint8", "qint4"]
 # Phase 17(b): the e4m3fn W8A8 model's prefill logits against the plain formula's (exact fp8
-# products summed in float32). Hopper's fp8 tensor cores do not keep a full float32 sum: one
-# product reads 6e-4 to 1.8e-3 abs. error against it at outputs of |y| <~ 5 (phase 3's rows),
-# and 32 random-weight layers, each quantizing its activations to fp8 again, carry that to a
-# logits cosine of 0.9386-0.9500 with every top-1 token moved, and 2 layers (as phase 5) to
-# 0.9967-0.9976 with the same top-1 tokens (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6):
-# a sum a little off moves an fp8 activation code by a whole step (1/16 of its value)
-# where it lies near a rounding half. So the full depth is held to its cosine only,
-# W8A8_FP8_COS, and two layers to W8A8_FP8_COS_2L and the same top-1 token or a logit tie.
-W8A8_FP8_COS = 0.9
-W8A8_FP8_COS_2L = 0.99
+# products summed in float32). The route is JAX's convert formula (bf16 operands, float32 sums on
+# the tensor cores): one product within 4.1e-5 of the plain formula at |y| <~ 13 (phase 3's rows;
+# `torch._scaled_mm`, the earlier route, 6e-4 to 1.8e-3: Hopper's fp8 sums are not float32's).
+# Yet the two orders of float32 sums still part: each layer quantizes its activations to fp8
+# again, and a sum a little off moves an fp8 code by a whole step (1/16 of its value) where it
+# lies near a rounding half. Readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 32
+# random-weight layers 0.9570-0.9649 with 2 of 4 top-1 tokens moved (0.9386-0.9500 and 4 of 4
+# through `torch._scaled_mm`), 2 layers 0.9981-0.9995 with the same top-1 tokens (0.9967-0.9976).
+# So the full depth is held to its cosine only, W8A8_FP8_COS, and two layers to W8A8_FP8_COS_2L
+# and the same top-1 token or a logit tie, each raised with the readings.
+W8A8_FP8_COS = 0.93
+W8A8_FP8_COS_2L = 0.995
 # Phases 18 and 19: the full-depth kernel path against the plain versions, last-position
 # prefill logits: each row's cosine above SMALL_E2E_COS, top-1 equal or at a logit tie.
 # Readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): SmolLM2 qint4 0.99988-0.99990,
@@ -1190,6 +1235,100 @@ def phase_flash_decode(flush, heads=FD_HEADS):
     return rows
 
 
+def phase_flash_decode_paged(flush):
+    """Phase 3, the paged arm of flash_decode (`flash_decode_paged`): at
+    Llama-3.1-8B's heads, B = 8 rows at their last slot over FD_PAGED_SLOTS
+    slots a row, in pages of FD_PAGE_SIZES slots behind a table that is a
+    random permutation of the pool's pages (a kernel that ignored the table
+    would read other rows' pages), over FD_PAGED_CACHES and, with float32 q,
+    the qint4 cache of the largest row. Each row EQUAL to the dense arm on
+    the pages gathered through the table (the same plan and order of sums),
+    and within the dense rows' limits of its plain version; timed beside the
+    dense arm on the gathered view, the gather + dense arm (JAX's route: it
+    gathers a dense view and runs its kernels on that), SDPA on the gathered
+    cache dequantized to bf16 (the yardstick), and the plain version. Bound:
+    the visible K/V bytes and factors at 3.35 TB/s (the table's 4 bytes a
+    page beside them)."""
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_paged, flash_decode_paged_plain
+    from quanto_tpu_torch.tensor import kv_cache as tkv
+    from quanto_tpu_torch.tensor import paged_kv as tpk
+
+    Hkv, G, D = FD_HEADS
+    nb = ENGINE_SLOTS
+    g = torch.Generator(device="cuda").manual_seed(2020)
+    cases = [(kind, S, ps, torch.bfloat16) for S in FD_PAGED_SLOTS for ps in FD_PAGE_SIZES for kind in FD_PAGED_CACHES]
+    cases.append(("qint4", FD_PAGED_SLOTS[-1], FD_PAGE_SIZES[0], torch.float32))
+    rows = []
+    for kind, S, ps, q_dtype in cases:
+        P = S // ps
+        spec = None if kind == "bf16" else kind
+        layer = tpk.init_paged_kv_cache(1, 1 + nb * P, ps, nb, P, Hkv, D, spec, torch.bfloat16, "cuda")[0]
+        perm = torch.randperm(nb * P, generator=torch.Generator().manual_seed(S + ps)) + 1
+        layer._table.copy_(perm.reshape(nb, P).to(torch.int32))
+        k = torch.randn((nb, S, Hkv, D), device="cuda", generator=g) * 2 + 0.5
+        tkv.kv_update(layer, k, torch.randn(k.shape, device="cuda", generator=g), 0)
+        del k
+        q = torch.randn((nb, Hkv, G, D), device="cuda", generator=g).to(q_dtype)
+        pos = torch.full((nb,), S - 1, dtype=torch.int32, device="cuda")
+        c = layer
+        args = (q, c._k_pages, c._v_pages, c._k_scale, c._v_scale, c._table, pos)
+        kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+        out = flash_decode_paged(*args, **kw)
+        gathered = tpk.paged_gather(layer, nb)
+        kg, vg, ks, vs, km, vm = gathered
+
+        def dense():
+            return flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm)
+
+        def gather_dense():
+            g_ = tpk.paged_gather(layer, nb)
+            return flash_decode(q, *g_[:4], pos, k_shift=g_[4], v_shift=g_[5])
+
+        dense_out = dense()
+        ref = flash_decode_paged_plain(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"flash_decode_paged {kind} S={S} page_size={ps} q={q_dtype}"
+        if not torch.equal(out, dense_out):
+            raise RuntimeError(f"{what}: not EQUAL to the dense arm on the gathered view")
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        cos = cosine(out, ref)
+        limit = 1e-5 if q_dtype == torch.float32 else 1e-2
+        if not (err <= limit * ref_max and (q_dtype == torch.float32 or cos > 1 - 1e-4)):
+            raise RuntimeError(f"{what}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})")
+        if spec is None:
+            kd, vd = kg, vg
+        else:
+            kd = (tkv._codes(kg).float() * ks + (km if km is not None else 0)).to(torch.bfloat16)
+            vd = (tkv._codes(vg).float() * vs + (vm if vm is not None else 0)).to(torch.bfloat16)
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qs = q.reshape(nb, Hkv * G, 1, D).to(torch.bfloat16)
+        mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        k_row, v_row = c._k_pages[0, 0, 0].numel() * c._k_pages.element_size(), \
+            c._v_pages[0, 0, 0].numel() * c._v_pages.element_size()
+        per_slot = 0 if spec is None else (8 if c._k_shift is None else 16)
+        b_ms, b_by = fd_bound(nb * S, nb, k_row, v_row, per_slot, q.element_size())
+        row = dict(
+            name="flash_decode_paged", cache=kind, S=S, B=nb, page_size=ps, Hkv=Hkv, G=G, D=D,
+            q="f32" if q_dtype == torch.float32 else "bf16", max_abs_err=err, cosine=cos,
+            sdpa_cosine=cosine(sdpa().reshape(nb, Hkv, G, D), ref),
+            ms=time_ms(lambda: flash_decode_paged(*args, **kw), flush),
+            dense_ms=time_ms(dense, flush), gather_dense_ms=time_ms(gather_dense, flush),
+            plain_ms=time_ms(lambda: flash_decode_paged_plain(*args, **kw), flush),
+            library_ms=time_ms(sdpa, flush), bound_ms=b_ms, bound_by=b_by,
+        )
+        row["bound_share"] = b_ms / row["ms"]
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del layer, gathered, kg, vg, ks, vs, km, vm, kd, vd, kt, vt, out, dense_out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def calibration_batches(config):
     """Phase 7's (and phase 5's W4A8) calibration data: 2 batches of 4 x 128 seeded token ids."""
     g = torch.Generator().manual_seed(11)
@@ -1441,7 +1580,10 @@ def counters():
     # counted apart).
     if hasattr(MM.qbits_moe_tiled, "launches_small_m"):
         wrappers["qbits_moe_tiled_small_m"] = ArmCount(MM.qbits_moe_tiled, "launches_small_m")
-    # The W8A8 route's library calls (`torch._int_mm`, `torch._scaled_mm`), counted where they are
+    # The paged arm of flash_decode, counted apart (absent from trees before it was ported).
+    if hasattr(FD_mod, "flash_decode_paged"):
+        wrappers["flash_decode_paged"] = FD_mod.flash_decode_paged
+    # The W8A8 route's library calls (`torch._int_mm`; the e4m3fn product), counted where they are
     # made (absent from trees before W8A8 was ported).
     from quanto_tpu_torch.ops import qbytes_mm as W8A8
 
@@ -1484,6 +1626,9 @@ def plain_versions():
 
     saved = (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
              K_mod.qbits_mm_int8_small_m, K_mod.qbits_mm_tiled_int8, K_mod.qbits_mm_requant_int8, SH._local_mm)
+    paged = getattr(attention, "flash_decode_paged", None)
+    if paged is not None:
+        attention.flash_decode_paged = FD_mod.flash_decode_paged_plain
     QL.qbits_mm = flat(K_mod.qbits_mm_plain)
     QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
     attention.flash_decode = FD_mod.flash_decode_plain
@@ -1499,9 +1644,20 @@ def plain_versions():
     w8a8 = {n: getattr(W8A8, n) for n in ("int_mm_eligible", "scaled_mm_eligible") if hasattr(W8A8, n)}
     for n in w8a8:
         setattr(W8A8, n, lambda K, N: False)
+    fp8_mm = W8A8.qbytes_fp8_mm
+    if hasattr(W8A8, "_fp8_dot"):  # e4m3fn on the card has no envelope: the plain formula by hand
+
+        def fp8_plain(a, w, scale):
+            out = W8A8.qbytes_fp8_mm_plain(a.reshape(-1, a.shape[-1]).contiguous(), w) * W8A8._row_scales(scale)
+            return out.to(scale.dtype).reshape(*a.shape[:-1], w.shape[0])
+
+        W8A8.qbytes_fp8_mm = fp8_plain
     try:
         yield
     finally:
+        W8A8.qbytes_fp8_mm = fp8_mm
+        if paged is not None:
+            attention.flash_decode_paged = paged
         for n, fn in w8a8.items():
             setattr(W8A8, n, fn)
         (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
@@ -2049,7 +2205,8 @@ def linears_bound(model, rows: int, T: int, x_bytes: int, peak_ops: float):
 
 
 @torch.no_grad()
-def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, arms=("serial", "batch")) -> dict:
+def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, arms=("serial", "batch"),
+                  tokens=None) -> dict:
     """Phase 15: the default 8B slice of the JAX package's serving bench on
     `model`, whose linears all take `kernel` (#1 or #4) below M = 513: a
     `BatchedEngine` of 8 slots, max_len 768, chunks of 64 over a bf16 cache,
@@ -2065,7 +2222,8 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
     logit tie. Chunk forwards are timed between synchronizations. Prints per
     arm the median ms per chunk beside its linears' bound, time to first
     token (the requests all arrive at once), decode ms/step beside the bytes
-    a step reads, tok/s and peak memory. Returns each arm's launch counts."""
+    a step reads, tok/s and peak memory. Returns each arm's launch counts; a
+    `tokens` dict takes each arm's tokens (phase 20 holds its own to them)."""
     from quanto_tpu_torch.models.serving import BatchedEngine
     from quanto_tpu_torch.nn import QLinear
 
@@ -2125,6 +2283,8 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         results = [engine.result(r) for r in rids]
+        if tokens is not None:
+            tokens[arm] = results
         del engine
         if rec["bad"]:
             raise RuntimeError(f"{label} {arm}: forwards off their launches or M: {rec['bad'][:4]}")
@@ -2183,6 +2343,185 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
             h.remove()
     log(f"serving: phase 15 ({label}) took {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None) -> list:
+    """Each request's tokens `got` against `want`: equal, or at the first
+    index j where they part, the two tokens' logits within SERVE_TOP1_GAP of
+    the largest |logit| of a standalone `prefill(last_only=True)` of the
+    prompt and want[:j] (over a cache of max_len SERVE_MAX_LEN, `kv_quant`).
+    Returns the ties it accepted (each logged)."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    ties = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        if len(a) != len(b):
+            raise RuntimeError(f"{label}: request {i} gave {len(a)} tokens, want {len(b)}")
+        j = next(j for j in range(len(b)) if a[j] != b[j])
+        ctx = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
+        ids = torch.tensor(ctx[None], device="cuda")
+        logits, _ = prefill(model, ids, make_cache(model, 1, SERVE_MAX_LEN, kv_quant=kv_quant), last_only=True)
+        lv = logits[0, -1].float()
+        gap = abs((lv[b[j]] - lv[a[j]]).item()) / lv.abs().max().item()
+        ties.append({"request": i, "index": j, "want": b[j], "got": a[j], "relative_gap": gap})
+        log(json.dumps({"paged_token_tie": label, **ties[-1]}))
+        if gap > SERVE_TOP1_GAP:
+            raise RuntimeError(f"{label}: request {i}'s token {j} is {a[j]}, want {b[j]}, and no logit tie "
+                               f"(relative gap {gap})")
+    return ties
+
+
+@torch.no_grad()
+def phase_paged(model, reference=None) -> dict:
+    """Phase 20: `PagedEngine` on phase 4's model (qint4 incl. lm_head),
+    serving phase 15's requests (SERVE_PROMPTS, max_len 768, chunks of 64,
+    128 new tokens each, bursts of 16), every request admitted by `add`.
+    (b) a bf16 cache in pages of 64 reserved in full at admission, no prefix
+    sharing, 65 pages (64 usable: the requests' 4096 tokens): its tokens
+    EQUAL to phase 15's serial `BatchedEngine` arm (`reference`; run here
+    when None), or a recorded tie within SERVE_TOP1_GAP. (c) the same lengths
+    with the first PAGED_SHARED ids shared by all prompts, over a qint4 cache,
+    pages reserved for the prompt only and grown on demand, prefix sharing
+    on, PAGED_PRESSURE_PAGES - 1 usable pages: every prompt fits, not every
+    request's growth, so at least one request is preempted and recomputed;
+    prefix hits > 0; its tokens held to the same requests with sharing off
+    and pages reserved in full (ties recorded). Every forward is held to 224
+    `qbits_mm_small_m` + 1 for the qint4 lm_head; a decode forward to 32
+    launches of the paged arm (`flash_decode_paged`), none of the dense arm
+    and no gathered view of the pages (a chunk forward reads one a layer:
+    prefill's attention reads the gathered view, as JAX's). Prints per arm
+    ms per chunk beside its linears' bound, time to first token, decode
+    ms/step beside the bytes a step reads, peak memory, and the KV bytes the
+    pool holds against `BatchedEngine`'s 8 x 768. Returns each run's counts."""
+    from quanto_tpu_torch.models.serving import BatchedEngine, PagedEngine
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.tensor import paged_kv as tpk
+
+    config = model.config
+    L = config.num_hidden_layers
+    n_lin = LINEARS_PER_LAYER * L
+    head_q = isinstance(model.lm_head, QLinear)
+    g = torch.Generator().manual_seed(15)  # phase 15's prompts
+    prompts = [torch.randint(0, config.vocab_size, (n,), generator=g).numpy() for n in SERVE_PROMPTS]
+    shared = [np.concatenate([prompts[0][:PAGED_SHARED], p[PAGED_SHARED:]]) for p in prompts]
+    weight_bytes = step_weight_bytes(model)
+    gathers = [0]
+    real_gather = tpk.paged_gather
+
+    def counted_gather(layer, batch):
+        gathers[0] += 1
+        return real_gather(layer, batch)
+
+    def run(label: str, engine, reqs, full_schedule: bool):
+        rec = dict(chunks=0, chunk_ms=[], decodes=0, bad=[])
+        forward = engine._forward
+
+        def counted_forward(ids, cache, pos, last_idx):
+            R, T = ids.shape
+            before, g0 = read_counts(), gathers[0]
+            if T > 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = forward(ids, cache, pos, last_idx)
+            if T > 1:
+                torch.cuda.synchronize()
+                rec["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["chunks"] += 1
+            else:
+                rec["decodes"] += 1
+            after = read_counts()
+            delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            want = {"qbits_mm_small_m": n_lin + head_q, **({} if T > 1 else {"flash_decode_paged": L})}
+            if delta != want or gathers[0] - g0 != (L if T > 1 else 0):
+                rec["bad"].append((R, T, delta, gathers[0] - g0))
+            return out
+
+        engine._forward = counted_forward
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rids, ttft = [], []
+        for p in reqs:
+            rids.append(engine.add(p, SERVE_NEW))  # returns after fetching the request's first token
+            ttft.append(time.perf_counter() - t0)
+        admit_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        engine.run_to_completion(burst=SERVE_BURST)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        results = [engine.result(r) for r in rids]
+        if rec["bad"]:
+            raise RuntimeError(f"paged {label}: forwards off their launches or gathers: {rec['bad'][:4]}")
+        chunks = sum(-(-n // SERVE_CHUNK) for n in SERVE_PROMPTS)
+        if full_schedule and (rec["chunks"] != chunks or rec["decodes"] != SERVE_NEW - 1):
+            raise RuntimeError(f"paged {label}: {rec['chunks']} chunk and {rec['decodes']} decode forwards, "
+                               f"want {chunks} and {SERVE_NEW - 1}")
+        if [len(r) for r in results] != [SERVE_NEW] * len(reqs):
+            raise RuntimeError(f"paged {label}: tokens per request {[len(r) for r in results]}")
+        if min(min(r) for r in results) < 0 or max(max(r) for r in results) >= config.vocab_size:
+            raise RuntimeError(f"paged {label}: token ids out of the vocabulary")
+        layer = engine._cache[0]
+        fields = (layer._k_pages, layer._v_pages, layer._k_scale, layer._v_scale, layer._k_shift, layer._v_shift)
+        pool_bytes = L * sum(t.numel() * t.element_size() for t in fields if t is not None)
+        slot_bytes = pool_bytes / (engine.n_pages * engine.page_size)
+        b_ms, b_by = linears_bound(model, 1, SERVE_CHUNK, 2, PEAK_BF16_FLOPS)
+        steps = max(rec["decodes"], 1)
+        kv_bytes = slot_bytes * np.mean([n + j + 1 for n in SERVE_PROMPTS for j in range(SERVE_NEW - 1)]) * len(reqs)
+        out = {
+            "paged": label, "page_size": engine.page_size, "n_pages": engine.n_pages, "reserve": engine.reserve,
+            "prefix_sharing": engine.prefix_sharing, "kv_cache": layer.qtype_name or "bf16",
+            "prompts": SERVE_PROMPTS, "new_tokens": SERVE_NEW, "chunk_forwards": rec["chunks"],
+            "ms_per_chunk": float(np.median(rec["chunk_ms"])), "chunk_bound_ms": b_ms, "chunk_bound_by": b_by,
+            "ttft_first_ms": min(ttft) * 1e3, "ttft_mean_ms": float(np.mean(ttft)) * 1e3, "admit_ms": admit_s * 1e3,
+            "decode_forwards": rec["decodes"], "decode_ms_per_step": run_s / steps * 1e3,
+            "decode_step_bound_ms": (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "serve_tok_s": len(reqs) * SERVE_NEW / (admit_s + run_s), "peak_memory_gb": peak_gb,
+            "kv_pool_bytes": pool_bytes, "batched_engine_kv_bytes": slot_bytes * ENGINE_SLOTS * SERVE_MAX_LEN,
+            "prefix_hits": engine.prefix_hits, "prefix_tokens_saved": engine.prefix_tokens_saved,
+            "preemptions": engine.preemptions, "launches": {n: c for n, c in counts.items() if c},
+        }
+        log(json.dumps(out))
+        return results, out["launches"], out
+
+    def paged(**kw):
+        return PagedEngine(model, max_batch=ENGINE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK,
+                           page_size=PAGED_PAGE_SIZE, **kw)
+
+    t0 = time.perf_counter()
+    if reference is None:  # phase 15's serial arm
+        engine = BatchedEngine(model, max_batch=ENGINE_SLOTS, max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+        rids = [engine.add(p, SERVE_NEW) for p in prompts]
+        engine.run_to_completion(burst=SERVE_BURST)
+        reference = [engine.result(r) for r in rids]
+        del engine
+    tpk.paged_gather = counted_gather  # `paged_read_raw` calls it by its module's name
+    try:
+        res_b, counts_b, _ = run("b: bf16, full reserve", paged(
+            n_pages=PAGED_FULL_PAGES, reserve="full", prefix_sharing=False), prompts, True)
+        ties_b = check_same_tokens("phase 20(b) against phase 15's serial arm", model, prompts, res_b, reference)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res_ref, _, _ = run("c reference: qint4 cache, full reserve, no sharing", paged(
+            n_pages=PAGED_FULL_PAGES, reserve="full", prefix_sharing=False, kv_quant=PAGED_KV), shared, True)
+        res_c, counts_c, out_c = run("c: qint4 cache, prompt reserve, prefix sharing, pool pressure", paged(
+            n_pages=PAGED_PRESSURE_PAGES, reserve="prompt", prefix_sharing=True, kv_quant=PAGED_KV), shared, False)
+    finally:
+        tpk.paged_gather = real_gather
+    if out_c["preemptions"] < 1 or out_c["prefix_hits"] < 1:
+        raise RuntimeError(f"phase 20(c): preemptions {out_c['preemptions']}, prefix hits {out_c['prefix_hits']}: "
+                           "want at least one of each")
+    ties_c = check_same_tokens("phase 20(c) against its unshared full-reserve run", model, shared, res_c, res_ref,
+                               PAGED_KV)
+    log(json.dumps({"phase20_ties": {"b": len(ties_b), "c": len(ties_c)}}))
+    log(f"paged: phase 20 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"b": counts_b, "c": counts_c}
 
 
 def phase_serving_int8(model) -> dict:
@@ -2406,8 +2745,11 @@ ROUTE_TIE = 0.02
 MIXTRAL_E2E_SEEDS = (1, 2)
 # MIXTRAL_B16_PREFILL: the B16 x T16 prefill takes the capacity route, where an expert routed
 # more tokens than its capacity keeps those of the largest routing weights; weights that differ
-# between the paths in their last bits can keep another token there (not verified), and that
-# token's hidden state moves its sequence's later positions. Its rows read cosine down to
+# between the paths in their last bits can keep another token there, and that token's hidden
+# state moves its sequence's later positions. Phase 8's split (`split_mixtral_prefill`) found no
+# kernel at fault: fed the same input and routing, every layer's attention, MoE block (#14, #15)
+# and output agree with the plain path within cosine 1 - 6e-7, and the two routers set no token
+# apart on the same input; the paths part only as such last-bit differences compound over depth. Its rows read cosine down to
 # 0.99937 (seed 1) and 0.99966 (seed 2) against the plain path, 0.99991 or more against the
 # dense-mask path (NVIDIA H100 80GB HBM3), below MIXTRAL_E2E_COS on some rows against the plain
 # path, so its logits are logged, not held; the B16 decode step, the all-experts route that TPU
@@ -2458,6 +2800,98 @@ def compare_rows(what: str, k, o, route_k, route_o) -> None:
             log(json.dumps({"mixtral_logit_tie": what, **row, "logit_gap": gap, "max_abs_logit": scale}))
             if gap > LOGIT_TIE * scale:
                 raise RuntimeError(f"{what}: row {r}'s top-1 token differs with no logit tie (gap {gap})")
+
+
+@torch.no_grad()
+def split_mixtral_prefill(model, ids) -> dict:
+    """Phase 8's split of MIXTRAL_B16_PREFILL (ROADMAP.md Queue 3): the B16 x
+    T16 prefill of the full-depth stacked model, once on the kernel path
+    (recording each decoder layer's input, each router's output and each MoE
+    block's input), then through the plain versions with every layer fed the
+    kernel path's input, every MoE block its input and every router the
+    kernel path's output (the same routing, so the same capacity choice). Per
+    layer: the attention output's, the MoE block's and the layer output's
+    cosine and max |difference| / max |kernel| against the kernel path, and
+    the tokens whose top-2 experts the two routers' own outputs would set
+    apart. Also the last-position logits of an unforced plain prefill against
+    the kernel path's. Logs all; returns the worst of each."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    t0 = time.perf_counter()
+    rec = {"kernel": {}, "plain": {}}
+    mode = ["kernel"]
+    handles = []
+
+    def keep(key):
+        def hook(_mod, _args, out):
+            rec[mode[0]][key] = out[0] if isinstance(out, tuple) else out
+        return hook
+
+    def feed(key):
+        def hook(_mod, args):
+            if mode[0] == "kernel":
+                rec["kernel"][key] = args[0]
+                return None
+            return (rec["kernel"][key], *args[1:])
+        return hook
+
+    def router(i):
+        def hook(_mod, _args, out):
+            rec[mode[0]][("gate", i)] = out
+            return rec["kernel"][("gate", i)] if mode[0] == "plain" else None
+        return hook
+
+    for i, layer in enumerate(model.model.layers):
+        moe = layer.block_sparse_moe
+        handles += [
+            layer.register_forward_pre_hook(feed(("in", i))), layer.register_forward_hook(keep(("out", i))),
+            layer.self_attn.register_forward_hook(keep(("attn", i))),
+            moe.register_forward_pre_hook(feed(("moe_in", i))), moe.register_forward_hook(keep(("moe", i))),
+            moe.gate.register_forward_hook(router(i)),
+        ]
+    cache_len = ids.shape[1] + 8
+    try:
+        k_logits, _ = prefill(model, ids, make_cache(model, ids.shape[0], cache_len), last_only=True)
+        mode[0] = "plain"
+        with plain_versions():
+            prefill(model, ids, make_cache(model, ids.shape[0], cache_len), last_only=True)
+    finally:
+        for h in handles:
+            h.remove()
+    with plain_versions():
+        p_logits, _ = prefill(model, ids, make_cache(model, ids.shape[0], cache_len), last_only=True)
+    torch.cuda.synchronize()
+
+    def compare(a, b):
+        a, b = a.float().flatten(), b.float().flatten()
+        return cosine(a, b), ((a - b).abs().max() / a.abs().max()).item()
+
+    per_layer = []
+    for i in range(len(model.model.layers)):
+        k, p = rec["kernel"], rec["plain"]
+        row = {"layer": i}
+        for part in ("attn", "moe", "out"):
+            row[f"{part}_cosine"], row[f"{part}_rel_err"] = compare(k[(part, i)], p[(part, i)])
+        top_k = k[("gate", i)].float().topk(2, dim=-1).indices.sort(dim=-1).values
+        top_p = p[("gate", i)].float().topk(2, dim=-1).indices.sort(dim=-1).values
+        row["tokens_routed_apart"] = int((top_k != top_p).any(-1).sum())
+        per_layer.append(row)
+        log("mixtral_split " + json.dumps(row))
+    cos_rows = F.cosine_similarity(k_logits[:, -1].float(), p_logits[:, -1].float(), dim=-1)
+    out = {
+        "min_attn_cosine": min(r["attn_cosine"] for r in per_layer),
+        "min_moe_cosine": min(r["moe_cosine"] for r in per_layer),
+        "min_layer_cosine": min(r["out_cosine"] for r in per_layer),
+        "max_moe_rel_err": max(r["moe_rel_err"] for r in per_layer),
+        "tokens_routed_apart": sum(r["tokens_routed_apart"] for r in per_layer),
+        "unforced_logits_cosine_min": cos_rows.min().item(), "rows": ids.shape[0], "tokens": ids.numel(),
+    }
+    out["seconds"] = time.perf_counter() - t0
+    log("mixtral_split_summary " + json.dumps(out))
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 @torch.no_grad()
@@ -3359,13 +3793,18 @@ def phase_checkpoints(ids, mixtral_ids) -> dict:
 def phase_w8a8(flush):
     """Phase 3, the W8A8 route of `ops/qbytes_mm.py` (no TPU kernel: JAX
     computes it as an XLA dot): int8 x int8 through `torch._int_mm` and
-    e4m3fn x e4m3fn through `torch._scaled_mm`, at W8A8_M over the four
-    linear shapes, with the activation's scale times the weight's per-channel
-    one in float32 and a float32 output, against the plain formula: int8
-    EQUAL, e4m3fn within `check_kernel`'s limits. Bound: the int8/fp8
-    operands, the scale and the float32 output once; 2MNK at the int8/fp8
-    tensor-core rate. Yardstick `torch.matmul` on the operands dequantized
-    to bf16."""
+    e4m3fn x e4m3fn through JAX's convert formula (`_fp8_dot`: bf16
+    operands, exact for e4m3fn, float32 sums on the tensor cores), at W8A8_M
+    over the four linear shapes, with the activation's scale times the
+    weight's per-channel one in float32 and a float32 output, against the
+    plain formula (float32 operands and sums): int8 EQUAL, e4m3fn within
+    1e-5 * max|ref| (the order of float32 sums). The e4m3fn rows split the
+    cause of the earlier route's error: `torch._scaled_mm`
+    (`use_fast_accum=False`, Hopper's fp8 tensor cores) against the same
+    plain formula, with its time (`scaled_mm_ms`, the yardstick of the fp8
+    rate). Bound: the int8/fp8 operands, the scale and the float32 output
+    once; 2MNK at the int8/fp8 tensor-core rate. Yardstick `torch.matmul` on
+    the operands dequantized to bf16."""
     import quanto_tpu_torch as qtt
     from quanto_tpu_torch.ops import qbytes_mm as W8A8
 
@@ -3397,6 +3836,7 @@ def phase_w8a8(flush):
                 if read_counts()[count] != before + 1:
                     raise RuntimeError(f"{name} M={M} N={N} K={K}: the route made no {count} call")
                 ref = reference()
+                extra = {}
                 if name == "w8a8_int8":
                     torch.cuda.synchronize()
                     if not torch.equal(out, ref):
@@ -3404,13 +3844,24 @@ def phase_w8a8(flush):
                     err, cos = 0.0, 1.0
                 else:
                     err, cos = check_kernel(f"{name} M={M} N={N} K={K}", out, ref)
+                    if err > 1e-5 * ref.abs().max().item():
+                        raise RuntimeError(f"{name} M={M} N={N} K={K}: max_abs_err {err} against the float32 formula")
+                    xp = torch.cat([qx._data, qx._data.new_zeros(((-M) % 16, K))])
+
+                    def scaled_mm():
+                        one = torch.ones((), dtype=torch.float32, device=dev)
+                        return torch._scaled_mm(xp, qw._data.t(), scale_a=one, scale_b=one, out_dtype=torch.float32,
+                                                use_fast_accum=False)[:M] * scale.t()
+
+                    extra = dict(scaled_mm_max_abs_err=(scaled_mm() - ref).abs().max().item(),
+                                 max_abs_ref=ref.abs().max().item(), scaled_mm_ms=time_ms(scaled_mm, flush))
                 nbytes = M * K + N * K + 4 * N + 4 + 4 * M * N
                 t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 2 * M * N * K / PEAK_INT8_OPS * 1e3
                 row = dict(
                     name=name, M=M, N=N, K=K, max_abs_err=err, cosine=cos,
                     ms=time_ms(route, flush), plain_ms=time_ms(reference, flush),
                     library_ms=time_ms(lambda: torch.matmul(x_bf16, w_bf16.t()), flush),
-                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations", **extra,
                 )
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 rows.append(row)
@@ -3541,7 +3992,7 @@ def phase_llama_w8a8(config, ids) -> dict:
     (a) qint8 weights and activations, (b) qfloat8_e4m3fn ones, each built,
     quantized, calibrated as phase 7 and frozen; phase 6's run (B = 4 x 1024
     prefill, 63 greedy decode steps over a bf16 cache), every forward exactly
-    224 W8A8 library calls (`torch._int_mm` / `torch._scaled_mm`) and each
+    224 W8A8 library calls (`torch._int_mm` / the e4m3fn bf16 product) and each
     step 32 `flash_decode`, no other kernel and no weight dequantized; then
     the prefill through the plain formula: (a) EQUAL, (b) each row's cosine
     above W8A8_FP8_COS, and at 2 layers (as phase 5) above W8A8_FP8_COS_2L
@@ -4083,15 +4534,40 @@ def only_decode(K_mod, FD_mod, card: str) -> int:
     return 0
 
 
+def only_paged(card: str) -> int:
+    """`--only paged`: phase 3's rows of the paged arm, then phase 20 on phase
+    4's model (which also runs phase 15's serial arm, its reference)."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_flash_decode_paged(flush)
+    del flush
+    torch.cuda.empty_cache()
+    config = LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, _ = build_model(config, seed=0)
+    torch.cuda.synchronize()
+    log(f"paged: phase 4's model built in {time.perf_counter() - t0:.1f} s")
+    phase_paged(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"ok": True, "only": "paged", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics"):
-        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint or numerics, "
-              f"got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics or "
+              f"paged, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -4119,13 +4595,15 @@ def main() -> int:
         return only_checkpoint(card)
     if only == "numerics":
         return only_numerics(K_mod, card)
+    if only == "paged":
+        return only_paged(card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rows = (phase_kernels(K_mod, flush) + phase_small_m_sweep(K_mod, flush) + phase_flash_decode(flush)
-            + phase_qbytes(flush)
+            + phase_flash_decode_paged(flush) + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
             + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush)
@@ -4148,8 +4626,11 @@ def main() -> int:
     launches_1088, phase4_reference = phase_main_path(K_mod, FD_mod, model, qlinears, ids)
     launches = phase_long_context(K_mod, FD_mod, model, qlinears)
     # Phase 15 on this model: the serving bench's default slice, its chunks through #1.
+    serve_tokens = {}
     serving = {"qbits_mm_small_m": phase_serving(
-        "llama-3.1-8b-config qint4+head4, bf16 cache", model, "qbits_mm_small_m")}
+        "llama-3.1-8b-config qint4+head4, bf16 cache", model, "qbits_mm_small_m", tokens=serve_tokens)}
+    # Phase 20 on this model: PagedEngine over the same requests, held to phase 15's serial arm.
+    launches_paged = phase_paged(model, serve_tokens["serial"])
     del model, qlinears
     gc.collect()
     torch.cuda.empty_cache()
@@ -4217,6 +4698,7 @@ def main() -> int:
     launches_moe = phase_mixtral(model, mixtral_ids)
     launches_moe_b1 = phase_mixtral(model, mixtral_ids[:1])
     launches_moe_b16 = phase_mixtral(model, mixtral_ids16, new=NEW16)
+    split_mixtral_prefill(model, mixtral_ids16)
     check_no_sync(model)
     del model
     gc.collect()
@@ -4287,9 +4769,11 @@ def main() -> int:
         "qbits_mm_tiled_int8_int2": ("phase 13 (llama-3.1-8b w2a8, B = 1 prefill)", launches_w2a8["b1_prefill"]),
         "qbits_mm_requant_int8_int2": ("phase 13 (llama-3.1-8b w2a8, requant form)", launches_w2a8["requant"]),
         "qbits_mm_partitioned": ("phase 14 (llama-3.1-8b qint4, tp = 2, rank 0)", tp["full"]["counts"]),
+        "flash_decode_paged": ("phase 20(b) (PagedEngine, bf16 pages of 64)", launches_paged["b"]),
     }
     kernels = []
-    for name in [*KERNEL_M, "flash_decode", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8", "qbits_moe_small_m",
+    for name in [*KERNEL_M, "flash_decode", "flash_decode_paged", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8",
+                 "qbits_moe_small_m",
                  "qbits_moe_all", "qbits_moe_tiled", "qbits_moe_tiled_small_m", *(f"{arm}_int2" for arm in INT2_ARMS),
                  "qbits_mm_partitioned"]:
         mine = [r for r in rows if r["name"] == name]
@@ -4301,6 +4785,10 @@ def main() -> int:
         if name == "flash_decode":
             rep = next(r for r in mine if (r["cache"], r["S"], r["q"], r["Hkv"]) == (*FD_SUMMARY, "bf16", FD_HEADS[0]))
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
+        elif name == "flash_decode_paged":
+            rep = next(r for r in mine if (r["cache"], r["S"], r["page_size"], r["q"]) == (*FD_PAGED_SUMMARY, "bf16"))
+            shape = dict(cache=rep["cache"], B=rep["B"], S=rep["S"], page_size=rep["page_size"], Hkv=FD_HEADS[0],
+                         G=FD_HEADS[1], D=FD_HEADS[2])
         elif name.startswith("qbits_moe"):
             rep = next(r for r in mine if (r["form"], r["nslots"], r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
             shape = dict(form=rep["form"], U=rep["U"], nslots=rep["nslots"], M=rep["M"], N=rep["N"], K=rep["K"])
@@ -4330,6 +4818,9 @@ def main() -> int:
         phases17_19 = {label: c[name] for label, c in numerics.items() if c.get(name)}
         if phases17_19:
             extra["launches_phases_17_19"] = phases17_19
+        if name == "flash_decode_paged":
+            extra = {"launches_phase20c": launches_paged["c"][name], "dense_ms": rep["dense_ms"],
+                     "gather_dense_ms": rep["gather_dense_ms"]}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(

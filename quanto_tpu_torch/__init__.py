@@ -7,9 +7,11 @@ tensor each kernel wrapper computes its plain PyTorch version instead.
 """
 
 from .calibrate import Calibration, absmax_scale
+from .models import BatchedEngine, PagedEngine
 from .parallel import StackedSparseMoeBlock, convert_moe_to_stacked
 from .quantize import freeze, named_qmodules, quantization_map, quantize, requantize
 from .tensor.activations import ActivationQBytesArray, quantize_activation
+from .tensor.paged_kv import PagedKVLayer, init_paged_kv_cache
 from .tensor.optimizers import AbsmaxOptimizer, HqqOptimizer, MaxOptimizer
 from .tensor.qtype import qfloat8, qint2, qint4, qint8, qtype, qtypes
 from .tensor.weights import (
@@ -24,6 +26,8 @@ from .tensor.weights import (
 __all__ = [
     "Calibration",
     "absmax_scale",
+    "BatchedEngine",
+    "PagedEngine",
     "StackedSparseMoeBlock",
     "convert_moe_to_stacked",
     "freeze",
@@ -33,6 +37,8 @@ __all__ = [
     "requantize",
     "ActivationQBytesArray",
     "quantize_activation",
+    "PagedKVLayer",
+    "init_paged_kv_cache",
     "AbsmaxOptimizer",
     "HqqOptimizer",
     "MaxOptimizer",

@@ -21,6 +21,17 @@
 // as uint8 [B, S, Hkv, D/2] with code 2j + 8 in the low nibble of byte j and code 2j + 1 + 8 in
 // its high nibble; scales and shifts float32 [B, S, Hkv, 1].
 //
+// The paged arm (a page table given; quanto_tpu_torch/tensor/paged_kv.py): the payload, scales and
+// shifts are pools [n_pages, ps, Hkv, ...] and slot s of row b lies at offset s % ps of page
+// table[b, s / ps] (int32 [B, P], S = P * ps). JAX gathers a dense [B, S, Hkv, D] view of the
+// pages and runs its kernels on that (quanto_tpu/ops/attention.py:310-319): a write and a read
+// of every slot's K and V, in every layer and step. Here the kernel reads the pages where they
+// lie: the row address is computed in one place (flash_decode.cuh:CacheRows), per copied row,
+// since a page (4-64 slots in the port's engines and tests) may be shorter than a tile (64-512);
+// each lane keeps the page of its last row, so a run of rows in one page costs one table load.
+// The plan, the tiles and the order of every sum are the dense arm's over S = P * ps, so the
+// output equals the dense arm's on the gathered view bit for bit.
+//
 // Bound on this card by bytes at every shape the port runs: a visible slot of a head costs
 // 4 G D = 2048 operations (G = 4, D = 128) against 512 bytes of a bf16 cache, 264 of qint8, 200 of
 // k8v4, 136 of qint4 and 144 of qint4a, at most 15 operations a byte where the tensor cores need
@@ -541,16 +552,20 @@ extern "C" int flash_decode_workspace(int device, int G, int D, int k_type, int 
 // k_type / v_type: 0 float32, 1 bfloat16, 2 int8, 3 int4 nibbles, 4 float8 (through k_lut /
 // v_lut, 256 float32 values). mode: 0 no scales, 1 scales, 2 scales and shifts. q_bf16: 1 when q
 // and out are bfloat16, 0 when they are float32. ws: float32, of flash_decode_workspace's size;
-// counters: int32 [B, Hkv, groups], zero (the kernel leaves them zero).
+// counters: int32 [B, Hkv, groups], zero (the kernel leaves them zero). table: null for a dense
+// cache, else the int32 [B, pages_per_slot] page table of a paged one, S = pages_per_slot *
+// page_size.
 extern "C" int flash_decode(int device, const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale, const void* k_shift,
                             const void* v_shift, const void* positions, const void* k_lut,
                             const void* v_lut, void* ws, void* counters, void* out, int B, int Hkv,
                             int G, int S, int D, int k_type, int v_type, int mode, int q_bf16,
-                            void* stream) {
+                            const void* table, int pages_per_slot, int page_size, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || G < 1 || S < 1 || !valid_types(k_type, v_type, mode))
+    return (int)cudaErrorInvalidValue;
+  if (table != nullptr && (pages_per_slot < 1 || page_size < 1 || (long long)pages_per_slot * page_size != S))
     return (int)cudaErrorInvalidValue;
   fd::Args a;
   a.q = q;
@@ -566,6 +581,9 @@ extern "C" int flash_decode(int device, const void* q, const void* k, const void
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<int*>(counters);
   a.out = out;
+  a.table = static_cast<const int*>(table);
+  a.P = pages_per_slot;
+  a.ps = page_size;
   a.B = B; a.Hkv = Hkv; a.G = G; a.S = S; a.ng = 1;
   a.mode = mode; a.q_bf16 = q_bf16;
   a.scale = (float)(1.4426950408889634 / std::sqrt((double)D));

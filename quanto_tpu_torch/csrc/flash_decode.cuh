@@ -61,8 +61,39 @@ struct Args {
   float* ws;              // [gridDim.x, 2] partials of GR * (D + 2) floats
   int* counters;          // [B, Hkv, ng] arrivals, zero between calls
   void* out;              // [B, Hkv, G, D] in q's dtype
+  // The paged arm: int32 page table [B, P], or null for a dense cache. The payload, scales and
+  // shifts are then pools [n_pages, ps, Hkv, ...], and S = P * ps.
+  const int* table;
+  int P, ps;
   int B, Hkv, G, S, ng, mode, q_bf16;
   float scale;            // log2(e) / sqrt(D): logits in base 2
+};
+
+// The rows of slots of one batch row b, head h: (b, s, h) of a dense [B, S, Hkv] cache, or, through
+// the table, (table[b, s / ps], s % ps, h) of a paged [n_pages, ps, Hkv] pool. A lane asks for its
+// slots in rising order, so the page of its last slot is kept: a run of slots in one page costs one
+// table load and one division. The page id is widened before the product: a pool passes 2^31
+// bytes. Only rows b < B and slots s < S are asked for, so the table is read inside its [B, P].
+struct CacheRows {
+  const Args& a;
+  size_t head0;    // row (b, 0, h) of a dense cache; b * P, the table row's first entry, of a paged one
+  int h;
+  int lo = 0, hi = 0;  // the kept page holds slots lo .. hi - 1
+  size_t page0 = 0;    // its first slot's row index / Hkv
+
+  __device__ __forceinline__ CacheRows(const Args& args, int b, int head)
+      : a(args), head0(args.table == nullptr ? (size_t)b * args.S * args.Hkv + head : (size_t)b * args.P), h(head) {}
+
+  __device__ __forceinline__ size_t row(int s) {
+    if (a.table == nullptr) return head0 + (size_t)s * a.Hkv;
+    if (s < lo || s >= hi) {
+      const int p = s / a.ps;
+      lo = p * a.ps;
+      hi = lo + a.ps;
+      page0 = (size_t)__ldg(a.table + head0 + p) * a.ps;
+    }
+    return (page0 + (s - lo)) * a.Hkv + h;
+  }
 };
 
 // Bytes of a slot row of D elements.
@@ -189,18 +220,18 @@ struct Split {
 // own copies only. Slots past the visible ones are zero-filled.
 // ---------------------------------------------------------------------------------------------
 
-// Rows r0 .. r0 + TS - 1 of the tile (slots s0 + r of row0 = (b, s0, h) of a [B, S, Hkv, RB bytes]
-// cache, n of the tile's slots visible). Rows shorter than 128 bytes draw the 256-byte span around
-// them into L2: the neighbouring heads' rows, which other blocks read at about the same time.
+// Rows r0 .. r0 + TS - 1 of the tile (slots s0 + r of the cache rows `rows`, of RB bytes; n of the
+// tile's slots visible). Rows shorter than 128 bytes draw the 256-byte span around them into L2:
+// the neighbouring heads' rows, which other blocks read at about the same time.
 template <int TS, int RB>
-__device__ __forceinline__ void copy_rows(unsigned char* dst, const uint8_t* src, size_t row0, int Hkv, int r0,
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const uint8_t* src, CacheRows& rows, int s0, int r0,
                                           int n) {
   constexpr int C = RB / 16;
   for (int i = threadIdx.x & 31; i < TS * C; i += 32) {
     const int r = r0 + i / C, q = i % C;
     const bool ok = r < n;
     unsigned char* to = dst + swz<RB>(r, q * 16);
-    const uint8_t* from = ok ? src + (row0 + (size_t)r * Hkv) * RB + q * 16 : src;
+    const uint8_t* from = ok ? src + rows.row(s0 + r) * RB + q * 16 : src;
     if constexpr (RB < 128)
       asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(hg::smem_addr(to)), "l"(from),
                    "r"(ok ? 16 : 0));
@@ -214,17 +245,17 @@ template <class Arm>
 __device__ __forceinline__ void issue_part(const Args& a, unsigned char* st, const Item& it, int tl) {
   using SL = typename Arm::SL;
   const int s0 = it.c * tl, r0 = (threadIdx.x >> 5) * Arm::TS;
-  const int n = it.nvis - s0;                                  // visible slots of the tile
-  const size_t row0 = ((size_t)it.b * a.S + s0) * a.Hkv + it.h;  // row (b, s0, h)
-  copy_rows<Arm::TS, Arm::KROW>(st + SL::k, a.k, row0, a.Hkv, r0, n);
-  copy_rows<Arm::TS, Arm::VROW>(st + SL::v, a.v, row0, a.Hkv, r0, n);
+  const int n = it.nvis - s0;  // visible slots of the tile
+  CacheRows rows(a, it.b, it.h);
+  copy_rows<Arm::TS, Arm::KROW>(st + SL::k, a.k, rows, s0, r0, n);
+  copy_rows<Arm::TS, Arm::VROW>(st + SL::v, a.v, rows, s0, r0, n);
   if constexpr (Arm::SCALES) {
     float* sc = reinterpret_cast<float*>(st + SL::sc);
     for (int i = threadIdx.x & 31; i < (a.mode == SHIFTED ? 4 : 2) * Arm::TS; i += 32) {
       const int t = i / Arm::TS, r = r0 + i % Arm::TS;
       const float* src = t == 0 ? a.k_scale : t == 1 ? a.v_scale : t == 2 ? a.k_shift : a.v_shift;
       const bool ok = r < n;
-      cp_async4(sc + t * SL::rows + r, ok ? src + row0 + (size_t)r * a.Hkv : src, ok ? 4 : 0);
+      cp_async4(sc + t * SL::rows + r, ok ? src + rows.row(s0 + r) : src, ok ? 4 : 0);
     }
   }
   hg::cp_async_commit();

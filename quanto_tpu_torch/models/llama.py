@@ -104,7 +104,7 @@ class LlamaConfig:
         if act != "silu":
             _not_ported(f"hidden_act {act!r}")
         if hf.get("use_sliding_window", False):
-            _not_ported("use_sliding_window (sliding.py)", item=5)
+            _not_ported("use_sliding_window (sliding.py: ring caches, the paged+ring hybrid)", item=8)
         rope = hf.get("rope_scaling") or None
         if rope is not None:
             rope_type = rope.get("rope_type", rope.get("type", "default"))
@@ -345,7 +345,7 @@ class LlamaAttention(nn.Module):
             new_cache = kv_update(layer_cache, k, v, cache_pos)
             if T == 1:
                 return _deq(self.o_proj(decode_attention(q, new_cache, decode_pos))), new_cache
-            k, v, k_scale, v_scale, k_shift, v_shift = kv_read_raw(new_cache, q.dtype)
+            k, v, k_scale, v_scale, k_shift, v_shift = kv_read_raw(new_cache, q.dtype, B)
         q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
         out = gqa_attention(
             q5, k, v, mask, scale,

@@ -30,7 +30,12 @@ slot tables, the admission queue. Differences by design:
   the model's device, seeded with 0, as JAX's engine starts from key 0.
 - Not ported here: `mesh` (tensor- and sequence-parallel serving wait for
   the parallel layer), ring caches and their `write_len` (sliding-window
-  models), `PagedEngine` and `DistributedEngine`.
+  models, ROADMAP.md Queue 1, item 8) and `DistributedEngine` (item 10).
+
+`PagedEngine` (`serving.py:793-1196`) serves over a paged cache
+(`tensor/paged_kv.py`): prefix sharing, on-demand page growth and preemption
+with exact recompute, as JAX's; its decode attention reads the pages through
+the table (`ops/cuda/flash_decode.py:flash_decode_paged`).
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from .sampling import greedy
 from .serve import make_cache
 
 
-__all__ = ["BatchedEngine"]
+__all__ = ["BatchedEngine", "PagedEngine"]
 
 
 @dataclasses.dataclass
@@ -95,7 +100,7 @@ class BatchedEngine:
         # causal mask hides the rest.
         self.prefill_chunk = prefill_chunk
         self._device = model.device
-        self._cache = make_cache(model, max_batch, max_len, kv_quant=kv_quant)
+        self._cache = self._make_cache(kv_quant)
         self._pos = np.zeros((max_batch,), np.int32)  # next write position per slot
         self._last_tok = np.zeros((max_batch,), np.int32)
         self._free = list(range(max_batch))
@@ -106,6 +111,10 @@ class BatchedEngine:
         self._next_rid = 0
         self._sample = sample_fn or greedy
         self._generator = torch.Generator(device=self._device).manual_seed(0)
+
+    def _make_cache(self, kv_quant):
+        """The pooled cache [max_batch, max_len] on the model's device."""
+        return make_cache(self.model, self.max_batch, self.max_len, kv_quant=kv_quant)
 
     # --- device calls ---------------------------------------------------------
 
@@ -156,13 +165,15 @@ class BatchedEngine:
     def can_add(self) -> bool:
         return len(self._free) > 0
 
-    def _admit(self, slot: int, prompt_len: int, max_new_tokens: int, first_tok: int) -> int:
-        """Register a prefilled request in `slot` with its first token."""
+    def _register(self, slot: int, prompt_len: int, max_new_tokens: int, first_tok: int,
+                  prompt: Optional[np.ndarray] = None) -> int:
+        """Register a prefilled request in `slot` with its first token (JAX
+        inlines this in `add`); `prompt` is kept for a paged engine's recompute."""
         self._pos[slot] = prompt_len
         self._last_tok[slot] = first_tok
         rid = self._next_rid
         self._next_rid += 1
-        req = _Request(rid, slot, prompt_len, max_new_tokens, [first_tok])
+        req = _Request(rid, slot, prompt_len, max_new_tokens, [first_tok], prompt=prompt)
         self._requests[rid] = req
         self._by_slot[slot] = req
         self._maybe_finish(req, first_tok)
@@ -178,7 +189,7 @@ class BatchedEngine:
         slot = self._free.pop()
         last_logits = self._prefill_into(slot, prompt)
         first_tok = int(self._sample_host(last_logits)[0])
-        return self._admit(slot, len(prompt), max_new_tokens, first_tok)
+        return self._register(slot, len(prompt), max_new_tokens, first_tok)
 
     def add_batch(self, prompts, max_new_tokens=64) -> List[int]:
         """Admit several requests at once, prefilling them together.
@@ -263,7 +274,7 @@ class BatchedEngine:
                         last_logits[s] = last[s : s + 1]
             for (p, m), slot in zip(batched, slots):
                 first_tok = int(self._sample_host(last_logits[slot])[0])
-                rids_batched.append(self._admit(slot, len(p), m, first_tok))
+                rids_batched.append(self._register(slot, len(p), m, first_tok))
 
         rids_serial = [self.add(p, m) for p, m in serial]
         return rids_batched + rids_serial
@@ -386,7 +397,9 @@ class BatchedEngine:
 
     def _decode_quantum(self, burst: Optional[int]):
         if not self._by_slot:
-            return {}
+            # Only queued or preempted work is left: step() lets PagedEngine
+            # readmit; the dense engine returns {} (admission needs a slot).
+            return self.step() if self._has_work() else {}
         if burst is None:
             return self.step()
         n = min(burst, min(r.max_new_tokens - len(r.tokens) for r in self._by_slot.values()))
@@ -477,3 +490,289 @@ class BatchedEngine:
 
     def _has_work(self) -> bool:
         return bool(self._by_slot) or bool(self._queue) or bool(self._prefill_by_slot)
+
+
+class PagedEngine(BatchedEngine):
+    """Continuous batching over a PAGED KV cache (`tensor/paged_kv.py`).
+
+    Counterpart of `quanto_tpu/models/serving.py:PagedEngine` (`:793-1196`).
+    The cache is `n_pages * page_size` tokens shared by all slots instead of
+    `max_batch * max_len` reserved per slot. With `reserve="prompt"` (the
+    default) `add` allocates the prompt's pages only and decode grows a slot
+    page by page as its positions cross page boundaries; `reserve="full"`
+    allocates `prompt + max_new_tokens` up front, so an admitted request never
+    stalls. Page 0 is scratch (never allocated): a table entry of 0, and so a
+    free slot's row, writes there harmlessly.
+
+    When growth exhausts the pool (after evicting cold prefix pages), the
+    youngest active request is preempted: its pages are released and it is
+    recomputed from its prompt and the tokens it has emitted once capacity
+    frees (`preemptions` counts them). With a deterministic sampler its
+    tokens equal an unpreempted run's.
+
+    Prefix sharing (`prefix_sharing=True`): a page that a prompt fills
+    completely is registered under the exact token prefix it ends. A later
+    prompt that starts with the same blocks maps those pages into its table
+    row, and only its suffix is prefilled, at cache offset `shared_len`.
+    Shared pages are never written again (prefill writes from `shared_len`,
+    decode from the prompt's end); they are refcounted by their users, stay
+    resident after release, and are evicted oldest first when the pool runs
+    dry (`prefix_hits`, `prefix_tokens_saved` count the reuse).
+
+    The host table is numpy, as in JAX; the device table [max_batch, P] is
+    one int32 tensor that every layer shares, updated by one host-to-device
+    copy per change. `add_batch` and `enqueue` admit serially through `add`,
+    as JAX's do: a batched or mixed chunk step would write a garbage chunk
+    through every row's table, for which no pages are reserved. Sliding-window
+    models (JAX's paged+ring hybrid) are refused.
+    """
+
+    def __init__(
+        self,
+        model,
+        max_batch: int = 8,
+        max_len: int = 512,
+        n_pages: int = 64,
+        page_size: int = 64,
+        kv_quant=None,
+        eos_token_id: Optional[int] = None,
+        sample_fn: Optional[Callable] = None,
+        prefix_sharing: bool = True,
+        prefill_chunk: Optional[int] = None,
+        reserve: str = "prompt",
+    ):
+        if reserve not in ("prompt", "full"):
+            raise ValueError('reserve must be "prompt" or "full"')
+        self.reserve = reserve
+        # Read by _make_cache, which BatchedEngine.__init__ calls.
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.pages_per_slot = -(-max_len // page_size)
+        super().__init__(
+            model, max_batch=max_batch, max_len=max_len, kv_quant=kv_quant,
+            eos_token_id=eos_token_id, sample_fn=sample_fn, prefill_chunk=prefill_chunk,
+        )
+        self._table = np.zeros((max_batch, self.pages_per_slot), np.int32)
+        self._free_pages = list(range(1, n_pages))  # page 0 reserved
+        self._slot_pages: Dict[int, List[int]] = {}
+        self.prefix_sharing = prefix_sharing
+        self._prefix_pages: Dict[bytes, int] = {}  # token-prefix key -> page id
+        self._page_key: Dict[int, bytes] = {}  # page id -> its prefix key
+        self._page_refs: Dict[int, int] = {}  # prefix page -> active users
+        self._prefix_lru: List[bytes] = []  # oldest first
+        self.prefix_hits = 0  # shared pages reused
+        self.prefix_tokens_saved = 0  # prompt tokens not recomputed
+        self._pending: List[_Request] = []  # preempted, awaiting readmission
+        self.preemptions = 0
+
+    def _make_cache(self, kv_quant):
+        from ..tensor.paged_kv import init_paged_kv_cache
+
+        c = self.model.config
+        w = getattr(c, "sliding_window", None)
+        lt = getattr(c, "layer_types", None)
+        if w is not None and lt is not None and w < self.max_len and "sliding_attention" in lt:
+            raise NotImplementedError(
+                "PagedEngine over sliding-window layers (the paged+ring hybrid): not ported yet "
+                "(ROADMAP.md Queue 1, item 8)"
+            )
+        attn = self.model.model.layers[0].self_attn
+        cache = init_paged_kv_cache(
+            c.num_hidden_layers, self.n_pages, self.page_size, self.max_batch, self.pages_per_slot,
+            attn.num_kv_heads, attn.head_dim, kv_quant=kv_quant, dtype=c.dtype, device=self._device,
+        )
+        self._table_dev = cache[0]._table
+        return cache
+
+    def _sync_table(self) -> None:
+        """The host table into the device table every layer shares."""
+        self._table_dev.copy_(torch.from_numpy(self._table))
+
+    def _prefix_key(self, prompt: np.ndarray, n_pages: int) -> bytes:
+        """Exact-match key of the first `n_pages` full token blocks."""
+        return prompt[: n_pages * self.page_size].tobytes()
+
+    def _lru_touch(self, key: bytes) -> None:
+        if key in self._prefix_lru:
+            self._prefix_lru.remove(key)
+        self._prefix_lru.append(key)
+
+    def _evict_prefix_pages(self, n_needed: int) -> None:
+        """Evict zero-ref prefix pages, oldest first, until `n_needed` pages
+        are free."""
+        for key in list(self._prefix_lru):
+            if len(self._free_pages) >= n_needed:
+                return
+            page = self._prefix_pages[key]
+            if self._page_refs.get(page, 0) == 0:
+                del self._prefix_pages[key]
+                del self._page_key[page]
+                self._page_refs.pop(page, None)
+                self._prefix_lru.remove(key)
+                self._free_pages.append(page)
+
+    def add_batch(self, prompts, max_new_tokens=64) -> List[int]:
+        budgets = (
+            list(max_new_tokens) if isinstance(max_new_tokens, (list, tuple)) else [max_new_tokens] * len(prompts)
+        )
+        return [self.add(p, m) for p, m in zip(prompts, budgets)]
+
+    def enqueue(self, prompt_ids, max_new_tokens: int = 64) -> int:
+        return self.add(prompt_ids, max_new_tokens)
+
+    def add(self, prompt_ids, max_new_tokens: int = 64) -> int:
+        if not self._free:
+            raise RuntimeError("no free slots (call step() until one finishes)")
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        total = len(prompt) + max_new_tokens
+        if total > self.max_len:
+            raise ValueError("prompt + max_new_tokens exceeds engine max_len")
+        slot, last_logits = self._admit(prompt, total if self.reserve == "full" else len(prompt))
+        first_tok = int(self._sample_host(last_logits)[0])
+        return self._register(slot, len(prompt), max_new_tokens, first_tok, prompt=prompt)
+
+    def _admit(self, prompt: np.ndarray, reserve_tokens: int):
+        """Map the shared prefix pages of `prompt`, allocate pages up to
+        `reserve_tokens` positions, and prefill the unshared suffix through
+        the slot's table row. Returns (slot, the last token's logits [1, V]).
+        Serves fresh admission and recompute (`prompt` then the original
+        prompt and the tokens emitted so far)."""
+        ps = self.page_size
+        n_total = -(-reserve_tokens // ps)
+        # The longest chain of cached full prompt pages; one prompt token at
+        # least stays unshared, so that prefill gives the last token's logits.
+        shared: List[int] = []
+        if self.prefix_sharing:
+            for i in range((len(prompt) - 1) // ps):
+                page = self._prefix_pages.get(self._prefix_key(prompt, i + 1))
+                if page is None:
+                    break
+                shared.append(page)
+        shared_len = len(shared) * ps
+        n_new = n_total - len(shared)
+        if n_new > len(self._free_pages):
+            self._evict_prefix_pages(n_new)
+        if n_new > len(self._free_pages):
+            raise RuntimeError("page pool exhausted")
+        slot = self._free.pop()
+        pages = shared + [self._free_pages.pop() for _ in range(n_new)]
+        for i, page in enumerate(shared):
+            self._page_refs[page] = self._page_refs.get(page, 0) + 1
+            self._lru_touch(self._prefix_key(prompt, i + 1))
+        if shared:
+            self.prefix_hits += len(shared)
+            self.prefix_tokens_saved += shared_len
+        self._slot_pages[slot] = pages
+        self._table[slot] = 0
+        self._table[slot, : len(pages)] = pages
+        self._sync_table()
+        last_logits = self._prefill_into(slot, prompt[shared_len:], start_pos=shared_len)
+        # Register the prompt's new full pages for reuse.
+        if self.prefix_sharing:
+            for i in range(len(shared), len(prompt) // ps):
+                key = self._prefix_key(prompt, i + 1)
+                if key in self._prefix_pages:
+                    continue  # a concurrent duplicate: keep the existing entry
+                page = pages[i]
+                self._prefix_pages[key] = page
+                self._page_key[page] = key
+                self._page_refs[page] = self._page_refs.get(page, 0) + 1
+                self._lru_touch(key)
+        return slot, last_logits
+
+    # --- on-demand page growth and preemption ---------------------------------
+
+    def _release_slot_pages(self, slot: int) -> None:
+        """Return a slot's pages to the pool (prefix pages stay resident with
+        one user fewer) and clear its table row."""
+        for page in self._slot_pages.pop(slot, []):
+            if page in self._page_key:
+                self._page_refs[page] = max(0, self._page_refs.get(page, 1) - 1)
+            else:
+                self._free_pages.append(page)
+        self._table[slot] = 0
+        self._sync_table()
+
+    def _preempt(self, req: _Request) -> None:
+        """Release `req`'s slot and pages; it is recomputed when capacity frees."""
+        self._release_slot_pages(req.slot)
+        del self._by_slot[req.slot]
+        self._free.append(req.slot)
+        self._pos[req.slot] = 0
+        self._last_tok[req.slot] = 0
+        self._pending.append(req)
+        self.preemptions += 1
+
+    def _try_readmit(self) -> None:
+        """Readmit preempted requests, oldest first, while slots and pages
+        allow. The recomputed context is the prompt and every emitted token
+        but the last, whose K/V the next decode step writes, as it would have."""
+        while self._pending and self._free:
+            req = self._pending[0]
+            ctx = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)]).astype(np.int32)
+            reserve_tokens = req.prompt_len + req.max_new_tokens if self.reserve == "full" else len(ctx)
+            try:
+                slot, _ = self._admit(ctx, reserve_tokens)
+            except RuntimeError:
+                if not self._by_slot:
+                    raise RuntimeError(
+                        "page pool too small to readmit a preempted request; increase n_pages"
+                    ) from None
+                return  # retry once active requests release pages
+            self._pending.pop(0)
+            req.slot = slot
+            self._pos[slot] = len(ctx)
+            self._last_tok[slot] = req.tokens[-1]
+            self._by_slot[slot] = req
+
+    def _grow_for_decode(self, n: int) -> None:
+        """Give every active slot's table row its next `n` write positions
+        (capped at the request's remaining budget: a slot that finishes
+        inside a burst parks its extra writes in the scratch page). Under
+        pressure, evict cold prefix pages first, then preempt the youngest
+        active request until the rest fit."""
+        while True:
+            need: Dict[int, int] = {}
+            for slot, req in self._by_slot.items():
+                remaining = req.max_new_tokens - len(req.tokens)
+                last_pos = int(self._pos[slot]) + min(n, remaining) - 1
+                k = last_pos // self.page_size + 1 - len(self._slot_pages[slot])
+                if k > 0:
+                    need[slot] = k
+            total = sum(need.values())
+            if total == 0:
+                return
+            if total > len(self._free_pages):
+                self._evict_prefix_pages(total)
+            if total <= len(self._free_pages):
+                break
+            if len(self._by_slot) == 1:
+                raise RuntimeError("page pool exhausted by a single request; increase n_pages")
+            self._preempt(max(self._by_slot.values(), key=lambda r: r.rid))
+        for slot, k in need.items():
+            row = self._slot_pages[slot]
+            pages = [self._free_pages.pop() for _ in range(k)]
+            self._table[slot, len(row) : len(row) + k] = pages
+            row.extend(pages)
+        self._sync_table()
+
+    def _has_work(self) -> bool:
+        return super()._has_work() or bool(self._pending)
+
+    def step(self) -> Dict[int, int]:
+        self._try_readmit()
+        if self._by_slot:
+            self._grow_for_decode(1)
+        return super().step()
+
+    def decode_burst(self, n: int) -> Dict[int, List[int]]:
+        self._try_readmit()
+        if self._by_slot:
+            self._grow_for_decode(n)
+        return super().decode_burst(n)
+
+    def _maybe_finish(self, req: _Request, tok: int) -> None:
+        was_done = req.done
+        super()._maybe_finish(req, tok)
+        if req.done and not was_done:
+            self._release_slot_pages(req.slot)

@@ -11,7 +11,11 @@ PyTorch counterpart of `quanto_tpu/ops/attention.py`:
 - `decode_attention`, the counterpart of `try_flash_decode` (`:278-343`): a
   T == 1 step over any cache of `tensor/kv_cache.py` goes to `flash_decode`,
   whose kernel takes every cache the port has (float, int8, int4, fp8, mixed
-  K/V types, shifts, any S), so there is no envelope to fall back from.
+  K/V types, shifts, any S), so there is no envelope to fall back from. A
+  paged cache (`tensor/paged_kv.py`) goes to `flash_decode_paged`, which reads
+  the pages through the table rows 0..B-1. JAX sends int4 and asymmetric
+  pages to its einsum path (`:312-316`) and the rest to its kernels over a
+  gathered dense view; the port serves them all with the kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Optional
 import torch
 
 from ..tensor.kv_cache import QKVCacheLayer
-from .cuda.flash_decode import flash_decode
+from ..tensor.paged_kv import PagedKVLayer
+from .cuda.flash_decode import flash_decode, flash_decode_paged
 
 
 __all__ = ["gqa_attention", "decode_attention"]
@@ -91,10 +96,18 @@ def decode_attention(q: torch.Tensor, layer_cache, positions: torch.Tensor) -> t
     """One decode step's attention over the just-updated cache, logits
     scaled by D**-0.5.
 
-    q [B, 1, H, D] post-rope queries; `layer_cache` a float (k, v) tuple or a
-    `QKVCacheLayer`; positions int32 [B] (slot s is visible iff
-    s <= positions[b]). Returns [B, 1, H*D] in q's dtype."""
+    q [B, 1, H, D] post-rope queries; `layer_cache` a float (k, v) tuple, a
+    `QKVCacheLayer` or a `PagedKVLayer`; positions int32 [B] (slot s is
+    visible iff s <= positions[b]). Returns [B, 1, H*D] in q's dtype."""
     B, _, H, D = q.shape
+    if isinstance(layer_cache, PagedKVLayer):
+        c = layer_cache
+        Hkv = c._k_pages.shape[2]
+        out = flash_decode_paged(
+            q.reshape(B, Hkv, H // Hkv, D), c._k_pages, c._v_pages, c._k_scale, c._v_scale,
+            c._table[:B], positions, k_shift=c._k_shift, v_shift=c._v_shift,
+        )
+        return out.reshape(B, 1, H * D)
     if isinstance(layer_cache, QKVCacheLayer):
         c = layer_cache
         kd, vd, ks, vs = c._k_data, c._v_data, c._k_scale, c._v_scale

@@ -18,7 +18,19 @@ or int4 as uint8 [B, S, Hkv, D/2], the K and V types independent (k8v4,
 k4v8); scales and shifts float32 [B, S, Hkv, 1] or None; positions int [B].
 It returns [B, Hkv, G, D] in q's dtype.
 
-`flash_decode` takes the plain version when q lies on the CPU; on a CUDA
+`flash_decode_paged` is the same kernel over a paged cache
+(`tensor/paged_kv.py`): k/v pools [n_pages, page_size, Hkv, D] (int4 as
+uint8 [..., D/2]), scales and shifts [n_pages, page_size, Hkv, 1], and an int32
+page table [B, P]; slot s of row b is offset s % page_size of page
+table[b, s // page_size], over S = P * page_size slots. The kernel reads the
+pages through the table (JAX gathers a dense view and runs its kernels on
+that, `quanto_tpu/ops/attention.py:310-319`); its plain version is exactly
+JAX's route, the gathered view through `flash_decode_plain`. It computes the
+dense call's function over the gathered view with the same plan and the same
+order of sums, so on the card it equals `flash_decode` on that view bit for
+bit. `flash_decode_paged.launches` counts its launches apart.
+
+Each wrapper takes the plain version when q lies on the CPU; on a CUDA
 tensor it launches the kernel or raises. `flash_decode.launches` counts its
 calls that launched the kernel: one C call, one launch. The kernel plans its
 work from `positions` on the device, so a call reads nothing back to the
@@ -38,10 +50,11 @@ from typing import Optional
 import torch
 
 from ...tensor.kv_cache import unpack_int4_codes
+from ...tensor.paged_kv import gather_pages
 from ._build import kernel
 
 
-__all__ = ["flash_decode_plain", "flash_decode"]
+__all__ = ["flash_decode_plain", "flash_decode", "flash_decode_paged_plain", "flash_decode_paged"]
 
 _FLOAT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CODE_TYPES = {torch.int8: 2, torch.uint8: 3}  # uint8 is the int4 nibble layout
@@ -96,8 +109,9 @@ def _payload_type(t: torch.Tensor, D: int, name: str) -> int:
     raise TypeError(f"flash_decode: unsupported {name} payload dtype {t.dtype}")
 
 
-def _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions):
-    """Validate the operands; returns (k_type, v_type, mode)."""
+def _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions, paged: bool = False):
+    """Validate the operands (k/v [B, S, ...], or page pools when `paged`);
+    returns (k_type, v_type, mode)."""
     if q.dim() != 4:
         raise ValueError(f"flash_decode: q must be [B, Hkv, G, D], got {tuple(q.shape)}")
     B, Hkv, G, D = q.shape
@@ -106,7 +120,7 @@ def _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions):
     if D not in (64, 128):
         raise ValueError(f"flash_decode: head dim {D} must be 64 or 128")
     k_type, v_type = _payload_type(k, D, "k"), _payload_type(v, D, "v")
-    if k.shape[0] != B or k.shape[2] != Hkv or v.shape[:3] != k.shape[:3] or k.shape[1] < 1:
+    if (k.shape[0] != B and not paged) or k.shape[2] != Hkv or v.shape[:3] != k.shape[:3] or k.shape[1] < 1:
         raise ValueError(
             f"flash_decode: k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}"
         )
@@ -140,7 +154,8 @@ def _fp8_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 # C signatures of `flash_decode_workspace` and `flash_decode` in csrc/flash_decode.cu.
 _WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int,
+                                                                            ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,25 +184,12 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def flash_decode(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    k_scale: Optional[torch.Tensor],
-    v_scale: Optional[torch.Tensor],
-    positions: torch.Tensor,
-    k_shift: Optional[torch.Tensor] = None,
-    v_shift: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Decode attention out [B, Hkv, G, D] in q's dtype (see the module
-    docstring). Replaces `quanto_tpu/ops/pallas/flash_decode.py:_kernel`,
-    `flash_decode2.py:_kernel` and `flash_decode3.py:_kernel`."""
-    k_type, v_type, mode = _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions)
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, k_scale, v_scale, positions, k_shift, v_shift)
+def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: int, table=None, page_size: int = 0):
+    """One launch of the kernel on q's CUDA device, dense (`table` None) or
+    paged; returns the output. `types`: `_check`'s (k_type, v_type, mode)."""
+    k_type, v_type, mode = types
     B, Hkv, G, D = q.shape
-    S = k.shape[1]
-    tensors = [t for t in (q, k, v, k_scale, v_scale, k_shift, v_shift, positions) if t is not None]
+    tensors = [t for t in (q, k, v, k_scale, v_scale, k_shift, v_shift, positions, table) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -211,16 +213,84 @@ def flash_decode(
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    P = table.shape[1] if table is not None else 0
     rc = kernel("flash_decode", _ARGTYPES)(
         device,
         ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale), ptr(k_shift), ptr(v_shift),
         ptr(positions), ptr(k_lut), ptr(v_lut), ptr(ws), ptr(counters), ptr(out),
-        B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), stream,
+        B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), ptr(table), P, page_size, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
+    return out
+
+
+def flash_decode(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor],
+    positions: torch.Tensor,
+    k_shift: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention out [B, Hkv, G, D] in q's dtype (see the module
+    docstring). Replaces `quanto_tpu/ops/pallas/flash_decode.py:_kernel`,
+    `flash_decode2.py:_kernel` and `flash_decode3.py:_kernel`."""
+    types = _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, k_scale, v_scale, positions, k_shift, v_shift)
+    out = _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, k.shape[1])
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_paged_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor],
+    table: torch.Tensor,
+    positions: torch.Tensor,
+    k_shift: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the paged arm, JAX's route: the pages gathered
+    through the table into the dense view, then `flash_decode_plain`."""
+    g = [gather_pages(t, table) for t in (k_pages, v_pages, k_scale, v_scale, k_shift, v_shift)]
+    return flash_decode_plain(q, g[0], g[1], g[2], g[3], positions, g[4], g[5])
+
+
+def flash_decode_paged(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor],
+    table: torch.Tensor,
+    positions: torch.Tensor,
+    k_shift: Optional[torch.Tensor] = None,
+    v_shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention out [B, Hkv, G, D] over a paged cache, reading the
+    pages through `table` (int32 [B, P]; see the module docstring). Replaces
+    the same TPU kernels as `flash_decode`, which JAX runs on the gathered view."""
+    types = _check(q, k_pages, v_pages, k_scale, v_scale, k_shift, v_shift, positions, paged=True)
+    B = q.shape[0]
+    if table.dim() != 2 or table.shape[0] != B or table.dtype != torch.int32:
+        raise ValueError(f"flash_decode_paged: table must be int32 [{B}, P], got {table.dtype} {tuple(table.shape)}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pages, v_pages, k_scale, v_scale, table, positions, k_shift, v_shift)
+    ps = k_pages.shape[1]
+    out = _launch(q, k_pages, v_pages, k_scale, v_scale, positions, k_shift, v_shift, types,
+                  table.shape[1] * ps, table, ps)
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0

@@ -12,13 +12,17 @@ them with PyTorch's own calls on the card:
   CPU's route and the card's outside that envelope, sums in float64, which
   is exact for int8 while 127 * 128 * K < 2**53. Both round the integer sum
   to float32 once, so the card equals the plain version bit for bit.
-- `qbytes_fp8_mm` (e4m3fn x e4m3fn, JAX's `use_native_fp8_dot` branch,
-  `:105-113`): on a CUDA tensor `torch._scaled_mm` with unit scales and
-  float32 output (`use_fast_accum=False`), where K and N are multiples of
-  16 (`scaled_mm_eligible`); its plain version is JAX's convert formula,
-  exact products with float32 sums in another order. Hopper's fp8 tensor
-  cores do not accumulate in full float32, so the two differ by more than
-  the order of a float32 sum (`PERF.md`, the W8A8 rows).
+- `qbytes_fp8_mm` (e4m3fn x e4m3fn): JAX's convert formula (`:114-119`),
+  the dot JAX runs on every TPU generation before v6 (its native fp8 dot,
+  `:105-113`, only where `use_native_fp8_dot` names v6 or v7). Every e4m3fn
+  value is exact in bf16, so on a CUDA tensor both operands go to the bf16
+  tensor cores with float32 sums and a float32 output (`_fp8_dot`): the
+  products are exact and only the order of the float32 sums differs from the
+  plain version (both operands in float32, float32 sums). `torch._scaled_mm`
+  (Hopper's fp8 tensor cores) is not used: its sums are not float32's, one
+  product erred by 6e-4 to 1.8e-3 at |y| <~ 5 and 32 layers carried that to
+  a logits cosine of 0.94 (`PERF.md`, the W8A8 rows; `chip_smoke.py` times
+  it beside the route as a yardstick).
 - `qbytes_mm`, the dispatch of `qbytes_mm.py:87-119`: int8 x int8 and
   e4m3fn x e4m3fn as above; any other pair (fp8 x int8, other fp8 formats,
   a float x with an 8-bit weight outside the Hopper kernel's envelope) takes
@@ -31,7 +35,8 @@ x.scale * w.scale, float32 (the activation's scale is float32), so a W8A8
 linear returns float32, as JAX's does.
 
 `qbytes_int_mm.launches` and `qbytes_fp8_mm.launches` count the library
-calls made on a CUDA tensor, so that a run shows the W8A8 route it took.
+calls (`torch._int_mm`, the bf16 product of `_fp8_dot`) made on a CUDA
+tensor, so that a run shows the W8A8 route it took.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ import torch
 __all__ = [
     "INT_MM_MIN_M",
     "int_mm_eligible",
-    "scaled_mm_eligible",
     "qbytes_int_mm_plain",
     "qbytes_int_mm",
     "qbytes_fp8_mm_plain",
@@ -73,11 +77,6 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def int_mm_eligible(K: int, N: int) -> bool:
     """The shapes `torch._int_mm` takes on CUDA (rows padded to INT_MM_MIN_M)."""
     return K % 8 == 0 and N % 8 == 0
-
-
-def scaled_mm_eligible(K: int, N: int) -> bool:
-    """The shapes `torch._scaled_mm` takes on CUDA (rows padded to a multiple of 16)."""
-    return K % 16 == 0 and N % 16 == 0
 
 
 def _pad_rows(x2: torch.Tensor, m: int) -> torch.Tensor:
@@ -127,27 +126,27 @@ def qbytes_fp8_mm_plain(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x2.float() @ w.float().t()
 
 
+def _fp8_dot(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The card's product of `qbytes_fp8_mm`: JAX's convert formula with the
+    operands in bf16, which holds every e4m3fn value (NaN codes stay NaN), on
+    the tensor cores with float32 sums and output."""
+    return _dot_f32(x2.to(torch.bfloat16), w.to(torch.bfloat16))
+
+
 def qbytes_fp8_mm(activations: torch.Tensor, weights: torch.Tensor, output_scales: torch.Tensor) -> torch.Tensor:
     """e4m3fn activations [..., K] x e4m3fn weights [N, K] -> [..., N] in the
     scale's dtype: the product in float32, times the scale in float32, cast to
-    the scale's dtype (`quanto_tpu/ops/qbytes_mm.py:105-113`). On a CUDA
-    tensor inside `scaled_mm_eligible` the product is `torch._scaled_mm`
-    with unit scales (counted); elsewhere its plain version."""
+    the scale's dtype (`quanto_tpu/ops/qbytes_mm.py:114-119`). On a CUDA
+    tensor the product is `_fp8_dot` (counted); elsewhere its plain version."""
     lead = activations.shape[:-1]
     x2 = activations.reshape(-1, activations.shape[-1]).contiguous()
-    M, K = x2.shape
-    N = weights.shape[0]
-    if x2.is_cuda and scaled_mm_eligible(K, N):
-        one = torch.ones((), dtype=torch.float32, device=x2.device)
-        acc = torch._scaled_mm(
-            _pad_rows(x2, -(-M // 16) * 16), weights.t(), scale_a=one, scale_b=one,
-            out_dtype=torch.float32, use_fast_accum=False,
-        )[:M]
+    if x2.is_cuda:
+        acc = _fp8_dot(x2, weights)
         qbytes_fp8_mm.launches += 1
     else:
         acc = qbytes_fp8_mm_plain(x2, weights)
     out = acc * _row_scales(output_scales)
-    return out.to(output_scales.dtype).reshape(*lead, N)
+    return out.to(output_scales.dtype).reshape(*lead, weights.shape[0])
 
 
 qbytes_fp8_mm.launches = 0

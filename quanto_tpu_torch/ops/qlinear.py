@@ -8,8 +8,8 @@ PyTorch counterpart of `quanto_tpu/ops/qlinear.py:78-146`:
 - `WeightQBytesArray` w with an `ActivationQBytesArray` x (W8A8, `qlinear.py:
   87-96`): `ops/qbytes_mm.py:qbytes_mm` of the two payloads with the
   combined scale x.scale * w.scale in float32, so the output is float32 as
-  in JAX: int8 x int8 through `torch._int_mm`, e4m3fn x e4m3fn through
-  `torch._scaled_mm` on the card, other pairs through the convert formula;
+  in JAX: int8 x int8 through `torch._int_mm` on the card, any other pair
+  through JAX's convert formula (e4m3fn x e4m3fn on the bf16 tensor cores);
 - `WeightQBitsHopperArray` w (int4 or int2): with a qint8
   `ActivationQBytesArray` x the W4A8/W2A8 kernels (`qbits_int8_mm`, routed
   by M: `qbits_mm_int8_small_m` at M <= 512, `qbits_mm_tiled_int8` above);

@@ -16,9 +16,11 @@ Storage is JAX's, except for int4:
 - scales and shifts: float32 [B, S, Hkv, 1].
 
 Unlike JAX, which returns updated copies, `kv_update` writes into the cache
-tensors IN PLACE and returns the same cache object. Ring caches
+tensors IN PLACE and returns the same cache object. `cache_max_len`,
+`kv_update`, `slot_view` and `kv_read_raw` also take a paged layer
+(`tensor/paged_kv.py:PagedKVLayer`), as JAX's do. Ring caches
 (`kv_ring_update`, `ring_key_positions`, `quantize_kv_chunk`) wait for
-`models/sliding.py`.
+`models/sliding.py` (ROADMAP.md Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -62,7 +64,11 @@ class QKVCacheLayer:
 
 
 def cache_max_len(layer_cache) -> int:
-    """Sequence capacity of a layer cache (float tuple or quantized)."""
+    """Sequence capacity of a layer cache (float tuple, quantized, paged)."""
+    from .paged_kv import PagedKVLayer, paged_max_len
+
+    if isinstance(layer_cache, PagedKVLayer):
+        return paged_max_len(layer_cache)
     if isinstance(layer_cache, QKVCacheLayer):
         return layer_cache._k_data.shape[1]
     return layer_cache[0].shape[1]
@@ -171,13 +177,19 @@ def _quantize_slot(t: torch.Tensor, qt: qtype, asym: bool = False):
     return torch.clamp(data, qt.qmin, qt.qmax).to(qt.dtype), scale, shift
 
 
-def _update_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
-    """Write `new` [B, T, ...] into `cache` [B, S, ...] in place at sequence
-    offset `pos`: an int / 0-d tensor (shared) or a [B] tensor (per row).
-    float8 tensors are written through uint8 views of the same bytes."""
+def _scatter_view(cache: torch.Tensor, new: torch.Tensor):
+    """(cache, new) to index-write `new` into `cache`: `new` in the cache's
+    dtype, float8 tensors as uint8 views of the same bytes."""
     new = new.to(cache.dtype)
     if cache.element_size() == 1 and cache.is_floating_point():
-        cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+        return cache.view(torch.uint8), new.view(torch.uint8)
+    return cache, new
+
+
+def _update_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write `new` [B, T, ...] into `cache` [B, S, ...] in place at sequence
+    offset `pos`: an int / 0-d tensor (shared) or a [B] tensor (per row)."""
+    cache, new = _scatter_view(cache, new)
     B, T = new.shape[0], new.shape[1]
     if not torch.is_tensor(pos) or pos.dim() == 0:
         p = int(pos)
@@ -191,6 +203,10 @@ def _update_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
 def kv_update(layer_cache, k: torch.Tensor, v: torch.Tensor, pos):
     """Write new K/V ([B, T, Hkv, D]) at `pos` (scalar or per-row [B]), in
     place; a quantized cache quantizes them per slot first."""
+    from .paged_kv import PagedKVLayer, paged_update
+
+    if isinstance(layer_cache, PagedKVLayer):
+        return paged_update(layer_cache, k, v, pos)
     if isinstance(layer_cache, QKVCacheLayer):
         k_qt, v_qt, asym = parse_kv_spec(layer_cache.qtype_name)
         kd, ks, km = _quantize_slot(k, k_qt, asym)
@@ -210,10 +226,14 @@ def kv_update(layer_cache, k: torch.Tensor, v: torch.Tensor, pos):
 
 
 def slot_view(layer_cache, slot: int):
-    """One layer cache (float tuple or quantized) restricted to batch row
-    `slot`, as views of the same storage: `kv_update` on the view writes into
-    the pooled cache."""
+    """One layer cache restricted to batch row `slot`, as views of the same
+    storage: `kv_update` on the view writes into the pooled cache. A paged
+    layer keeps its pages and takes a view of table row `slot`."""
+    from .paged_kv import PagedKVLayer
+
     s = slice(slot, slot + 1)
+    if isinstance(layer_cache, PagedKVLayer):
+        return dataclasses.replace(layer_cache, _table=layer_cache._table[s])
     if isinstance(layer_cache, QKVCacheLayer):
         return dataclasses.replace(layer_cache, **{
             f.name: getattr(layer_cache, f.name)[s]
@@ -243,11 +263,16 @@ def kv_read(layer_cache, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return ck.to(dtype), cv.to(dtype)
 
 
-def kv_read_raw(layer_cache, dtype):
+def kv_read_raw(layer_cache, dtype, batch: Optional[int] = None):
     """(k, v, k_scale, v_scale, k_shift, v_shift): the codes (int4 unpacked)
     as `dtype` without the scale multiply, and the per-slot scales and shifts
     for attention to factor out of its contractions. Scales are None for a
-    float cache, shifts None for the symmetric specs."""
+    float cache, shifts None for the symmetric specs. For a paged cache,
+    `batch` selects table rows 0..batch-1 (the dense gathered view)."""
+    from .paged_kv import PagedKVLayer, paged_read_raw
+
+    if isinstance(layer_cache, PagedKVLayer):
+        return paged_read_raw(layer_cache, batch, dtype)
     if isinstance(layer_cache, QKVCacheLayer):
         c = layer_cache
         return (

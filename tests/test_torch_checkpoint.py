@@ -445,7 +445,7 @@ def test_config_json_both_ways(tmp_path, family):
 )
 def test_config_refuses_what_the_port_lacks(extra):
     hf = dict(LlamaConfig(**LLAMA31_8B).to_hf(), **extra)
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item [45]\)"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item [48]\)"):
         LlamaConfig.from_hf(hf)
 
 

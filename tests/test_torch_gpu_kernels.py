@@ -40,7 +40,12 @@ a cache without float32 payloads takes the tensor-core arm, the rest the
 CUDA-core arm), G in {1, 3, 6, 8, 12}; positions that leave most tiles empty
 (rows at 0, rows inside the first tile, one row at S - 1 beside rows at 0,
 the engine's three decode steps over 4352 slots) and 40 or 100 rows at random
-positions; each call one launch, two calls the same bits. Tolerances: float32 q within 1e-5 * max|ref| (float32 sums in
+positions; each call one launch, two calls the same bits. Its paged arm
+(`flash_decode_paged`) over caches of bf16, qint8, qint4, k8v4 and qint4a pages
+of 4, 16 and 64 slots behind a shuffled table, D 64 and 128, both q dtypes, and
+a bf16 pool past 2^31 bytes: one launch on its own counter, EQUAL to the dense
+arm on the pages gathered through the table (the same plan and sums), and
+within the dense tolerances of its plain version. Tolerances: float32 q within 1e-5 * max|ref| (float32 sums in
 another order, ex2.approx); bfloat16 q within 1e-2 * max|ref| and cosine > 1 -
 1e-4 (the same, p s_v rounded to bf16 inside the tensor-core product, the
 output rounded to bf16).
@@ -92,9 +97,10 @@ every 128-row tile edge (513 to 4097, 4064 included), N in {384, 1024, 1152,
 the tolerances above; two launches give the same bits; one launch counted a
 call; refused shapes raise on CUDA tensors.
 
-The W8A8 route (`ops/qbytes_mm.py`: `torch._int_mm`, `torch._scaled_mm`; no
-TPU kernel) at M in {1, 4, 16, 17, 64, 4096} against its plain formula (int8
-EQUAL, e4m3fn within the bf16 tolerances below); `qlinear` over weights
+The W8A8 route (`ops/qbytes_mm.py`: `torch._int_mm`, and for e4m3fn JAX's
+convert formula on bf16 operands with float32 sums; no TPU kernel) at M in
+{1, 4, 16, 17, 64, 4096} against its plain formula (int8 EQUAL, e4m3fn within
+1e-5 * max|ref|: exact products, float32 sums in another order); `qlinear` over weights
 zero-padded onto the envelope (SmolLM2-360M's and Qwen2.5-0.5B's linears,
 float and int8 x, M in {4, 600, 4096}) against the same call on the CPU;
 `flash_decode` at the small models' heads, (Hkv, G, D) = (5, 3, 64) and
@@ -114,7 +120,12 @@ import pytest
 import torch
 
 import quanto_tpu_torch as qtt
-from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+from quanto_tpu_torch.ops.cuda.flash_decode import (
+    flash_decode,
+    flash_decode_paged,
+    flash_decode_paged_plain,
+    flash_decode_plain,
+)
 from quanto_tpu_torch.ops.cuda import moe_mm as MM
 from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
@@ -136,6 +147,7 @@ from quanto_tpu_torch.ops.cuda.qbits_mm import (
 from quanto_tpu_torch.ops.cuda import qbits_mm_sharded as SH
 from quanto_tpu_torch.ops.collectives import TPGroup
 from quanto_tpu_torch.tensor import kv_cache as tkv
+from quanto_tpu_torch.tensor import paged_kv as tpk
 from quanto_tpu_torch.tensor.activations import ActivationQBytesArray
 from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray, shard_qbits
 
@@ -999,6 +1011,65 @@ def test_tiled_refusals(cuda_device):
     assert (qbits_mm_tiled.launches, qbits_mm_tiled_int8.launches) == before
 
 
+# (page size, slots a row, rows, spec, D): the paged arm's cases; positions at random below S.
+PAGED = {
+    "ps4_qint4": (4, 96, 3, "qint4", 128),
+    "ps16_bf16": (16, 1088, 4, None, 128),
+    "ps16_k8v4": (16, 1088, 4, "k8v4", 64),
+    "ps64_qint8": (64, 4352, 8, "qint8", 128),
+    "ps64_qint4a": (64, 768, 8, "qint4a", 128),
+}
+
+
+def check_flash_decode_paged(device, ps, S, B, spec, D, dtype, Hkv=2, spare=0, seed=0):
+    """A paged cache of B rows of S slots over a shuffled table (`spare` pages
+    before them), written by `kv_update`, and q: the paged arm one launch on
+    its counter, two calls the same bits, EQUAL to the dense arm on the
+    gathered pages, and within the dense tolerances of its plain version."""
+    P = S // ps
+    g = torch.Generator(device=device).manual_seed(seed)
+    layer = tpk.init_paged_kv_cache(1, 1 + spare + B * P, ps, B, P, Hkv, D, spec, torch.bfloat16, device)[0]
+    perm = torch.randperm(B * P, generator=torch.Generator().manual_seed(seed)) + 1 + spare
+    layer._table.copy_(perm.reshape(B, P).to(torch.int32))
+    k = torch.randn((B, S, Hkv, D), device=device, generator=g) * 2 + 0.5
+    tkv.kv_update(layer, k, torch.randn(k.shape, device=device, generator=g), 0)
+    q = torch.randn((B, Hkv, 4, D), device=device, generator=g).to(dtype)
+    pos = torch.randint(0, S, (B,), device=device, generator=g, dtype=torch.int32)
+    pos[0] = S - 1
+    c = layer
+    args = (q, c._k_pages, c._v_pages, c._k_scale, c._v_scale, c._table, pos)
+    kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+    before = (flash_decode_paged.launches, flash_decode.launches)
+    out = flash_decode_paged(*args, **kw)
+    assert (flash_decode_paged.launches, flash_decode.launches) == (before[0] + 1, before[1])
+    assert torch.equal(out, flash_decode_paged(*args, **kw))
+    kg, vg, ks, vs, km, vm = tpk.paged_gather(layer, B)
+    assert torch.equal(out, flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm))
+    torch.cuda.synchronize()
+    ref = flash_decode_paged_plain(*args, **kw).float()
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * ref.abs().max().item()
+    else:
+        assert err <= 1e-2 * ref.abs().max().item()
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0) > 1 - 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("case", list(PAGED))
+def test_flash_decode_paged_matches_dense(cuda_device, case, dtype):
+    ps, S, B, spec, D = PAGED[case]
+    check_flash_decode_paged(cuda_device, ps, S, B, spec, D, dtype, Hkv=8 if ps == 64 else 2)
+
+
+@pytest.mark.gpu
+def test_flash_decode_paged_pool_past_2gb(cuda_device):
+    """A bf16 pool of 16400 pages of 64 x 8 x 128 (2.15 GB each for K and
+    V), the rows' pages at its end: page offsets need 64 bits."""
+    check_flash_decode_paged(cuda_device, 64, 1024, 4, None, 128, torch.bfloat16, Hkv=8, spare=16336)
+
+
 # --- W8A8, the padded layout and the small models' attention heads -----------------------------
 
 
@@ -1007,12 +1078,13 @@ def test_tiled_refusals(cuda_device):
 @pytest.mark.parametrize("n,k", [(1024, 4096), (14336, 4096), (4096, 14336), (96, 200)])
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 4096])
 def test_w8a8_route_matches_plain(cuda_device, m, n, k, payload):
-    """The W8A8 route of `ops/qbytes_mm.py` (`torch._int_mm`, `torch._scaled_mm`,
-    rows padded to their least M) against its plain formula: int8 EQUAL (the
-    int32 sum is exact on both), e4m3fn within 1e-2 * max|ref| and cosine >
-    1 - 1e-4 (Hopper's fp8 tensor cores do not keep a full float32 sum). One
-    library call counted a call inside the envelope; none outside it (K = 200
-    takes no `_scaled_mm`, N = 96 and K = 200 do take `_int_mm`)."""
+    """The W8A8 route of `ops/qbytes_mm.py` (`torch._int_mm`, rows padded to
+    its least M; e4m3fn through `_fp8_dot`, JAX's convert formula on bf16
+    operands) against its plain formula: int8 EQUAL (the int32 sum is exact
+    on both), e4m3fn within 1e-5 * max|ref| (exact products, float32 sums in
+    another order). One library call counted a call inside the envelope;
+    none outside it (N = 96 and K = 200 do take `_int_mm`; e4m3fn has no
+    envelope)."""
     from quanto_tpu_torch.ops import qbytes_mm as W8A8
 
     qtype = qtt.qtypes[payload]
@@ -1024,7 +1096,7 @@ def test_w8a8_route_matches_plain(cuda_device, m, n, k, payload):
     scale = qx._scale * qw._scale.float()
     fn, plain, eligible = (
         (W8A8.qbytes_int_mm, W8A8.qbytes_int_mm_plain, W8A8.int_mm_eligible) if payload == "qint8"
-        else (W8A8.qbytes_fp8_mm, W8A8.qbytes_fp8_mm_plain, W8A8.scaled_mm_eligible)
+        else (W8A8.qbytes_fp8_mm, W8A8.qbytes_fp8_mm_plain, lambda k, n: True)
     )
     before = fn.launches
     out = W8A8.qbytes_mm(qx._data, qw._data, scale)
@@ -1032,10 +1104,10 @@ def test_w8a8_route_matches_plain(cuda_device, m, n, k, payload):
     assert fn.launches == before + eligible(k, n)
     assert out.shape == (2, m, n) and out.dtype == torch.float32
     ref = (plain(qx._data.reshape(-1, k), qw._data) * scale.t()).reshape(2, m, n)
-    if payload == "qint8" or not eligible(k, n):
+    if payload == "qint8":
         assert torch.equal(out, ref)
     else:
-        check_close(out, ref, None)
+        check_close(out, ref, 1e-5)
 
 
 @pytest.mark.gpu

@@ -22,6 +22,9 @@ match JAX's. `make_logits_warp`, which decides the distribution, is held
 against JAX's: values within float32 rounding, -inf masks identical.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from quanto_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from quanto_tpu.models.loading import hf_state_dict
 from quanto_tpu.models.sampling import make_logits_warp as jax_make_logits_warp
 from quanto_tpu.models.serving import BatchedEngine as JaxEngine
+from quanto_tpu.models.serving import PagedEngine as JaxPagedEngine
 from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from quanto_tpu_torch.models.loading import load_hf_state_dict
 from quanto_tpu_torch.models.sampling import greedy, make_logits_warp, make_sampler
@@ -48,28 +52,56 @@ V = CFG["vocab_size"]
 
 
 class JaxEngines:
-    """JAX engines by constructor arguments, an engine reused once it is
-    drained. jax.jit compiles each engine's programs anew (seconds each
-    here), and a drained engine is a fresh one but for the order of its free
-    slots and its cache's stale entries past each slot's position, which the
-    attention mask hides."""
+    """JAX engines, each reused once it is drained: jax.jit compiles each
+    engine's programs anew (seconds each here), and they depend only on the
+    arguments in SHAPES. A reused engine is given the host state a fresh one
+    starts from (slots, positions, requests, the sampler key; a paged
+    engine's table, free pages, prefix registry, preempted requests and
+    counters) and the other arguments it is asked for (`eos_token_id`, a
+    paged engine's `reserve` and `prefix_sharing`); its cache keeps stale
+    entries past each slot's position, which the attention mask hides.
+    `tests/test_torch_paged_kv.py` draws its engines from the same pool."""
+
+    SHAPES = ("max_batch", "max_len", "n_pages", "page_size", "prefill_chunk", "kv_quant")
 
     def __init__(self, model):
         self.model = model
         self.engines = {}
 
-    def __call__(self, **kw):
-        pool = self.engines.setdefault(tuple(sorted(kw.items())), [])
+    def __call__(self, cls=JaxEngine, **kw):
+        pool = self.engines.setdefault((cls, tuple(sorted((k, v) for k, v in kw.items() if k in self.SHAPES))), [])
         for e in pool:
             if not e._has_work() and len(e._free) == e.max_batch:
+                self.reset(e, kw)
                 return e
-        pool.append(JaxEngine(self.model, **kw))
+        pool.append(cls(self.model, **kw))
         return pool[-1]
 
+    @staticmethod
+    def reset(e, kw):
+        e._pos[:] = 0
+        e._last_tok[:] = 0
+        e._free = list(range(e.max_batch))
+        e._requests, e._by_slot, e._prefill_by_slot, e._queue = {}, {}, {}, []
+        e._next_rid = 0
+        e._key = jax.random.PRNGKey(0)
+        e.eos_token_id = kw.get("eos_token_id")
+        if isinstance(e, JaxPagedEngine):
+            e.reserve = kw.get("reserve", "prompt")
+            e.prefix_sharing = kw.get("prefix_sharing", True)
+            e._table[:] = 0
+            e._free_pages = list(range(1, e.n_pages))
+            e._slot_pages, e._prefix_pages, e._page_key, e._page_refs = {}, {}, {}, {}
+            e._prefix_lru, e._pending = [], []
+            e.prefix_hits = e.prefix_tokens_saved = e.preemptions = 0
+            e._cache = e._with_table(e._cache, e._table)
 
-@pytest.fixture(scope="module")
-def models():
-    """(JAX model, port model): the same float weights, qint8, lm_head float."""
+
+@functools.lru_cache(maxsize=None)
+def serving_models():
+    """(a pool of JAX engines over the JAX model, port model): the same float
+    weights, qint8, lm_head float; built once a process (the paged engine's
+    tests use them too)."""
     jax_model = JaxLlama(JaxLlamaConfig(**CFG, max_position_embeddings=64, dtype=jnp.float32), rngs=nnx.Rngs(0))
     state = {k: np.asarray(v) for k, v in hf_state_dict(jax_model).items()}
     qt.quantize(jax_model, weights="qint8", exclude="lm_head")
@@ -79,6 +111,11 @@ def models():
     qtt.quantize(port_model, weights="qint8", exclude="lm_head")
     qtt.freeze(port_model)
     return JaxEngines(jax_model), port_model
+
+
+@pytest.fixture(scope="module")
+def models():
+    return serving_models()
 
 
 def prompts(seed, lengths):

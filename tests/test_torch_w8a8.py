@@ -88,6 +88,38 @@ def test_fp8_formula_matches_jax(m):
     np.testing.assert_array_equal(bits_of(QB.qbytes_fp8_mm(x, w, s)), bits_of(out))
 
 
+def test_fp8_card_route_is_the_convert_formula(monkeypatch):
+    """On a CUDA tensor e4m3fn x e4m3fn takes `_fp8_dot`, JAX's convert
+    formula with the operands in bf16 (float32 sums), counted, and never
+    `torch._scaled_mm`: bf16 holds every e4m3fn value (NaN codes stay NaN),
+    `_fp8_dot` equals the plain float32 formula bit for bit on the CPU, and a
+    tensor that reports itself on the card is routed there."""
+    codes = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    f32, b16 = codes.float(), codes.to(torch.bfloat16).float()
+    assert torch.equal(f32.isnan(), b16.isnan()) and int(f32.isnan().sum()) == 2
+    assert torch.equal(f32[~f32.isnan()], b16[~b16.isnan()])
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn((17, 256), generator=g) * 40).to(torch.float8_e4m3fn)
+    w = (torch.randn((384, 256), generator=g) * 40).to(torch.float8_e4m3fn)
+    s = torch.rand((384, 1), generator=g) * 1e-3
+    plain = QB.qbytes_fp8_mm_plain(x, w)
+    np.testing.assert_array_equal(bits_of(QB._fp8_dot(x, w)), bits_of(plain))
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def scaled_mm(*args, **kw):
+        raise AssertionError("the e4m3fn route called torch._scaled_mm")
+
+    seen = []
+    monkeypatch.setattr(QB, "_fp8_dot", lambda a, b: seen.append(type(a)) or QB.qbytes_fp8_mm_plain(a, b))
+    monkeypatch.setattr(torch, "_scaled_mm", scaled_mm)
+    before = QB.qbytes_fp8_mm.launches
+    out = QB.qbytes_mm(x.as_subclass(OnCard), w.as_subclass(OnCard), s)
+    assert seen == [OnCard] and QB.qbytes_fp8_mm.launches == before + 1
+    np.testing.assert_array_equal(bits_of(out.as_subclass(torch.Tensor)), bits_of(plain * s.t()))
+
+
 def quantized_pairs(wq: str, xq: str, m: int):
     """(port x, port w, JAX x, JAX w): a seeded float weight [384, 256] and
     activation [m, 256] quantized alike in both packages."""
