@@ -19,6 +19,7 @@
                                                  # rows, phases 17-19 (W8A8, SmolLM2, Qwen2.5)
     python3 chip_smoke.py --only paged           # phases 1-2, phase 3's rows of the paged arm of
                                                  # flash_decode, phase 20 (PagedEngine)
+    python3 chip_smoke.py --only speculative     # phases 1-2 and 21 (speculative decoding)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -32,7 +33,8 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    dequantized bf16 weight. `flash_decode`: B = 4, Hkv = 8, G = 4, D = 128,
    bf16 q, caches bf16, qint8, qint4, k8v4 and qint4a of 1088 and 8192 slots,
    every slot visible, and float32 q (the CUDA-core arm) over the bf16 and
-   qint4 caches of 8192 slots; yardstick `scaled_dot_product_attention` (GQA,
+   qint4 caches of 8192 slots, and bf16 caches of phase 21's lengths (1094 and
+   1354 slots) with rows at ragged positions; yardstick `scaled_dot_product_attention` (GQA,
    boolean mask) on the cache dequantized to bf16; each row also gives the
    host's µs a call (`host_us`). Times are CUDA-event medians with the L2
    cache flushed before each launch, as the main path finds it.
@@ -47,7 +49,7 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    exact launch counts and prints prefill ms, decode ms/step, tok/s, peak
    memory, the cache's bytes and the step's byte bound.
    The 8-bit weight-only kernel (int8 and e4m3fn payloads, M in {1, 4, 8,
-   16, 32, 64, 128, 256}) and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
+   16, 20, 32, 64, 128, 256}) and the W4A8 kernels (int8 small-M at M in {4, 512}, int8 tiled at M in
    {513, 4096}) at the four linear shapes, bf16 x or output, yardstick
    `torch.matmul` on the operands dequantized to bf16 (the tiled int8 rows
    also `torch._int_mm` on the int8 codes, `int_mm_ms`). Every row of TPU #2
@@ -174,11 +176,12 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    (`check_requant_vs_exact`, phase 5's limits). Prints its seconds.
 3 (sweep). The two small-M kernels over the M they take: `qbits_mm_small_m`
    (bf16 x) and `qbits_mm_int8_small_m` (int8 x, bf16 output), int4 and int2
-   codes over random packed bytes, at M in {1, 4, 8, 16, 32, 64, 128, 256,
-   512} on 14336 x 4096 and 4096 x 14336 and at M in {1, 4} on the lm_head
-   (128256 x 4096), with phase 3's check; yardstick `torch.matmul` on the bf16
-   operands. The 8-bit weight-only kernel (TPU #6/#7) is swept the same
-   way: both payloads at M in {1, 4, 8, 16, 32, 64, 128, 256} on the four
+   codes over random packed bytes, at M in {1, 4, 8, 16, 20, 32, 64, 128,
+   256, 512} on 14336 x 4096 and 4096 x 14336, at M in {1, 4, 20} on the
+   lm_head (128256 x 4096) and at M = 20 on 4096 x 4096 and 1024 x 4096 (20:
+   phase 21's verify), with phase 3's check; yardstick `torch.matmul` on the
+   bf16 operands. The 8-bit weight-only kernel (TPU #6/#7) is swept the same
+   way: both payloads at M in {1, 4, 8, 16, 20, 32, 64, 128, 256} on the four
    linear shapes, each row with its bound's share.
 3 (#5). `qbits_mm_partitioned`'s rank-local product (`_local_mm`: the int4
    kernel on the rank's part, cast up to float32) at each tp = 2 shard of
@@ -294,6 +297,30 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    first token, decode ms/step beside its bytes, peak memory, the pool's KV
    bytes beside `BatchedEngine`'s 8 x 768 and the three counters.
 
+21. speculative decoding (`models/speculative.py`; run last) on phase 4's prompts, 64 new
+   tokens, k = 4 drafts a round: (a) the JAX package's speculative bench recipe with `--target
+   qint8`, built one after the other: a qint8 target (phase 6's recipe) and a qint4 draft of the
+   same float weights (phase 4's recipe, lm_head qint4); greedy `SpeculativeGenerator.generate`
+   with tokens EQUAL to the target's own `generate` (phase 6's run, timed) or a recorded tie
+   within SERVE_TOP1_GAP where a row parts. (c) the same pair by rejection sampling at
+   temperature 0.8, top-k 50, top-p 0.95 from a seeded generator (shape, ids, acceptance), and
+   `serve.decode` with that sampler on the target for 16 tokens: equal tokens from equal seeds.
+   (b) `layerskip_draft` of the qint4 model's first 8 layers (< 1 MB added on the card, its
+   weights the target's by data_ptr), greedy against the qint4 model's own `generate`. (d) the
+   qint8 target drafting for itself: acceptance >= 0.9, so rounds accept in full (the bonus token
+   and the draft's write at pos + k run at full width). Every greedy output is also held, token by
+   token, to one prefill of its target over it: the argmax or a tie within SERVE_TOP1_GAP, at
+   most SPEC_FORCED_TIES ties a row. For each, one call of R = 13 rounds from prefilled caches
+   is timed, and run again under
+   `torch.cuda.set_sync_debug_mode("error")` with exact launches (a: (k+1) x 225
+   `qbits_mm_small_m` and (k+1) x 32 `flash_decode` for the draft, 224 `qbytes_mm_int8` and no
+   `flash_decode` for the verify, a round; b: (k+1) x 57 + 225 `qbits_mm_small_m`, (k+1) x 8
+   `flash_decode`; d: (k+2) x 224 `qbytes_mm_int8`, (k+1) x 32 `flash_decode`) and the M of
+   every quantized linear's call (the draft's at B = 4, the verify's at B (k+1) = 20; phase 3
+   checks #1 and #6 at M = 20 and `flash_decode` over phase 21's caches). Prints acceptance,
+   tokens and ms per round, where a round's time goes (draft steps, the verify, its float32
+   attention chain), spec tok/s beside the target's own decode tok/s, and peak memory.
+
 `--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
 alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
 the W4A8 and `flash_decode` rows phase 10 reads); phase 4's qint4 prefill
@@ -313,12 +340,13 @@ another tree's checkout, each of these modes times that tree's kernels beside
 this one's in one call. `--only checkpoint` runs phases 1-2 and 16 alone.
 `--only numerics` runs phases 1-2, phase 3's numerics rows and phases 17-19.
 `--only paged` runs phases 1-2, phase 3's paged rows and phase 20 (with phase
-15's serial arm as its reference).
+15's serial arm as its reference). `--only speculative` runs phases 1-2 and 21.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -371,8 +399,9 @@ FD_F32_Q = ["bf16", "qint4"]  # caches of 8192 slots also read with float32 q (t
 # The kernels of this slice: their phase-3 M values at the four linear shapes (no lm_head:
 # the 8-bit and W4A8 arms exclude it), summary shapes, sources and the TPU kernels they replace.
 LINEAR_SHAPES = SHAPES[:4]
-# The 8-bit weight-only kernel (TPU #6/#7): every M it takes, both payloads (phase 3's sweep).
-QBYTES_SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 256)
+# The 8-bit weight-only kernel (TPU #6/#7): every M it takes, both payloads (phase 3's sweep); M = 20
+# is phase 21's verify, B (SPEC_K + 1), a partial M tile.
+QBYTES_SWEEP_M = (1, 4, 8, 16, 20, 32, 64, 128, 256)
 QBYTES_M = {"qbytes_mm_int8": QBYTES_SWEEP_M, "qbytes_mm_e4m3fn": QBYTES_SWEEP_M}
 W4A8_M = {"qbits_mm_int8_small_m": (4, 8, 512), "qbits_mm_tiled_int8": (513, 4096)}  # M = 8: phase 10's decode
 SUMMARY_SHAPE.update({
@@ -538,9 +567,11 @@ FD_ENGINE_POS = {
     "free": [0, 3200, 0, 3712, 0, 4224, 0, 3968],
 }
 # Phase 3's sweep of the two small-M kernels (#1 at bf16 x, #4 at int8 x and bf16 output) over the
-# M they take, at both code widths: the gate/up and down shapes at SWEEP_M, the lm_head at M = 1, 4.
-SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 256, 512)
-SWEEP_SHAPES = [((14336, 4096), SWEEP_M), ((4096, 14336), SWEEP_M), ((128256, 4096), (1, 4))]
+# M they take, at both code widths: the gate/up and down shapes at SWEEP_M, the lm_head at M = 1, 4,
+# and every linear shape at M = 20, phase 21's verify (B (SPEC_K + 1), a partial M tile).
+SWEEP_M = (1, 4, 8, 16, 20, 32, 64, 128, 256, 512)
+SWEEP_SHAPES = [((14336, 4096), SWEEP_M), ((4096, 14336), SWEEP_M), ((128256, 4096), (1, 4, 20)),
+                ((4096, 4096), (20,)), ((1024, 4096), (20,))]
 # Phase 15's first-token check: the engine's chunks (M = 64 or 512) and the standalone prefill
 # (M = the batched prompts' rows, 192-1024) take kernels whose float32 sums are ordered by their
 # M tiles and K splits, so a bf16 output moves by one step here and there and 32 random-weight
@@ -1168,13 +1199,14 @@ def phase_flash_decode(flush, heads=FD_HEADS):
     Hkv, G, D = heads
     g = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
-    # (cache, S, positions, the engine arm they stand for or None, q's dtype)
+    # (cache, S, positions, the engine arm or phase 21's caches they stand for or None, q's dtype)
     if heads != FD_HEADS:
         cases = [(kind, T + NEW, [T + NEW - 1] * B, None, torch.bfloat16) for kind in FD_NEW_CACHES]
     else:
         cases = [(kind, S, [S - 1] * B, None, torch.bfloat16) for S in FD_SLOTS for kind in FD_CACHES]
         cases += [(kind, FD_SLOTS[-1], [FD_SLOTS[-1] - 1] * B, None, torch.float32) for kind in FD_F32_Q]
         cases += [("bf16", ENGINE_MAX_LEN, p, arm, torch.bfloat16) for arm, p in FD_ENGINE_POS.items()]
+        cases += [("bf16", S, spec_positions(S), "speculative", torch.bfloat16) for S in spec_cache_lens()]
     for kind, S, positions, arm, q_dtype in cases:
         nb = len(positions)
         cache = fd_cache(kind, S, g, nb, heads)
@@ -1923,7 +1955,8 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
     if int(rest.min()) < 0 or int(rest.max()) >= config.vocab_size:
         raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
     if record is not None:
-        record.update(logits=logits.cpu(), tokens=torch.cat([first, rest], dim=1).cpu(), launches=launches)
+        record.update(logits=logits.cpu(), tokens=torch.cat([first, rest], dim=1).cpu(), launches=launches,
+                      decode_tok_s=B * steps / decode_s)
     weight_bytes, padded_bytes = step_weight_bytes(model), step_weight_bytes(model, padded=True)
     prefill_bound = {}
     if prefill_peak_ops is not None:
@@ -2345,11 +2378,11 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
     return counts
 
 
-def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None) -> list:
+def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None, max_len: int = SERVE_MAX_LEN) -> list:
     """Each request's tokens `got` against `want`: equal, or at the first
     index j where they part, the two tokens' logits within SERVE_TOP1_GAP of
     the largest |logit| of a standalone `prefill(last_only=True)` of the
-    prompt and want[:j] (over a cache of max_len SERVE_MAX_LEN, `kv_quant`).
+    prompt and want[:j] (over a cache of `max_len` slots, `kv_quant`).
     Returns the ties it accepted (each logged)."""
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
@@ -2362,11 +2395,11 @@ def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None) -> l
         j = next(j for j in range(len(b)) if a[j] != b[j])
         ctx = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
         ids = torch.tensor(ctx[None], device="cuda")
-        logits, _ = prefill(model, ids, make_cache(model, 1, SERVE_MAX_LEN, kv_quant=kv_quant), last_only=True)
+        logits, _ = prefill(model, ids, make_cache(model, 1, max_len, kv_quant=kv_quant), last_only=True)
         lv = logits[0, -1].float()
         gap = abs((lv[b[j]] - lv[a[j]]).item()) / lv.abs().max().item()
         ties.append({"request": i, "index": j, "want": b[j], "got": a[j], "relative_gap": gap})
-        log(json.dumps({"paged_token_tie": label, **ties[-1]}))
+        log(json.dumps({"token_tie": label, **ties[-1]}))
         if gap > SERVE_TOP1_GAP:
             raise RuntimeError(f"{label}: request {i}'s token {j} is {a[j]}, want {b[j]}, and no logit tie "
                                f"(relative gap {gap})")
@@ -4270,6 +4303,370 @@ def phase_qwen25() -> dict:
     return runs
 
 
+# Phase 21: speculative decoding (`models/speculative.py`) on phase 4's prompts (B = 4 x 1024, NEW
+# tokens, k = SPEC_K drafts a round). (a) The recipe of the JAX package's speculative bench
+# (bench/speculative_bench.py --target qint8): a qint8 target (phase 6's recipe, lm_head bf16) and a
+# qint4 draft of the same float weights (phase 4's recipe, lm_head qint4). (b) A layer-skip draft
+# (`layerskip_draft`) of the qint4 model's first SPEC_SKIP_LAYERS layers, the qint4 model the target.
+# (c) The pair of (a) by rejection sampling at SPEC_SAMPLE (temperature, top-k, top-p). (d) The
+# qint8 target as its own draft, so that rounds accept in full (the bonus token, the draft's write at
+# pos + k) at full width.
+SPEC_K, SPEC_SKIP_LAYERS = 4, 8
+SPEC_SAMPLE = (0.8, 50, 0.95)
+SPEC_DECODE_NEW = 16  # (c): `serve.decode` with the sampler, twice from equal seeds
+SPEC_SKIP_BYTES = 1 << 20  # (b): the layer-skip draft adds less than this on the card
+# (d): the least acceptance of the target drafting for itself. Its [B, 1] draft steps and its
+# [B, k+1] verify sum in other orders (M = 4 against 20, `flash_decode` against the f32 chain), and
+# bf16 logits of random weights flip the argmax at about 1 token in 10 between them, so a round
+# stops early that often: 0.762 read (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The limit
+# is 0.85x that reading; a draft cache missing its write at pos + k, or a match against shifted
+# predictions, drafts at another position's numerics and accepts far less.
+SPEC_SELF_ACCEPTANCE = 0.65
+# Greedy output held to one prefill of the target over it (`check_forced_argmax`): a row may hold
+# at most this many of its NEW tokens that are not that prefill's argmax, each a tie within
+# SERVE_TOP1_GAP. The prefill sums in other orders than the verify (M = B T against B (k+1)), so a
+# right round parts at such ties: 3-8 a row read in (a), (b) and (d), gaps up to 0.026 (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6). The limit is 1.5x the largest; a verify that took a wrong
+# draft or the correction from another position parts at most of its tokens.
+SPEC_FORCED_TIES = 12
+
+
+def spec_rounds_per_call() -> int:
+    """`SpeculativeGenerator.generate`'s R (rounds a call) for NEW tokens."""
+    return max(1, -(-NEW // (SPEC_K + 1)))
+
+
+def spec_cache_lens() -> tuple:
+    """Phase 21's cache lengths: one call of R rounds from a prefill
+    (`spec_rounds`), and `SpeculativeGenerator.generate`'s worst-case bound
+    for NEW tokens."""
+    R = spec_rounds_per_call()
+    return T + 1 + SPEC_K + R * (SPEC_K + 1), T + 1 + SPEC_K + -(-(NEW - 1) // R) * R * (SPEC_K + 1)
+
+
+def spec_positions(S: int) -> list:
+    """B rows spread from the first decode position T to the last of S
+    slots: rows that have accepted different amounts."""
+    return [T + (S - 1 - T) * i // (B - 1) for i in range(B)]
+
+
+def linear_calls(models):
+    """A forward pre-hook on every quantized linear of `models` (a module
+    shared by two models once) counting its calls by M. Returns (the
+    counter, the hooks)."""
+    from quanto_tpu_torch.nn import QLinear
+
+    seen = collections.Counter()
+    mods = {id(m): m for model in models for m in model.modules() if isinstance(m, QLinear)}
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.update([args[0].numel() // args[0].shape[-1]]))
+             for m in mods.values()]
+    return seen, hooks
+
+
+def wall_ms(fn, n: int = 5) -> float:
+    """Median wall ms of `fn()` between synchronizations."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+@torch.no_grad()
+def spec_rounds(label: str, spec, target, draft, ids, rounds: int, want: dict, want_m: dict, extra=tuple) -> dict:
+    """Phase 21: prefill `ids` into both models' caches (each prefill
+    timed), then one call of `spec` (R = `rounds` rounds) timed between
+    synchronizations, then the same call again under
+    `torch.cuda.set_sync_debug_mode("error")` with every kernel's launches
+    and the M of every quantized linear's call counted: held to `want` and
+    `want_m`, 0 elsewhere. `extra()` gives a call's trailing arguments (a
+    sampler's generator). Then where a round's time goes: a draft forward
+    and the verify forward (median wall ms between synchronizations), and
+    the verify's float32 attention chain (`gqa_attention`, its CUDA-event
+    spans summed over the layers). Returns the readings."""
+    from quanto_tpu_torch.models import llama as llama_mod
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    cache_len = spec_cache_lens()[0]
+    t_cache, d_cache = make_cache(target, B, cache_len), make_cache(draft, B, cache_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, t_cache = prefill(target, ids, t_cache, last_only=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, d_cache = prefill(draft, ids, d_cache, last_only=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+    spec(first, t_cache, d_cache, T, *extra())
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t2
+    args = extra()
+    seen, hooks = linear_calls((target, draft))
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blocks, counts, _, _, pos = spec(first, t_cache, d_cache, T, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    zeros = {n: 0 for n in launches}
+    if launches != {**zeros, **want}:
+        raise RuntimeError(f"{label}: launches of {rounds} rounds {launches}, want {want} and 0 elsewhere")
+    if dict(seen) != want_m:
+        raise RuntimeError(f"{label}: quantized linear calls by M {dict(seen)}, want {want_m}")
+    if blocks.shape != (B, rounds, SPEC_K + 1) or int(blocks.min()) < 0 or int(blocks.max()) >= target.config.vocab_size:
+        raise RuntimeError(f"{label}: blocks of shape {tuple(blocks.shape)} or ids out of the vocabulary")
+    if not torch.equal(pos, T + counts.sum(dim=1).to(torch.int32)):
+        raise RuntimeError(f"{label}: positions {pos.tolist()} are not the start plus the emitted counts")
+
+    # Where a round's time goes: a draft step, the verify, and the verify's attention chain.
+    pos_t = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    seq = first.expand(B, SPEC_K + 1).contiguous()
+    draft_ms = wall_ms(lambda: draft(first, d_cache, pos_t))
+    verify_ms = wall_ms(lambda: target(seq, t_cache, pos_t))
+    spans = []
+    chain = llama_mod.gqa_attention
+
+    def timed_chain(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = chain(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    llama_mod.gqa_attention = timed_chain
+    try:
+        target(seq, t_cache, pos_t)
+    finally:
+        llama_mod.gqa_attention = chain
+    torch.cuda.synchronize()
+    attention_ms = sum(a.elapsed_time(b) for a, b in spans)
+    if len(spans) != target.config.num_hidden_layers:
+        raise RuntimeError(f"{label}: the verify ran the attention chain {len(spans)} times")
+    ms_per_round = call_s / rounds * 1e3
+    return {
+        "target_prefill_ms": (t1 - t0) * 1e3, "draft_prefill_ms": (t2 - t1) * 1e3,
+        "rounds_per_call": rounds, "ms_per_round": ms_per_round,
+        "tokens_per_round_checked_call": float(counts.float().mean()),
+        "full_rounds_checked_call": int((counts == SPEC_K + 1).sum()),
+        "launches_per_call": {n: c for n, c in launches.items() if c},
+        "linear_calls_by_m": {str(m): c for m, c in sorted(seen.items())},
+        "round_split": {
+            "draft_step_ms": draft_ms, "draft_steps_ms": (SPEC_K + 1) * draft_ms, "verify_ms": verify_ms,
+            "verify_attention_chain_ms": attention_ms,
+            "draft_steps_share": (SPEC_K + 1) * draft_ms / ((SPEC_K + 1) * draft_ms + verify_ms),
+            "note": "each part alone, wall ms between synchronizations (in a round host and card overlap, so "
+                    "the parts sum to more than ms_per_round); the attention chain: CUDA-event spans of "
+                    "gqa_attention in one verify",
+        },
+        "no_host_sync": True,
+        "launches": launches,
+    }
+
+
+@torch.no_grad()
+def check_forced_argmax(label: str, model, out: torch.Tensor) -> list:
+    """Phase 21: the emitted tokens out[:, T:] against the argmax of one
+    prefill of `model` over out[:, :-1], each token's target given the
+    emitted prefix. Where the two differ, their logits must lie within
+    SERVE_TOP1_GAP of the position's largest |logit|, and a row may hold at
+    most SPEC_FORCED_TIES of them. Returns the ties (each logged)."""
+    from quanto_tpu_torch.models.serve import make_cache, prefill
+
+    logits, _ = prefill(model, out[:, :-1], make_cache(model, B, out.shape[1]))
+    lv = logits[:, T - 1:].float()  # [B, NEW, V]: the logits each emitted token answers
+    del logits
+    want = lv.argmax(dim=-1)
+    ties = []
+    for b, j in (want != out[:, T:]).nonzero().tolist():
+        w, g = int(want[b, j]), int(out[b, T + j])
+        gap = (lv[b, j, w] - lv[b, j, g]).item() / lv[b, j].abs().max().item()
+        ties.append({"request": b, "index": j, "want": w, "got": g, "relative_gap": gap})
+        log(json.dumps({"forced_token_tie": label, **ties[-1]}))
+    per_row = collections.Counter(t["request"] for t in ties)
+    worst = max(ties, key=lambda t: t["relative_gap"], default=None)
+    if worst is not None and worst["relative_gap"] > SERVE_TOP1_GAP:
+        raise RuntimeError(f"{label}: request {worst['request']}'s token {worst['index']} is {worst['got']}, the "
+                           f"target's prefill gives {worst['want']}, and no logit tie ({worst['relative_gap']})")
+    if per_row and max(per_row.values()) > SPEC_FORCED_TIES:
+        raise RuntimeError(f"{label}: tokens that are not the target's prefill argmax per request {dict(per_row)}, "
+                           f"more than {SPEC_FORCED_TIES}")
+    return ties
+
+
+@torch.no_grad()
+def spec_generate(label: str, gen, model, ids, want_tokens: torch.Tensor, greedy_mode: bool, **kwargs) -> dict:
+    """Phase 21: `gen.generate(ids, NEW)` timed, its shape, ids and
+    acceptance checked; in greedy mode its tokens held to `want_tokens` (the
+    target's own `generate`), EQUAL or a recorded tie within SERVE_TOP1_GAP
+    at the first index where a row parts (`check_same_tokens` over the
+    target `model`), and every token to the target's prefill over the
+    output (`check_forced_argmax`). Returns the readings."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, acceptance = gen.generate(ids, NEW, **kwargs)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (B, T + NEW) or int(out.min()) < 0 or int(out.max()) >= model.config.vocab_size:
+        raise RuntimeError(f"{label}: ids of shape {tuple(out.shape)} or out of the vocabulary")
+    if not torch.equal(out[:, :T], ids) or not 0.0 <= acceptance <= 1.0:
+        raise RuntimeError(f"{label}: the prompt not kept, or acceptance {acceptance} outside [0, 1]")
+    ties, forced = [], []
+    if greedy_mode:
+        ties = check_same_tokens(label, model, ids.cpu().numpy(), out[:, T:].tolist(), want_tokens.tolist(),
+                                 max_len=T + NEW)
+        forced = check_forced_argmax(label, model, out)
+    return {"acceptance": acceptance, "tokens_per_round": 1 + SPEC_K * acceptance, "generate_s": generate_s,
+            "peak_memory_gb": peak / 1e9, "ties": ties, "forced": forced, "tokens": out[:, T:].cpu()}
+
+
+def phase_speculative(config, ids) -> dict:
+    """Phase 21 (see the module docstring). Returns each arm's launches of
+    one checked call of R rounds."""
+    from quanto_tpu_torch.models.sampling import greedy, make_logits_warp, make_sampler
+    from quanto_tpu_torch.models.serve import decode, make_cache, prefill
+    from quanto_tpu_torch.models.speculative import (
+        SpeculativeGenerator,
+        layerskip_draft,
+        make_speculative_decode_fn,
+        make_speculative_sample_decode_fn,
+    )
+
+    t_start = time.perf_counter()
+    L, k = config.num_hidden_layers, SPEC_K
+    n_lin, steps, skip = LINEARS_PER_LAYER * L, NEW - 1, SPEC_SKIP_LAYERS
+    rounds = spec_rounds_per_call()
+    fd_decode = {"flash_decode": L * steps}
+    out = {}
+
+    def report(arm: str, what: str, target, draft, gen: dict, rnd: dict, target_rate: float, **more) -> None:
+        """One JSON line of readings; the round's limit is the weight bytes of its k+1 draft steps
+        and its verify at 3.35 TB/s."""
+        spec_s = gen["generate_s"] - (rnd["target_prefill_ms"] + rnd["draft_prefill_ms"]) / 1e3
+        round_bytes = (k + 1) * step_weight_bytes(draft) + step_weight_bytes(target)
+        log(json.dumps({
+            "speculative": f"21({arm}) {what}", "batch": B, "prompt": T, "new_tokens": NEW, "k": k,
+            "round_weight_bytes": round_bytes, "round_bound_ms": round_bytes / PEAK_BYTES_PER_S * 1e3,
+            **{key: v for key, v in gen.items() if key not in ("ties", "forced", "tokens")},
+            "token_ties": len(gen["ties"]),
+            "forced_ties_per_request": [sum(t["request"] == b for t in gen["forced"]) for b in range(B)],
+            "spec_decode_tok_s": B * steps / spec_s, "target_decode_tok_s": target_rate,
+            **{key: v for key, v in rnd.items() if key != "launches"}, **more,
+        }))
+        out[arm] = rnd["launches"]
+
+    # (a) The qint8 target and the qint4 draft, greedy.
+    target, _ = build_model(config, seed=0, weights="qint8", exclude="lm_head")
+    ref = {}
+    phase_arm("spec target: llama-3.1-8b-config qint8 (lm_head bf16), bf16 cache (phase 21)", target, ids,
+              want_prefill={}, want_decode={"qbytes_mm_int8": n_lin * steps, **fd_decode}, record=ref)
+    draft, _ = build_model(config, seed=0)
+    pair_want = {"qbits_mm_small_m": rounds * (k + 1) * (n_lin + 1), "qbytes_mm_int8": rounds * n_lin,
+                 "flash_decode": rounds * (k + 1) * L}
+    pair_m = {B: rounds * (k + 1) * (n_lin + 1), B * (k + 1): rounds * n_lin}
+    gen = spec_generate("phase 21(a)", SpeculativeGenerator(target, draft, k), target, ids, ref["tokens"], True)
+    rnd = spec_rounds("phase 21(a)", make_speculative_decode_fn(target, draft, rounds, k), target, draft, ids,
+                      rounds, pair_want, pair_m)
+    report("a", "qint8 target, qint4 draft (lm_head qint4), greedy", target, draft, gen, rnd, ref["decode_tok_s"])
+    pair_tokens = gen["tokens"]
+
+    # (d) The qint8 target as its own draft: rounds that accept every draft. Greedy output does not
+    # depend on the draft: every emitted token is the argmax of a verify row, and a row's sums do not
+    # depend on the other rows of its call, so (d) is EQUAL to (a) token for token.
+    gen = spec_generate("phase 21(d)", SpeculativeGenerator(target, target, k), target, ids, ref["tokens"], True)
+    rnd = spec_rounds("phase 21(d)", make_speculative_decode_fn(target, target, rounds, k), target, target, ids,
+                      rounds, {"qbytes_mm_int8": rounds * (k + 2) * n_lin, "flash_decode": rounds * (k + 1) * L},
+                      {B: rounds * (k + 1) * n_lin, B * (k + 1): rounds * n_lin})
+    report("d", "qint8 target drafting for itself, greedy", target, target, gen, rnd, ref["decode_tok_s"])
+    if gen["acceptance"] < SPEC_SELF_ACCEPTANCE or rnd["full_rounds_checked_call"] == 0:
+        raise RuntimeError(f"phase 21(d): acceptance {gen['acceptance']} below {SPEC_SELF_ACCEPTANCE}, or no round "
+                           "of the checked call accepted every draft")
+    if not torch.equal(gen["tokens"], pair_tokens):
+        raise RuntimeError("phase 21(d): the self-drafted tokens are not (a)'s: the greedy output moved with the draft")
+
+    # (c) The same pair by rejection sampling, then the target's sampled decode.
+    warp = make_logits_warp(*SPEC_SAMPLE)
+    gen = spec_generate("phase 21(c)", SpeculativeGenerator(target, draft, k, *SPEC_SAMPLE), target, ids, None,
+                        False, generator=torch.Generator("cuda").manual_seed(21))
+    rnd = spec_rounds("phase 21(c)", make_speculative_sample_decode_fn(target, draft, rounds, k, warp), target,
+                      draft, ids, rounds, pair_want, pair_m,
+                      extra=lambda: (torch.Generator("cuda").manual_seed(22),))
+    runs = []
+    for _ in range(2):
+        cache = make_cache(target, B, T + 1 + SPEC_DECODE_NEW)
+        logits, cache = prefill(target, ids, cache, last_only=True)
+        first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+        toks, _ = decode(target, first, cache, T, SPEC_DECODE_NEW, sample_fn=make_sampler(*SPEC_SAMPLE),
+                         generator=torch.Generator("cuda").manual_seed(23))
+        runs.append(toks)
+    if not torch.equal(runs[0], runs[1]) or int(runs[0].min()) < 0 or int(runs[0].max()) >= config.vocab_size:
+        raise RuntimeError("phase 21(c): serve.decode with a sampler gave other tokens from equal seeds, or ids "
+                           "out of the vocabulary")
+    report("c", f"qint8 target, qint4 draft, sampled (temperature, top_k, top_p) = {SPEC_SAMPLE}", target, draft,
+           gen, rnd, ref["decode_tok_s"], sampled_decode_repeats=True)
+    del target, gen, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) A layer-skip draft of the qint4 model, which is the target.
+    target = draft
+    ref = {}
+    phase_arm("spec target: llama-3.1-8b-config qint4+head4, bf16 cache (phase 21)", target, ids,
+              want_prefill={"qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1},
+              want_decode={"qbits_mm_small_m": (n_lin + 1) * steps, **fd_decode}, record=ref)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    draft = layerskip_draft(target, skip)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    if added >= SPEC_SKIP_BYTES:
+        raise RuntimeError(f"phase 21(b): the layer-skip draft added {added} bytes on the card")
+    shared = (draft.model.layers[skip - 1].mlp.down_proj.weight._packed.data_ptr()
+              == target.model.layers[skip - 1].mlp.down_proj.weight._packed.data_ptr()
+              and draft.lm_head.weight._packed.data_ptr() == target.lm_head.weight._packed.data_ptr())
+    if not shared or len(draft.model.layers) != skip or len(make_cache(draft, 1, 1)) != skip:
+        raise RuntimeError("phase 21(b): the layer-skip draft does not share the target's weights or depth")
+    n_skip = LINEARS_PER_LAYER * skip + 1
+    gen = spec_generate("phase 21(b)", SpeculativeGenerator(target, draft, k), target, ids, ref["tokens"], True)
+    rnd = spec_rounds("phase 21(b)", make_speculative_decode_fn(target, draft, rounds, k), target, draft, ids,
+                      rounds, {"qbits_mm_small_m": rounds * ((k + 1) * n_skip + n_lin + 1),
+                               "flash_decode": rounds * (k + 1) * skip},
+                      {B: rounds * (k + 1) * n_skip, B * (k + 1): rounds * (n_lin + 1)})
+    report("b", f"qint4 target, layer-skip draft of its first {skip} layers, greedy", target, draft, gen, rnd,
+           ref["decode_tok_s"], draft_added_bytes=added)
+    del target, draft, gen, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"speculative: phase 21 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def only_speculative(card: str) -> int:
+    """`--only speculative`: phase 21 alone (after phases 1-2)."""
+    from quanto_tpu_torch.models.llama import LlamaConfig
+
+    ids = torch.randint(
+        0, LLAMA31_8B["vocab_size"], (B, T), generator=torch.Generator().manual_seed(7)
+    ).cuda()
+    phase_speculative(LlamaConfig(**LLAMA31_8B, dtype=torch.bfloat16), ids)
+    log(card)
+    log(json.dumps({"ok": True, "only": "speculative", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phases_numerics() -> dict:
     """Phases 17, 18 and 19. Returns {run label: launch counts}."""
     from quanto_tpu_torch.models.llama import LlamaConfig
@@ -4565,9 +4962,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged"):
-        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics or "
-              f"paged, got {only}", file=sys.stderr)
+    if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged",
+                    "speculative"):
+        print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics, "
+              f"paged or speculative, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -4597,6 +4995,8 @@ def main() -> int:
         return only_numerics(K_mod, card)
     if only == "paged":
         return only_paged(card)
+    if only == "speculative":
+        return only_speculative(card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -4747,6 +5147,11 @@ def main() -> int:
     # Phases 17-19: W8A8 Llama-3.1-8B, SmolLM2-360M (HQQ, W4A8, QAT; padded), Qwen2.5-0.5B.
     numerics = phases_numerics()
 
+    # Phase 21: speculative decoding (greedy and sampled, a qint4 draft and a layer-skip draft).
+    gc.collect()
+    torch.cuda.empty_cache()
+    speculative = phase_speculative(config, ids)
+
     # Where each kernel's `launches` in the summary comes from: the long-context run for the
     # int4 and flash-decode kernels, the phase-6/7 runs for the 8-bit and W4A8 kernels, phase
     # 8's B = 4 run for the MoE kernels; e4m3fn runs in phase 5 only.
@@ -4818,6 +5223,9 @@ def main() -> int:
         phases17_19 = {label: c[name] for label, c in numerics.items() if c.get(name)}
         if phases17_19:
             extra["launches_phases_17_19"] = phases17_19
+        phase21 = {arm: c[name] for arm, c in speculative.items() if c.get(name)}
+        if phase21:
+            extra["launches_phase21"] = phase21
         if name == "flash_decode_paged":
             extra = {"launches_phase20c": launches_paged["c"][name], "dense_ms": rep["dense_ms"],
                      "gather_dense_ms": rep["gather_dense_ms"]}

@@ -15,13 +15,23 @@ from typing import Callable, Optional
 import torch
 
 
-__all__ = ["greedy", "make_logits_warp", "make_sampler"]
+__all__ = ["categorical", "greedy", "make_logits_warp", "make_sampler"]
 
 
 def greedy(logits: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """argmax over the vocab (logits [..., V] -> ids [...]); `generator` is
     accepted and ignored, so greedy plugs in wherever a sampler does."""
     return torch.argmax(logits, dim=-1)
+
+
+def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw from softmax(logits) per row (logits [..., V] -> ids [...]) by
+    the Gumbel-max rule, as `jax.random.categorical` draws:
+    argmax(logits + g), g = -log(-log(u)) with u uniform in [0, 1) from
+    `generator` (u = 0 gives g = -inf, never +inf or NaN). A logit of -inf
+    (a masked token, log(0)) is never drawn."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def make_logits_warp(
@@ -61,17 +71,14 @@ def make_sampler(
 ) -> Callable:
     """Categorical sampler with temperature / top-k / nucleus filtering:
     fn(logits [..., V], generator) -> ids [...]. With temperature == 0 it is
-    `greedy`. It draws by the Gumbel-max rule, as `jax.random.categorical`
-    does: argmax(warp(logits) + g), g = -log(-log(u)) with u uniform in
-    [0, 1) from `generator` (u = 0 gives g = -inf, never +inf or NaN)."""
+    `greedy`. It draws `categorical(warp(logits), generator)`: the Gumbel-max
+    rule, as `jax.random.categorical` draws."""
     if temperature == 0.0:
         return greedy
 
     warp = make_logits_warp(temperature, top_k, top_p)
 
     def sample(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        w = warp(logits)
-        u = torch.rand(w.shape, generator=generator, device=w.device)
-        return torch.argmax(w - torch.log(-torch.log(u)), dim=-1)
+        return categorical(warp(logits), generator)
 
     return sample

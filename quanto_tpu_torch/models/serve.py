@@ -1,8 +1,10 @@
-"""Serving helpers: prefill, a greedy decode loop, and `generate`.
+"""Serving helpers: prefill, a decode loop (greedy or sampled), and `generate`.
 
 Counterpart of `quanto_tpu/models/serve.py`. JAX compiles a prefill program
 and a `lax.scan` decode program; PyTorch runs eagerly, so `decode` is a
 Python loop of one forward per token (CUDA graphs are for a later slice).
+Its sampler takes a `torch.Generator` where JAX's takes a PRNG key
+(`sampling.py`), so sampled tokens follow JAX's distribution, not its draws.
 Under tensor parallelism every rank runs these functions unchanged on its
 shards; the logits are gathered on every rank, so each rank's tokens are the
 same.
@@ -46,15 +48,29 @@ def prefill(model, ids: torch.Tensor, cache, last_only: bool = False):
     return model(ids, cache, 0)
 
 
+def _default_generator(device, pos0) -> torch.Generator:
+    """The generator of a sampled `decode` called without one: seeded with the
+    sum of the start positions, where JAX folds `PRNGKey(0)` with it
+    (`serve.py:74-80`), so chunked calls do not replay the same draws."""
+    start = int(pos0.sum()) if torch.is_tensor(pos0) else int(pos0)
+    return torch.Generator(device=device).manual_seed(start)
+
+
 @torch.no_grad()
-def decode(model, tok: torch.Tensor, cache, pos0, n_tokens: int):
-    """Greedy-decode `n_tokens` from `tok` [B, 1] at position `pos0` (int or
-    [B]): one forward per token. Returns (tokens [B, n_tokens], cache)."""
+def decode(model, tok: torch.Tensor, cache, pos0, n_tokens: int, sample_fn=None, generator=None):
+    """Decode `n_tokens` from `tok` [B, 1] at position `pos0` (int or [B]):
+    one forward per token, each next token `sample_fn(logits [B, V],
+    generator)` (`sampling.py`; greedy by default). A sampler given no
+    `generator` draws from one on the logits' device seeded by the sum of
+    `pos0` (`_default_generator`). Returns (tokens [B, n_tokens], cache)."""
+    sampler = sample_fn or greedy
+    if generator is None and sampler is not greedy:
+        generator = _default_generator(tok.device, pos0)
     out = []
     pos = pos0
     for _ in range(n_tokens):
         logits, cache = model(tok, cache, pos)
-        tok = greedy(logits[:, -1]).to(tok.dtype)[:, None]
+        tok = sampler(logits[:, -1], generator).to(tok.dtype)[:, None]
         out.append(tok)
         pos = pos + 1
     if not out:
