@@ -20,6 +20,8 @@
     python3 chip_smoke.py --only paged           # phases 1-2, phase 3's rows of the paged arm of
                                                  # flash_decode, phase 20 (PagedEngine)
     python3 chip_smoke.py --only speculative     # phases 1-2 and 21 (speculative decoding)
+    python3 chip_smoke.py --only gemma           # phases 1-2, phase 3's flash_prefill and D = 256
+                                                 # flash_decode rows, phase 22 (Gemma-7B)
 
 Phases (each raises on failure; the script exits 0 only when all pass):
 1. device: a CUDA card must be present; prints `nvidia-smi` name and power limit.
@@ -341,6 +343,34 @@ this one's in one call. `--only checkpoint` runs phases 1-2 and 16 alone.
 `--only numerics` runs phases 1-2, phase 3's numerics rows and phases 17-19.
 `--only paged` runs phases 1-2, phase 3's paged rows and phase 20 (with phase
 15's serial arm as its reference). `--only speculative` runs phases 1-2 and 21.
+`--only gemma` runs phases 1-2, phase 3's `flash_prefill` rows and `flash_decode`
+rows at D = 256, and phase 22.
+
+3 (prefill). `flash_prefill` (TPU #16, the causal prefill over the raw K/V that
+every prefill from position 0 inside JAX's envelope takes: phases 4-8, 11-17,
+21 and 22 at T = 1024, phase 8 at 16 x 256; a cache-less T > 1 forward too)
+against its plain version at B = 4, T = 1024: Llama-3.1-8B's heads (8 x 4 of
+128), Gemma-7B's (16 x 1 of 256) and Gemma-2B's (1 x 8 of 256) in bf16, a
+softcap of 50 at Gemma-7B's, float32 at Llama's (FP_ROWS), within FP_BF16_ERR
+and FP_BF16_COS (bf16) or FP_F32_ERR; timed beside its bound (2 B H T^2 D at
+989 TFLOP/s), its plain version and `scaled_dot_product_attention(is_causal=
+True)`, the yardstick. `flash_decode` at Gemma-7B's heads (16 x 1 of 256) over
+every cache type of phase 22's 1088 slots, and its paged arm over bf16 and
+qint4 pages of 64 (768 slots a row), as the D = 128 rows. Every phase's exact
+prefill counts include `flash_prefill`'s, one a layer (`prefill_attention_want`).
+22. Gemma-7B (google/gemma-7b config.json through `LlamaConfig.from_hf`: 28
+   layers, hidden 3072, 16 heads and 16 kv heads of 256, intermediate 24576,
+   vocab 256000, tied embeddings scaled by sqrt(3072), the unit-offset RMSNorm,
+   the tanh GELU, rope theta 10000) at full depth and width, random weights
+   from a seed, built on "meta" and quantized to qint4 (group size 128) a
+   layer at a time; the tied embedding (the head) bf16. B = 4 x 1024 prompts:
+   prefill and 63 greedy decode steps over a bf16 cache, then over a qint4
+   cache, each after a warm-up, with exact launches (196 `qbits_mm_tiled` and
+   28 `flash_prefill` a prefill; 196 `qbits_mm_small_m` and 28 `flash_decode`
+   at D = 256 a step); the same model through the plain versions: prefill
+   logits within GEMMA_E2E_COS, tokens equal or parting at a logit tie within
+   SERVE_TOP1_GAP. Prints prefill ms, decode ms/step and peak memory beside
+   their bounds. Runs before phase 21.
 
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.
@@ -637,6 +667,54 @@ QWEN25_05B = dict(
     use_sliding_window=False,
     hidden_act="silu",
 )
+# TPU #16, `flash_prefill` (phase 3): the causal prefill over the raw K/V at B = 4, T = 1024, per
+# model heads (Hkv, G, D); the softcap row at Gemma-7B's heads, the float32 row at Llama-3.1-8B's.
+FP_HEADS = {"llama-3.1-8b": (8, 4, 128), "gemma-7b": (16, 1, 256), "gemma-2b": (1, 8, 256)}
+FP_ROWS = [("llama-3.1-8b", None, torch.bfloat16), ("gemma-7b", None, torch.bfloat16),
+           ("gemma-2b", None, torch.bfloat16), ("gemma-7b", 50.0, torch.bfloat16), ("llama-3.1-8b", None, torch.float32)]
+SOURCE["flash_prefill"] = "quanto_tpu_torch/csrc/flash_prefill.cu"
+REPLACES["flash_prefill"] = ("quanto_tpu/ops/attention.py:206 (try_flash_prefill: JAX's splash-attention MQA "
+                             "kernel, :237-265)")
+# Limits of `flash_prefill` against its plain version: bf16 within one bf16 step at max|ref|
+# (2^-7 * max|ref| bounds that step) and cosine > 1 - 1e-5 (exact bf16 products, float32 sums in
+# another order, P as a 16-bit hi + lo pair: an output rounds to a neighbouring bf16 value at
+# most); float32 within 1e-4 * max|ref| (each operand a bf16 hi + lo pair, about 16 bits). Read
+# on every bf16 row here: 0.0078125 (a neighbour of a value in [1, 2)) at max|ref| 3.8-4.6,
+# cosine 1 - 6e-8 or closer; the `gpu` test's Llama case 0.015625 (a neighbour in [2, 4)) at
+# max|ref| 3.98; float32 9.5e-6 * max|ref| (measured on one NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6).
+FP_BF16_ERR, FP_BF16_COS, FP_F32_ERR = 2.0**-7, 1 - 1e-5, 1e-4
+# Phase 3's flash_decode rows at Gemma's head dim: Gemma-7B's heads over every cache of phase 22's
+# T + NEW slots, and the paged arm (bf16 and qint4 pages of 64 over phase 15's 768 slots a row).
+FD_GEMMA_HEADS = FP_HEADS["gemma-7b"]
+FD_GEMMA_PAGED = [("bf16", SERVE_MAX_LEN, 64, torch.bfloat16), ("qint4", SERVE_MAX_LEN, 64, torch.bfloat16)]
+# google/gemma-7b config.json (tied embeddings: Hugging Face's GemmaConfig default, the file names
+# none), as `LlamaConfig.from_hf` reads it. Phase 22 runs it at full depth and width.
+GEMMA_7B = dict(
+    architectures=["GemmaForCausalLM"],
+    model_type="gemma",
+    vocab_size=256000,
+    hidden_size=3072,
+    intermediate_size=24576,
+    num_hidden_layers=28,
+    num_attention_heads=16,
+    num_key_value_heads=16,
+    head_dim=256,
+    hidden_act="gelu",
+    max_position_embeddings=8192,
+    rms_norm_eps=1e-6,
+    rope_theta=10000.0,
+    attention_bias=False,
+    torch_dtype="bfloat16",
+)
+# Phase 22: each row of the kernel path's last-position prefill logits against the plain versions'
+# (cosine), 28 random-weight layers. Predicted above 0.999; read 0.99934-0.99945 over the 4 rows,
+# alike over both caches (the prefill attends to the raw K/V either way), with 2 of 4 greedy rows
+# parting from the plain path at ties (relative gaps 0.017, 0.029) over the bf16 cache and none
+# over the qint4 cache (measured on one NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The
+# limit is about 3x the largest 1 - cosine read.
+GEMMA_E2E_COS = 0.998
+
 # Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, JAX's convert
 # formula on bf16 operands for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
 W8A8_M = (1, 4, 16, 17, 64, 4096)
@@ -1186,12 +1264,13 @@ def fd_cache(kind: str, S: int, g: torch.Generator, batch: int = B, heads=FD_HEA
     return kv_update(layer, k, v, 0)
 
 
-def phase_flash_decode(flush, heads=FD_HEADS):
+def phase_flash_decode(flush, heads=FD_HEADS, kinds=None):
     """Phase 3, flash_decode: the kernel against its plain version and SDPA,
     at B = 4 with every slot visible over each cache type (and with float32 q
     over FD_F32_Q at 8192 slots), and at phase 10's decode step (bf16, 8
     ragged rows, `FD_ENGINE_POS`). With other `heads` (Hkv, G, D): B = 4
-    over FD_NEW_CACHES of T + NEW slots, the decode run of phases 18 and 19."""
+    over `kinds` (default FD_NEW_CACHES) of T + NEW slots, the decode run of
+    phases 18 and 19, or of phase 22 at Gemma-7B's heads."""
     from quanto_tpu_torch.ops.attention import decode_attention
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
     from quanto_tpu_torch.tensor.kv_cache import kv_read
@@ -1201,7 +1280,7 @@ def phase_flash_decode(flush, heads=FD_HEADS):
     rows = []
     # (cache, S, positions, the engine arm or phase 21's caches they stand for or None, q's dtype)
     if heads != FD_HEADS:
-        cases = [(kind, T + NEW, [T + NEW - 1] * B, None, torch.bfloat16) for kind in FD_NEW_CACHES]
+        cases = [(kind, T + NEW, [T + NEW - 1] * B, None, torch.bfloat16) for kind in kinds or FD_NEW_CACHES]
     else:
         cases = [(kind, S, [S - 1] * B, None, torch.bfloat16) for S in FD_SLOTS for kind in FD_CACHES]
         cases += [(kind, FD_SLOTS[-1], [FD_SLOTS[-1] - 1] * B, None, torch.float32) for kind in FD_F32_Q]
@@ -1267,7 +1346,7 @@ def phase_flash_decode(flush, heads=FD_HEADS):
     return rows
 
 
-def phase_flash_decode_paged(flush):
+def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
     """Phase 3, the paged arm of flash_decode (`flash_decode_paged`): at
     Llama-3.1-8B's heads, B = 8 rows at their last slot over FD_PAGED_SLOTS
     slots a row, in pages of FD_PAGE_SIZES slots behind a table that is a
@@ -1280,16 +1359,19 @@ def phase_flash_decode_paged(flush):
     gathers a dense view and runs its kernels on that), SDPA on the gathered
     cache dequantized to bf16 (the yardstick), and the plain version. Bound:
     the visible K/V bytes and factors at 3.35 TB/s (the table's 4 bytes a
-    page beside them)."""
+    page beside them). With other `heads` (Hkv, G, D), the given `cases`
+    (cache, slots a row, page size, q's dtype)."""
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_paged, flash_decode_paged_plain
     from quanto_tpu_torch.tensor import kv_cache as tkv
     from quanto_tpu_torch.tensor import paged_kv as tpk
 
-    Hkv, G, D = FD_HEADS
+    Hkv, G, D = heads
     nb = ENGINE_SLOTS
     g = torch.Generator(device="cuda").manual_seed(2020)
-    cases = [(kind, S, ps, torch.bfloat16) for S in FD_PAGED_SLOTS for ps in FD_PAGE_SIZES for kind in FD_PAGED_CACHES]
-    cases.append(("qint4", FD_PAGED_SLOTS[-1], FD_PAGE_SIZES[0], torch.float32))
+    if cases is None:
+        cases = [(kind, S, ps, torch.bfloat16) for S in FD_PAGED_SLOTS for ps in FD_PAGE_SIZES
+                 for kind in FD_PAGED_CACHES]
+        cases.append(("qint4", FD_PAGED_SLOTS[-1], FD_PAGE_SIZES[0], torch.float32))
     rows = []
     for kind, S, ps, q_dtype in cases:
         P = S // ps
@@ -1343,7 +1425,7 @@ def phase_flash_decode_paged(flush):
         k_row, v_row = c._k_pages[0, 0, 0].numel() * c._k_pages.element_size(), \
             c._v_pages[0, 0, 0].numel() * c._v_pages.element_size()
         per_slot = 0 if spec is None else (8 if c._k_shift is None else 16)
-        b_ms, b_by = fd_bound(nb * S, nb, k_row, v_row, per_slot, q.element_size())
+        b_ms, b_by = fd_bound(nb * S, nb, k_row, v_row, per_slot, q.element_size(), heads)
         row = dict(
             name="flash_decode_paged", cache=kind, S=S, B=nb, page_size=ps, Hkv=Hkv, G=G, D=D,
             q="f32" if q_dtype == torch.float32 else "bf16", max_abs_err=err, cosine=cos,
@@ -1357,6 +1439,73 @@ def phase_flash_decode_paged(flush):
         rows.append(row)
         log("kernel " + json.dumps(row))
         del layer, gathered, kg, vg, ks, vs, km, vm, kd, vd, kt, vt, out, dense_out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp_bound(batch: int, T_: int, heads, elem: int):
+    """Least time (ms) of one causal prefill: q, k, v read and the output
+    written once (`elem` bytes a value), 2 B H T^2 D operations (QK^T and PV
+    over the lower triangle) at the bf16 tensor-core rate (a float32 call is
+    counted at that rate too: the kernel's split products run there)."""
+    Hkv, G, D = heads
+    H = Hkv * G
+    nbytes = elem * batch * T_ * D * (2 * H + 2 * Hkv)
+    ops = 2 * batch * H * T_ * T_ * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_prefill(flush):
+    """Phase 3, `flash_prefill` (TPU #16): the kernel against its plain
+    version at B = 4, T = 1024 over FP_ROWS (Llama-3.1-8B's, Gemma-7B's and
+    Gemma-2B's heads, a softcap of 50, float32), within FP_BF16_ERR and
+    FP_BF16_COS (bf16) or FP_F32_ERR (float32); timed beside its bound, the
+    plain version and, as the yardstick only, `scaled_dot_product_attention`
+    (causal, GQA; without the softcap, which it does not take)."""
+    from quanto_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
+
+    g = torch.Generator(device="cuda").manual_seed(1616)
+    rows = []
+    for model_name, softcap, dtype in FP_ROWS:
+        Hkv, G, D = FP_HEADS[model_name]
+        q = torch.randn((B, T, Hkv * G, D), device="cuda", generator=g).to(dtype)
+        k = (torch.randn((B, T, Hkv, D), device="cuda", generator=g) * 2 + 0.5).to(dtype)
+        v = torch.randn((B, T, Hkv, D), device="cuda", generator=g).to(dtype)
+
+        def kernel():
+            return flash_prefill(q, k, v, softcap=softcap)
+
+        def plain():
+            return flash_prefill_plain(q, k, v, softcap=softcap)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        cos = cosine(out, ref)
+        ok = err <= FP_F32_ERR * ref_max if dtype == torch.float32 else (
+            err <= FP_BF16_ERR * ref_max and cos > FP_BF16_COS)
+        what = f"flash_prefill {model_name} softcap={softcap} {dtype}"
+        if not ok or out.shape != (B, T, Hkv * G * D):
+            raise RuntimeError(f"{what}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, scale=D**-0.5)
+
+        b_ms, b_by = fp_bound(B, T, (Hkv, G, D), q.element_size())
+        row = dict(
+            name="flash_prefill", model=model_name, B=B, T=T, Hkv=Hkv, G=G, D=D, softcap=softcap,
+            dtype=str(dtype).removeprefix("torch."), max_abs_err=err, max_abs_ref=ref_max, cosine=cos,
+            sdpa_cosine=None if softcap else cosine(sdpa().transpose(1, 2).reshape(out.shape), ref),
+            ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush), library_ms=time_ms(sdpa, flush),
+            bound_ms=b_ms, bound_by=b_by, host_us=host_us(kernel),
+        )
+        row["bound_share"] = b_ms / row["ms"]
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del q, k, v, qt, kt, vt, out, ref
         torch.cuda.empty_cache()
     return rows
 
@@ -1405,6 +1554,7 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
 
     config = model.config
     small, tiled, fd = K_mod.qbits_mm_small_m, K_mod.qbits_mm_tiled, FD_mod.flash_decode
+    fp = counters().get("flash_prefill")
 
     # Warm-up through the user-facing `generate`; its tokens must equal the timed run's.
     ref_tokens = generate(model, ids, NEW)
@@ -1418,7 +1568,7 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
     logits, cache = prefill(model, ids, cache, last_only=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    pre = (small.launches, tiled.launches, fd.launches)
+    pre = (small.launches, tiled.launches, fd.launches, fp.launches if fp else 0)
     first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
     t0 = time.perf_counter()
     rest, cache = decode(model, first, cache, T, NEW - 1)
@@ -1426,16 +1576,20 @@ def phase_main_path(K_mod, FD_mod, model, qlinears, ids):
     decode_s = time.perf_counter() - t0
     launches = {
         "qbits_mm_small_m": small.launches, "qbits_mm_tiled": tiled.launches, "flash_decode": fd.launches,
+        **({"flash_prefill": fp.launches} if fp else {}),
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     layers = config.num_hidden_layers
     n_lin = LINEARS_PER_LAYER * layers
     steps = NEW - 1
-    if pre != (1, n_lin, 0):
-        raise RuntimeError(f"prefill launches (small_m, tiled, flash_decode) = {pre}, want (1, {n_lin}, 0)")
+    n_fp = layers if fp else 0  # TPU #16: one causal prefill a layer
+    if pre != (1, n_lin, 0, n_fp):
+        raise RuntimeError(f"prefill launches (small_m, tiled, flash_decode, flash_prefill) = {pre}, "
+                           f"want (1, {n_lin}, 0, {n_fp})")
     want = {
         "qbits_mm_small_m": 1 + (n_lin + 1) * steps, "qbits_mm_tiled": n_lin, "flash_decode": layers * steps,
+        **({"flash_prefill": n_fp} if fp else {}),
     }
     if launches != want:
         raise RuntimeError(f"launches {launches}, want {want}")
@@ -1615,6 +1769,13 @@ def counters():
     # The paged arm of flash_decode, counted apart (absent from trees before it was ported).
     if hasattr(FD_mod, "flash_decode_paged"):
         wrappers["flash_decode_paged"] = FD_mod.flash_decode_paged
+    # TPU #16, the causal prefill over the raw K/V (absent from trees before it was ported).
+    try:
+        from quanto_tpu_torch.ops.cuda import flash_prefill as FP_mod
+    except ImportError:
+        FP_mod = None
+    if FP_mod is not None:
+        wrappers["flash_prefill"] = FP_mod.flash_prefill
     # The W8A8 route's library calls (`torch._int_mm`; the e4m3fn product), counted where they are
     # made (absent from trees before W8A8 was ported).
     from quanto_tpu_torch.ops import qbytes_mm as W8A8
@@ -1622,6 +1783,20 @@ def counters():
     if hasattr(W8A8, "qbytes_int_mm"):
         wrappers["qbytes_int_mm"], wrappers["qbytes_fp8_mm"] = W8A8.qbytes_int_mm, W8A8.qbytes_fp8_mm
     return wrappers
+
+
+def prefill_attention_want(config, prompt: int, prefills: int = 1) -> dict:
+    """The `flash_prefill` launches of `prefills` prefills of `prompt` tokens
+    from position 0 (TPU #16): one a layer inside JAX's envelope (T >= 256,
+    T % 128 == 0, head_dim a multiple of 128), none outside it or on a tree
+    without the kernel."""
+    if "flash_prefill" not in counters():
+        return {}
+    from quanto_tpu_torch.ops.cuda.flash_prefill import in_envelope
+
+    if not in_envelope(prompt, config.head_dim, config.dtype):
+        return {}
+    return {"flash_prefill": prefills * config.num_hidden_layers}
 
 
 def read_counts() -> dict:
@@ -1640,8 +1815,11 @@ def reset_counts() -> None:
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route every kernel call of the model to its plain PyTorch version."""
+def plain_versions(keep_prefill_kernel: bool = False):
+    """Route every kernel call of the model to its plain PyTorch version
+    (`flash_prefill` excepted with `keep_prefill_kernel`: the checks of models
+    with quantized activations (phases 5, 13, 14, 17), where both paths then
+    run the same deterministic attention kernel)."""
     import quanto_tpu_torch.ops.attention as attention
     import quanto_tpu_torch.ops.qlinear as QL
     from quanto_tpu_torch.ops.cuda import flash_decode as FD_mod
@@ -1661,6 +1839,11 @@ def plain_versions():
     paged = getattr(attention, "flash_decode_paged", None)
     if paged is not None:
         attention.flash_decode_paged = FD_mod.flash_decode_paged_plain
+    fused_prefill = None if keep_prefill_kernel else getattr(attention, "flash_prefill", None)
+    if fused_prefill is not None:
+        from quanto_tpu_torch.ops.cuda import flash_prefill as FP_mod
+
+        attention.flash_prefill = FP_mod.flash_prefill_plain
     QL.qbits_mm = flat(K_mod.qbits_mm_plain)
     QL.cuda_qbytes = types.SimpleNamespace(eligible=QB_mod.eligible, qbytes_mm=flat(QB_mod.qbytes_mm_plain))
     attention.flash_decode = FD_mod.flash_decode_plain
@@ -1690,6 +1873,8 @@ def plain_versions():
         W8A8.qbytes_fp8_mm = fp8_mm
         if paged is not None:
             attention.flash_decode_paged = paged
+        if fused_prefill is not None:
+            attention.flash_prefill = fused_prefill
         for n, fn in w8a8.items():
             setattr(W8A8, n, fn)
         (QL.qbits_mm, QL.cuda_qbytes, attention.flash_decode, MM.qbits_moe_small_m, MM.qbits_moe_tiled,
@@ -1755,13 +1940,23 @@ def phase_end_to_end(ids):
             raise RuntimeError(f"{arm}: ragged decode step launches {step_counts}, want {want}")
         if arm == "w4a8_requant":
             prefill_counts = {n: c - step_counts[n] for n, c in arm_counts[arm].items() if c - step_counts[n]}
-            if prefill_counts != {"qbits_mm_requant_int8": 2 * LINEARS_PER_LAYER * layers}:
+            if prefill_counts != {"qbits_mm_requant_int8": 2 * LINEARS_PER_LAYER * layers,
+                                  **prefill_attention_want(config, T, prefills=2)}:
                 raise RuntimeError(f"{arm}: the two prefills launched {prefill_counts}")
+        # The W4A8 arms keep `flash_prefill` in both paths: their activation quantizers turn the
+        # kernel's other float32 order into moved int8 codes (read: one w4a8 row's top-1 token moved
+        # at cosine 0.99966 with the prefill's attention plain on one side; measured on one NVIDIA
+        # H100 80GB HBM3, 700 W), so the arm holds its linears and decode attention to their
+        # plain versions as before; the fused prefill's own end-to-end checks are phases 9, 11, 13
+        # and 22.
+        keep = kw.get("activations") is not None
         before = read_counts()
-        with plain_versions():
+        with plain_versions(keep_prefill_kernel=keep):
             logits_p, step_p, _ = run()
         torch.cuda.synchronize()
-        if read_counts() != before:
+        after = read_counts()
+        if {n: after[n] - before[n] for n in after if after[n] != before[n]} != (
+                prefill_attention_want(config, T, prefills=2) if keep else {}):
             raise RuntimeError(f"{arm}: the plain forward launched a kernel")
         for what, k_out, p_out in (("prefill", logits_k, logits_p), ("ragged decode step", step_k, step_p)):
             lk, lp = k_out[:, -1].float(), p_out[:, -1].float()
@@ -1918,7 +2113,9 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
     every kernel in each half. With `prefill_peak_ops` it also logs the
     prefill's linears' least time (2 M N K operations at that rate). Returns
     the run's launch counts; a `record` dict takes the prefill logits, the
-    tokens and the counts (phase 16)."""
+    tokens and the counts (phase 16). The prefill's `flash_prefill` launches
+    (one a layer inside its envelope, `prefill_attention_want`) are wanted
+    beside `want_prefill`."""
     from quanto_tpu_torch.models.sampling import greedy
     from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
 
@@ -1944,6 +2141,7 @@ def phase_arm(label: str, model, ids, want_prefill: dict, want_decode: dict, pre
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dec = {n: launches[n] - pre[n] for n in launches}
     zeros = {n: 0 for n in launches}
+    want_prefill = {**prefill_attention_want(config, T), **want_prefill}
     if pre != {**zeros, **want_prefill}:
         raise RuntimeError(f"{label}: prefill launches {pre}, want {want_prefill} and 0 elsewhere")
     if dec != {**zeros, **want_decode}:
@@ -2037,15 +2235,26 @@ def instrument(engine, per_forward: dict) -> dict:
     return rec
 
 
+def readback_prefill(model, ids, cache):
+    """A prefill of `ids` from position 0 that attends as the engines' chunks
+    do: the position given as a tensor, so every layer takes `gqa_attention`
+    over the cache readback, not `flash_prefill` over the raw K/V (the route
+    of a prefill written at the int 0, `serve.prefill`'s). (logits at the last
+    position [B, 1, V], cache)."""
+    pos = torch.zeros(ids.shape[0], dtype=torch.long, device=ids.device)
+    return model(ids, cache, pos, logits_indices=ids.shape[1] - 1)
+
+
 def check_first_tokens(label: str, model, prompts, tokens, max_len: int = ENGINE_MAX_LEN, tie=None) -> list:
-    """Each request's first token against the argmax of a standalone
-    `prefill(last_only=True)` of its prompt (prompts of equal length
-    batched; in phase 10 every such prefill has M >= 2048, so the same
-    requant route) over a cache of the engine's length `max_len`, so that
-    attention reduces over the same slots: equal, or the standalone's logits
-    of the two tokens within `tie` (default LOGIT_TIE) of its largest
-    |logit|. Returns the ties it accepted."""
-    from quanto_tpu_torch.models.serve import make_cache, prefill
+    """Each request's first token against the argmax of a standalone prefill
+    of its prompt (prompts of equal length batched; in phase 10 every such
+    prefill has M >= 2048, so the same requant route) over a cache of the
+    engine's length `max_len` through the attention the engine's chunks take
+    (`readback_prefill`), so that attention reduces over the same slots the
+    same way: equal, or the standalone's logits of the two tokens within
+    `tie` (default LOGIT_TIE) of its largest |logit|. Returns the ties it
+    accepted."""
+    from quanto_tpu_torch.models.serve import make_cache
 
     tie = LOGIT_TIE if tie is None else tie
 
@@ -2055,7 +2264,7 @@ def check_first_tokens(label: str, model, prompts, tokens, max_len: int = ENGINE
         by_len.setdefault(len(p), []).append(i)
     for L, idx in by_len.items():
         ids = torch.tensor(np.stack([prompts[i] for i in idx]), device="cuda")
-        logits, _ = prefill(model, ids, make_cache(model, len(idx), max_len), last_only=True)
+        logits, _ = readback_prefill(model, ids, make_cache(model, len(idx), max_len))
         lv = logits[:, -1].float()
         for row, i in enumerate(idx):
             top = int(lv[row].argmax())
@@ -2381,10 +2590,10 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
 def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None, max_len: int = SERVE_MAX_LEN) -> list:
     """Each request's tokens `got` against `want`: equal, or at the first
     index j where they part, the two tokens' logits within SERVE_TOP1_GAP of
-    the largest |logit| of a standalone `prefill(last_only=True)` of the
-    prompt and want[:j] (over a cache of `max_len` slots, `kv_quant`).
+    the largest |logit| of a standalone prefill of the prompt and want[:j]
+    (over a cache of `max_len` slots, `kv_quant`, through `readback_prefill`).
     Returns the ties it accepted (each logged)."""
-    from quanto_tpu_torch.models.serve import make_cache, prefill
+    from quanto_tpu_torch.models.serve import make_cache
 
     ties = []
     for i, (a, b) in enumerate(zip(got, want)):
@@ -2395,7 +2604,7 @@ def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None, max_
         j = next(j for j in range(len(b)) if a[j] != b[j])
         ctx = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
         ids = torch.tensor(ctx[None], device="cuda")
-        logits, _ = prefill(model, ids, make_cache(model, 1, max_len, kv_quant=kv_quant), last_only=True)
+        logits, _ = readback_prefill(model, ids, make_cache(model, 1, max_len, kv_quant=kv_quant))
         lv = logits[0, -1].float()
         gap = abs((lv[b[j]] - lv[a[j]]).item()) / lv.abs().max().item()
         ties.append({"request": i, "index": j, "want": b[j], "got": a[j], "relative_gap": gap})
@@ -2652,11 +2861,14 @@ def mixtral_want(config, batch: int, expert_bits: int = 4, router_kernel: bool =
     `qbits_moe_all`'s, TPU #12). With int2 experts every MoE kernel launch is
     one of the int2 arm's too. The router (N = 8, off the envelope) is
     zero-padded onto it and takes `qbits_mm` too, once a layer, where
-    `router_kernel` (trees before the padding rule kept it generic)."""
+    `router_kernel` (trees before the padding rule kept it generic). Each
+    prefill (T = 1024 or 256 from position 0) takes `flash_prefill` once a
+    layer."""
     L = config.num_hidden_layers
     S_K, E = batch * config.num_experts_per_tok, config.num_local_experts
     dense = (5 if router_kernel else 4) * L
-    prefill = {"qbits_mm_tiled": dense, "qbits_moe_tiled": 3 * L}
+    prefill = {"qbits_mm_tiled": dense, "qbits_moe_tiled": 3 * L,
+               **prefill_attention_want(config, T16 if batch == B16 else T)}
     step = {"qbits_mm_small_m": dense, "flash_decode": L}
     if S_K < E:
         step["qbits_moe_small_m"] = 3 * L
@@ -2933,7 +3145,9 @@ def phase_mixtral_end_to_end(ids, ids16, seed: int, experts: str = "qint4"):
     B = 1 and B = 4 (prompts `ids`): prefill last-position logits and one
     decode step of the stacked model, against the same model's dense-mask
     blocks (run first, through `qbits_mm`) and against the stacked model
-    through the plain versions, row by row (`compare_rows`). B = 16 (prompts
+    through the plain versions fed the stacked kernel path's router outputs
+    (so the same capacity choices; the plain routers' own outputs are what
+    `compare_rows` reads), row by row (`compare_rows`). B = 16 (prompts
     `ids16`): its decode step, on the all-experts route (TPU #12), from the
     dense path's prefill cache in every path, held the same way; its prefill
     logits are logged only (MIXTRAL_B16_PREFILL)."""
@@ -2949,10 +3163,29 @@ def phase_mixtral_end_to_end(ids, ids16, seed: int, experts: str = "qint4"):
     prompts = {1: ids[:1], 4: ids[:4], B16: ids16}
     shared = {}  # B16's prefill cache from the first path (dense), its decode step's input in all
 
+    # The plain path takes the stacked kernel path's router outputs, as phase 8's split feeds them:
+    # on the capacity route (S = 1024 and 4096) an expert over its capacity keeps the tokens of the
+    # largest routing weights, and weights that differ in their last bits keep another token
+    # (MIXTRAL_B16_PREFILL). With the fused prefill's attention a routed-alike B = 4 row read cosine
+    # 0.99814 against the plain path and 0.99994 against the dense-mask path, which has no capacity
+    # (seed 2; measured on one NVIDIA H100 80GB HBM3, 700 W).
+    route = {"mode": None, "batch": None, "n": 0}
+    fed = {}
+
+    def feed_route(_mod, _args, out):
+        key = (route["batch"], route["n"])
+        route["n"] += 1
+        if route["mode"] == "kernel":
+            fed[key] = out
+        elif route["mode"] == "plain":
+            return fed[key]
+        return None
+
     def run(batch):
         """(prefill logits, decode-step logits, routing [2, L, B, E]) at the last position."""
         x = prompts[batch]
         records.clear()
+        route.update(batch=batch, n=0)
         pre, cache = prefill(model, x, make_cache(model, batch, x.shape[1] + 8), last_only=True)
         if batch == B16:
             cache = copy.deepcopy(shared.setdefault(batch, cache))
@@ -2965,7 +3198,9 @@ def phase_mixtral_end_to_end(ids, ids16, seed: int, experts: str = "qint4"):
     dense = {b: run(b) for b in prompts}
     if convert_moe_to_stacked(model, capacity_factor=2.0) != L:
         raise RuntimeError("convert_moe_to_stacked did not convert every block")
+    hooks += [layer.block_sparse_moe.gate.register_forward_hook(feed_route) for layer in model.model.layers]
     reset_counts()
+    route["mode"] = "kernel"
     kernel = {b: run(b) for b in prompts}
     counts = read_counts()
     arms = ("qbits_moe_small_m", "qbits_moe_tiled")
@@ -2973,6 +3208,7 @@ def phase_mixtral_end_to_end(ids, ids16, seed: int, experts: str = "qint4"):
         raise RuntimeError(f"the stacked model launched TPU #12 {counts['qbits_moe_all']} times, want {2 * L}")
     if not all(counts[n] for n in arms) or (experts == "qint2" and not all(counts[n + "_int2"] for n in arms)):
         raise RuntimeError(f"the stacked model did not launch both MoE kernels' {experts} arms: {counts}")
+    route["mode"] = "plain"
     with plain_versions():
         plain = {b: run(b) for b in prompts}
     if read_counts() != counts:
@@ -3040,8 +3276,8 @@ def phase_llama_int2(config, ids) -> tuple:
 @torch.no_grad()
 def phase_prefill(tag: str, what: str, model, ids, want: dict, peak_ops: float) -> dict:
     """A prefill of the prompts `ids` (B x T tokens, last position only) over a
-    bf16 cache, after a warm-up, with exact launch counts (`want`, 0
-    elsewhere); logs its time and peak memory beside its linears' least time
+    bf16 cache, after a warm-up, with exact launch counts (`want` and the
+    prefill's `flash_prefill` launches, 0 elsewhere); logs its time and peak memory beside its linears' least time
     (2 M N K operations at `peak_ops`) under the key `<tag>_prefill`. Phases 11
     and 13 (B = 1) and `--only prefill` (phases 4 and 7 at B = 4). Returns its
     launch counts."""
@@ -3059,6 +3295,7 @@ def phase_prefill(tag: str, what: str, model, ids, want: dict, peak_ops: float) 
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts = read_counts()
+    want = {**prefill_attention_want(model.config, ids.shape[1]), **want}
     if counts != {**{n: 0 for n in counts}, **want}:
         raise RuntimeError(f"{tag} B = {batch} prefill launches {counts}, want {want} and 0 elsewhere")
     if logits.shape != (batch, 1, model.config.vocab_size) or not torch.isfinite(logits).all():
@@ -3102,7 +3339,8 @@ def phase_llama_int2_end_to_end(ids):
     kernel = run()
     counts = read_counts()
     want = {**{n: 0 for n in counts}, "qbits_mm_tiled": n_lin, "qbits_mm_tiled_int2": n_lin,
-            "qbits_mm_small_m": n_lin, "qbits_mm_small_m_int2": n_lin, "flash_decode": config.num_hidden_layers}
+            "qbits_mm_small_m": n_lin, "qbits_mm_small_m_int2": n_lin, "flash_decode": config.num_hidden_layers,
+            **prefill_attention_want(config, T, prefills=2)}
     if counts != want:
         raise RuntimeError(f"int2 end-to-end launches {counts}, want {want}")
     with plain_versions():
@@ -3273,9 +3511,13 @@ def phase_w2a8_end_to_end(ids) -> None:
         counts = read_counts()
         if counts != {**{n: 0 for n in counts}, **want}:
             raise RuntimeError(f"w2a8 {form} end-to-end launches {counts}, want {want} and 0 elsewhere")
-        with plain_versions(), decode_inputs(model, rec_p):
+        # `flash_prefill` in both paths, as phase 5's W4A8 arms: the activation quantizers turn its
+        # other float32 order into moved codes; this phase holds the W2A8 linears.
+        with plain_versions(keep_prefill_kernel=True), decode_inputs(model, rec_p):
             plain = run()
-        if read_counts() != counts:
+        after = read_counts()
+        if {n: after[n] - counts[n] for n in after if after[n] != counts[n]} != prefill_attention_want(
+                config, T, prefills=2):
             raise RuntimeError(f"w2a8 {form}: the plain forward launched a kernel")
         log(json.dumps({"w2a8_first_moved_codes": f"{form}, ragged decode step, kernel vs plain",
                         "rows": first_moved_codes(rec_k, rec_p)}))
@@ -3284,7 +3526,8 @@ def phase_w2a8_end_to_end(ids) -> None:
         return kernel
 
     exact_want = {"qbits_mm_tiled_int8": n_lin, "qbits_mm_tiled_int8_int2": n_lin,
-                  "qbits_mm_int8_small_m": n_lin, "qbits_mm_int8_small_m_int2": n_lin, "flash_decode": layers}
+                  "qbits_mm_int8_small_m": n_lin, "qbits_mm_int8_small_m_int2": n_lin, "flash_decode": layers,
+                  **prefill_attention_want(config, T, prefills=2)}
     logits_exact = kernel_vs_plain("exact form", exact_want)[1]
     with float_activations(model):
         logits_float_x = run()[1]
@@ -3441,7 +3684,8 @@ def tp_full_depth(group, ids, ref_tokens) -> dict:
     # all_reduces of those 64, of the embedding and of the gathered logits.
     per_forward = {"qbits_mm_partitioned": n_lin + 1, "qbits_mm_partitioned_all_reduces": 2 * layers,
                    "all_reduce": 2 * layers + 2}
-    want_pre = {**zeros, **per_forward, "qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1}
+    want_pre = {**zeros, **per_forward, "qbits_mm_tiled": n_lin, "qbits_mm_small_m": 1,
+                **prefill_attention_want(config, T)}
     want_dec = {**zeros, **{n: c * steps for n, c in per_forward.items()},
                 "qbits_mm_small_m": (n_lin + 1) * steps, "flash_decode": layers * steps}
     if pre != want_pre:
@@ -3505,12 +3749,16 @@ def tp_two_layers(group, ids) -> None:
         n_lin = LINEARS_PER_LAYER * layers + head
         prefill_kernel = "qbits_mm_tiled" if arm == "qint4" else "qbits_mm_tiled_int8"
         want = {prefill_kernel: 2 * LINEARS_PER_LAYER * layers, step_kernel: n_lin + 2 * head,
-                "flash_decode": layers, "qbits_mm_partitioned": 3 * n_lin}
+                "flash_decode": layers, "qbits_mm_partitioned": 3 * n_lin,
+                **prefill_attention_want(config, T, prefills=2)}
         if counts != {**{n: 0 for n in counts}, **want}:
             raise RuntimeError(f"tp rank {group.rank} {arm}: 2-layer launches {counts}, want {want}")
-        with plain_versions():
+        keep = kw.get("activations") is not None  # as phase 5's W4A8 arm
+        with plain_versions(keep_prefill_kernel=keep):
             plain = run()
-        if read_counts() != counts:
+        after = read_counts()
+        if {n: after[n] - counts[n] for n in after if after[n] != counts[n]} != (
+                prefill_attention_want(config, T, prefills=2) if keep else {}):
             raise RuntimeError(f"tp rank {group.rank} {arm}: the plain forward launched a kernel")
         for what, k, p in zip(("prefill", "ragged decode step"), kernel, plain):
             check_rows(f"tp_rank{group.rank}_{arm}", what, k, p, 0.999)
@@ -3994,15 +4242,23 @@ def check_plain_prefill(tag: str, model, ids, kernel_logits, min_cos=None, top1:
     """The prefill (last position, over a cache of T + NEW slots) through the
     plain versions, no kernel launched, against the kernel path's logits
     `kernel_logits` [B, 1, V] (on the host): EQUAL when `min_cos` is None,
-    else `check_rows` (without `top1`: each row's cosine alone)."""
+    else `check_rows` (without `top1`: each row's cosine alone). The
+    attention keeps `flash_prefill` in both paths (a deterministic kernel: the
+    same inputs give the same bits; it launches there exactly its prefill's
+    count), so the EQUAL check holds a route that has no kernel of its own
+    (phase 17's W8A8 library calls) to its plain formula, and the W8A8
+    activation quantizers see one attention (as phase 5's W4A8 arms); the
+    small models' heads of 64 take no fused prefill."""
     from quanto_tpu_torch.models.serve import make_cache, prefill
 
     before = read_counts()
-    with plain_versions():
+    with plain_versions(keep_prefill_kernel=True):
         plain_logits, _ = prefill(model, ids, make_cache(model, ids.shape[0], T + NEW), last_only=True)
     torch.cuda.synchronize()
-    if read_counts() != before:
-        raise RuntimeError(f"{tag}: the plain forward launched a kernel")
+    after = read_counts()
+    delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    if delta != prefill_attention_want(model.config, ids.shape[1]):
+        raise RuntimeError(f"{tag}: the plain forward launched {delta}")
     k, p = kernel_logits[:, -1].float(), plain_logits[:, -1].float().cpu()
     if min_cos is None:
         equal = torch.equal(kernel_logits, plain_logits.cpu())
@@ -4652,6 +4908,167 @@ def phase_speculative(config, ids) -> dict:
     return out
 
 
+def build_gemma(seed: int):
+    """Phase 22's model: google/gemma-7b's config.json through `from_hf`, built
+    on "meta" and materialized on the card one decoder layer at a time, each
+    quantized to qint4 (group size 128) and frozen as soon as its weights are
+    drawn; the tied embedding (which is also the head) stays bf16."""
+    from quanto_tpu_torch import freeze, quantize
+    from quanto_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    config = LlamaConfig.from_hf(GEMMA_7B, dtype=torch.bfloat16)
+    if not (config.rms_norm_unit_offset and config.scale_embeddings and config.tie_word_embeddings
+            and config.hidden_act == "gelu" and config.head_dim == 256):
+        raise RuntimeError(f"from_hf did not read google/gemma-7b's options: {config}")
+
+    def per_layer(layer):
+        quantize(layer, weights="qint4")
+        freeze(layer)
+
+    model = LlamaForCausalLM(config, device="meta")
+    model.materialize_("cuda", torch.Generator("cuda").manual_seed(seed), layer_fn=per_layer)
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    if model.lm_head is not None or len(qlinears) != LINEARS_PER_LAYER * config.num_hidden_layers or not all(
+            isinstance(m.weight, WeightQBitsHopperArray) and m.weight.bits == 4 for m in qlinears):
+        raise RuntimeError("gemma-7b: expected 196 qint4 linears in the Hopper layout and a tied head")
+    return model
+
+
+@torch.no_grad()
+def phase_gemma() -> dict:
+    """Phase 22: Gemma-7B (google/gemma-7b config.json: 28 layers of 16 heads
+    and 16 kv heads of 256, tied embeddings scaled by sqrt(3072), the
+    unit-offset RMSNorm, the tanh GELU) at full depth and width, random
+    weights from a seed, qint4 (group size 128; the tied embedding bf16). B
+    = 4 prompts of 1024 tokens: prefill (last position only) and 63 greedy
+    decode steps, over a bf16 cache and over a qint4 cache, each after a
+    warm-up, with exact launches: the prefill 196 `qbits_mm_tiled` and 28
+    `flash_prefill` (TPU #16 at D = 256), each step 196 `qbits_mm_small_m`
+    and 28 `flash_decode` at D = 256, nothing else. Then the same model
+    through the plain versions (no kernel launched): the prefill's
+    last-position logits, each row's cosine above GEMMA_E2E_COS, and its 63
+    greedy steps, whose tokens must equal the kernel path's or part from
+    them at a logit tie within SERVE_TOP1_GAP (`check_same_tokens`). Prints
+    prefill ms, decode ms/step and peak memory beside their bounds. Returns
+    each cache's launch counts."""
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, make_cache, prefill
+
+    t0 = time.perf_counter()
+    model = build_gemma(seed=22)
+    torch.cuda.synchronize()
+    config = model.config
+    L, steps = config.num_hidden_layers, NEW - 1
+    n_lin = LINEARS_PER_LAYER * L
+    log(f"gemma: built on meta, then {L} layers materialized + quantized + frozen one at a time in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    ids = torch.randint(0, config.vocab_size, (B, T), generator=torch.Generator().manual_seed(22)).cuda()
+    want_pre = {"qbits_mm_tiled": n_lin, "flash_prefill": L}
+    want_dec = {"qbits_mm_small_m": n_lin * steps, "flash_decode": L * steps}
+    Hkv, D = config.num_key_value_heads, config.head_dim
+    weight_bytes = step_weight_bytes(model)
+    prefill_ops = linears_operations(model, B * T) + 2 * B * config.num_attention_heads * T * T * D
+    out = {}
+
+    def run(kv):
+        logits, cache = prefill(model, ids, make_cache(model, B, T + NEW, kv_quant=kv), last_only=True)
+        first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+        rest, _ = decode(model, first, cache, T, steps)
+        return logits, torch.cat([first, rest], dim=1)
+
+    for kv in (None, "qint4"):
+        label = f"gemma-7b qint4 (tied embedding bf16), {kv or 'bf16'} cache"
+        run(kv)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        cache = make_cache(model, B, T + NEW, kv_quant=kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, ids, cache, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_counts()
+        first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+        t0 = time.perf_counter()
+        rest, cache = decode(model, first, cache, T, steps)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dec = {n: launches[n] - pre[n] for n in launches}
+        zeros = {n: 0 for n in launches}
+        if pre != {**zeros, **want_pre}:
+            raise RuntimeError(f"{label}: prefill launches {pre}, want {want_pre} and 0 elsewhere")
+        if dec != {**zeros, **want_dec}:
+            raise RuntimeError(f"{label}: decode launches {dec}, want {want_dec} and 0 elsewhere")
+        if logits.shape != (B, 1, config.vocab_size) or not torch.isfinite(logits).all():
+            raise RuntimeError(f"{label}: prefill logits: shape {tuple(logits.shape)} or non-finite values")
+        tokens = torch.cat([first, rest], dim=1)
+        if int(tokens.min()) < 0 or int(tokens.max()) >= config.vocab_size:
+            raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
+        kv_row = sum(t[0, 0].numel() * t.element_size() for t in (
+            (cache[0][0], cache[0][1]) if kv is None else
+            (cache[0]._k_data, cache[0]._v_data, cache[0]._k_scale, cache[0]._v_scale)))
+        mean_fill = T + 1 + (steps - 1) / 2
+        kv_step_bytes = B * mean_fill * kv_row * L
+        with plain_versions():
+            plain_logits, plain_tokens = run(kv)
+            torch.cuda.synchronize()
+            if read_counts() != launches:
+                raise RuntimeError(f"{label}: the plain forward launched a kernel")
+            cos = F.cosine_similarity(logits[:, -1].float(), plain_logits[:, -1].float(), dim=-1)
+            ties = check_same_tokens(f"phase 22 {label}", model, ids.cpu().numpy(), tokens.tolist(),
+                                     plain_tokens.tolist(), kv_quant=kv, max_len=T + NEW)
+        if read_counts() != launches:
+            raise RuntimeError(f"{label}: the plain tie check launched a kernel")
+        log(json.dumps({
+            "gemma": label, "batch": B, "prompt": T, "new_tokens": NEW, "decode_steps": steps,
+            "prefill_ms": prefill_s * 1e3, "prefill_operations": prefill_ops,
+            "prefill_bound_ms": prefill_ops / PEAK_BF16_FLOPS * 1e3,
+            "decode_ms_per_step": decode_s / steps * 1e3, "decode_tok_s": B * steps / decode_s,
+            "decode_step_weight_bytes": weight_bytes, "decode_step_kv_bytes": kv_step_bytes,
+            "decode_step_bound_ms": (weight_bytes + kv_step_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "peak_memory_gb": peak_gb, "model_bytes": torch.cuda.memory_allocated(),
+            "prefill_launches": {n: c for n, c in pre.items() if c},
+            "decode_launches": {n: c for n, c in dec.items() if c},
+            "cosine_vs_plain": cos.tolist(), "top1_kernel": logits[:, -1].argmax(-1).tolist(),
+            "top1_plain": plain_logits[:, -1].argmax(-1).tolist(), "token_ties": ties,
+            "tokens_equal_plain": bool(torch.equal(tokens, plain_tokens)),
+        }))
+        if not bool((cos > GEMMA_E2E_COS).all()):
+            raise RuntimeError(f"{label}: kernel vs plain prefill logits cosine {cos.tolist()} <= {GEMMA_E2E_COS}")
+        out[kv or "bf16"] = launches
+        del cache, logits, plain_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def only_gemma(card: str) -> int:
+    """`--only gemma`: phase 3's rows of `flash_prefill` and of `flash_decode`
+    at D = 256, then phase 22 (Gemma-7B)."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_flash_prefill(flush)
+    phase_flash_decode(flush, heads=FD_GEMMA_HEADS, kinds=FD_CACHES)
+    phase_flash_decode_paged(flush, heads=FD_GEMMA_HEADS, cases=FD_GEMMA_PAGED)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_gemma()
+    log(f"gemma: phase 22 took {time.perf_counter() - t0:.1f} s")
+    log(card)
+    log(json.dumps({"ok": True, "only": "gemma", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def only_speculative(card: str) -> int:
     """`--only speculative`: phase 21 alone (after phases 1-2)."""
     from quanto_tpu_torch.models.llama import LlamaConfig
@@ -4963,9 +5380,9 @@ def main() -> int:
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged",
-                    "speculative"):
+                    "speculative", "gemma"):
         print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics, "
-              f"paged or speculative, got {only}", file=sys.stderr)
+              f"paged, speculative or gemma, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -4997,13 +5414,17 @@ def main() -> int:
         return only_paged(card)
     if only == "speculative":
         return only_speculative(card)
+    if only == "gemma":
+        return only_gemma(card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
     # Phase 3: kernels vs plain.
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rows = (phase_kernels(K_mod, flush) + phase_small_m_sweep(K_mod, flush) + phase_flash_decode(flush)
-            + phase_flash_decode_paged(flush) + phase_qbytes(flush)
+            + phase_flash_decode_paged(flush) + phase_flash_prefill(flush)
+            + phase_flash_decode(flush, heads=FD_GEMMA_HEADS, kinds=FD_CACHES)
+            + phase_flash_decode_paged(flush, heads=FD_GEMMA_HEADS, cases=FD_GEMMA_PAGED) + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
             + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush)
@@ -5147,6 +5568,13 @@ def main() -> int:
     # Phases 17-19: W8A8 Llama-3.1-8B, SmolLM2-360M (HQQ, W4A8, QAT; padded), Qwen2.5-0.5B.
     numerics = phases_numerics()
 
+    # Phase 22: Gemma-7B at full depth and width through flash_prefill and flash_decode at D = 256.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gemma = phase_gemma()
+    log(f"gemma: phase 22 took {time.perf_counter() - t0:.1f} s")
+
     # Phase 21: speculative decoding (greedy and sampled, a qint4 draft and a layer-skip draft).
     gc.collect()
     torch.cuda.empty_cache()
@@ -5175,9 +5603,11 @@ def main() -> int:
         "qbits_mm_requant_int8_int2": ("phase 13 (llama-3.1-8b w2a8, requant form)", launches_w2a8["requant"]),
         "qbits_mm_partitioned": ("phase 14 (llama-3.1-8b qint4, tp = 2, rank 0)", tp["full"]["counts"]),
         "flash_decode_paged": ("phase 20(b) (PagedEngine, bf16 pages of 64)", launches_paged["b"]),
+        "flash_prefill": ("phase 4 (ctx 1088, its prefill)", launches_1088),
     }
     kernels = []
-    for name in [*KERNEL_M, "flash_decode", "flash_decode_paged", *QBYTES_M, *W4A8_M, "qbits_mm_requant_int8",
+    for name in [*KERNEL_M, "flash_decode", "flash_decode_paged", "flash_prefill", *QBYTES_M, *W4A8_M,
+                 "qbits_mm_requant_int8",
                  "qbits_moe_small_m",
                  "qbits_moe_all", "qbits_moe_tiled", "qbits_moe_tiled_small_m", *(f"{arm}_int2" for arm in INT2_ARMS),
                  "qbits_mm_partitioned"]:
@@ -5191,9 +5621,13 @@ def main() -> int:
             rep = next(r for r in mine if (r["cache"], r["S"], r["q"], r["Hkv"]) == (*FD_SUMMARY, "bf16", FD_HEADS[0]))
             shape = dict(cache=FD_SUMMARY[0], B=B, S=FD_SUMMARY[1], Hkv=FD_HEADS[0], G=FD_HEADS[1], D=FD_HEADS[2])
         elif name == "flash_decode_paged":
-            rep = next(r for r in mine if (r["cache"], r["S"], r["page_size"], r["q"]) == (*FD_PAGED_SUMMARY, "bf16"))
+            rep = next(r for r in mine if (r["cache"], r["S"], r["page_size"], r["q"], r["D"])
+                       == (*FD_PAGED_SUMMARY, "bf16", FD_HEADS[2]))
             shape = dict(cache=rep["cache"], B=rep["B"], S=rep["S"], page_size=rep["page_size"], Hkv=FD_HEADS[0],
                          G=FD_HEADS[1], D=FD_HEADS[2])
+        elif name == "flash_prefill":  # the main path's: Llama-3.1-8B's heads, bf16, B = 4 x 1024
+            rep = next(r for r in mine if (r["model"], r["softcap"], r["dtype"]) == (FP_ROWS[0][0], None, "bfloat16"))
+            shape = dict(model=rep["model"], B=B, T=T, Hkv=rep["Hkv"], G=rep["G"], D=rep["D"])
         elif name.startswith("qbits_moe"):
             rep = next(r for r in mine if (r["form"], r["nslots"], r["M"], r["N"], r["K"]) == SUMMARY_SHAPE[name])
             shape = dict(form=rep["form"], U=rep["U"], nslots=rep["nslots"], M=rep["M"], N=rep["N"], K=rep["K"])
@@ -5229,6 +5663,12 @@ def main() -> int:
         if name == "flash_decode_paged":
             extra = {"launches_phase20c": launches_paged["c"][name], "dense_ms": rep["dense_ms"],
                      "gather_dense_ms": rep["gather_dense_ms"]}
+        if name in ("flash_prefill", "flash_decode"):  # phase 22, Gemma-7B at D = 256
+            extra["launches_phase22"] = {cache: c[name] for cache, c in gemma.items()}
+        if name == "flash_prefill":
+            extra["rows"] = {f"{r['model']} {r['dtype']}{' softcap' if r['softcap'] else ''}": dict(
+                ms=r["ms"], bound_ms=r["bound_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                for r in mine}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
         kernels.append(dict(

@@ -19,7 +19,9 @@
 // Cache layout (quanto_tpu_torch/tensor/kv_cache.py): payload [B, S, Hkv, D] as float32,
 // bfloat16, int8 or float8 (decoded through a 256-entry table of the format's values), or int4
 // as uint8 [B, S, Hkv, D/2] with code 2j + 8 in the low nibble of byte j and code 2j + 1 + 8 in
-// its high nibble; scales and shifts float32 [B, S, Hkv, 1].
+// its high nibble; scales and shifts float32 [B, S, Hkv, 1]. D is 64, 128 or 256 (Gemma); at 256 a
+// bf16 slot's K and V rows are 1 KB, so a stage (16 slots a warp) is 64 KB and the ring takes two
+// (flash_decode.cuh:ring_stages), one block an SM; the CUDA-core arm takes 8 slots a warp there.
 //
 // The paged arm (a page table given; quanto_tpu_torch/tensor/paged_kv.py): the payload, scales and
 // shifts are pools [n_pages, ps, Hkv, ...] and slot s of row b lies at offset s % ps of page
@@ -134,7 +136,11 @@ __device__ __forceinline__ uint32_t byte_pair(uint32_t x, int ka, uint32_t y, in
 
 template <int NB>
 __device__ __forceinline__ void lds(const unsigned char* p, uint32_t (&w)[NB / 4]) {
-  if constexpr (NB == 16) {
+  if constexpr (NB == 32) {  // a 32-byte run (D = 256: int4 K, int8 and float8 V), contiguous under swz
+    const uint4 v = *reinterpret_cast<const uint4*>(p), u = *reinterpret_cast<const uint4*>(p + 16);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    w[4] = u.x; w[5] = u.y; w[6] = u.z; w[7] = u.w;
+  } else if constexpr (NB == 16) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   } else if constexpr (NB == 8) {
@@ -154,7 +160,7 @@ struct TcArm {
   static constexpr int TS = tile_slots(KROW + VROW);
   static constexpr bool SCALES = KT > BF16;  // a quantized cache has per-slot factors
   using SL = StageLayout<TS, KROW, VROW, SCALES>;
-  static constexpr int STAGES = SL::bytes <= 20480 ? 4 : 3;
+  static constexpr int STAGES = ring_stages(SL::bytes, D);
   static constexpr int LUT_BYTES = (KT == FP8 || VT == FP8) ? 2 * 256 * 2 : 16;
   static constexpr int KS = D / 16;  // k steps of the logits product, m tiles of the output product
 
@@ -544,7 +550,7 @@ extern "C" int flash_decode_workspace(int device, int G, int D, int k_type, int 
                                       long long* floats, int* groups) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (G < 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (G < 1 || (D != 64 && D != 128 && D != 256)) return (int)cudaErrorInvalidValue;
   return tensor_cores(k_type, v_type, q_bf16) ? fd::tc_workspace(device, G, k_type, v_type, D, floats, groups)
                                               : fd::cc_workspace(device, G, k_type, v_type, D, floats, groups);
 }
@@ -563,7 +569,7 @@ extern "C" int flash_decode(int device, const void* q, const void* k, const void
                             const void* table, int pages_per_slot, int page_size, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if ((D != 64 && D != 128) || B < 1 || Hkv < 1 || G < 1 || S < 1 || !valid_types(k_type, v_type, mode))
+  if ((D != 64 && D != 128 && D != 256) || B < 1 || Hkv < 1 || G < 1 || S < 1 || !valid_types(k_type, v_type, mode))
     return (int)cudaErrorInvalidValue;
   if (table != nullptr && (pages_per_slot < 1 || page_size < 1 || (long long)pages_per_slot * page_size != S))
     return (int)cudaErrorInvalidValue;

@@ -103,11 +103,18 @@ __host__ __device__ constexpr int row_bytes() {
 }
 
 // Slots of a warp's part of a tile, for slots of `slot_bytes` of K and V rows: at most 4 KB a warp
-// (a stage of 16 KB), a power of 2 from one 16-slot m tile to 128.
-__host__ __device__ constexpr int tile_slots(int slot_bytes) {
+// (a stage of 16 KB), a power of 2 from `least` (one 16-slot m tile for the tensor-core arm) to 128.
+__host__ __device__ constexpr int tile_slots(int slot_bytes, int least = 16) {
   int t = 128;
-  while (t > 16 && t * slot_bytes > WARP_TILE_BYTES) t /= 2;
+  while (t > least && t * slot_bytes > WARP_TILE_BYTES) t /= 2;
   return t;
+}
+
+// Stages of the ring for a stage of `bytes` at head dim D: 4 up to 20 KB, else 3; at D = 256, 2 where
+// a stage passes 40 KB (its bf16 and float32 rows: a stage of 64 KB, and the partials of 8 or 16 query
+// rows beside two of them, fit one block whatever the batch's plan needs).
+__host__ __device__ constexpr int ring_stages(int bytes, int D) {
+  return bytes <= 20480 ? 4 : (D > 128 && bytes > 40960) ? 2 : 3;
 }
 
 // Byte b of row r of a staged tile of RB-byte rows. The XOR moves 16-byte chunks (rows of 128
@@ -512,6 +519,7 @@ int visit(int kt, int vt, int D, F&& f) {
     constexpr int KT = decltype(k_tag)::value, VT = decltype(v_tag)::value;
     if (D == 64) return f(A<KT, VT, 64>{});
     if (D == 128) return f(A<KT, VT, 128>{});
+    if (D == 256) return f(A<KT, VT, 256>{});
     return (int)cudaErrorInvalidValue;
   };
   using I8t = std::integral_constant<int, I8>;

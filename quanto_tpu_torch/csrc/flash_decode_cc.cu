@@ -111,12 +111,13 @@ struct CcArm {
   static constexpr int L = D / EPL;           // lanes per slot row
   static constexpr int SPW = 32 / L;          // slot rows per warp and step
   static constexpr int KROW = row_bytes<KT, D>(), VROW = row_bytes<VT, D>();
-  static constexpr int TS = tile_slots(KROW + VROW);
+  // At D = 256 a warp's part is 8 slots (a float32 row pair is 2 KB), so that two stages fit.
+  static constexpr int TS = tile_slots(KROW + VROW, D > 128 ? 8 : 16);
   static constexpr int PER = TS / SPW;        // a lane group's slots of a tile
   static constexpr int U = unroll<KT, VT>() < PER ? unroll<KT, VT>() : PER;
   static constexpr bool SCALES = KT > BF16;  // a quantized cache has per-slot factors
   using SL = StageLayout<TS, KROW, VROW, SCALES>;
-  static constexpr int STAGES = SL::bytes <= 20480 ? 4 : 3;
+  static constexpr int STAGES = ring_stages(SL::bytes, D);
   static constexpr int LUT_BYTES = (KT == FP8 || VT == FP8) ? 2 * 256 * 4 : 16;
   static_assert(PER % U == 0, "a group's slots come in whole steps");
 

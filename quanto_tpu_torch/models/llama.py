@@ -18,13 +18,22 @@ the full vocabulary on every rank, so that every rank samples the same
 tokens.
 
 The options of the JAX config (`quanto_tpu/models/llama.py:36-101`) are
-ported but Gemma's: tied embeddings (no `lm_head`; the logits come from the
-embedding), attention biases (q/k/v/o), Qwen2's q/k/v-only biases, MLP
-biases, an explicit `head_dim`, and the `default`, `linear`, `llama3`,
-`dynamic` and `yarn` ropes, with the attention factor that yarn multiplies
-into cos and sin. `LlamaConfig.from_hf` refuses Gemma (`rms_norm_unit_offset`,
-`scale_embeddings`, head_dim 256, which `flash_decode` does not take), an
-activation other than silu and a sliding window (ROADMAP.md Queue 1).
+ported: tied embeddings (no `lm_head`; the logits come from the embedding),
+attention biases (q/k/v/o), Qwen2's q/k/v-only biases, MLP biases, an
+explicit `head_dim`, the `default`, `linear`, `llama3`, `dynamic` and `yarn`
+ropes (with the attention factor that yarn multiplies into cos and sin), and
+Gemma's: `hidden_act` "gelu" or "gelu_pytorch_tanh" (the tanh GELU),
+`rms_norm_unit_offset` (RMSNorm computes out * (1 + w), w starting at 0) and
+`scale_embeddings` (the embeddings times sqrt(hidden_size), that factor first
+rounded to the model dtype: 55.5 in bf16 for Gemma-7B's 3072).
+`LlamaConfig.from_hf` reads "gemma" configs and refuses "gemma2", any other
+activation and a sliding window (ROADMAP.md Queue 1).
+
+Attention (`LlamaAttention.forward`, JAX `llama.py:362-383`): a T == 1 step
+over a cache goes to `flash_decode`; a step of T > 1 that is causal from
+position 0 (a cache written at the Python int 0, or no cache) attends to its
+raw K/V through `flash_prefill` inside JAX's envelope; every other step runs
+`gqa_attention` over the cache readback or with its causal mask.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import decode_attention, gqa_attention
+from ..ops.attention import decode_attention, gqa_attention, static_zero_pos, try_flash_prefill
 from ..ops.collectives import all_reduce
 from ..tensor.kv_cache import cache_max_len, init_quantized_kv_cache, kv_read_raw, kv_update
 from ..tensor.qarray import QArray
@@ -51,6 +60,8 @@ _INIT_STD = 0.02
 
 
 _ROPE_TYPES = ("default", "linear", "llama3", "dynamic", "yarn")  # `rope_params`
+# Activations of the MLP: silu, or the tanh GELU under the two names Gemma's configs use.
+_ACTS = ("silu", "gelu", "gelu_pytorch_tanh")
 
 
 def _not_ported(what: str, item: int = 4):
@@ -75,6 +86,10 @@ class LlamaConfig:
     attention_bias: bool = False  # biases on q/k/v/o
     qkv_bias: bool = False  # Qwen2: biases on q/k/v only
     mlp_bias: bool = False
+    hidden_act: str = "silu"  # or "gelu" / "gelu_pytorch_tanh": the tanh GELU
+    # Gemma: RMSNorm computes x * (1 + w), and the embeddings are scaled by sqrt(hidden_size).
+    rms_norm_unit_offset: bool = False
+    scale_embeddings: bool = False
     dtype: torch.dtype = torch.float32
 
     # What `to_hf` writes as `model_type` and `architectures`.
@@ -90,18 +105,22 @@ class LlamaConfig:
     @classmethod
     def from_hf(cls, hf: Mapping[str, Any], dtype=torch.bfloat16) -> "LlamaConfig":
         """From the plain dict of a Hugging Face `config.json` (llama, mistral,
-        qwen2), the keys `quanto_tpu/models/llama.py:69-101` reads from a
+        qwen2, gemma), the keys `quanto_tpu/models/llama.py:69-101` reads from a
         `PretrainedConfig`; a qwen2 config has q/k/v biases whatever its
-        `attention_bias` says, as Hugging Face's Qwen2 hardcodes them. Raises
-        `NotImplementedError` on what the port does not implement: Gemma, an
-        activation other than silu, a sliding window, a rope other than
-        default, linear, llama3, dynamic and yarn."""
+        `attention_bias` says, as Hugging Face's Qwen2 hardcodes them, and a
+        gemma config takes the unit-offset RMSNorm, the scaled embeddings and,
+        where it names none, tied embeddings (Hugging Face's `GemmaConfig`
+        default). Raises `NotImplementedError` on what the port does not
+        implement: gemma2, an activation other than silu and the tanh GELU
+        ("gelu", "gelu_pytorch_tanh"; JAX takes the tanh GELU for any other
+        string too), a sliding window, a rope other than default, linear,
+        llama3, dynamic and yarn."""
         model_type = hf.get("model_type", "llama")
-        if model_type in ("gemma", "gemma2"):
-            _not_ported(f"model_type {model_type!r} (rms_norm_unit_offset, scale_embeddings; its head_dim 256 is "
-                        "outside flash_decode's {64, 128}, ROADMAP.md Queue 2)")
+        if model_type == "gemma2":
+            _not_ported("model_type 'gemma2' (softcaps, sliding-window layers, gemma2.py)", item=8)
+        gemma = model_type == "gemma"
         act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
-        if act != "silu":
+        if act not in _ACTS:
             _not_ported(f"hidden_act {act!r}")
         if hf.get("use_sliding_window", False):
             _not_ported("use_sliding_window (sliding.py: ring caches, the paged+ring hybrid)", item=8)
@@ -123,10 +142,13 @@ class LlamaConfig:
             rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
             rope_theta=hf.get("rope_theta", 10000.0),
             rope_scaling=rope,
-            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            tie_word_embeddings=hf.get("tie_word_embeddings", gemma),
             attention_bias=hf.get("attention_bias", False),
             qkv_bias=model_type == "qwen2" or hf.get("attention_bias", False),
             mlp_bias=hf.get("mlp_bias", False),
+            hidden_act=act,
+            rms_norm_unit_offset=gemma,
+            scale_embeddings=gemma,
             dtype=dtype,
             **cls._hf_extra(hf),
         )
@@ -140,12 +162,21 @@ class LlamaConfig:
         """This configuration as a `config.json` dict, plain JSON that
         `transformers.AutoConfig` reads (and so the JAX package's
         `from_pretrained`) and that `from_hf` inverts. q/k/v biases without an
-        o_proj bias are Qwen2's, so such a config is written as qwen2."""
+        o_proj bias are Qwen2's, so such a config is written as qwen2; the
+        unit-offset RMSNorm is Gemma's, so such a config is written as gemma
+        (with `hidden_activation` beside `hidden_act`, as Gemma's configs)."""
         rope = {k: list(v) if isinstance(v, tuple) else v for k, v in dict(self.rope_scaling or {}).items()}
         qwen2 = self.qkv_bias and not self.attention_bias
+        gemma = self.rms_norm_unit_offset
+        arch, model_type = self.hf_architecture, self.hf_model_type
+        if qwen2:
+            arch, model_type = "Qwen2ForCausalLM", "qwen2"
+        elif gemma:
+            arch, model_type = "GemmaForCausalLM", "gemma"
+        extra = {"hidden_activation": self.hidden_act} if gemma else {}
         return {
-            "architectures": ["Qwen2ForCausalLM" if qwen2 else self.hf_architecture],
-            "model_type": "qwen2" if qwen2 else self.hf_model_type,
+            "architectures": [arch],
+            "model_type": model_type,
             "vocab_size": self.vocab_size,
             "hidden_size": self.hidden_size,
             "intermediate_size": self.intermediate_size,
@@ -157,7 +188,8 @@ class LlamaConfig:
             "rms_norm_eps": self.rms_norm_eps,
             "rope_theta": self.rope_theta,
             "rope_scaling": rope or None,
-            "hidden_act": "silu",
+            "hidden_act": self.hidden_act,
+            **extra,
             "attention_bias": self.attention_bias,
             "mlp_bias": self.mlp_bias,
             "tie_word_embeddings": self.tie_word_embeddings,
@@ -305,15 +337,23 @@ def init_kv_cache(
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-6, device=None, dtype=None):
+    """x / rms(x) * w in float32; with `unit_offset` (Gemma) * (1 + w), w
+    starting at 0 (`quanto_tpu/models/llama.py:105-118`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, unit_offset: bool = False, device=None, dtype=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        init = torch.zeros if unit_offset else torch.ones
+        self.weight = nn.Parameter(init(dim, device=device, dtype=dtype))
         self.eps = eps
+        self.unit_offset = unit_offset
 
     def forward(self, x):
         xf = x.float()
         out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
-        return (out * self.weight.float()).to(x.dtype)
+        w = self.weight.float()
+        if self.unit_offset:
+            w = 1.0 + w
+        return (out * w).to(x.dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -345,7 +385,16 @@ class LlamaAttention(nn.Module):
             new_cache = kv_update(layer_cache, k, v, cache_pos)
             if T == 1:
                 return _deq(self.o_proj(decode_attention(q, new_cache, decode_pos))), new_cache
+            if static_zero_pos(cache_pos):
+                # Causal from zero: the raw K/V just written, not the cache readback (JAX :375-383).
+                out = try_flash_prefill(q, k, v)
+                if out is not None:
+                    return _deq(self.o_proj(out)), new_cache
             k, v, k_scale, v_scale, k_shift, v_shift = kv_read_raw(new_cache, q.dtype, B)
+        elif T > 1:
+            out = try_flash_prefill(q, k, v)
+            if out is not None:
+                return _deq(self.o_proj(out)), None
         q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
         out = gqa_attention(
             q5, k, v, mask, scale,
@@ -360,10 +409,12 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
         self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
         self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=c.mlp_bias, **kw)
+        self.hidden_act = c.hidden_act
 
     def forward(self, x):
         g, u = _deq(self.gate_proj(x)), _deq(self.up_proj(x))
-        return _deq(self.down_proj(F.silu(g) * u))
+        act = F.silu(g) if self.hidden_act == "silu" else F.gelu(g, approximate="tanh")
+        return _deq(self.down_proj(act * u))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -371,8 +422,8 @@ class LlamaDecoderLayer(nn.Module):
         super().__init__()
         self.self_attn = LlamaAttention(c, **kw)
         self.mlp = LlamaMLP(c, **kw)
-        self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
-        self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
+        self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
+        self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
 
     def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None, decode_pos=None):
         h, new_cache = self.self_attn(
@@ -388,7 +439,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
         self.layers = nn.ModuleList([layer_cls(c, **kw) for _ in range(c.num_hidden_layers)])
-        self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, **kw)
+        self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
 
 
 @torch.no_grad()
@@ -399,7 +450,7 @@ def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, RMSNorm):
-            m.weight.fill_(1.0)
+            m.weight.fill_(0.0 if m.unit_offset else 1.0)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -486,6 +537,8 @@ class LlamaForCausalLM(nn.Module):
             x = embed(input_ids.long())
         else:
             x = _vocab_parallel_embed(embed, input_ids.long(), self.tp)
+        if self.config.scale_embeddings:  # the factor rounded to x's dtype first, as JAX (:489)
+            x = x * torch.tensor(self.config.hidden_size**0.5, dtype=x.dtype)
         pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
         cos, sin = _rope(positions, self.inv_freq, x.dtype, self.attn_scale)

@@ -139,7 +139,11 @@ class BatchedEngine:
     def _prefill_into(self, slot: int, prompt: np.ndarray, start_pos: int = 0) -> torch.Tensor:
         """Prefill `prompt` into the pool's `slot` in place, from
         `start_pos`; returns the last real token's logits [1, V]. Fixed-shape
-        chunks when `prefill_chunk` is set, the whole prompt otherwise."""
+        chunks when `prefill_chunk` is set, the whole prompt otherwise. A
+        chunk's position goes in as a one-row array, as JAX's chunk program
+        takes a traced int32: chunks attend over the cache readback, never
+        through the fused causal prefill, which only the whole prompt at the
+        int 0 takes (JAX's `_prefill_fn`)."""
         view = tuple(slot_view(layer, slot) for layer in self._cache)
         C = self.prefill_chunk
         if C is None:
@@ -150,13 +154,14 @@ class BatchedEngine:
         while c0 < n:
             chunk = prompt[c0 : c0 + C]
             r = len(chunk)
+            at = np.array([start_pos + c0], np.int32)
             if r < C and start_pos + c0 + C > self.max_len:
                 # Padding would spill past the cache: run the remainder at its
                 # own length.
-                return self._forward(chunk[None, :], view, start_pos + c0, r - 1)
+                return self._forward(chunk[None, :], view, at, r - 1)
             if r < C:
                 chunk = np.pad(chunk, (0, C - r))
-            last = self._forward(chunk[None, :], view, start_pos + c0, r - 1)
+            last = self._forward(chunk[None, :], view, at, r - 1)
             c0 += C
         return last
 

@@ -11,7 +11,8 @@ The model families are the port's own (`models/llama.py`,
 `models/mixtral.py`), chosen by `model_type` in `config.json`, which is read
 and written as plain JSON (no `transformers` on the card's machine); the
 port writes one that `transformers.AutoConfig` reads. `llama`, `mistral`,
-`qwen2` (`models/llama.py` with q/k/v biases) and `mixtral` are ported.
+`qwen2` (`models/llama.py` with q/k/v biases), `gemma` (`models/llama.py` with
+Gemma's options) and `mixtral` are ported.
 
 Where it differs from JAX: JAX builds the float model and then swaps in the
 quantized modules (`transformers_models.py:403-417`); Mixtral-8x7B is 93 GB
@@ -54,6 +55,7 @@ _FAMILIES = {
     "llama": (LlamaConfig, LlamaForCausalLM),
     "mistral": (LlamaConfig, LlamaForCausalLM),
     "qwen2": (LlamaConfig, LlamaForCausalLM),
+    "gemma": (LlamaConfig, LlamaForCausalLM),
     "mixtral": (MixtralConfig, MixtralForCausalLM),
 }
 

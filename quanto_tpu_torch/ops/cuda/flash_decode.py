@@ -12,8 +12,8 @@ cache slots s <= positions[b]:
     out      = softmax(logit) . (s_v * c_v + m_v)
 
 The wrapper's contract is JAX's `flash_decode_call`, widened to the port's
-caches (`tensor/kv_cache.py`): q [B, Hkv, G, D] (bfloat16 or float32, D 64 or
-128); k/v payloads [B, S, Hkv, D] in float32, bfloat16, int8 or a float8 type,
+caches (`tensor/kv_cache.py`): q [B, Hkv, G, D] (bfloat16 or float32, D 64,
+128 or 256); k/v payloads [B, S, Hkv, D] in float32, bfloat16, int8 or a float8 type,
 or int4 as uint8 [B, S, Hkv, D/2], the K and V types independent (k8v4,
 k4v8); scales and shifts float32 [B, S, Hkv, 1] or None; positions int [B].
 It returns [B, Hkv, G, D] in q's dtype.
@@ -59,6 +59,7 @@ __all__ = ["flash_decode_plain", "flash_decode", "flash_decode_paged_plain", "fl
 _FLOAT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CODE_TYPES = {torch.int8: 2, torch.uint8: 3}  # uint8 is the int4 nibble layout
 _FP8 = 4
+_HEAD_DIMS = (64, 128, 256)  # every head dim of the port's model families (Gemma: 256)
 
 
 def _codes_f32(payload: torch.Tensor) -> torch.Tensor:
@@ -117,8 +118,8 @@ def _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions, paged: bool =
     B, Hkv, G, D = q.shape
     if q.dtype not in _FLOAT_TYPES:
         raise TypeError(f"flash_decode: q must be bfloat16 or float32, got {q.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_decode: head dim {D} must be 64 or 128")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {D} must be one of {_HEAD_DIMS}")
     k_type, v_type = _payload_type(k, D, "k"), _payload_type(v, D, "v")
     if (k.shape[0] != B and not paged) or k.shape[2] != Hkv or v.shape[:3] != k.shape[:3] or k.shape[1] < 1:
         raise ValueError(

@@ -30,8 +30,9 @@ loading (`KeyError`, and the missing / unexpected report), a sharded
 checkpoint, the e4m3fn NaN codes 0x7F / 0xFF in a loaded lm_head (NaN in
 those logits in both packages, as JAX's `qlinear` converts the codes), the
 requant form's `_s8` after a reload, a stacked Mixtral refusing to save,
-`config.json` both ways through `transformers.AutoConfig` and the keys the
-port refuses, and the local hub resolver against JAX's.
+`config.json` both ways through `transformers.AutoConfig`, Gemma's keys read
+as JAX reads them, the keys the port refuses, and the local hub resolver
+against JAX's.
 """
 
 import copy
@@ -434,11 +435,36 @@ def test_config_json_both_ways(tmp_path, family):
 @pytest.mark.parametrize(
     "extra",
     [
-        {"model_type": "gemma"},
-        {"model_type": "gemma2"},
-        {"use_sliding_window": True},
+        {"model_type": "gemma", "head_dim": 256, "hidden_act": "gelu"},  # google/gemma-7b's keys
         {"hidden_act": "gelu"},
         {"hidden_activation": "gelu_pytorch_tanh"},
+    ],
+    ids=lambda e: "-".join(f"{k}={v}" for k, v in e.items()),
+)
+def test_config_accepts_gemma_options(extra):
+    """Gemma's keys read as JAX's `from_hf` reads them, and round-trip
+    through `to_hf`: the tanh GELU under both names, and a gemma config's
+    unit-offset RMSNorm and scaled embeddings."""
+    import types
+
+    hf = dict(LlamaConfig(**LLAMA31_8B).to_hf(), **extra)
+    port = LlamaConfig.from_hf(hf)
+    jax = JaxLlamaConfig.from_hf(types.SimpleNamespace(**hf), dtype=jnp.bfloat16)
+    for name in ("hidden_act", "rms_norm_unit_offset", "scale_embeddings", "tie_word_embeddings", "head_dim",
+                 "hidden_size", "num_key_value_heads", "rope_theta"):
+        assert getattr(port, name) == getattr(jax, name), name
+    assert port.hidden_act in ("gelu", "gelu_pytorch_tanh")
+    assert port.rms_norm_unit_offset == port.scale_embeddings == (hf["model_type"] == "gemma")
+    assert LlamaConfig.from_hf(port.to_hf()) == port
+    assert port.to_hf()["model_type"] == hf["model_type"]
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        {"model_type": "gemma2"},
+        {"use_sliding_window": True},
+        {"hidden_act": "relu"},
         {"rope_scaling": {"rope_type": "longrope", "factor": 4.0}},
     ],
     ids=lambda e: "-".join(f"{k}={v}" for k, v in e.items() if k != "rope_scaling") or "rope_scaling",

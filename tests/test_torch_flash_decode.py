@@ -4,7 +4,8 @@
   mode, as `tests/ops/test_flash_decode.py` runs them: `flash_decode_call`,
   `flash_decode2_call` and `flash_decode3_call` (the last with sb = 128 at
   S = 512, so its online softmax walks 4 chunks), over float and int8 caches,
-  D = 64 and 128, G = 3 and 4, ragged positions. Tolerance 2e-5 (rtol and
+  D = 64, 128 and 256 (Gemma's heads: G = 1 as Gemma-7B, 8 as Gemma-2B),
+  G = 3 and 4, ragged positions. Tolerance 2e-5 (rtol and
   atol), JAX's own for these kernels: both sides are float32, and the port
   normalises the softmax at the end where v1/v2 normalise before the PV dot.
 - (c) `flash_decode_plain` (through `decode_attention`, as the model calls it)
@@ -61,7 +62,8 @@ def port(*arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("D,G", [(64, 3), (128, 4), (128, 3)], ids=["d64g3", "d128g4", "d128g3"])
+@pytest.mark.parametrize("D,G", [(64, 3), (128, 4), (128, 3), (256, 1), (256, 8)],
+                         ids=["d64g3", "d128g4", "d128g3", "d256g1", "d256g8"])
 @pytest.mark.parametrize("quantized", [True, False], ids=["int8cache", "floatcache"])
 @pytest.mark.parametrize("variant", ["v1", "v2", "v3"])
 def test_plain_matches_tpu_kernels(variant, quantized, D, G):

@@ -37,18 +37,27 @@ types (float32 and bfloat16 caches; int8, int4 and the three float8 formats
 paired freely, with and without shifts), S in {1, 63, 64, 65, 127, 1088,
 8192}, ragged positions including 0, float32 and bfloat16 q (bfloat16 q over
 a cache without float32 payloads takes the tensor-core arm, the rest the
-CUDA-core arm), G in {1, 3, 6, 8, 12}; positions that leave most tiles empty
+CUDA-core arm), G in {1, 3, 6, 8, 12}, and every cache at D = 256 (Gemma's
+heads) with G in {1, 8}; positions that leave most tiles empty
 (rows at 0, rows inside the first tile, one row at S - 1 beside rows at 0,
 the engine's three decode steps over 4352 slots) and 40 or 100 rows at random
 positions; each call one launch, two calls the same bits. Its paged arm
 (`flash_decode_paged`) over caches of bf16, qint8, qint4, k8v4 and qint4a pages
-of 4, 16 and 64 slots behind a shuffled table, D 64 and 128, both q dtypes, and
+of 4, 16 and 64 slots behind a shuffled table, D 64, 128 and 256, both q dtypes, and
 a bf16 pool past 2^31 bytes: one launch on its own counter, EQUAL to the dense
 arm on the pages gathered through the table (the same plan and sums), and
 within the dense tolerances of its plain version. Tolerances: float32 q within 1e-5 * max|ref| (float32 sums in
 another order, ex2.approx); bfloat16 q within 1e-2 * max|ref| and cosine > 1 -
 1e-4 (the same, p s_v rounded to bf16 inside the tensor-core product, the
 output rounded to bf16).
+
+`flash_prefill` (TPU #16, causal attention of a prompt from position 0)
+against `flash_prefill_plain` at Llama-3.1-8B's, Gemma-7B's and Gemma-2B's
+heads, with softcaps and T in {256, 384, 512, 640, 1024}, bf16 and float32:
+one launch a call, two calls the same bits, bf16 within 2^-7 * max|ref| (one
+bf16 step at the largest value) and cosine > 1 - 1e-5, float32 within 1e-4 * max|ref| (its operands as bf16 hi +
+lo pairs); and its refusals (a head dim past 256, operands on two devices, a
+T outside the envelope).
 
 The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
 `qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
@@ -126,6 +135,7 @@ from quanto_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_paged_plain,
     flash_decode_plain,
 )
+from quanto_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
 from quanto_tpu_torch.ops.cuda import moe_mm as MM
 from quanto_tpu_torch.ops.cuda import qbytes_mm as QB
 from quanto_tpu_torch.ops.cuda.qbits_mm import (
@@ -396,6 +406,16 @@ def test_flash_decode_matches_plain(cuda_device, cache, S, dtype):
 @pytest.mark.parametrize("cache", CACHES, ids=cache_id)
 def test_flash_decode_head_dim_64(cuda_device, cache):
     check_flash_decode(cuda_device, cache, 1088, 64, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("cache", CACHES, ids=cache_id)
+def test_flash_decode_head_dim_256(cuda_device, cache, G, dtype):
+    """Gemma's head dim: G = 1 as Gemma-7B, 8 as Gemma-2B (two-stage rings of
+    64 KB for bf16 and float32 rows, 8 slots a warp on the CUDA-core arm)."""
+    check_flash_decode(cuda_device, cache, 1088, 256, dtype, G=G, seed=G)
 
 
 @pytest.mark.gpu
@@ -1018,6 +1038,10 @@ PAGED = {
     "ps16_k8v4": (16, 1088, 4, "k8v4", 64),
     "ps64_qint8": (64, 4352, 8, "qint8", 128),
     "ps64_qint4a": (64, 768, 8, "qint4a", 128),
+    # Gemma's head dim.
+    "ps16_bf16_d256": (16, 1088, 4, None, 256),
+    "ps64_qint4_d256": (64, 768, 4, "qint4", 256),
+    "ps64_k8v4_d256": (64, 768, 4, "k8v4", 256),
 }
 
 
@@ -1163,3 +1187,61 @@ def test_flash_decode_small_model_heads(cuda_device, cache, heads, dtype):
     (2, 7), D = 64, over the decode run's 1088 slots."""
     Hkv, G = heads
     check_flash_decode(cuda_device, cache, 1088, 64, dtype, G=G, Hkv=Hkv)
+
+
+# --- flash_prefill (TPU #16): causal attention of a prompt from position 0 ---------------------------
+
+# (B, T, Hkv, G, D, softcap): Llama-3.1-8B's heads (8 x 4 of 128), Gemma-7B's (16 x 1 of 256),
+# Gemma-2B's (1 x 8 of 256), a softcap, the least T of the envelope and T off a 64-key tile.
+PREFILL = {
+    "llama-d128-g4": (2, 1024, 8, 4, 128, None),
+    "gemma7b-d256-g1": (1, 1024, 16, 1, 256, None),
+    "gemma2b-d256-g8": (2, 512, 1, 8, 256, None),
+    "softcap-d128-g2": (1, 384, 2, 2, 128, 50.0),
+    "softcap-d256-g1": (1, 256, 2, 1, 256, 30.0),
+    "t640-d128-g1": (1, 640, 3, 1, 128, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(PREFILL))
+def test_flash_prefill_matches_plain(cuda_device, case, dtype):
+    """One launch a call, two calls the same bits, against the plain version:
+    bfloat16 within one bf16 step at max|ref| (2^-7 * max|ref| bounds that
+    step: exact bf16 products, float32 sums in another order, P as a 16-bit
+    hi + lo pair, so an output rounds to a neighbouring bf16 value at most)
+    and cosine > 1 - 1e-5; float32 (each operand a bf16 hi + lo pair, about
+    16 bits) within 1e-4 * max|ref|."""
+    B, T, Hkv, G, D, softcap = PREFILL[case]
+    g = torch.Generator(device=cuda_device).manual_seed(T + D + G)
+    q = torch.randn((B, T, Hkv * G, D), device=cuda_device, generator=g).to(dtype)
+    k = torch.randn((B, T, Hkv, D), device=cuda_device, generator=g).mul_(2).to(dtype)
+    v = torch.randn((B, T, Hkv, D), device=cuda_device, generator=g).to(dtype)
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, softcap=softcap)
+    assert flash_prefill.launches == before + 1
+    assert torch.equal(out, flash_prefill(q, k, v, softcap=softcap))
+    torch.cuda.synchronize()
+    ref = flash_prefill_plain(q, k, v, softcap=softcap).float()
+    assert out.shape == (B, T, Hkv * G * D) and out.dtype == dtype
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 2.0**-7 * ref.abs().max().item()
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0) > 1 - 1e-5
+
+
+@pytest.mark.gpu
+def test_flash_prefill_refusals(cuda_device):
+    q = torch.zeros((1, 256, 2, 384), dtype=torch.bfloat16, device=cuda_device)
+    before = flash_prefill.launches
+    with pytest.raises(NotImplementedError, match="head dims"):
+        flash_prefill(q, q[:, :, :1], q[:, :, :1])  # D = 384: in JAX's envelope, not the kernel's
+    q = torch.zeros((1, 256, 2, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        flash_prefill(q, q[:, :, :1].cpu(), q[:, :, :1])
+    with pytest.raises(ValueError, match="envelope"):
+        flash_prefill(q[:, :200], q[:, :200, :1], q[:, :200, :1])
+    assert flash_prefill.launches == before

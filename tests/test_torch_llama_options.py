@@ -17,7 +17,7 @@ evaluated at a fixed `seq_len` beyond it). For each:
 
 A qwen2 checkpoint (qint4, q/k/v biases, tied) saved by either package
 loads in the other: the same tensors bit for bit and logits within
-1e-4 * max|ref|. Gemma keeps raising.
+1e-4 * max|ref|. Gemma's options are held in `test_torch_gemma.py`.
 """
 
 import dataclasses
@@ -128,12 +128,6 @@ def test_to_hf_reads_in_transformers_and_jax(tmp_path):
         for name in ("tie_word_embeddings", "attention_bias", "mlp_bias", "head_dim", "rope_scaling"):
             assert getattr(jax, name) == getattr(config, name), (option, name)
         assert jax.qkv_bias == (config.qkv_bias or config.attention_bias)
-
-
-def test_gemma_still_raises():
-    hf = dict(LlamaConfig(**BASE).to_hf(), model_type="gemma", head_dim=256)
-    with pytest.raises(NotImplementedError, match="flash_decode"):
-        LlamaConfig.from_hf(hf)
 
 
 QWEN2 = dict(BASE, qkv_bias=True, tie_word_embeddings=True, rope_theta=1e6, rms_norm_eps=1e-6)

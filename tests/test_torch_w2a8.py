@@ -25,12 +25,18 @@ weight in the requant form (`freeze(model, w4a8_requant_dot=True)`).
   1024, the tiled route's largest M; at 2 x 1024 the exact form takes no
   kernel in either package) against JAX with `set_backend(pallas_qbits=True)`,
   and the requant form (given JAX's s8) at 2 x 1024 rows against JAX with
-  `w4a8_requant_dot=True` as well. An activation within one float32 ulp of a
+  `w4a8_requant_dot=True` as well. Both prompts are causal from position 0
+  inside the fused prefill's envelope (head_dim 128), so both packages attend
+  to the raw K/V there: the port through `flash_prefill`'s plain version,
+  JAX through `jax_flash_prefill_standin` (`test_torch_flash_prefill.py`,
+  held there against the splash kernel). An activation within one float32 ulp of a
   rounding half can take another int8 code in either package
   (`tests/test_torch_w4a8.py`). At this width (about 9000 quantized
   activations a position) a prompt of 1024 tokens moves some code, and a
   code moved in a key or value moves every later position. The prompts use
-  a seed (33) on which no row moves before position 64: positions below
+  a seed (38) on which no row moves before position 64 (the fused prefill's
+  float32 sums round differently from the readback chain's, so seed 33,
+  chosen for that chain, now moves a code at position 31): positions below
   PREFIX agree within CLEAN, all within MOVED (about two codes' worth, a
   code moving a row by up to 4e-2 * max|ref|, `tests/test_torch_requant.py`),
   and the greedy tokens are equal.
@@ -52,6 +58,7 @@ from quanto_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from quanto_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from quanto_tpu.models.llama import init_kv_cache as jax_init_kv_cache
 from quanto_tpu.models.loading import hf_state_dict
+from quanto_tpu.ops import attention as jax_attention
 from quanto_tpu.ops import config as jax_ops_config
 from quanto_tpu.ops.pallas.qbits_mm import qbits_int8_matmul_kernel_call
 from quanto_tpu.ops.qlinear import qlinear as jax_qlinear
@@ -64,6 +71,7 @@ from quanto_tpu_torch.ops.cuda import qbits_mm as K
 from quanto_tpu_torch.tensor.activations import ActivationQBytesArray
 from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray, WeightQBitsRequantArray
 
+from .test_torch_flash_prefill import jax_flash_prefill_standin
 from .test_torch_int2 import LLAMA, weight_pair
 from .test_torch_requant import bits, spy
 from .test_torch_requant import jax_s8_formula as jax_s8_formula_qmax
@@ -218,7 +226,7 @@ def test_qlinear_routes_w2a8(monkeypatch, int2_weight, m, form, want):
 
 W2A8 = dict(weights="qint2", activations="qint8", exclude="lm_head")
 CAL_BATCHES = [np.random.default_rng(30 + i).integers(0, LLAMA["vocab_size"], (2, 16)) for i in range(2)]
-IDS = np.random.default_rng(33).integers(0, LLAMA["vocab_size"], (2, 1024))
+IDS = np.random.default_rng(38).integers(0, LLAMA["vocab_size"], (2, 1024))
 FORMS = {"exact": (IDS[:1], False), "requant": (IDS, True)}  # prompts and JAX's requant switch
 STEPS = 4
 # Positions before any moved activation code agree within CLEAN; the rest within MOVED (module
@@ -257,9 +265,13 @@ def jax_w2a8():
         B, T = ids.shape
         jax_ops_config.set_backend(pallas_qbits=True, w4a8_requant_dot=requant)
         try:
-            logits, toks = nnx.jit(lambda m, i, c: _prefill_and_steps(m, i, c))(
-                model, jnp.asarray(ids, jnp.int32), jax_init_kv_cache(model.config, B, T + STEPS)
-            )
+            # The prefill from position 0 attends to its raw K/V, as on the TPU and in the port
+            # (the splash kernel's stand-in: interpret mode at T = 1024 would take minutes).
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jax_attention, "try_flash_prefill", jax_flash_prefill_standin)
+                logits, toks = nnx.jit(lambda m, i, c: _prefill_and_steps(m, i, c))(
+                    model, jnp.asarray(ids, jnp.int32), jax_init_kv_cache(model.config, B, T + STEPS)
+                )
         finally:
             jax_ops_config.set_backend()
         outs[form] = (np.asarray(logits), np.asarray(toks))
