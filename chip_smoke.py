@@ -4,10 +4,10 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --only sweep,serving   # phases 1-2, phase 3's small-M sweep and
                                                  # phase 15 alone (a tree's kernels, A/B)
-    python3 chip_smoke.py --only prefill         # phases 1-2, phase 3's tiled, requant and MoE
-                                                 # rows, the prefills of phases 4 and 7, phases
-                                                 # 10, 8, 12, phase 11's B = 1 prefill, phase 13
-                                                 # (a tree's kernels, A/B)
+    python3 chip_smoke.py --only prefill         # phases 1-2, phase 3's tiled, requant, MoE and
+                                                 # flash_prefill rows, the prefills of phases 4
+                                                 # and 7, phases 10, 8, 12, phase 11's B = 1
+                                                 # prefill, phase 13 (a tree's kernels, A/B)
     python3 chip_smoke.py --only qbytes,moe      # phases 1-2, phase 3's 8-bit sweep and MoE rows,
                                                  # phase 6 and its phase-15 serial arm, phase 8
                                                  # at B = 4 and 16 (a tree's kernels, A/B)
@@ -323,10 +323,10 @@ Phases (each raises on failure; the script exits 0 only when all pass):
    tokens and ms per round, where a round's time goes (draft steps, the verify, its float32
    attention chain), spec tok/s beside the target's own decode tok/s, and peak memory.
 
-`--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3 and #14
-alone: phase 3's #2 rows (both arms, both widths), requant and MoE rows (and
-the W4A8 and `flash_decode` rows phase 10 reads); phase 4's qint4 prefill
-(B = 4 x 1024, no decode) and phase 7's exact-form W4A8 prefill, each timed
+`--only prefill` runs phases 1-2 and the prefill paths of TPU #2, #3, #14 and
+#16 alone: phase 3's #2 rows (both arms, both widths), requant, MoE and
+`flash_prefill` rows (and the W4A8 and `flash_decode` rows phase 10 reads);
+phase 4's qint4 prefill (B = 4 x 1024, no decode) and phase 7's exact-form W4A8 prefill, each timed
 after a warm-up with its exact launch counts and peak memory; phase 10 on
 phase 7's model frozen into the requant form; phases 8 and 12 (B = 4, then
 1); phase 11's B = 1 prefill; phase 13 (a, b). `--only qbytes,moe` runs
@@ -386,6 +386,7 @@ import gc
 import json
 import mmap
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -680,9 +681,9 @@ REPLACES["flash_prefill"] = ("quanto_tpu/ops/attention.py:206 (try_flash_prefill
 # another order, P as a 16-bit hi + lo pair: an output rounds to a neighbouring bf16 value at
 # most); float32 within 1e-4 * max|ref| (each operand a bf16 hi + lo pair, about 16 bits). Read
 # on every bf16 row here: 0.0078125 (a neighbour of a value in [1, 2)) at max|ref| 3.8-4.6,
-# cosine 1 - 6e-8 or closer; the `gpu` test's Llama case 0.015625 (a neighbour in [2, 4)) at
-# max|ref| 3.98; float32 9.5e-6 * max|ref| (measured on one NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md section 6).
+# cosine 1 - 1.2e-7 or closer, with the wgmma kernel as with the mma.sync one before it; the `gpu`
+# test's Llama case 0.015625 (a neighbour in [2, 4)) at max|ref| 3.98; float32 9.5e-6 * max|ref|
+# (measured on one NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
 FP_BF16_ERR, FP_BF16_COS, FP_F32_ERR = 2.0**-7, 1 - 1e-5, 1e-4
 # Phase 3's flash_decode rows at Gemma's head dim: Gemma-7B's heads over every cache of phase 22's
 # T + NEW slots, and the paged arm (bf16 and qint4 pages of 64 over phase 15's 768 slots a row).
@@ -1456,6 +1457,45 @@ def fp_bound(batch: int, T_: int, heads, elem: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The build's `-Xptxas -v` report, kernel by kernel (phase 2; empty when the library was built before).
+PTXAS: dict = {}
+
+
+def ptxas_entries(report: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_bytes"}} from an `-Xptxas -v`
+    report. A kernel that moves registers between its warpgroups (setmaxnreg)
+    reports its launch count; its spills are those of every warpgroup."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def fp_ptxas(D: int, softcap, dtype) -> dict:
+    """The report's entry of the `flash_prefill` kernel that a row runs (the bf16
+    arm's `bf16_kernel<D, softcap>`, the float32 arm's `f32_kernel<D>`; a tree
+    from before the bf16 arm's redesign: `flash_prefill_kernel<D, float32>`), or
+    None when the library was not built in this run."""
+    f32 = dtype == torch.float32
+    patterns = [rf"f32_kernelILi{D}E" if f32 else rf"bf16_kernelILi{D}ELb{int(bool(softcap))}E",
+                rf"flash_prefill_kernelILi{D}ELb{int(f32)}E"]
+    for pattern in patterns:
+        for name, entry in PTXAS.items():
+            if re.search(pattern, name):
+                return dict(kernel=name, **entry)
+    return None
+
+
 def phase_flash_prefill(flush):
     """Phase 3, `flash_prefill` (TPU #16): the kernel against its plain
     version at B = 4, T = 1024 over FP_ROWS (Llama-3.1-8B's, Gemma-7B's and
@@ -1500,7 +1540,7 @@ def phase_flash_prefill(flush):
             dtype=str(dtype).removeprefix("torch."), max_abs_err=err, max_abs_ref=ref_max, cosine=cos,
             sdpa_cosine=None if softcap else cosine(sdpa().transpose(1, 2).reshape(out.shape), ref),
             ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush), library_ms=time_ms(sdpa, flush),
-            bound_ms=b_ms, bound_by=b_by, host_us=host_us(kernel),
+            bound_ms=b_ms, bound_by=b_by, host_us=host_us(kernel), ptxas=fp_ptxas(D, softcap, dtype),
         )
         row["bound_share"] = b_ms / row["ms"]
         rows.append(row)
@@ -5173,14 +5213,14 @@ def only_sweep_and_serving(K_mod, card: str) -> int:
 
 
 def only_prefill(K_mod, card: str) -> int:
-    """`--only prefill`: the prefill paths of TPU #2, #3 and #14, for timing a
-    tree's kernels against another's. Phase 3's #2 rows (both arms, both
-    widths), requant and MoE rows (and the W4A8 and `flash_decode` rows phase
-    10 reads); phase 4's qint4 prefill (B = 4 x 1024, no decode); phase 7's
-    exact-form W4A8 prefill, then phase 10 on that model frozen into the
-    requant form; phases 8 and 12 (B = 4, then 1); phase 11's B = 1 prefill;
-    phase 13 (a, b). The 2-layer checks of phases 5, 9, 11, 12 and 13 are left
-    to the full run."""
+    """`--only prefill`: the prefill paths of TPU #2, #3, #14 and #16, for
+    timing a tree's kernels against another's. Phase 3's #2 rows (both arms,
+    both widths), requant and MoE rows (and the W4A8 and `flash_decode` rows
+    phase 10 reads), `flash_prefill`'s rows; phase 4's qint4 prefill (B = 4 x
+    1024, no decode); phase 7's exact-form W4A8 prefill, then phase 10 on that
+    model frozen into the requant form; phases 8 and 12 (B = 4, then 1); phase
+    11's B = 1 prefill; phase 13 (a, b). The 2-layer checks of phases 5, 9, 11,
+    12 and 13 are left to the full run."""
     from quanto_tpu_torch import freeze
     from quanto_tpu_torch.models.llama import LlamaConfig
     from quanto_tpu_torch.models.mixtral import MixtralConfig
@@ -5191,7 +5231,8 @@ def only_prefill(K_mod, card: str) -> int:
     rows = (phase_kernels(K_mod, flush, names=tiled) + phase_kernels(K_mod, flush, bits=2, names=tiled)
             + phase_w4a8(K_mod, flush) + phase_w4a8(K_mod, flush, bits=2, names={"qbits_mm_tiled_int8"})
             + phase_flash_decode(flush) + phase_requant(K_mod, flush)
-            + phase_requant(K_mod, flush, bits=2) + phase_moe(flush) + phase_moe(flush, bits=2))
+            + phase_requant(K_mod, flush, bits=2) + phase_moe(flush) + phase_moe(flush, bits=2)
+            + phase_flash_prefill(flush))
     del flush
     torch.cuda.empty_cache()
     ids = torch.randint(
@@ -5400,6 +5441,7 @@ def main() -> int:
     log(f"build: {info['seconds']:.1f} s, {', '.join(info['sources'])} -> {info['path']}")
     if info["log"]:
         log(info["log"].strip())
+    PTXAS.update(ptxas_entries(info["log"]))
     if only == "prefill":
         return only_prefill(K_mod, card)
     if only == "qbytes,moe":

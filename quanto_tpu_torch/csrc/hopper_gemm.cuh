@@ -1,7 +1,7 @@
 // Building blocks of the pipelined Hopper GEMMs (sm_90a): the prefill GEMMs of qbits_mm_tiled.cu
-// (TPU #2), the requant GEMM of qbits_mm_requant.cu (TPU #3) and the MoE prefill GEMM of
-// moe_gemm.cu (TPU #14), and the wgmma operand layout and cp.async copies that the small-M kernels
-// (small_m_tc.cuh, qbytes_mm.cu) share with them.
+// (TPU #2), the requant GEMM of qbits_mm_requant.cu (TPU #3), the MoE prefill GEMM of moe_gemm.cu
+// (TPU #14) and the causal prefill of flash_prefill.cu (TPU #16), and the wgmma operand layout and
+// cp.async copies that the small-M kernels (small_m_tc.cuh, qbytes_mm.cu) share with them.
 //
 // The pipeline they build: a ring of STAGES shared-memory stages; TMA copies (cp.async.bulk.tensor,
 // one thread issues a whole tile) complete on a "full" mbarrier per stage with the tile's byte
@@ -50,6 +50,15 @@ __device__ __forceinline__ uint64_t make_desc(const void* p) {
   constexpr uint64_t layout = OPR == 128 ? 1 : 2;
   return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
          ((uint64_t)((8 * OPR) >> 4) << 32) | (layout << 62);
+}
+
+// The wgmma descriptor of an MN-major B operand (used with the transpose-B immediate) in 128-byte
+// swizzle: the tile is stored as blocks of 64 N-columns (128 bytes of bf16), each block rows of K
+// (sw<128>: 8-row groups 1024 bytes apart), the blocks `block_bytes` apart. A K step of 16 rows
+// adds 2048 bytes (128) to it.
+__device__ __forceinline__ uint64_t make_desc_mn(const void* p, int block_bytes) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)((block_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // Generic-proxy stores to shared memory made visible to the async proxy (wgmma, TMA).

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -50,8 +51,9 @@ def _sources() -> list:
 def build() -> dict:
     """Compile every `csrc/*.cu` (once per content of the sources) and load
     the library. Returns {"path", "sources", "seconds", "log"}: `seconds` and
-    the compilers' `-Xptxas -v` reports `log` are those of this call's build,
-    0.0 and "" when the library was already built."""
+    the compilers' `-Xptxas -v` reports `log` (each headed by its source and
+    the seconds from the build's start to its object) are those of this
+    call's build, 0.0 and "" when the library was already built."""
     global _LIB
     sources = _sources()
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
@@ -66,17 +68,20 @@ def build() -> dict:
         tag = f"{digest}.{os.getpid()}"
         objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        procs = [
-            subprocess.Popen(
+
+        def compile_one(src_obj):
+            src, obj = src_obj
+            proc = subprocess.run(
                 [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for src, obj in zip(sources, objs)
-        ]
+            return proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(sources)) as pool:
+            done = list(pool.map(compile_one, zip(sources, objs)))
         failed = []
-        for src, proc in zip(sources, procs):
-            out, _ = proc.communicate()
-            log += f"== {src.name}\n{out}"
+        for src, (proc, secs) in zip(sources, done):
+            log += f"== {src.name} ({secs:.1f} s)\n{proc.stdout}"
             if proc.returncode != 0:
                 failed.append(src.name)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")

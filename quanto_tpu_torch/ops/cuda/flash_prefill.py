@@ -21,7 +21,9 @@ families) and raises on a wider head.
 
 The wrapper takes the plain version when q lies on the CPU; on a CUDA tensor
 it launches the kernel or raises. `flash_prefill.launches` counts its calls
-that launched the kernel: one C call, one launch.
+that launched the kernel: one C call, one launch. The bf16 arm is a persistent
+kernel that hands out its work items through one int32 counter on the device
+per (device, stream), which the wrapper makes once and every launch leaves at 0.
 """
 
 from __future__ import annotations
@@ -82,8 +84,19 @@ def flash_prefill_plain(
 
 
 # C signature of `flash_prefill` in csrc/flash_prefill.cu.
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
+
+# The kernel's work-item counter, one int32 per (device, stream): zeroed once, left 0 by every
+# launch (its last claim resets it), so launches in one stream share it in turn.
+_NEXT: dict = {}
+
+
+def _next_counter(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _NEXT:
+        _NEXT[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _NEXT[key]
 
 
 def flash_prefill(
@@ -106,10 +119,11 @@ def flash_prefill(
         raise ValueError(f"flash_prefill: softcap must be positive, got {softcap}")
     out = torch.empty((B, T, H * D), dtype=q.dtype, device=q.device)
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = kernel("flash_prefill", _ARGTYPES)(
-        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, k.shape[2], D,
-        int(q.dtype == torch.float32), D**-0.5 if scale is None else float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _next_counter(torch.device("cuda", device), stream).data_ptr(), B, T, H, k.shape[2], D,
+        int(q.dtype == torch.float32), D**-0.5 if scale is None else float(scale), float(softcap or 0.0), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: cudaError {rc}")

@@ -53,11 +53,13 @@ output rounded to bf16).
 
 `flash_prefill` (TPU #16, causal attention of a prompt from position 0)
 against `flash_prefill_plain` at Llama-3.1-8B's, Gemma-7B's and Gemma-2B's
-heads, with softcaps and T in {256, 384, 512, 640, 1024}, bf16 and float32:
-one launch a call, two calls the same bits, bf16 within 2^-7 * max|ref| (one
-bf16 step at the largest value) and cosine > 1 - 1e-5, float32 within 1e-4 * max|ref| (its operands as bf16 hi +
-lo pairs); and its refusals (a head dim past 256, operands on two devices, a
-T outside the envelope).
+heads, with softcaps and T in {256, 384, 512, 640, 1024}, long prompts (T = 2048
+and 4096 at Llama's heads), Mixtral's B = 16 x 256, G = 8 at D = 128, bf16 and
+float32: one launch a call, two calls the same bits, bf16 within 2^-7 * max|ref|
+(one bf16 step at the largest value) and cosine > 1 - 1e-5, float32 within 1e-4 *
+max|ref| (its operands as bf16 hi + lo pairs); its refusals (a head dim past 256,
+operands on two devices, a T outside the envelope); and calls on two streams, each
+with its own work-item counter, which every launch leaves at 0.
 
 The MoE kernels (`qbits_moe_small_m`, `qbits_moe_tiled`) against
 `qbits_moe_plain` over 8 stacked experts at both projection shapes (N > K and
@@ -1192,7 +1194,11 @@ def test_flash_decode_small_model_heads(cuda_device, cache, heads, dtype):
 # --- flash_prefill (TPU #16): causal attention of a prompt from position 0 ---------------------------
 
 # (B, T, Hkv, G, D, softcap): Llama-3.1-8B's heads (8 x 4 of 128), Gemma-7B's (16 x 1 of 256),
-# Gemma-2B's (1 x 8 of 256), a softcap, the least T of the envelope and T off a 64-key tile.
+# Gemma-2B's (1 x 8 of 256), a softcap, the least T of the envelope and T off a 64-key tile; long
+# prompts at Llama's heads (walks of 16 and 32 key tiles through the bf16 arm's ring, and work
+# items of very different lengths), Mixtral's B = 16 x 256 prefill (many short items), G = 8 at
+# D = 128, and T = 384 and 640 at G = 1 (2 and 4 work items of 192 rows a (b, h) at D = 128, the
+# last ragged at 640; 3 and 5 of 128 rows at D = 256).
 PREFILL = {
     "llama-d128-g4": (2, 1024, 8, 4, 128, None),
     "gemma7b-d256-g1": (1, 1024, 16, 1, 256, None),
@@ -1200,6 +1206,12 @@ PREFILL = {
     "softcap-d128-g2": (1, 384, 2, 2, 128, 50.0),
     "softcap-d256-g1": (1, 256, 2, 1, 256, 30.0),
     "t640-d128-g1": (1, 640, 3, 1, 128, None),
+    "llama-t2048-b1": (1, 2048, 8, 4, 128, None),
+    "llama-t4096-b1": (1, 4096, 8, 4, 128, None),
+    "mixtral-b16-t256": (16, 256, 8, 4, 128, None),
+    "g8-d128": (2, 512, 2, 8, 128, None),
+    "t384-d128-g1": (2, 384, 3, 1, 128, None),
+    "t640-d256-g1": (1, 640, 2, 1, 256, None),
 }
 
 
@@ -1245,3 +1257,27 @@ def test_flash_prefill_refusals(cuda_device):
     with pytest.raises(ValueError, match="envelope"):
         flash_prefill(q[:, :200], q[:, :200, :1], q[:, :200, :1])
     assert flash_prefill.launches == before
+
+
+@pytest.mark.gpu
+def test_flash_prefill_streams(cuda_device):
+    """The bf16 arm hands out its work items through a counter per (device,
+    stream) that every launch leaves at 0: calls of two shapes in turn on the
+    current stream and on a second stream give the same bits as a call alone,
+    and every counter reads 0 after them."""
+    from quanto_tpu_torch.ops.cuda import flash_prefill as FP
+
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    shapes = [(2, 512, 8, 4, 128), (1, 256, 2, 1, 256)]
+    inputs = [tuple(torch.randn((B, T, h, D), device=cuda_device, generator=g).to(torch.bfloat16)
+                    for h in (Hkv * G, Hkv, Hkv)) for B, T, Hkv, G, D in shapes]
+    alone = [flash_prefill(*x) for x in inputs]
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        on_side = [flash_prefill(*x) for x in inputs * 2]
+    again = [flash_prefill(*x) for x in inputs * 2]
+    torch.cuda.synchronize()
+    for i, out in enumerate(on_side + again):
+        assert torch.equal(out, alone[i % 2])
+    assert all(int(c.item()) == 0 for c in FP._NEXT.values()) and len(FP._NEXT) >= 2
