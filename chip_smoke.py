@@ -415,7 +415,8 @@ REPLACES = {
 SOURCE = {
     "qbits_mm_small_m": "quanto_tpu_torch/csrc/qbits_mm_small_m.cu",
     "qbits_mm_tiled": "quanto_tpu_torch/csrc/qbits_mm_tiled.cu",
-    "flash_decode": "quanto_tpu_torch/csrc/flash_decode.cu",
+    "flash_decode": "quanto_tpu_torch/csrc/flash_decode.cu (entries; the tensor-core arm flash_decode_tc.cuh, "
+                    "built per head dim by flash_decode_tc{64,128,256}.cu; the CUDA-core arm flash_decode_cc.cu)",
 }
 REPLACES["flash_decode"] = (
     "quanto_tpu/ops/pallas/flash_decode.py:53, quanto_tpu/ops/pallas/flash_decode2.py:44, "
@@ -670,9 +671,11 @@ QWEN25_05B = dict(
 )
 # TPU #16, `flash_prefill` (phase 3): the causal prefill over the raw K/V at B = 4, T = 1024, per
 # model heads (Hkv, G, D); the softcap row at Gemma-7B's heads, the float32 row at Llama-3.1-8B's.
-FP_HEADS = {"llama-3.1-8b": (8, 4, 128), "gemma-7b": (16, 1, 256), "gemma-2b": (1, 8, 256)}
+FP_HEADS = {"llama-3.1-8b": (8, 4, 128), "gemma-7b": (16, 1, 256), "gemma-2b": (1, 8, 256),
+            "gemma-2-9b": (8, 2, 256)}
 FP_ROWS = [("llama-3.1-8b", None, torch.bfloat16), ("gemma-7b", None, torch.bfloat16),
-           ("gemma-2b", None, torch.bfloat16), ("gemma-7b", 50.0, torch.bfloat16), ("llama-3.1-8b", None, torch.float32)]
+           ("gemma-2b", None, torch.bfloat16), ("gemma-7b", 50.0, torch.bfloat16), ("llama-3.1-8b", None, torch.float32),
+           ("gemma-2-9b", 50.0, torch.bfloat16)]
 SOURCE["flash_prefill"] = "quanto_tpu_torch/csrc/flash_prefill.cu"
 REPLACES["flash_prefill"] = ("quanto_tpu/ops/attention.py:206 (try_flash_prefill: JAX's splash-attention MQA "
                              "kernel, :237-265)")
@@ -715,6 +718,61 @@ GEMMA_7B = dict(
 # over the qint4 cache (measured on one NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The
 # limit is about 3x the largest 1 - cosine read.
 GEMMA_E2E_COS = 0.998
+# google/gemma-2-9b config.json, as `Gemma2Config.from_hf` reads it (tied embeddings and the layer
+# types are Hugging Face's Gemma2Config defaults, which the file leaves out: the even layers slide).
+# Phase 23 runs it at full depth and width.
+GEMMA2_9B = dict(
+    architectures=["Gemma2ForCausalLM"],
+    model_type="gemma2",
+    vocab_size=256000,
+    hidden_size=3584,
+    intermediate_size=14336,
+    num_hidden_layers=42,
+    num_attention_heads=16,
+    num_key_value_heads=8,
+    head_dim=256,
+    query_pre_attn_scalar=256,
+    attn_logit_softcapping=50.0,
+    final_logit_softcapping=30.0,
+    sliding_window=4096,
+    hidden_act="gelu_pytorch_tanh",
+    hidden_activation="gelu_pytorch_tanh",
+    max_position_embeddings=8192,
+    rms_norm_eps=1e-6,
+    rope_theta=10000.0,
+    attention_bias=False,
+    torch_dtype="float32",
+)
+# Phase 3's Gemma-2 rows of flash_decode (TPU #8-#10 with the softcap, the query scale and the
+# window): (label, (Hkv, G, D), cache, S, positions, transforms, ring). Gemma-2-9B's heads (8 x 2 of
+# 256, query_pre_attn_scalar 256) over phase 23(a)'s T + NEW slots; its window of 4096 at S = 8192
+# beside the same call without one; the ring arm over a 4096-slot ring (positions past W, clamped
+# to W - 1 by `decode_attention(ring=True)`); Gemma-2-27B's heads (16 x 2 of 128,
+# query_pre_attn_scalar 144: a scale that is not D**-0.5).
+G2_HEADS, G2_27B_HEADS = (8, 2, 256), (16, 2, 128)
+G2_TF = dict(scale=256**-0.5, softcap=50.0)
+FD_GEMMA2_ROWS = [
+    ("softcap", G2_HEADS, "bf16", T + NEW, [T + NEW - 1] * B, G2_TF, False),
+    ("softcap", G2_HEADS, "qint4", T + NEW, [T + NEW - 1] * B, G2_TF, False),
+    ("no-window", G2_HEADS, "bf16", 8192, [8191] * B, G2_TF, False),
+    ("window", G2_HEADS, "bf16", 8192, [8191] * B, dict(G2_TF, window=4096), False),
+    ("ring", G2_HEADS, "bf16", 4096, [5183] * B, G2_TF, True),
+    ("ring", G2_HEADS, "qint4", 4096, [5183] * B, G2_TF, True),
+    ("scale144", G2_27B_HEADS, "bf16", T + NEW, [T + NEW - 1] * B, dict(scale=144**-0.5, softcap=50.0), False),
+]
+# Phase 23 (b, c): one prompt past the window, over a qint4 cache with rings and over flat caches.
+G2_LONG = 5120
+# Phase 23 (d): the JAX serving bench's long-context shape (bench/serving_bench.py:77-79) past
+# Gemma-2's window: 4 requests, chunks of 512, 16 new tokens, a bf16 cache of 4736 slots.
+G2_ENGINE_PROMPTS = (4224, 4352, 4480, 4608)
+G2_ENGINE_CHUNK, G2_ENGINE_NEW, G2_ENGINE_MAX_LEN = 512, 16, 4736
+# Phase 23(a): each row's last-position prefill logits, kernel path against the plain versions
+# (cosine), 42 random-weight layers. Predicted near phase 22's 0.9993-0.9995 (PERF.md section 6).
+GEMMA2_E2E_COS = 0.998
+# Phase 23 (b) against (c): the same kernels over a ring and over a flat cache with the window; the
+# attention chain reduces over W + T keys against S slots and the decode reads the window in
+# another slot order, so float32 sums part in their last bits. Predicted above 0.9999.
+GEMMA2_RING_COS = 0.9995
 
 # Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, JAX's convert
 # formula on bf16 operands for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
@@ -1441,6 +1499,81 @@ def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
         log("kernel " + json.dumps(row))
         del layer, gathered, kg, vg, ks, vs, km, vm, kd, vd, kt, vt, out, dense_out, ref
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_decode_gemma2(flush):
+    """Phase 3, flash_decode with Gemma-2's extras (FD_GEMMA2_ROWS): the
+    kernel against its plain version (cosine > 1 - 1e-4, max abs error <=
+    1e-2 max|ref|) and the model's dispatch (`decode_attention`, with `ring`
+    for the ring rows) equal to the direct call; timed beside its bound
+    (the slots each row sees: its window only under a window), the plain
+    version and SDPA (the cache dequantized to bf16, the same scale and
+    visible slots as a boolean mask, without the softcap, which it does not
+    take)."""
+    from quanto_tpu_torch.ops.attention import decode_attention
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+    from quanto_tpu_torch.tensor.kv_cache import kv_read
+
+    g = torch.Generator(device="cuda").manual_seed(2323)
+    rows = []
+    for label, heads, kind, S, positions, tf, ring in FD_GEMMA2_ROWS:
+        Hkv, G, D = heads
+        nb = len(positions)
+        cache = fd_cache(kind, S, g, nb, heads)
+        q = (torch.randn((nb, Hkv, G, D), device="cuda", generator=g) * 4).to(torch.bfloat16)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        kpos = pos.clamp(max=S - 1) if ring else pos  # what the ring arm hands the kernel
+        if kind == "bf16":
+            args, kw = (q, *cache, None, None, kpos), dict(tf)
+            k_row = v_row = 2 * D
+            per_slot = 0
+        else:
+            c = cache
+            args = (q, c._k_data, c._v_data, c._k_scale, c._v_scale, kpos)
+            kw = dict(k_shift=c._k_shift, v_shift=c._v_shift, **tf)
+            k_row, v_row = c._k_data[0, 0, 0].numel(), c._v_data[0, 0, 0].numel()
+            per_slot = 8 if c._k_shift is None else 16
+        out = flash_decode(*args, **kw)
+        ref = flash_decode_plain(*args, **kw)
+        out2 = decode_attention(q.reshape(nb, 1, Hkv * G, D), cache, pos, ring=ring, **tf)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        cos = cosine(out, ref)
+        what = f"flash_decode gemma-2 {label} {kind} heads={heads} S={S}"
+        if not (cos > 1 - 1e-4 and err <= 1e-2 * ref_max) or not torch.equal(out2.reshape(out.shape), out):
+            raise RuntimeError(f"{what}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})")
+        s = torch.arange(S, device="cuda")[None, :]
+        visible = s <= kpos[:, None]
+        if tf.get("window"):
+            visible &= s > kpos[:, None] - tf["window"]
+        kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qs = q.reshape(nb, Hkv * G, 1, D)
+        mask = visible[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True,
+                                                  scale=tf.get("scale", D**-0.5))
+
+        b_ms, b_by = fd_bound(int(visible.sum()), nb, k_row, v_row, per_slot, 2, heads)
+        row = dict(
+            name="flash_decode", gemma2=label, cache=kind, S=S, B=nb, engine_arm=None, positions=positions, Hkv=Hkv,
+            G=G, D=D,
+            q="bf16", scale=tf.get("scale"), softcap=tf.get("softcap"), window=tf.get("window"), ring=ring,
+            max_abs_err=err, cosine=cos,
+            ms=time_ms(lambda: flash_decode(*args, **kw), flush),
+            plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
+            library_ms=time_ms(sdpa, flush),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del cache, kd, vd, kt, vt, out, ref, out2
+        torch.cuda.empty_cache()
+    by = {r["gemma2"]: r for r in rows if r["cache"] == "bf16"}
+    log(json.dumps({"flash_decode_window_vs_none_s8192": by["window"]["ms"] / by["no-window"]["ms"]}))
     return rows
 
 
@@ -2228,10 +2361,10 @@ def instrument(engine, per_forward: dict) -> dict:
                decode_slots=0, attn_ops=0, bad=[], burst_pos=None)
     forward, mixed, step, burst = engine._forward, engine._mixed_chunk_step, engine.step, engine.decode_burst
 
-    def counted_forward(ids, cache, pos, last_idx):
+    def counted_forward(ids, cache, pos, last_idx, **kw):  # kw: write_len (ring-cache models)
         T = ids.shape[1]
         before = read_counts()
-        out = forward(ids, cache, pos, last_idx)
+        out = forward(ids, cache, pos, last_idx, **kw)
         after = read_counts()
         delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
         if delta != per_forward[T]:
@@ -2528,14 +2661,14 @@ def phase_serving(label: str, model, kernel: str, new_tokens: int = SERVE_NEW, a
         rec = dict(chunks=0, chunk_ms=[], chunk_m=set(), decodes=0, bad=[])
         forward = engine._forward
 
-        def counted_forward(ids, cache, pos, last_idx):
+        def counted_forward(ids, cache, pos, last_idx, **kw):  # kw: write_len (ring-cache models)
             R, T = ids.shape
             before = read_counts()
             seen_m.clear()
             if T > 1:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            out = forward(ids, cache, pos, last_idx)
+            out = forward(ids, cache, pos, last_idx, **kw)
             if T > 1:
                 torch.cuda.synchronize()
                 rec["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -2700,13 +2833,13 @@ def phase_paged(model, reference=None) -> dict:
         rec = dict(chunks=0, chunk_ms=[], decodes=0, bad=[])
         forward = engine._forward
 
-        def counted_forward(ids, cache, pos, last_idx):
+        def counted_forward(ids, cache, pos, last_idx, **kw):  # kw: write_len (ring-cache models)
             R, T = ids.shape
             before, g0 = read_counts(), gathers[0]
             if T > 1:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            out = forward(ids, cache, pos, last_idx)
+            out = forward(ids, cache, pos, last_idx, **kw)
             if T > 1:
                 torch.cuda.synchronize()
                 rec["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -5090,6 +5223,288 @@ def phase_gemma() -> dict:
     return out
 
 
+def build_gemma2(seed: int):
+    """Phase 23's model: google/gemma-2-9b's config.json through
+    `Gemma2Config.from_hf`, built on "meta" and materialized on the card one
+    decoder layer at a time, each quantized to qint4 (group size 128) and
+    frozen as soon as its weights are drawn; the tied embedding (also the
+    head) stays bf16."""
+    from quanto_tpu_torch import freeze, quantize
+    from quanto_tpu_torch.models import Gemma2Config, Gemma2ForCausalLM
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    config = Gemma2Config.from_hf(GEMMA2_9B, dtype=torch.bfloat16)
+    sliding = sum(t == "sliding_attention" for t in config.layer_types)
+    if not (config.head_dim == 256 and config.tie_word_embeddings and config.sliding_window == 4096
+            and sliding == 21 and config.query_pre_attn_scalar == 256 and config.attn_logit_softcapping == 50.0):
+        raise RuntimeError(f"Gemma2Config.from_hf did not read google/gemma-2-9b's options: {config}")
+
+    def per_layer(layer):
+        quantize(layer, weights="qint4")
+        freeze(layer)
+
+    model = Gemma2ForCausalLM(config, device="meta")
+    model.materialize_("cuda", torch.Generator("cuda").manual_seed(seed), layer_fn=per_layer)
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    if model.lm_head is not None or len(qlinears) != LINEARS_PER_LAYER * config.num_hidden_layers or not all(
+            isinstance(m.weight, WeightQBitsHopperArray) and m.weight.bits == 4 for m in qlinears):
+        raise RuntimeError("gemma-2-9b: expected 294 qint4 linears in the Hopper layout and a tied head")
+    return model
+
+
+def attention_tally(model):
+    """Pre-hooks on every Gemma-2 attention: the T == 1 calls (decode steps)
+    over a ring and with a window, and the T > 1 calls over a ring. Returns
+    (tally dict, the hooks' handles)."""
+    tally = {"decode": 0, "decode_ring": 0, "decode_window": 0, "chunk_ring": 0}
+
+    def hook(module, args, kwargs):
+        if args[4] is None:  # no cache
+            return
+        step = args[0].shape[1] == 1
+        tally["decode" if step else "chunk"] = tally.get("decode" if step else "chunk", 0) + 1
+        if kwargs.get("ring"):
+            tally["decode_ring" if step else "chunk_ring"] += 1
+        if step and kwargs.get("window"):
+            tally["decode_window"] += 1
+
+    handles = [layer.self_attn.register_forward_pre_hook(hook, with_kwargs=True) for layer in model.model.layers]
+    return tally, handles
+
+
+def check_counts(label: str, got: dict, want: dict) -> None:
+    zeros = {n: 0 for n in got}
+    if got != {**zeros, **want}:
+        raise RuntimeError(f"{label}: launches {got}, want {want} and 0 elsewhere")
+
+
+@torch.no_grad()
+def phase_gemma2() -> dict:
+    """Phase 23: Gemma-2-9B (google/gemma-2-9b config.json: 42 layers of 16
+    heads over 8 kv heads of 256, the softcaps 50 and 30, a window of 4096
+    on the 21 even layers, tied embeddings) at full depth and width, random
+    weights (seed 23), qint4 (group size 128; the tied embedding bf16).
+
+    (a) B = 4 x 1024 prompts + NEW greedy tokens over a bf16 cache of 1088
+    slots (no ring: max_len <= W): after a warm-up, exact launches (each
+    prefill 294 `qbits_mm_tiled` and 42 `flash_prefill`, each step 294
+    `qbits_mm_small_m` and 42 `flash_decode`), then the plain versions:
+    each row's last-position logits within GEMMA2_E2E_COS, tokens equal or
+    at a recorded tie. (b) B = 1 x G2_LONG + NEW over a qint4 cache with
+    rings (max_len > W: the sliding layers hold 4096-slot rings that the
+    decode wraps): the prefill 21 `flash_prefill` (the full layers; the
+    rings take the concatenation chain), each step 42 `flash_decode`, 21 of
+    them over rings. (c) (b) over flat caches: 21 `flash_prefill` (the
+    sliding layers take the chain with the window's mask, T > W), each step
+    42 `flash_decode`, 21 with window 4096; (b) and (c) agree within
+    GEMMA2_RING_COS, tokens equal or at recorded ties. (d) `BatchedEngine`
+    over G2_ENGINE_PROMPTS (batched [4, 512] chunks, whose last chunks
+    `write_len` masks in the rings), each request's tokens equal to its own
+    `generate` or at recorded ties; then serial admission in the dense
+    engine and in `PagedEngine` (the paged+ring hybrid, pages of 64), whose
+    tokens must equal each other's (or recorded ties). Prints prefill ms,
+    decode ms/step and peak memory beside their bounds. Returns each arm's
+    launch counts."""
+    from quanto_tpu_torch.models import BatchedEngine, PagedEngine
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, generate, make_cache, prefill
+    from quanto_tpu_torch.tensor.kv_cache import QKVCacheLayer
+
+    t_start = time.perf_counter()
+    model = build_gemma2(seed=23)
+    torch.cuda.synchronize()
+    config = model.config
+    L, steps = config.num_hidden_layers, NEW - 1
+    n_lin, half = LINEARS_PER_LAYER * L, L // 2
+    log(f"gemma2: built on meta, then {L} layers materialized + quantized + frozen one at a time in "
+        f"{time.perf_counter() - t_start:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    ids = torch.randint(0, config.vocab_size, (B, T), generator=torch.Generator().manual_seed(23)).cuda()
+    Hkv, D, H = config.num_key_value_heads, config.head_dim, config.num_attention_heads
+    weight_bytes = step_weight_bytes(model)
+    tally, handles = attention_tally(model)
+    out = {}
+
+    def run(batch_ids, max_len, kv=None, sliding_ring=True):
+        cache = make_cache(model, batch_ids.shape[0], max_len, kv_quant=kv, sliding_ring=sliding_ring)
+        logits, cache = prefill(model, batch_ids, cache, last_only=True)
+        first = greedy(logits[:, -1]).to(batch_ids.dtype)[:, None]
+        rest, cache = decode(model, first, cache, batch_ids.shape[1], steps)
+        return logits, torch.cat([first, rest], dim=1), cache
+
+    def measured(label, batch_ids, max_len, kv, sliding_ring, want_pre, want_dec):
+        """One run with its launches and times; returns (logits, tokens, record)."""
+        Bn, Tn = batch_ids.shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for k in tally:
+            tally[k] = 0
+        cache = make_cache(model, Bn, max_len, kv_quant=kv, sliding_ring=sliding_ring)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch_ids, cache, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre, pre_tally = read_counts(), dict(tally)
+        first = greedy(logits[:, -1]).to(batch_ids.dtype)[:, None]
+        t0 = time.perf_counter()
+        rest, cache = decode(model, first, cache, Tn, steps)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = read_counts()
+        dec = {n: launches[n] - pre[n] for n in launches}
+        dec_tally = {k: tally[k] - pre_tally.get(k, 0) for k in tally}
+        check_counts(f"{label} prefill", pre, want_pre)
+        check_counts(f"{label} decode", dec, want_dec)
+        tokens = torch.cat([first, rest], dim=1)
+        if logits.shape != (Bn, 1, config.vocab_size) or not torch.isfinite(logits).all():
+            raise RuntimeError(f"{label}: prefill logits: shape {tuple(logits.shape)} or non-finite values")
+        if int(tokens.min()) < 0 or int(tokens.max()) >= config.vocab_size:
+            raise RuntimeError(f"{label}: decoded token ids out of the vocabulary")
+        layers = [cache[i] for i in range(L)]
+
+        def row_bytes(c):  # K and V bytes of one slot of one layer, all heads
+            ts = (c[0], c[1]) if not isinstance(c, QKVCacheLayer) else (c._k_data, c._v_data, c._k_scale, c._v_scale)
+            return sum(t[0, 0].numel() * t.element_size() for t in ts)
+
+        # A decode step reads each layer's visible slots: a sliding layer's window at most.
+        mean_pos = Tn + (steps - 1) / 2
+        kv_step_bytes = Bn * sum(row_bytes(c) * (min(mean_pos + 1, config.sliding_window)
+                                                 if t == "sliding_attention" else mean_pos + 1)
+                                 for c, t in zip(layers, config.layer_types))
+        prefill_ops = linears_operations(model, Bn * Tn) + 2 * Bn * H * Tn * Tn * D * L
+        rec = {
+            "gemma2": label, "batch": Bn, "prompt": Tn, "new_tokens": NEW, "decode_steps": steps,
+            "cache_slots": [c[0].shape[1] if not isinstance(c, QKVCacheLayer) else c._k_data.shape[1]
+                            for c in layers[:2]],
+            "prefill_ms": prefill_s * 1e3, "prefill_operations": prefill_ops,
+            "prefill_bound_ms": prefill_ops / PEAK_BF16_FLOPS * 1e3,
+            "decode_ms_per_step": decode_s / steps * 1e3, "decode_tok_s": Bn * steps / decode_s,
+            "decode_step_weight_bytes": weight_bytes, "decode_step_kv_bytes": kv_step_bytes,
+            "decode_step_bound_ms": (weight_bytes + kv_step_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "model_bytes": torch.cuda.memory_allocated(),
+            "prefill_launches": {n: c for n, c in pre.items() if c},
+            "decode_launches": {n: c for n, c in dec.items() if c},
+            "prefill_attention": pre_tally, "decode_attention": dec_tally,
+        }
+        del cache
+        return logits, tokens, dec_tally, rec
+
+    # (a) B = 4 x 1024 over a bf16 cache of T + NEW slots: no ring.
+    label = "gemma-2-9b qint4 (tied embedding bf16), bf16 cache, B = 4 x 1024"
+    want_pre = {"qbits_mm_tiled": n_lin, "flash_prefill": L}
+    want_dec = {"qbits_mm_small_m": n_lin * steps, "flash_decode": L * steps}
+    run(ids, T + NEW)  # warm-up
+    logits, tokens, dec_tally, rec = measured(label, ids, T + NEW, None, True, want_pre, want_dec)
+    if dec_tally["decode_ring"] or dec_tally["decode_window"] != half * steps:
+        raise RuntimeError(f"{label}: decode attention {dec_tally}, want {half * steps} with the window, none over rings")
+    launches_a = read_counts()
+    with plain_versions():
+        plain_logits, plain_tokens, _ = run(ids, T + NEW)
+        torch.cuda.synchronize()
+        if read_counts() != launches_a:
+            raise RuntimeError(f"{label}: the plain forward launched a kernel")
+        cos = F.cosine_similarity(logits[:, -1].float(), plain_logits[:, -1].float(), dim=-1)
+        ties = check_same_tokens(f"phase 23(a) {label}", model, ids.cpu().numpy(), tokens.tolist(),
+                                 plain_tokens.tolist(), max_len=T + NEW)
+    if read_counts() != launches_a:
+        raise RuntimeError(f"{label}: the plain tie check launched a kernel")
+    rec.update({"cosine_vs_plain": cos.tolist(), "token_ties": ties,
+                "tokens_equal_plain": bool(torch.equal(tokens, plain_tokens))})
+    log(json.dumps(rec))
+    if not bool((cos > GEMMA2_E2E_COS).all()):
+        raise RuntimeError(f"{label}: kernel vs plain prefill logits cosine {cos.tolist()} <= {GEMMA2_E2E_COS}")
+    out["a"] = launches_a
+    del logits, plain_logits
+
+    # (b) and (c): one prompt past the window over a qint4 cache, with rings and flat.
+    long_ids = torch.randint(0, config.vocab_size, (1, G2_LONG), generator=torch.Generator().manual_seed(230)).cuda()
+    res = {}
+    for arm, ring in (("b", True), ("c", False)):
+        label = f"gemma-2-9b qint4, qint4 cache, B = 1 x {G2_LONG}, {'rings' if ring else 'flat caches'}"
+        want_pre = {"qbits_mm_tiled": n_lin, "flash_prefill": half}
+        want_dec = {"qbits_mm_small_m": n_lin * steps, "flash_decode": L * steps}
+        logits, tokens, dec_tally, rec = measured(label, long_ids, G2_LONG + NEW, "qint4", ring, want_pre, want_dec)
+        want_tally = {"decode": L * steps, "decode_ring": half * steps if ring else 0,
+                      "decode_window": 0 if ring else half * steps, "chunk_ring": 0}
+        if {k: dec_tally.get(k, 0) for k in want_tally} != want_tally:
+            raise RuntimeError(f"{label}: decode attention {dec_tally}, want {want_tally}")
+        if rec["prefill_attention"].get("chunk_ring", 0) != (half if ring else 0):
+            raise RuntimeError(f"{label}: prefill attention {rec['prefill_attention']}")
+        if rec["cache_slots"] != [config.sliding_window if ring else G2_LONG + NEW, G2_LONG + NEW]:
+            raise RuntimeError(f"{label}: layer cache slots {rec['cache_slots']}")
+        log(json.dumps(rec))
+        res[arm] = (logits, tokens)
+        out[arm] = read_counts()
+    cos = F.cosine_similarity(res["b"][0][:, -1].float(), res["c"][0][:, -1].float(), dim=-1)
+    ties = check_same_tokens("phase 23 (b) vs (c)", model, long_ids.cpu().numpy(), res["b"][1].tolist(),
+                             res["c"][1].tolist(), kv_quant="qint4", max_len=G2_LONG + NEW)
+    log(json.dumps({"gemma2_ring_vs_flat": {"cosine": cos.tolist(), "token_ties": ties,
+                                            "tokens_equal": bool(torch.equal(res["b"][1], res["c"][1]))}}))
+    if not bool((cos > GEMMA2_RING_COS).all()):
+        raise RuntimeError(f"phase 23: ring vs flat prefill logits cosine {cos.tolist()} <= {GEMMA2_RING_COS}")
+    del res
+    for h in handles:
+        h.remove()
+
+    # (d) the engines over the serving bench's long-context shape.
+    rng = np.random.default_rng(231)
+    prompts = [rng.integers(0, config.vocab_size, n).astype(np.int64) for n in G2_ENGINE_PROMPTS]
+    C, new, max_len = G2_ENGINE_CHUNK, G2_ENGINE_NEW, G2_ENGINE_MAX_LEN
+    n_chunks = [-(-n // C) for n in G2_ENGINE_PROMPTS]
+    kw = dict(max_batch=len(prompts), max_len=max_len, prefill_chunk=C)
+
+    def serve(engine, batched: bool):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = engine.add_batch(prompts, new) if batched else [engine.add(p, new) for p in prompts]
+        engine.run_to_completion()
+        torch.cuda.synchronize()
+        return [engine.result(r) for r in rids], read_counts(), time.perf_counter() - t0
+
+    engine = BatchedEngine(model, **kw)
+    if not isinstance(engine._cache[0], tuple) or engine._cache[0][0].shape[1] != config.sliding_window:
+        raise RuntimeError("phase 23(d): the dense engine's sliding layers hold no rings")
+    got_batch, counts_batch, s_batch = serve(engine, True)
+    dec_steps = new - 1
+    check_counts("phase 23(d) batch arm", counts_batch, {
+        "qbits_mm_tiled": n_lin * max(n_chunks), "qbits_mm_small_m": n_lin * dec_steps, "flash_decode": L * dec_steps})
+    want = [generate(model, torch.tensor(p[None], device="cuda"), new)[0, len(p):].tolist() for p in prompts]
+    ties_batch = check_same_tokens("phase 23(d) batch arm vs generate", model, prompts, got_batch, want,
+                                   max_len=max_len)
+    got_serial, counts_serial, s_serial = serve(engine, False)
+    check_counts("phase 23(d) serial arm", counts_serial, {
+        "qbits_mm_small_m": n_lin * (sum(n_chunks) + dec_steps), "flash_decode": L * dec_steps})
+    del engine
+    paged = PagedEngine(model, n_pages=1 + len(prompts) * -(-max_len // 64), page_size=64, **kw)
+    if paged.prefix_sharing or not isinstance(paged._cache[0], tuple) or \
+            paged._cache[0][0].shape[1] != config.sliding_window or not hasattr(paged._cache[1], "_table"):
+        raise RuntimeError("phase 23(d): PagedEngine did not build the paged+ring hybrid")
+    got_paged, counts_paged, s_paged = serve(paged, False)
+    check_counts("phase 23(d) paged arm", counts_paged, {
+        "qbits_mm_small_m": n_lin * (sum(n_chunks) + dec_steps), "flash_decode": half * dec_steps,
+        "flash_decode_paged": half * dec_steps})
+    ties_paged = check_same_tokens("phase 23(d) paged vs dense", model, prompts, got_paged, got_serial,
+                                   max_len=max_len)
+    log(json.dumps({"gemma2_engines": {
+        "prompts": G2_ENGINE_PROMPTS, "chunk": C, "new_tokens": new, "max_len": max_len,
+        "batch_s": s_batch, "serial_s": s_serial, "paged_s": s_paged,
+        "batch_vs_generate_ties": ties_batch, "batch_equal_generate": got_batch == want,
+        "paged_vs_serial_ties": ties_paged, "paged_equal_serial": got_paged == got_serial,
+        "launches": {arm: {n: c for n, c in counts.items() if c} for arm, counts in
+                     (("batch", counts_batch), ("serial", counts_serial), ("paged", counts_paged))},
+    }}))
+    out["d_batch"], out["d_paged"] = counts_batch, counts_paged
+    del paged, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gemma2: phase 23 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def only_gemma(card: str) -> int:
     """`--only gemma`: phase 3's rows of `flash_prefill` and of `flash_decode`
     at D = 256, then phase 22 (Gemma-7B)."""
@@ -5104,6 +5519,27 @@ def only_gemma(card: str) -> int:
     log(f"gemma: phase 22 took {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "only": "gemma", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def only_gemma2(card: str) -> int:
+    """`--only gemma2`: phase 3's Gemma-2 rows of `flash_decode` and
+    `flash_prefill`, then phase 23 (Gemma-2-9B)."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_flash_decode_gemma2(flush)
+    fp_rows = FP_ROWS[:]
+    FP_ROWS[:] = [r for r in FP_ROWS if r[0] == "gemma-2-9b"]
+    try:
+        phase_flash_prefill(flush)
+    finally:
+        FP_ROWS[:] = fp_rows
+    del flush
+    torch.cuda.empty_cache()
+    phase_gemma2()
+    log(card)
+    log(json.dumps({"ok": True, "only": "gemma2", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
@@ -5421,9 +5857,9 @@ def main() -> int:
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged",
-                    "speculative", "gemma"):
+                    "speculative", "gemma", "gemma2"):
         print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics, "
-              f"paged, speculative or gemma, got {only}", file=sys.stderr)
+              f"paged, speculative, gemma or gemma2, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -5458,6 +5894,8 @@ def main() -> int:
         return only_speculative(card)
     if only == "gemma":
         return only_gemma(card)
+    if only == "gemma2":
+        return only_gemma2(card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -5466,7 +5904,8 @@ def main() -> int:
     rows = (phase_kernels(K_mod, flush) + phase_small_m_sweep(K_mod, flush) + phase_flash_decode(flush)
             + phase_flash_decode_paged(flush) + phase_flash_prefill(flush)
             + phase_flash_decode(flush, heads=FD_GEMMA_HEADS, kinds=FD_CACHES)
-            + phase_flash_decode_paged(flush, heads=FD_GEMMA_HEADS, cases=FD_GEMMA_PAGED) + phase_qbytes(flush)
+            + phase_flash_decode_paged(flush, heads=FD_GEMMA_HEADS, cases=FD_GEMMA_PAGED)
+            + phase_flash_decode_gemma2(flush) + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
             + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush)
@@ -5617,6 +6056,12 @@ def main() -> int:
     gemma = phase_gemma()
     log(f"gemma: phase 22 took {time.perf_counter() - t0:.1f} s")
 
+    # Phase 23: Gemma-2-9B at full depth and width: softcaps, rings, windows, the engines' write_len
+    # and the paged+ring hybrid.
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma2 = phase_gemma2()
+
     # Phase 21: speculative decoding (greedy and sampled, a qint4 draft and a layer-skip draft).
     gc.collect()
     torch.cuda.empty_cache()
@@ -5705,8 +6150,13 @@ def main() -> int:
         if name == "flash_decode_paged":
             extra = {"launches_phase20c": launches_paged["c"][name], "dense_ms": rep["dense_ms"],
                      "gather_dense_ms": rep["gather_dense_ms"]}
-        if name in ("flash_prefill", "flash_decode"):  # phase 22, Gemma-7B at D = 256
+        if name in ("flash_prefill", "flash_decode"):  # phases 22 and 23, Gemma-7B and Gemma-2-9B at D = 256
             extra["launches_phase22"] = {cache: c[name] for cache, c in gemma.items()}
+            extra["launches_phase23"] = {arm: c[name] for arm, c in gemma2.items()}
+        if name == "flash_decode":
+            extra["gemma2_rows"] = {f"{r['gemma2']} {r['cache']} S={r['S']} D={r['D']}": dict(
+                ms=r["ms"], bound_ms=r["bound_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                for r in mine if r.get("gemma2")}
         if name == "flash_prefill":
             extra["rows"] = {f"{r['model']} {r['dtype']}{' softcap' if r['softcap'] else ''}": dict(
                 ms=r["ms"], bound_ms=r["bound_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])

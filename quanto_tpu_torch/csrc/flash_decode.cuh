@@ -20,8 +20,14 @@
 //   Arm::export_(State&, part)               its (max[GR], sum[GR], out[GR][D]), GR * (D + 2)
 //                                            floats, into shared memory.
 //
+// The logit of a slot (`logit2`): the dot times the query scale, capped by c tanh(x / c) under a
+// softcap (softcap.cuh), in base 2. The visible slots of row b (`row_span`): s <= pos[b], and
+// s > pos[b] - window under a window; the plan tiles from the first visible slot, so a windowed
+// row reads its window only.
+//
 // Everything lies in namespace fd; the kernels are templates that each source instantiates for its
-// own arms, so the two sources build in parallel.
+// own arms: the tensor-core arm one source per head dim (flash_decode_tc{64,128,256}.cu), the
+// CUDA-core arm one (flash_decode_cc.cu), so that they build in parallel.
 
 #pragma once
 
@@ -33,6 +39,7 @@
 #include <type_traits>
 
 #include "hopper_gemm.cuh"
+#include "softcap.cuh"
 
 namespace fd {
 
@@ -66,8 +73,19 @@ struct Args {
   const int* table;
   int P, ps;
   int B, Hkv, G, S, ng, mode, q_bf16;
-  float scale;            // log2(e) / sqrt(D): logits in base 2
+  // The logits' transforms (`logit2`): without a softcap, scale = log2(e) times the query scale
+  // (logits in base 2); with one, scale is the query scale, cap the softcap c and cap_k 2 log2(e) / c.
+  float scale, cap, cap_k;
+  int window;             // the sliding window, 0: none
 };
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The base-2 logit of a slot whose dot with q (its per-slot factors applied) is x: x times the
+// query scale, then, under a softcap, c tanh(. / c), the log2(e) applied after the cap.
+__device__ __forceinline__ float logit2(const Args& a, float x) {
+  return a.cap > 0.0f ? softcap(x * a.scale, a.cap_k, a.cap) * LOG2E : x * a.scale;
+}
 
 // The rows of slots of one batch row b, head h: (b, s, h) of a dense [B, S, Hkv] cache, or, through
 // the table, (table[b, s / ps], s % ps, h) of a paged [n_pages, ps, Hkv] pool. A lane asks for its
@@ -159,8 +177,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
 // for the first T % grid.
 // ---------------------------------------------------------------------------------------------
 
-__device__ __forceinline__ int visible(const Args& a, int b) {
-  return min(max(__ldg(a.pos + b) + 1, 0), a.S);
+// Row b's visible slots: start .. start + n - 1, those <= pos[b] (within the S slots) and, under a
+// window, > pos[b] - window.
+struct RowSpan {
+  int start, n;
+};
+__device__ __forceinline__ RowSpan row_span(const Args& a, int b) {
+  const int p = __ldg(a.pos + b);
+  const int end = min(max(p + 1, 0), a.S);
+  const int start = a.window > 0 ? min(max(p + 1 - a.window, 0), end) : 0;
+  return {start, end - start};
 }
 // Tiles of a row: at least one, so that every pair gets written (0 / 0 where nothing is visible,
 // as the plain version's softmax over no slot).
@@ -175,7 +201,7 @@ __device__ __forceinline__ void plan_rows(const Args& a, int tl, int* s_pre) {
   if (lane == 0) s_pre[0] = 0;
   for (int b0 = 0; b0 < a.B; b0 += 32) {
     const int b = b0 + lane;
-    int v = b < a.B ? per_tile * tiles_of(visible(a, b), tl) : 0;
+    int v = b < a.B ? per_tile * tiles_of(row_span(a, b).n, tl) : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int t = __shfl_up_sync(0xffffffffu, v, o);
@@ -189,7 +215,7 @@ __device__ __forceinline__ void plan_rows(const Args& a, int tl, int* s_pre) {
 struct Item {
   int b, h, grp;  // the pair
   int c, nt;      // the tile and the pair's tiles
-  int nvis;       // row b's visible slots
+  int start, nvis;  // row b's first visible slot and its visible slots
   int first;      // the pair's first item
 };
 
@@ -201,7 +227,9 @@ __device__ __forceinline__ Item item_at(const Args& a, const int* s_pre, int tl,
   }
   Item it;
   it.b = lo;
-  it.nvis = visible(a, lo);
+  const RowSpan span = row_span(a, lo);
+  it.start = span.start;
+  it.nvis = span.n;
   it.nt = tiles_of(it.nvis, tl);
   const int r = x - s_pre[lo];
   const int pair = r / it.nt;
@@ -227,8 +255,8 @@ struct Split {
 // own copies only. Slots past the visible ones are zero-filled.
 // ---------------------------------------------------------------------------------------------
 
-// Rows r0 .. r0 + TS - 1 of the tile (slots s0 + r of the cache rows `rows`, of RB bytes; n of the
-// tile's slots visible). Rows shorter than 128 bytes draw the 256-byte span around them into L2:
+// Rows r0 .. r0 + TS - 1 of the tile (slots s0 + r of the cache rows `rows`, of RB bytes; the tile's
+// first n rows visible). Rows shorter than 128 bytes draw the 256-byte span around them into L2:
 // the neighbouring heads' rows, which other blocks read at about the same time.
 template <int TS, int RB>
 __device__ __forceinline__ void copy_rows(unsigned char* dst, const uint8_t* src, CacheRows& rows, int s0, int r0,
@@ -251,8 +279,9 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, const uint8_t* src
 template <class Arm>
 __device__ __forceinline__ void issue_part(const Args& a, unsigned char* st, const Item& it, int tl) {
   using SL = typename Arm::SL;
-  const int s0 = it.c * tl, r0 = (threadIdx.x >> 5) * Arm::TS;
-  const int n = it.nvis - s0;  // visible slots of the tile
+  const int c0 = it.c * tl, r0 = (threadIdx.x >> 5) * Arm::TS;
+  const int n = it.nvis - c0;  // visible slots of the tile
+  const int s0 = it.start + c0;  // its first slot
   CacheRows rows(a, it.b, it.h);
   copy_rows<Arm::TS, Arm::KROW>(st + SL::k, a.k, rows, s0, r0, n);
   copy_rows<Arm::TS, Arm::VROW>(st + SL::v, a.v, rows, s0, r0, n);
@@ -510,17 +539,14 @@ int arm_workspace(int device, int G, long long* ws_floats, int* groups) {
   return (int)e;
 }
 
-// An arm's kernel for the payload pair and head dim, or cudaErrorInvalidValue: f(Arm{}) with Arm
-// = A<KT, VT, D> over the pairs the arm takes (`floats`: the float payloads it takes, each with
+// An arm's kernel for the payload pair at head dim D, or cudaErrorInvalidValue: f(Arm{}) with Arm
+// = A<KT, VT, D> over the pairs the arm takes (FT0, FT1: the float payloads it takes, each with
 // itself; any two code types pair).
-template <template <int, int, int> class A, int FT0, int FT1, class F>
-int visit(int kt, int vt, int D, F&& f) {
+template <template <int, int, int> class A, int FT0, int FT1, int D, class F>
+int visit(int kt, int vt, F&& f) {
   const auto by_d = [&](auto k_tag, auto v_tag) -> int {
     constexpr int KT = decltype(k_tag)::value, VT = decltype(v_tag)::value;
-    if (D == 64) return f(A<KT, VT, 64>{});
-    if (D == 128) return f(A<KT, VT, 128>{});
-    if (D == 256) return f(A<KT, VT, 256>{});
-    return (int)cudaErrorInvalidValue;
+    return f(A<KT, VT, D>{});
   };
   using I8t = std::integral_constant<int, I8>;
   using I4t = std::integral_constant<int, I4>;
@@ -543,9 +569,24 @@ int visit(int kt, int vt, int D, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core arm (flash_decode.cu) and the CUDA-core arm (flash_decode_cc.cu).
-int tc_launch(int device, const Args& a, int kt, int vt, int D, cudaStream_t stream);
-int tc_workspace(int device, int G, int kt, int vt, int D, long long* ws_floats, int* groups);
+// visit over the three head dims.
+template <template <int, int, int> class A, int FT0, int FT1, class F>
+int visit(int kt, int vt, int D, F&& f) {
+  if (D == 64) return visit<A, FT0, FT1, 64>(kt, vt, f);
+  if (D == 128) return visit<A, FT0, FT1, 128>(kt, vt, f);
+  if (D == 256) return visit<A, FT0, FT1, 256>(kt, vt, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core arm at each head dim (flash_decode_tc.cuh; one source a D: tc_launch64 in
+// flash_decode_tc64.cu, ...) and the CUDA-core arm (flash_decode_cc.cu).
+#define FD_TC_DECLARE(D_)                                                                 \
+  int tc_launch##D_(int device, const Args& a, int kt, int vt, cudaStream_t stream);     \
+  int tc_workspace##D_(int device, int G, int kt, int vt, long long* ws_floats, int* groups);
+FD_TC_DECLARE(64)
+FD_TC_DECLARE(128)
+FD_TC_DECLARE(256)
+#undef FD_TC_DECLARE
 int cc_launch(int device, const Args& a, int kt, int vt, int D, cudaStream_t stream);
 int cc_workspace(int device, int G, int kt, int vt, int D, long long* ws_floats, int* groups);
 

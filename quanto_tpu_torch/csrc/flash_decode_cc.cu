@@ -223,7 +223,7 @@ struct CcArm {
         float mx = -CUDART_INF_F;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const float t = valid[u] ? fmaf(lg[u][gi], sk[u], s.qsum[gi] * mk[u]) * a.scale : -CUDART_INF_F;
+          const float t = valid[u] ? logit2(a, fmaf(lg[u][gi], sk[u], s.qsum[gi] * mk[u])) : -CUDART_INF_F;
           lg[u][gi] = t;
           mx = fmaxf(mx, t);
         }

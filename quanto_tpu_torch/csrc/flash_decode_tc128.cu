@@ -1,0 +1,7 @@
+// flash_decode's tensor-core arm at head dim 128 (flash_decode_tc.cuh): one source a head dim.
+
+#include "flash_decode_tc.cuh"
+
+namespace fd {
+FD_TC_ENTRIES(128)
+}  // namespace fd

@@ -1,0 +1,7 @@
+// flash_decode's tensor-core arm at head dim 64 (flash_decode_tc.cuh): one source a head dim.
+
+#include "flash_decode_tc.cuh"
+
+namespace fd {
+FD_TC_ENTRIES(64)
+}  // namespace fd

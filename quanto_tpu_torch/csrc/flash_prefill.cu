@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "hopper_gemm.cuh"
+#include "softcap.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -114,12 +115,6 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c tanh(x / c) as c - 2 c / (1 + 2^(k x)), k = 2 log2(e) / c: one ex2 and a fast reciprocal
-// (tanhf's own way for |x / c| >= 0.6, here for all x), within about 1e-7 c of tanh.
-__device__ __forceinline__ float softcap(float x, float k, float c) {
-  return c - __fdividef(2.0f * c, 1.0f + ex2(x * k));
 }
 
 // A pair of floats as bf16 parts: hi = bf16(x), lo = bf16(x - hi).

@@ -1,5 +1,6 @@
 """models of quanto_tpu_torch (see the package docstring)."""
 
+from .gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .serving import BatchedEngine, PagedEngine
 from .speculative import (
     SpeculativeGenerator,
@@ -12,6 +13,8 @@ from .speculative import (
 
 __all__ = [
     "BatchedEngine",
+    "Gemma2Config",
+    "Gemma2ForCausalLM",
     "PagedEngine",
     "SpeculativeGenerator",
     "layerskip_draft",

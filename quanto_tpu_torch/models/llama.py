@@ -26,8 +26,8 @@ Gemma's: `hidden_act` "gelu" or "gelu_pytorch_tanh" (the tanh GELU),
 `rms_norm_unit_offset` (RMSNorm computes out * (1 + w), w starting at 0) and
 `scale_embeddings` (the embeddings times sqrt(hidden_size), that factor first
 rounded to the model dtype: 55.5 in bf16 for Gemma-7B's 3072).
-`LlamaConfig.from_hf` reads "gemma" configs and refuses "gemma2", any other
-activation and a sliding window (ROADMAP.md Queue 1).
+`LlamaConfig.from_hf` reads "gemma" configs and refuses "gemma2" (its own
+family, `models/gemma2.py`), any other activation and a sliding window.
 
 Attention (`LlamaAttention.forward`, JAX `llama.py:362-383`): a T == 1 step
 over a cache goes to `flash_decode`; a step of T > 1 that is causal from
@@ -111,19 +111,24 @@ class LlamaConfig:
         gemma config takes the unit-offset RMSNorm, the scaled embeddings and,
         where it names none, tied embeddings (Hugging Face's `GemmaConfig`
         default). Raises `NotImplementedError` on what the port does not
-        implement: gemma2, an activation other than silu and the tanh GELU
+        implement: gemma2 (`Gemma2Config.from_hf`), an activation other than silu and the tanh GELU
         ("gelu", "gelu_pytorch_tanh"; JAX takes the tanh GELU for any other
         string too), a sliding window, a rope other than default, linear,
         llama3, dynamic and yarn."""
         model_type = hf.get("model_type", "llama")
         if model_type == "gemma2":
-            _not_ported("model_type 'gemma2' (softcaps, sliding-window layers, gemma2.py)", item=8)
+            raise NotImplementedError(
+                "model_type 'gemma2' is not a Llama configuration: read it with "
+                "quanto_tpu_torch.models.gemma2.Gemma2Config.from_hf"
+            )
         gemma = model_type == "gemma"
         act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
         if act not in _ACTS:
             _not_ported(f"hidden_act {act!r}")
         if hf.get("use_sliding_window", False):
-            _not_ported("use_sliding_window (sliding.py: ring caches, the paged+ring hybrid)", item=8)
+            # JAX's llama.py reads no `use_sliding_window` and runs such a config fully causal;
+            # the port refuses it rather than serve a window the checkpoint was trained with.
+            raise NotImplementedError("use_sliding_window: a Llama-family sliding window is not supported")
         rope = hf.get("rope_scaling") or None
         if rope is not None:
             rope_type = rope.get("rope_type", rope.get("type", "default"))
@@ -284,6 +289,16 @@ def _deq(a):
     quantization calibration did not streamline away returns a `QArray`,
     which the model dequantizes where `quanto_tpu/models/llama.py` does."""
     return a.dequantize() if isinstance(a, QArray) else a
+
+
+def _select_logit_rows(x: torch.Tensor, logits_indices) -> torch.Tensor:
+    """Hidden states [B, T, H] at each row's `logits_indices` (scalar or [B])
+    before the lm_head, [B, 1, H]; x itself when None (JAX `llama.py:121-129`)."""
+    if logits_indices is None:
+        return x
+    B = x.shape[0]
+    idx = torch.as_tensor(logits_indices, device=x.device).reshape(-1).expand(B)
+    return x[torch.arange(B, device=x.device), idx][:, None, :]
 
 
 def _vocab_parallel_embed(emb: nn.Embedding, ids: torch.Tensor, group) -> torch.Tensor:
@@ -560,10 +575,7 @@ class LlamaForCausalLM(nn.Module):
             if cache is not None:
                 new_cache.append(lc)
 
-        x = self.model.norm(x)
-        if logits_indices is not None:
-            idx = torch.as_tensor(logits_indices, device=dev).reshape(-1).expand(B)
-            x = x[torch.arange(B, device=dev), idx][:, None, :]
+        x = _select_logit_rows(self.model.norm(x), logits_indices)
         logits = self._logits(x)
         if logits.shape[-1] != V:
             logits = _gather_vocab(logits, self.tp, V)

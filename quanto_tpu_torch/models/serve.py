@@ -25,16 +25,21 @@ from .sampling import greedy
 __all__ = ["make_cache", "prefill", "decode", "generate"]
 
 
-def make_cache(model, batch: int, cache_len: int, dtype=None, kv_quant=None):
+def make_cache(model, batch: int, cache_len: int, dtype=None, kv_quant=None, sliding_ring: bool = True):
     """KV cache for any model family: the model's own `init_kv_cache(batch,
     cache_len, dtype=, kv_quant=)` when it defines one (JAX's
     `serve.py:22-34`), else the llama-family layout on the model's device:
     float in `dtype` (default the model dtype), or quantized when `kv_quant`
     is a qtype or KV spec name ("qint8", "qint4", "k8v4", "qint4a", ...). It
     holds the kv heads the model's attention runs: under tensor parallelism
-    this rank's (`parallel/sharding.py:shard_model`)."""
+    this rank's (`parallel/sharding.py:shard_model`). `sliding_ring` goes to
+    an `init_kv_cache` that takes it (Gemma-2: W-slot rings for the sliding
+    layers past W; False: flat caches)."""
     if hasattr(model, "init_kv_cache"):
-        return model.init_kv_cache(batch, cache_len, dtype=dtype, kv_quant=kv_quant)
+        kw = {}
+        if "sliding_ring" in inspect.signature(model.init_kv_cache).parameters:
+            kw["sliding_ring"] = sliding_ring
+        return model.init_kv_cache(batch, cache_len, dtype=dtype, kv_quant=kv_quant, **kw)
     kv_heads = model.model.layers[0].self_attn.num_kv_heads
     config = dataclasses.replace(model.config, num_key_value_heads=kv_heads)
     return init_kv_cache(config, batch, cache_len, dtype=dtype, kv_quant=kv_quant, device=model.device)

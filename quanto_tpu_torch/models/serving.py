@@ -28,19 +28,26 @@ slot tables, the admission queue. Differences by design:
   of a chunk and the rows' garbage chunk writes.
 - A sampler takes `(logits, generator)`: the engine's `torch.Generator` on
   the model's device, seeded with 0, as JAX's engine starts from key 0.
+- Ring caches (`models/sliding.py`): a model whose forward takes `write_len`
+  (Gemma-2) is told each row's real tokens in every chunk forward, as JAX's
+  chunk programs tell it (`serving.py:83-89`, `:151-242`): a row's pad
+  columns, a finished row's garbage chunk and a row that is not prefilling
+  write nothing into a ring, whose slot (pos + t) % W would alias a live
+  position of the window. Decode steps pass none, as JAX's `_step`.
 - Not ported here: `mesh` (tensor- and sequence-parallel serving wait for
-  the parallel layer), ring caches and their `write_len` (sliding-window
-  models, ROADMAP.md Queue 1, item 8) and `DistributedEngine` (item 10).
+  the parallel layer) and `DistributedEngine` (ROADMAP.md Queue 1, item 10).
 
 `PagedEngine` (`serving.py:793-1196`) serves over a paged cache
 (`tensor/paged_kv.py`): prefix sharing, on-demand page growth and preemption
 with exact recompute, as JAX's; its decode attention reads the pages through
-the table (`ops/cuda/flash_decode.py:flash_decode_paged`).
+the table (`ops/cuda/flash_decode.py:flash_decode_paged`). For a
+sliding-window model it builds JAX's paged+ring hybrid (`:897-946`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -100,6 +107,8 @@ class BatchedEngine:
         # causal mask hides the rest.
         self.prefill_chunk = prefill_chunk
         self._device = model.device
+        # Ring-cache models take `write_len`, the real tokens of each row of a chunk forward.
+        self._accepts_write_len = "write_len" in inspect.signature(type(model).forward).parameters
         self._cache = self._make_cache(kv_quant)
         self._pos = np.zeros((max_batch,), np.int32)  # next write position per slot
         self._last_tok = np.zeros((max_batch,), np.int32)
@@ -119,17 +128,22 @@ class BatchedEngine:
     # --- device calls ---------------------------------------------------------
 
     @torch.no_grad()
-    def _forward(self, ids, cache, pos, last_idx) -> torch.Tensor:
+    def _forward(self, ids, cache, pos, last_idx, write_len=None) -> torch.Tensor:
         """One forward of `ids` [B, T] written at `pos` (an int, or one
         position per row) over `cache`; returns each row's logits at
-        `last_idx` (an int or one per row, clipped into the T columns) [B, V]."""
+        `last_idx` (an int or one per row, clipped into the T columns) [B, V].
+        `write_len` (one per row): each row's real tokens, for a model that
+        takes it (ring caches); None for a decode step."""
         dev = self._device
         ids = torch.as_tensor(ids, device=dev)
         if not isinstance(pos, int):
             pos = torch.as_tensor(pos, device=dev).long()
         if not isinstance(last_idx, int):
             last_idx = torch.as_tensor(last_idx, device=dev).long().clamp(0, ids.shape[1] - 1)
-        logits, _ = self.model(ids, cache, pos, logits_indices=last_idx)
+        kw = {}
+        if write_len is not None and self._accepts_write_len:
+            kw["write_len"] = torch.as_tensor(np.asarray(write_len, np.int32), device=dev)
+        logits, _ = self.model(ids, cache, pos, logits_indices=last_idx, **kw)
         return logits[:, 0]
 
     def _sample_host(self, logits: torch.Tensor) -> np.ndarray:
@@ -158,10 +172,10 @@ class BatchedEngine:
             if r < C and start_pos + c0 + C > self.max_len:
                 # Padding would spill past the cache: run the remainder at its
                 # own length.
-                return self._forward(chunk[None, :], view, at, r - 1)
+                return self._forward(chunk[None, :], view, at, r - 1, write_len=[r])
             if r < C:
                 chunk = np.pad(chunk, (0, C - r))
-            last = self._forward(chunk[None, :], view, at, r - 1)
+            last = self._forward(chunk[None, :], view, at, r - 1, write_len=[r])
             c0 += C
         return last
 
@@ -262,9 +276,11 @@ class BatchedEngine:
             for j in range(max_chunks):
                 pos = np.array([min(int(self._pos[s]), self.max_len - C) for s in range(B)], np.int32)
                 last_idx = np.full((B,), -1, np.int32)
+                wlen = np.zeros((B,), np.int32)  # only the prefilling rows' real tokens write into a ring
                 for (p, _), slot in zip(batched, slots):
                     if j * C < len(p):  # this row still has real tokens
                         pos[slot] = j * C
+                        wlen[slot] = min(C, len(p) - j * C)
                         li = len(p) - 1 - j * C
                         if 0 <= li < C:
                             last_idx[slot] = li
@@ -273,7 +289,7 @@ class BatchedEngine:
                         # its garbage writes just past the prompt (the
                         # participation gate keeps them inside the cache).
                         pos[slot] = len(p)
-                last = self._forward(ids[:, j * C : (j + 1) * C], self._cache, pos, last_idx)
+                last = self._forward(ids[:, j * C : (j + 1) * C], self._cache, pos, last_idx, write_len=wlen)
                 for s in slots:
                     if last_idx[s] >= 0:
                         last_logits[s] = last[s : s + 1]
@@ -348,6 +364,7 @@ class BatchedEngine:
         ids = np.zeros((B, C), np.int32)
         pos = np.array([min(int(self._pos[s]), self.max_len - C) for s in range(B)], np.int32)
         last_idx = np.zeros((B,), np.int32)
+        wlen = np.zeros((B,), np.int32)  # real tokens a row writes into a ring: 0 for a free row
         finals = set()
         for slot, st in self._prefill_by_slot.items():
             p = st.req.prompt
@@ -355,6 +372,7 @@ class BatchedEngine:
             chunk = p[c0 : c0 + C]
             ids[slot, : len(chunk)] = chunk
             pos[slot] = c0
+            wlen[slot] = len(chunk)
             if c0 + len(chunk) >= len(p):
                 last_idx[slot] = len(chunk) - 1
                 finals.add(slot)
@@ -362,7 +380,8 @@ class BatchedEngine:
         for slot in self._by_slot:
             ids[slot, 0] = self._last_tok[slot]
             pos[slot] = self._pos[slot]
-        nxt = self._sample_host(self._forward(ids, self._cache, pos, last_idx))
+            wlen[slot] = 1
+        nxt = self._sample_host(self._forward(ids, self._cache, pos, last_idx, write_len=wlen))
         out: Dict[int, int] = {}
         for slot, req in list(self._by_slot.items()):
             tok = int(nxt[slot])
@@ -528,8 +547,16 @@ class PagedEngine(BatchedEngine):
     one int32 tensor that every layer shares, updated by one host-to-device
     copy per change. `add_batch` and `enqueue` admit serially through `add`,
     as JAX's do: a batched or mixed chunk step would write a garbage chunk
-    through every row's table, for which no pages are reserved. Sliding-window
-    models (JAX's paged+ring hybrid) are refused.
+    through every row's table, for which no pages are reserved.
+
+    The paged+ring hybrid (JAX `serving.py:897-946`): for a model with sliding
+    layers whose window W is below max_len, the sliding layers keep dense
+    W-slot rings [max_batch, W, Hkv, D] (float or quantized as the pages) and
+    the full layers the pages; the model's `use_ring` composes them. A slot's
+    prefill writes its ring rows in place through `slot_view`, where JAX
+    slices and scatters them back. Prefix sharing is off under the hybrid, as
+    in JAX: a suffix prefill's queries would need window keys from inside the
+    shared region, in every sliding layer.
     """
 
     def __init__(
@@ -560,7 +587,7 @@ class PagedEngine(BatchedEngine):
         self._table = np.zeros((max_batch, self.pages_per_slot), np.int32)
         self._free_pages = list(range(1, n_pages))  # page 0 reserved
         self._slot_pages: Dict[int, List[int]] = {}
-        self.prefix_sharing = prefix_sharing
+        self.prefix_sharing = prefix_sharing and not self._ring_hybrid
         self._prefix_pages: Dict[bytes, int] = {}  # token-prefix key -> page id
         self._page_key: Dict[int, bytes] = {}  # page id -> its prefix key
         self._page_refs: Dict[int, int] = {}  # prefix page -> active users
@@ -571,22 +598,35 @@ class PagedEngine(BatchedEngine):
         self.preemptions = 0
 
     def _make_cache(self, kv_quant):
+        from ..tensor.kv_cache import init_quantized_kv_cache
         from ..tensor.paged_kv import init_paged_kv_cache
 
         c = self.model.config
         w = getattr(c, "sliding_window", None)
         lt = getattr(c, "layer_types", None)
-        if w is not None and lt is not None and w < self.max_len and "sliding_attention" in lt:
+        self._ring_hybrid = w is not None and lt is not None and w < self.max_len and "sliding_attention" in lt
+        if self._ring_hybrid and not self._accepts_write_len:
             raise NotImplementedError(
-                "PagedEngine over sliding-window layers (the paged+ring hybrid): not ported yet "
-                "(ROADMAP.md Queue 1, item 8)"
+                "PagedEngine's paged+ring hybrid needs a model that runs ring caches (takes write_len, as "
+                "Gemma-2 does); other sliding-window families wait for ROADMAP.md Queue 1, item 8"
             )
         attn = self.model.model.layers[0].self_attn
-        cache = init_paged_kv_cache(
-            c.num_hidden_layers, self.n_pages, self.page_size, self.max_batch, self.pages_per_slot,
-            attn.num_kv_heads, attn.head_dim, kv_quant=kv_quant, dtype=c.dtype, device=self._device,
-        )
-        self._table_dev = cache[0]._table
+        Hkv, D = attn.num_kv_heads, attn.head_dim
+        paged = [not self._ring_hybrid or t != "sliding_attention" for t in (lt or [None] * c.num_hidden_layers)]
+        pages = iter(init_paged_kv_cache(
+            sum(paged), self.n_pages, self.page_size, self.max_batch, self.pages_per_slot,
+            Hkv, D, kv_quant=kv_quant, dtype=c.dtype, device=self._device,
+        ))
+
+        def ring_layer():
+            if kv_quant is not None:
+                return init_quantized_kv_cache(1, self.max_batch, w, Hkv, D, kv_quant, device=self._device)[0]
+            shape = (self.max_batch, w, Hkv, D)
+            return (torch.zeros(shape, dtype=c.dtype, device=self._device),
+                    torch.zeros(shape, dtype=c.dtype, device=self._device))
+
+        cache = tuple(next(pages) if p else ring_layer() for p in paged)
+        self._table_dev = cache[paged.index(True)]._table  # one table, shared by the paged layers
         return cache
 
     def _sync_table(self) -> None:

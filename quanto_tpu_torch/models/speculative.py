@@ -17,7 +17,11 @@ Per-row positions let rows accept different amounts. Rejected cache slots
 are never cleaned: both caches are rewritten by the next round's write
 window before any query attends them (the write offset only moves forward,
 and the causal mask hides every slot at or beyond the query's position).
-The caches are flat (`serve.make_cache`); this module never builds a ring.
+The caches are flat (`serve.make_cache(..., sliding_ring=False)`), also for
+a sliding-window target such as Gemma-2, where JAX builds rings: a round
+rewrites slots that a rejected draft wrote, which a flat cache allows and a
+ring, whose slots alias positions W apart, would not. Past W the window
+bites through `flash_decode`'s `window` and the verify's sliding mask.
 
 Greedy mode: the output is the target model's own greedy continuation,
 token for token, up to the target's numerics across forward shapes (see
@@ -250,8 +254,8 @@ class SpeculativeGenerator:
         chunks_bound = max(1, -(-(max_new_tokens - 1) // rounds))
         cache_len = cache_len or (T + 1 + k + chunks_bound * rounds * (k + 1))
 
-        t_cache = make_cache(self.target, B, cache_len)
-        d_cache = make_cache(self.draft, B, cache_len)
+        t_cache = make_cache(self.target, B, cache_len, sliding_ring=False)
+        d_cache = make_cache(self.draft, B, cache_len, sliding_ring=False)
         # Only the last position's logits are used from either prefill (the
         # draft's are discarded outright).
         logits, t_cache = prefill(self.target, ids, t_cache, last_only=True)

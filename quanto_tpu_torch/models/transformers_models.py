@@ -8,11 +8,12 @@ package wrote it: the tensor names, their order, the packing and the file
 bytes are the JAX package's.
 
 The model families are the port's own (`models/llama.py`,
-`models/mixtral.py`), chosen by `model_type` in `config.json`, which is read
-and written as plain JSON (no `transformers` on the card's machine); the
-port writes one that `transformers.AutoConfig` reads. `llama`, `mistral`,
-`qwen2` (`models/llama.py` with q/k/v biases), `gemma` (`models/llama.py` with
-Gemma's options) and `mixtral` are ported.
+`models/gemma2.py`, `models/mixtral.py`), chosen by `model_type` in
+`config.json`, which is read and written as plain JSON (no `transformers` on
+the card's machine); the port writes one that `transformers.AutoConfig`
+reads. `llama`, `mistral`, `qwen2` (`models/llama.py` with q/k/v biases),
+`gemma` (`models/llama.py` with Gemma's options), `gemma2` and `mixtral` are
+ported.
 
 Where it differs from JAX: JAX builds the float model and then swaps in the
 quantized modules (`transformers_models.py:403-417`); Mixtral-8x7B is 93 GB
@@ -41,6 +42,7 @@ from ..quantize import freeze as freeze_model
 from ..quantize import quantization_map, quantize, requantize
 from ..utils.safetensors_io import LazySafetensors, save_sharded
 from .hub import resolve_model_path
+from .gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .llama import LlamaConfig, LlamaForCausalLM
 from .loading import hf_state_dict, load_hf_state_dict
 from .mixtral import MixtralConfig, MixtralForCausalLM
@@ -56,6 +58,7 @@ _FAMILIES = {
     "mistral": (LlamaConfig, LlamaForCausalLM),
     "qwen2": (LlamaConfig, LlamaForCausalLM),
     "gemma": (LlamaConfig, LlamaForCausalLM),
+    "gemma2": (Gemma2Config, Gemma2ForCausalLM),
     "mixtral": (MixtralConfig, MixtralForCausalLM),
 }
 
@@ -105,7 +108,7 @@ def _finish(model, report: dict, directory: str, device, hf_config: dict):
 def from_pretrained_float(
     name_or_path: str, dtype=torch.bfloat16, device="cuda", revision=None, cache_dir=None
 ):
-    """A float Hugging Face checkpoint (llama, mistral, qwen2, mixtral) in the
+    """A float Hugging Face checkpoint (llama, mistral, qwen2, gemma, gemma2, mixtral) in the
     port's model, allocated on `device` a tensor at a time; a tied one needs
     no `lm_head.weight`."""
     directory = resolve_model_path(name_or_path, revision=revision, cache_dir=cache_dir)

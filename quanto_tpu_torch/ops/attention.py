@@ -13,8 +13,9 @@ PyTorch counterpart of `quanto_tpu/ops/attention.py`:
 - `try_flash_prefill` (`:206-268`): a step that is causal from position 0
   (`static_zero_pos`), inside JAX's envelope, attends to its raw K/V through
   `flash_prefill`, the counterpart of JAX's splash kernel; None elsewhere.
-- `decode_attention`, the counterpart of `try_flash_decode` (`:278-343`): a
-  T == 1 step over any cache of `tensor/kv_cache.py` goes to `flash_decode`,
+- `decode_attention`, the counterpart of `try_flash_decode` (`:278-343`) and
+  of `decode_attention` (`:176-201`, scale, softcap and a sliding window): a
+  T == 1 step over any cache of `tensor/kv_cache.py`, a ring included, goes to `flash_decode`,
   whose kernel takes every cache the port has (float, int8, int4, fp8, mixed
   K/V types, shifts, any S), so there is no envelope to fall back from. A
   paged cache (`tensor/paged_kv.py`) goes to `flash_decode_paged`, which reads
@@ -173,20 +174,33 @@ def try_flash_prefill(
     return flash_prefill(q, k, v, softcap=softcap, scale=scale)
 
 
-def decode_attention(q: torch.Tensor, layer_cache, positions: torch.Tensor) -> torch.Tensor:
-    """One decode step's attention over the just-updated cache, logits
-    scaled by D**-0.5.
+def decode_attention(
+    q: torch.Tensor, layer_cache, positions: torch.Tensor, *, scale: Optional[float] = None,
+    softcap: Optional[float] = None, window: Optional[int] = None, ring: bool = False,
+) -> torch.Tensor:
+    """One decode step's attention over the just-updated cache (JAX
+    `attention.py:176-201` and Gemma-2's T == 1 step): logits times `scale`
+    (default D**-0.5), then `softcap` (None: none), then the mask.
 
     q [B, 1, H, D] post-rope queries; `layer_cache` a float (k, v) tuple, a
-    `QKVCacheLayer` or a `PagedKVLayer`; positions int32 [B] (slot s is
-    visible iff s <= positions[b]). Returns [B, 1, H*D] in q's dtype."""
+    `QKVCacheLayer` or a `PagedKVLayer`; positions int32 [B]: slot s is
+    visible iff s <= positions[b], and s > positions[b] - window under a
+    sliding `window`. `ring`: the cache is a sliding layer's W-slot ring
+    (`models/sliding.py`) that the step's key was just written into, at slot
+    positions[b] % W. JAX attends to the pre-write ring and the new key, its
+    mask dropping the overwritten position positions[b] - W; the post-write
+    ring holds exactly the keys it keeps, so the kernel reads the ring with
+    positions clamped to W - 1 (a device op, no host read): every slot once
+    the ring has wrapped, slots 0..positions[b] before. Returns [B, 1, H*D]
+    in q's dtype."""
     B, _, H, D = q.shape
+    tf = dict(scale=scale, softcap=softcap, window=window)
     if isinstance(layer_cache, PagedKVLayer):
         c = layer_cache
         Hkv = c._k_pages.shape[2]
         out = flash_decode_paged(
             q.reshape(B, Hkv, H // Hkv, D), c._k_pages, c._v_pages, c._k_scale, c._v_scale,
-            c._table[:B], positions, k_shift=c._k_shift, v_shift=c._v_shift,
+            c._table[:B], positions, k_shift=c._k_shift, v_shift=c._v_shift, **tf,
         )
         return out.reshape(B, 1, H * D)
     if isinstance(layer_cache, QKVCacheLayer):
@@ -196,6 +210,8 @@ def decode_attention(q: torch.Tensor, layer_cache, positions: torch.Tensor) -> t
     else:
         (kd, vd), ks, vs, km, vm = layer_cache, None, None, None, None
     Hkv = kd.shape[2]
+    if ring:
+        positions = positions.clamp(max=kd.shape[1] - 1)
     qg = q.reshape(B, Hkv, H // Hkv, D)
-    out = flash_decode(qg, kd, vd, ks, vs, positions, k_shift=km, v_shift=vm)
+    out = flash_decode(qg, kd, vd, ks, vs, positions, k_shift=km, v_shift=vm, **tf)
     return out.reshape(B, 1, H * D)

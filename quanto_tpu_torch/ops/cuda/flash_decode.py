@@ -4,12 +4,19 @@ plain version and its launch count.
 Counterpart of the three TPU kernels `quanto_tpu/ops/pallas/flash_decode.py`,
 `flash_decode2.py` and `flash_decode3.py`, which compute one function; one
 flash-decoding kernel in `quanto_tpu_torch/csrc/flash_decode.cu` (its
-CUDA-core arm for float32 q or a float32 cache in `flash_decode_cc.cu`)
+CUDA-core arm for float32 q or a float32 cache in `flash_decode_cc.cu`, its
+tensor-core arm one source per head dim, `flash_decode_tc{64,128,256}.cu`)
 replaces all three. For each batch row b, KV head h and query g, over the
-cache slots s <= positions[b]:
+cache slots s <= positions[b], and s > positions[b] - window under a
+sliding window:
 
-    logit[s] = ((q . c_k[s]) * s_k[s] + (sum_d q) * m_k[s]) / sqrt(D)
+    x[s]     = ((q . c_k[s]) * s_k[s] + (sum_d q) * m_k[s]) * scale
+    logit[s] = softcap * tanh(x[s] / softcap)        (x[s] without a softcap)
     out      = softmax(logit) . (s_v * c_v + m_v)
+
+`scale` defaults to D**-0.5; `softcap` (None: none) and `window` (None: none)
+are Gemma-2's attention softcap and sliding window. The three are runtime
+arguments of one kernel; under a window a row reads only its window's slots.
 
 The wrapper's contract is JAX's `flash_decode_call`, widened to the port's
 caches (`tensor/kv_cache.py`): q [B, Hkv, G, D] (bfloat16 or float32, D 64,
@@ -78,21 +85,40 @@ def flash_decode_plain(
     positions: torch.Tensor,
     k_shift: Optional[torch.Tensor] = None,
     v_shift: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of the kernel: `gqa_attention`'s factored float32 chain
-    over the decoded payloads, slots past positions[b] masked, the PV product
-    kept in float32 as the kernel keeps it, the output cast to q's dtype."""
+    over the decoded payloads (scale, then softcap, then the mask, JAX's
+    order), slots past positions[b] and, under a window, at or before
+    positions[b] - window masked, the PV product kept in float32 as the kernel
+    keeps it, the output cast to q's dtype."""
     from ..attention import gqa_attention  # ops/attention.py imports this module
 
     B, Hkv, G, D = q.shape
     S = k.shape[1]
-    hidden = torch.arange(S, device=q.device)[None, :] > positions.reshape(B, 1).to(q.device)
+    s = torch.arange(S, device=q.device)[None, :]
+    p = positions.reshape(B, 1).to(q.device)
+    hidden = s > p
+    if window is not None:
+        hidden |= s <= p - window
     mask = torch.zeros((B, 1, 1, S), device=q.device).masked_fill(hidden[:, None, None, :], float("-inf"))
     out = gqa_attention(
-        q[:, None], _codes_f32(k), _codes_f32(v), mask, D**-0.5,
-        k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift, f32_pv=True,
+        q[:, None], _codes_f32(k), _codes_f32(v), mask, D**-0.5 if scale is None else scale,
+        k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift, softcap=softcap, f32_pv=True,
     )
     return out.reshape(B, Hkv, G, D)
+
+
+def _check_transforms(scale, softcap, window) -> None:
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_decode: scale must be positive, got {scale}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_decode: softcap must be positive, got {softcap}")
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"flash_decode: window must be a positive int, got {window}")
 
 
 def _payload_type(t: torch.Tensor, D: int, name: str) -> int:
@@ -155,8 +181,8 @@ def _fp8_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 # C signatures of `flash_decode_workspace` and `flash_decode` in csrc/flash_decode.cu.
 _WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int,
-                                                                            ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,7 +211,8 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: int, table=None, page_size: int = 0):
+def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: int, table=None, page_size: int = 0,
+            scale=None, softcap=None, window=None):
     """One launch of the kernel on q's CUDA device, dense (`table` None) or
     paged; returns the output. `types`: `_check`'s (k_type, v_type, mode)."""
     k_type, v_type, mode = types
@@ -219,7 +246,8 @@ def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: in
         device,
         ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale), ptr(k_shift), ptr(v_shift),
         ptr(positions), ptr(k_lut), ptr(v_lut), ptr(ws), ptr(counters), ptr(out),
-        B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), ptr(table), P, page_size, stream,
+        B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), ptr(table), P, page_size,
+        D**-0.5 if scale is None else float(scale), float(softcap or 0.0), int(window or 0), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
@@ -235,14 +263,20 @@ def flash_decode(
     positions: torch.Tensor,
     k_shift: Optional[torch.Tensor] = None,
     v_shift: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention out [B, Hkv, G, D] in q's dtype (see the module
     docstring). Replaces `quanto_tpu/ops/pallas/flash_decode.py:_kernel`,
     `flash_decode2.py:_kernel` and `flash_decode3.py:_kernel`."""
     types = _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions)
+    _check_transforms(scale, softcap, window)
+    tf = dict(scale=scale, softcap=softcap, window=window)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, k_scale, v_scale, positions, k_shift, v_shift)
-    out = _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, k.shape[1])
+        return flash_decode_plain(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, **tf)
+    out = _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, k.shape[1], **tf)
     flash_decode.launches += 1
     return out
 
@@ -260,11 +294,16 @@ def flash_decode_paged_plain(
     positions: torch.Tensor,
     k_shift: Optional[torch.Tensor] = None,
     v_shift: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of the paged arm, JAX's route: the pages gathered
     through the table into the dense view, then `flash_decode_plain`."""
     g = [gather_pages(t, table) for t in (k_pages, v_pages, k_scale, v_scale, k_shift, v_shift)]
-    return flash_decode_plain(q, g[0], g[1], g[2], g[3], positions, g[4], g[5])
+    return flash_decode_plain(q, g[0], g[1], g[2], g[3], positions, g[4], g[5], scale=scale, softcap=softcap,
+                              window=window)
 
 
 def flash_decode_paged(
@@ -277,19 +316,26 @@ def flash_decode_paged(
     positions: torch.Tensor,
     k_shift: Optional[torch.Tensor] = None,
     v_shift: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention out [B, Hkv, G, D] over a paged cache, reading the
     pages through `table` (int32 [B, P]; see the module docstring). Replaces
     the same TPU kernels as `flash_decode`, which JAX runs on the gathered view."""
     types = _check(q, k_pages, v_pages, k_scale, v_scale, k_shift, v_shift, positions, paged=True)
+    _check_transforms(scale, softcap, window)
+    tf = dict(scale=scale, softcap=softcap, window=window)
     B = q.shape[0]
     if table.dim() != 2 or table.shape[0] != B or table.dtype != torch.int32:
         raise ValueError(f"flash_decode_paged: table must be int32 [{B}, P], got {table.dtype} {tuple(table.shape)}")
     if q.device.type == "cpu":
-        return flash_decode_paged_plain(q, k_pages, v_pages, k_scale, v_scale, table, positions, k_shift, v_shift)
+        return flash_decode_paged_plain(q, k_pages, v_pages, k_scale, v_scale, table, positions, k_shift, v_shift,
+                                        **tf)
     ps = k_pages.shape[1]
     out = _launch(q, k_pages, v_pages, k_scale, v_scale, positions, k_shift, v_shift, types,
-                  table.shape[1] * ps, table, ps)
+                  table.shape[1] * ps, table, ps, **tf)
     flash_decode_paged.launches += 1
     return out
 

@@ -18,9 +18,16 @@ Storage is JAX's, except for int4:
 Unlike JAX, which returns updated copies, `kv_update` writes into the cache
 tensors IN PLACE and returns the same cache object. `cache_max_len`,
 `kv_update`, `slot_view` and `kv_read_raw` also take a paged layer
-(`tensor/paged_kv.py:PagedKVLayer`), as JAX's do. Ring caches
-(`kv_ring_update`, `ring_key_positions`, `quantize_kv_chunk`) wait for
-`models/sliding.py` (ROADMAP.md Queue 1, item 8).
+(`tensor/paged_kv.py:PagedKVLayer`), as JAX's do.
+
+Ring caches (`kv_ring_update`, `ring_key_positions`, `quantize_kv_chunk`;
+JAX `kv_cache.py:274-370`) hold a sliding-window layer's last W positions in
+W slots, position p at slot p % W; `models/sliding.py` runs attention around
+them. `kv_ring_update` writes in place too, so a caller that attends to the
+PRE-write ring (JAX's read-concat-write) copies it out first. A chunk longer
+than W keeps each row's last W valid columns, where JAX keeps its last W
+columns whatever their validity (so pad columns at the end of a long chunk
+would push real keys out of JAX's ring).
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ __all__ = [
     "slot_view",
     "kv_read",
     "kv_read_raw",
+    "kv_ring_update",
+    "ring_key_positions",
+    "quantize_kv_chunk",
 ]
 
 
@@ -285,3 +295,81 @@ def kv_read_raw(layer_cache, dtype, batch: Optional[int] = None):
         )
     ck, cv = layer_cache
     return ck.to(dtype), cv.to(dtype), None, None, None, None
+
+
+# --- sliding-window ring caches ----------------------------------------------
+
+
+def _ring_write_(cache: torch.Tensor, new: torch.Tensor, pos, valid: Optional[torch.Tensor] = None) -> None:
+    """Write `new` [B, T, ...] into the ring `cache` [B, W, ...] in place,
+    column t of row b at slot (pos[b] + t) % W; `pos` an int, a 0-d or a [B]
+    tensor. `valid` [B, T] bool (None: all) masks pad and garbage columns:
+    their slots keep their content, since (pos + t) % W of a column past the
+    row's end would alias a live slot of the window. Of a chunk longer than
+    W, each row keeps the valid columns among its last W positions up to its
+    last valid column, so a row's slots are distinct and it holds its last W
+    real keys (JAX `_ring_write` keeps the chunk's last W columns instead)."""
+    W = cache.shape[1]
+    B, T = new.shape[0], new.shape[1]
+    dev = cache.device
+    pos = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
+    n = min(T, W)
+    span = torch.arange(n, device=dev)[None, :]
+    if valid is None:
+        cols = (T - n) + span.expand(B, n)
+    else:
+        valid = valid.to(dev)
+        t = torch.arange(T, device=dev)[None, :]
+        last = torch.where(valid, t, -1).amax(dim=1, keepdim=True)  # each row's last valid column
+        cols = (last + 1 - n).clamp_min(0) + span
+        valid = valid.gather(1, cols)
+    slots = (pos[:, None] + cols) % W
+    rows = torch.arange(B, device=dev)[:, None]
+    cache, new = _scatter_view(cache, new)
+    vals = new[rows, cols]
+    if valid is not None:
+        keep = valid.reshape(B, n, *([1] * (vals.dim() - 2)))
+        vals = torch.where(keep, vals, cache[rows, slots])
+    cache[rows, slots] = vals
+
+
+def kv_ring_update(layer_cache, k: torch.Tensor, v: torch.Tensor, pos, valid: Optional[torch.Tensor] = None):
+    """Ring analogue of `kv_update` for a W-slot sliding-window cache (float
+    tuple or `QKVCacheLayer`), in place: new K/V [B, T, Hkv, D] at slots
+    (pos + t) % W, quantized per slot first for a quantized cache. `valid`
+    [B, T] masks pad and garbage columns (`_ring_write_`)."""
+    if isinstance(layer_cache, QKVCacheLayer):
+        k_qt, v_qt, asym = parse_kv_spec(layer_cache.qtype_name)
+        kd, ks, km = _quantize_slot(k, k_qt, asym)
+        vd, vs, vm = _quantize_slot(v, v_qt, asym)
+        pairs = [(layer_cache._k_data, kd), (layer_cache._k_scale, ks), (layer_cache._v_data, vd),
+                 (layer_cache._v_scale, vs)]
+        if asym:
+            pairs += [(layer_cache._k_shift, km), (layer_cache._v_shift, vm)]
+        for cache, new in pairs:
+            _ring_write_(cache, new, pos, valid)
+        return layer_cache
+    ck, cv = layer_cache
+    _ring_write_(ck, k, pos, valid)
+    _ring_write_(cv, v, pos, valid)
+    return layer_cache
+
+
+def ring_key_positions(pos0, W: int, batch: int, device=None) -> torch.Tensor:
+    """Absolute positions that the PRE-write ring slots hold: slot j the
+    largest position below pos0 congruent to j mod W; negative where never
+    written. `pos0` an int, a 0-d or a [B] tensor; returns int64 [B, W]."""
+    p = torch.as_tensor(pos0, device=device).reshape(-1, 1).long().expand(batch, 1)
+    j = torch.arange(W, device=p.device)[None, :]
+    return j + W * torch.div(p - 1 - j, W, rounding_mode="floor")
+
+
+def quantize_kv_chunk(spec_name: str, k: torch.Tensor, v: torch.Tensor, dtype):
+    """A chunk's K/V quantized as a cache of KV spec `spec_name` stores them,
+    in `kv_read_raw`'s form: (k codes, v codes as `dtype`, int4 unpacked,
+    k_scale, v_scale, k_shift, v_shift), so that a ring layer's in-chunk keys
+    carry the cache's numerics beside the ring's."""
+    k_qt, v_qt, asym = parse_kv_spec(spec_name)
+    kd, ks, km = _quantize_slot(k, k_qt, asym)
+    vd, vs, vm = _quantize_slot(v, v_qt, asym)
+    return _codes(kd).to(dtype), _codes(vd).to(dtype), ks, vs, km, vm

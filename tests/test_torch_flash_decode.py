@@ -16,6 +16,13 @@
   order.
 - Slots past a row's position never change the output (bit for bit), and a
   row at position 0 returns slot 0's value row (within 1e-6, float32).
+- Gemma-2's extras: `flash_decode_plain` with a softcap, a query scale and a
+  sliding window against JAX's `gqa_attention` with the window's mask
+  (1e-5 * max|ref|, float32), slots outside the window ignored bit for bit;
+  the ring arm of `decode_attention` (the post-write ring, positions
+  clamped to W - 1) against JAX's read-concat over the pre-write ring
+  (2e-5 * max|ref| + 1e-6); the paged arm with the three equal to the dense
+  call on the gathered view.
 
 The CUDA kernel itself is held against `flash_decode_plain` on the card by
 `tests/test_torch_gpu_kernels.py`.
@@ -176,3 +183,97 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_decode(q[..., :32].contiguous(), k[..., :32], v[..., :32], ks, vs, pos)  # D = 32
     with pytest.raises(TypeError):
         flash_decode(q, k.float(), v, ks, vs, pos)  # float K with int8 V
+
+
+# Gemma-2's extras: the query scale, the softcap and the sliding window.
+TRANSFORMS = [
+    dict(softcap=50.0),
+    dict(scale=144**-0.5, softcap=50.0, window=16),
+    dict(scale=0.3, window=1),
+    dict(window=64),
+]
+
+
+@pytest.mark.parametrize("tf", TRANSFORMS, ids=["softcap", "gemma2-sliding", "scale-w1", "wide-window"])
+@pytest.mark.parametrize("D,G", [(64, 3), (128, 2), (256, 2)], ids=["d64g3", "d128g2", "d256g2"])
+def test_plain_transforms_match_jax_gqa_attention(tf, D, G):
+    """`flash_decode_plain` with softcap, scale and window against JAX's
+    `gqa_attention` with the mask a window gives (q - w < s <= q), float32,
+    within 1e-5 * max|ref|; the logits are scaled up (x 8) so that the cap bites."""
+    B, Hkv, S = 3, 2, 48
+    q, k, v, _, _ = inputs(B, Hkv, G, S, D, False, seed=D + G)
+    q = q * 8
+    pos = np.array([47, 20, 3], np.int32)
+    s = np.arange(S)[None, :]
+    ok = s <= pos[:, None]
+    if tf.get("window"):
+        ok &= s > pos[:, None] - tf["window"]
+    mask = np.where(ok, 0.0, np.finfo(np.float32).min)[:, None, None, :].astype(np.float32)
+    scale = tf.get("scale", D**-0.5)
+    ref = np.asarray(jax_gqa_attention(
+        jnp.asarray(q).reshape(B, 1, Hkv, G, D), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), scale,
+        softcap=tf.get("softcap"),
+    )).reshape(B, Hkv, G, D)
+    out = flash_decode(*port(q, k, v), None, None, torch.from_numpy(pos), **tf)
+    assert np.max(np.abs(out.numpy() - ref)) <= 1e-5 * np.max(np.abs(ref))
+    # Slots outside a row's window never change its output.
+    if tf.get("window"):
+        k2, v2 = k.copy(), v.copy()
+        k2[~ok], v2[~ok] = 100, -100
+        assert torch.equal(flash_decode(*port(q, k2, v2), None, None, torch.from_numpy(pos), **tf), out)
+
+
+@pytest.mark.parametrize("spec", [None, "qint4"], ids=["float", "qint4"])
+def test_ring_decode_matches_jax_read_concat(spec):
+    """A decode step over a W = 16 ring, one row before it wraps (position 9)
+    and one after (position 40): `decode_attention(ring=True)` over the
+    post-write ring against JAX's pre-write ring joined with the new key
+    under `ring_mask`, softcap 50 and scale 144**-0.5."""
+    from quanto_tpu.models import sliding as jsl
+
+    B, Wr, Hkv, G, D = 2, 16, 2, 2, 128
+    rng = np.random.default_rng(11)
+    k0, v0 = (rng.standard_normal((B, Wr, Hkv, D)).astype(np.float32) for _ in range(2))
+    knew, vnew = (rng.standard_normal((B, 1, Hkv, D)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((B, 1, Hkv * G, D)).astype(np.float32) * 8
+    pos = np.array([9, 40], np.int32)
+    jring = (jnp.asarray(k0), jnp.asarray(v0)) if spec is None else jkv.kv_update(
+        jkv.init_quantized_kv_cache(1, B, Wr, Hkv, D, spec)[0], jnp.asarray(k0), jnp.asarray(v0), 0)
+    kc, vc, ks, vs, km, vm, _ = jsl.ring_attention_inputs(jring, jnp.asarray(knew), jnp.asarray(vnew),
+                                                          jnp.asarray(pos), None, jnp.float32, B)
+    neg = float(np.finfo(np.float32).min)
+    mask = jsl.ring_mask(jnp.asarray(pos)[:, None], jnp.asarray(pos)[:, None, None, None], jnp.asarray(pos), Wr, B,
+                         neg)
+    ref = jax_gqa_attention(jnp.asarray(q).reshape(B, 1, Hkv, G, D), kc, vc, mask, 144**-0.5, k_scale=ks,
+                            v_scale=vs, softcap=50.0)
+    ring = port(k0, v0) if spec is None else bridge(jring, spec)
+    tkv.kv_ring_update(ring, torch.from_numpy(knew), torch.from_numpy(vnew), torch.from_numpy(pos))
+    out = decode_attention(torch.from_numpy(q), ring, torch.from_numpy(pos), scale=144**-0.5, softcap=50.0,
+                           ring=True)
+    near(out, ref)
+
+
+def test_paged_window_equals_dense_window():
+    """The paged arm's plain version with softcap, scale and window equals the
+    dense call on the gathered view."""
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode_paged
+    from quanto_tpu_torch.tensor.paged_kv import gather_pages
+
+    rng = np.random.default_rng(12)
+    B, Hkv, G, D, ps, P = 2, 2, 2, 64, 4, 6
+    pages = [torch.from_numpy(rng.standard_normal((13, ps, Hkv, D)).astype(np.float32)) for _ in range(2)]
+    table = torch.from_numpy(rng.permutation(np.arange(1, 13))[: B * P].reshape(B, P).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D)).astype(np.float32))
+    pos = torch.tensor([22, 9], dtype=torch.int32)
+    tf = dict(scale=0.2, softcap=50.0, window=8)
+    out = flash_decode_paged(q, *pages, None, None, table, pos, **tf)
+    want = flash_decode(q, gather_pages(pages[0], table), gather_pages(pages[1], table), None, None, pos, **tf)
+    assert torch.equal(out, want)
+
+
+def test_wrapper_rejects_bad_transforms():
+    q, k, v, _, _ = port(*inputs(1, 2, 4, 16, 64, False, seed=0))
+    pos = torch.zeros(1, dtype=torch.int32)
+    for bad in (dict(scale=0.0), dict(softcap=-1.0), dict(window=0), dict(window=2.5)):
+        with pytest.raises(ValueError):
+            flash_decode(q, k, v, None, None, pos, **bad)

@@ -59,7 +59,9 @@ IDS = np.random.default_rng(7).integers(0, GEMMA["vocab_size"], (B, T))
 
 
 def gemma_state(model) -> dict:
-    """JAX's float state with the norms drawn at random (they start at 0)."""
+    """JAX's float state with the norms drawn at random (they start at 0):
+    every key naming a norm, so also Gemma-2's `pre_feedforward_layernorm`
+    and `post_feedforward_layernorm` (`tests/test_torch_gemma2.py`)."""
     rng = np.random.default_rng(4)
     state = numpy_state(jax_hf_state_dict(model))
     for k in state:

@@ -368,26 +368,27 @@ def cache_operands(k_type, v_type, shifted, S, D, device, seed, B=3, Hkv=2):
     return ck._k_data, cv._v_data, ck._k_scale, cv._v_scale, ck._k_shift, cv._v_shift
 
 
-def check_flash_decode(device, cache, S, D, dtype, G=4, positions=None, Hkv=2, seed=None):
+def check_flash_decode(device, cache, S, D, dtype, G=4, positions=None, Hkv=2, seed=None, q_mul=1.0, **tf):
     """One cache layer (B = len(positions), rows at S - 1, S // 2 and 0 unless
     given): each call one launch, two calls the same bits, and the result
     against the plain version: float32 q within 1e-5 * max|ref|, bfloat16 q
-    within 1e-2 * max|ref| and cosine > 1 - 1e-4."""
+    within 1e-2 * max|ref| and cosine > 1 - 1e-4. `tf`: the scale, softcap
+    and window of both calls; `q_mul` scales q up so that a softcap bites."""
     positions = [S - 1, S // 2, 0] if positions is None else positions
     seed = S + D if seed is None else seed
     k_type, v_type, shifted = cache
     B = len(positions)
     k, v, ks, vs, km, vm = cache_operands(k_type, v_type, shifted, S, D, device, seed=seed, B=B, Hkv=Hkv)
     rng = np.random.default_rng(seed + 1)
-    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D)).astype(np.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D)).astype(np.float32) * q_mul).to(device, dtype)
     pos = torch.tensor(positions, dtype=torch.int32, device=device)
     before = flash_decode.launches
-    out = flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm)
+    out = flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm, **tf)
     assert flash_decode.launches == before + 1
-    assert torch.equal(out, flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm))
+    assert torch.equal(out, flash_decode(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm, **tf))
     torch.cuda.synchronize()
     out = out.float()
-    ref = flash_decode_plain(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm).float()
+    ref = flash_decode_plain(q, k, v, ks, vs, pos, k_shift=km, v_shift=vm, **tf).float()
     err = (out - ref).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-5 * ref.abs().max().item()
@@ -429,6 +430,52 @@ def test_flash_decode_query_groups(cuda_device, cache, G, dtype):
     """Query groups that fill part of a group of rows, or take a second one
     (bf16 q: 8 rows an n tile, two from G = 9; float32 q: 4 rows a group)."""
     check_flash_decode(cuda_device, cache, 1088, 128, dtype, G=G)
+
+
+# Gemma-2's extras (softcap 50; the query scale query_pre_attn_scalar ** -0.5; a sliding window,
+# slot s visible iff pos - window < s <= pos): (S, positions, tf). Windows at a tile's edge and
+# past it, of one slot, wider than a row's position; Gemma-2-9B's window of 4096 at S = 8192; the
+# ring arm's positions clamped to W - 1 (a W-slot ring, rows before and after it wraps).
+GEMMA2_DECODE = {
+    "softcap": (1088, [1087, 544, 0], dict(softcap=50.0)),
+    "scale144-softcap": (1088, [1087, 300, 7], dict(scale=144**-0.5, softcap=50.0)),
+    "window64": (1088, [1087, 64, 63, 0], dict(window=64)),
+    "window65-softcap": (1088, [1087, 600, 65, 3], dict(softcap=50.0, window=65)),
+    "window1": (1088, [1087, 10, 0], dict(window=1)),
+    "window4096-s8192": (8192, [8191, 5000, 4095, 100], dict(scale=256**-0.5, softcap=50.0, window=4096)),
+    "ring4096": (4096, [4095, 4095, 1200, 0], dict(scale=256**-0.5, softcap=50.0)),
+}
+GEMMA2_CACHES = [("bfloat16", "bfloat16", False), ("qint4", "qint4", False), ("qint8", "qint4", False),
+                 ("qint4", "qint4", True), ("qfloat8_e4m3fn", "qfloat8_e4m3fn", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("case", list(GEMMA2_DECODE))
+@pytest.mark.parametrize("cache", GEMMA2_CACHES, ids=cache_id)
+def test_flash_decode_gemma2_transforms(cuda_device, cache, case, D, dtype):
+    """Softcap, query scale and window against the plain version, at
+    Gemma-2's G = 2 (q x 4 so that the cap bites)."""
+    S, positions, tf = GEMMA2_DECODE[case]
+    check_flash_decode(cuda_device, cache, S, D, dtype, G=2, positions=positions, seed=len(case), q_mul=4.0, **tf)
+
+
+@pytest.mark.gpu
+def test_flash_decode_window_reads_its_window_only(cuda_device):
+    """Slots outside a row's window never change its output (bit for bit)."""
+    S, D = 1088, 128
+    k, v, _, _, _, _ = cache_operands("bfloat16", "bfloat16", False, S, D, cuda_device, seed=3)
+    q = torch.randn((3, 2, 2, D), device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(3))
+    q = q.to(torch.bfloat16)
+    pos = torch.tensor([1087, 700, 40], dtype=torch.int32, device=cuda_device)
+    tf = dict(softcap=50.0, window=300)
+    out = flash_decode(q, k, v, None, None, pos, **tf)
+    s = torch.arange(S, device=cuda_device)[None, :]
+    hide = (s > pos[:, None]) | (s <= pos[:, None] - 300)
+    k2, v2 = k.clone(), v.clone()
+    k2[hide], v2[hide] = 100, -100
+    assert torch.equal(out, flash_decode(q, k2, v2, None, None, pos, **tf))
 
 
 # Caches of the ragged-position cases: a float cache, symmetric and asymmetric int4, k8v4 and a
@@ -1047,7 +1094,7 @@ PAGED = {
 }
 
 
-def check_flash_decode_paged(device, ps, S, B, spec, D, dtype, Hkv=2, spare=0, seed=0):
+def check_flash_decode_paged(device, ps, S, B, spec, D, dtype, Hkv=2, spare=0, seed=0, **tf):
     """A paged cache of B rows of S slots over a shuffled table (`spare` pages
     before them), written by `kv_update`, and q: the paged arm one launch on
     its counter, two calls the same bits, EQUAL to the dense arm on the
@@ -1064,13 +1111,13 @@ def check_flash_decode_paged(device, ps, S, B, spec, D, dtype, Hkv=2, spare=0, s
     pos[0] = S - 1
     c = layer
     args = (q, c._k_pages, c._v_pages, c._k_scale, c._v_scale, c._table, pos)
-    kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+    kw = dict(k_shift=c._k_shift, v_shift=c._v_shift, **tf)
     before = (flash_decode_paged.launches, flash_decode.launches)
     out = flash_decode_paged(*args, **kw)
     assert (flash_decode_paged.launches, flash_decode.launches) == (before[0] + 1, before[1])
     assert torch.equal(out, flash_decode_paged(*args, **kw))
     kg, vg, ks, vs, km, vm = tpk.paged_gather(layer, B)
-    assert torch.equal(out, flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm))
+    assert torch.equal(out, flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm, **tf))
     torch.cuda.synchronize()
     ref = flash_decode_paged_plain(*args, **kw).float()
     err = (out.float() - ref).abs().max().item()
@@ -1087,6 +1134,17 @@ def check_flash_decode_paged(device, ps, S, B, spec, D, dtype, Hkv=2, spare=0, s
 def test_flash_decode_paged_matches_dense(cuda_device, case, dtype):
     ps, S, B, spec, D = PAGED[case]
     check_flash_decode_paged(cuda_device, ps, S, B, spec, D, dtype, Hkv=8 if ps == 64 else 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("case", ["ps16_bf16_d256", "ps64_qint4_d256", "ps4_qint4"])
+def test_flash_decode_paged_gemma2_transforms(cuda_device, case, dtype):
+    """The paged arm with Gemma-2's softcap, scale and a window: EQUAL to the
+    dense arm on the gathered view, near its plain version."""
+    ps, S, B, spec, D = PAGED[case]
+    check_flash_decode_paged(cuda_device, ps, S, B, spec, D, dtype, Hkv=8 if ps == 64 else 2, seed=1,
+                             scale=144**-0.5, softcap=50.0, window=S // 3)
 
 
 @pytest.mark.gpu
@@ -1237,6 +1295,40 @@ def test_flash_prefill_matches_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     ref = flash_prefill_plain(q, k, v, softcap=softcap).float()
     assert out.shape == (B, T, Hkv * G * D) and out.dtype == dtype
+    err = (out.float() - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 2.0**-7 * ref.abs().max().item()
+        assert torch.nn.functional.cosine_similarity(out.float().flatten(), ref.flatten(), dim=0) > 1 - 1e-5
+
+
+# Gemma-2's prefill heads: (B, T, Hkv, G, D, scale). 9B: 8 x 2 of 256, query_pre_attn_scalar 256;
+# 27B: 16 x 2 of 128, query_pre_attn_scalar 144 (a scale that is not D**-0.5). Softcap 50.
+GEMMA2_PREFILL = {
+    "gemma2-9b-d256-g2": (2, 1024, 8, 2, 256, 256**-0.5),
+    "gemma2-27b-d128-g2": (1, 512, 16, 2, 128, 144**-0.5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(GEMMA2_PREFILL))
+def test_flash_prefill_gemma2_heads(cuda_device, case, dtype):
+    """G = 2 with softcap 50 and Gemma-2's query scale, to
+    `test_flash_prefill_matches_plain`'s limits."""
+    B, T, Hkv, G, D, scale = GEMMA2_PREFILL[case]
+    g = torch.Generator(device=cuda_device).manual_seed(T + D)
+    q = torch.randn((B, T, Hkv * G, D), device=cuda_device, generator=g).mul_(2).to(dtype)
+    k = torch.randn((B, T, Hkv, D), device=cuda_device, generator=g).mul_(2).to(dtype)
+    v = torch.randn((B, T, Hkv, D), device=cuda_device, generator=g).to(dtype)
+    kw = dict(softcap=50.0, scale=scale)
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, **kw)
+    assert flash_prefill.launches == before + 1
+    assert torch.equal(out, flash_prefill(q, k, v, **kw))
+    torch.cuda.synchronize()
+    ref = flash_prefill_plain(q, k, v, **kw).float()
     err = (out.float() - ref).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-4 * ref.abs().max().item()
