@@ -43,7 +43,7 @@ from torch import nn
 from ..ops.attention import decode_attention, gqa_attention, static_zero_pos, try_flash_prefill
 from ..tensor.kv_cache import cache_max_len, init_quantized_kv_cache, kv_read_raw, kv_ring_update, kv_update
 from .llama import LlamaForCausalLM, RMSNorm, _apply_rope, _deq, _rope, _select_logit_rows
-from .sliding import layer_cache_len, ring_attention_inputs, ring_mask, use_ring, write_valid_mask
+from .sliding import flat_masks, layer_cache_len, ring_attention_inputs, ring_mask, use_ring, write_valid_mask
 
 
 __all__ = ["Gemma2Config", "Gemma2ForCausalLM"]
@@ -145,6 +145,10 @@ class Gemma2Config:
 
 
 class Gemma2Attention(nn.Module):
+    # Gemma-3's and Qwen3's subclasses: RMSNorms (the config's unit offset) on the [B, T, H, D]
+    # query and key heads before rope.
+    qk_norm = False
+
     def __init__(self, c: Gemma2Config, **kw):
         super().__init__()
         self.num_heads = c.num_attention_heads
@@ -157,6 +161,9 @@ class Gemma2Attention(nn.Module):
         self.k_proj = nn.Linear(c.hidden_size, kv_out, bias=c.attention_bias, **kw)
         self.v_proj = nn.Linear(c.hidden_size, kv_out, bias=c.attention_bias, **kw)
         self.o_proj = nn.Linear(q_out, c.hidden_size, bias=c.attention_bias, **kw)
+        if self.qk_norm:
+            self.q_norm = RMSNorm(c.head_dim, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
+            self.k_norm = RMSNorm(c.head_dim, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
 
     def forward(self, x, cos, sin, mask, layer_cache=None, cache_pos=None, decode_pos=None, causal_ok=False,
                 ring=False, write_valid=None, window=None):
@@ -168,6 +175,8 @@ class Gemma2Attention(nn.Module):
         q = _deq(self.q_proj(x)).view(B, T, self.num_heads, self.head_dim)
         k = _deq(self.k_proj(x)).view(B, T, self.num_kv_heads, self.head_dim)
         v = _deq(self.v_proj(x)).view(B, T, self.num_kv_heads, self.head_dim)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         tf = dict(scale=self.scaling, softcap=self.softcap)
@@ -214,9 +223,11 @@ class Gemma2MLP(nn.Module):
 
 
 class Gemma2DecoderLayer(nn.Module):
-    def __init__(self, c: Gemma2Config, **kw):
+    attn_cls = Gemma2Attention
+
+    def __init__(self, c: Gemma2Config, layer_idx: int = 0, **kw):
         super().__init__()
-        self.self_attn = Gemma2Attention(c, **kw)
+        self.self_attn = self.attn_cls(c, **kw)
         self.mlp = Gemma2MLP(c, **kw)
         self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, unit_offset=True, **kw)
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, unit_offset=True, **kw)
@@ -242,25 +253,16 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         """(full, sliding) additive float32 masks [B or 1, 1, T, S] of a T > 1
         step (JAX `gemma2.py:244-275`); S = W + T for a ring's sliding layers."""
         c = self.config
-        dev = positions.device
-        neg = torch.finfo(torch.float32).min
-        w = c.sliding_window
-        if cache is None:
-            q_pos = torch.arange(T, device=dev)[None, None, :, None]
-            k_pos = torch.arange(T, device=dev)[None, None, None, :]
-        else:
+        slots = None
+        if cache is not None:
             # Sized from a full layer: a ring's sliding layers hold W slots. (The model's own
             # layers: a layer-skip draft keeps its target's longer `layer_types`.)
             fi = next((i for i in range(len(cache)) if c.layer_types[i] != SLIDING), 0)
-            q_pos = positions[:, None, :, None]
-            k_pos = torch.arange(cache_max_len(cache[fi]), device=dev)[None, None, None, :]
-        causal = k_pos <= q_pos
-        full = torch.where(causal, 0.0, neg)
+            slots = cache_max_len(cache[fi])
+        full, sliding = flat_masks(positions, slots, None if ring else c.sliding_window)
         if ring:
-            sliding = ring_mask(positions, q_pos, cache_pos, w, B, neg)
-        else:
-            # The window holds the current token: q - w < k <= q.
-            sliding = torch.where(causal & (k_pos > q_pos - w), 0.0, neg)
+            neg = torch.finfo(torch.float32).min
+            sliding = ring_mask(positions, positions[:, None, :, None], cache_pos, c.sliding_window, B, neg)
         return full, sliding
 
     def forward(self, input_ids: torch.Tensor, cache=None, cache_pos=0, write_len=None, logits_indices=None):
@@ -276,7 +278,7 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         x = x * torch.tensor(c.hidden_size**0.5, dtype=x.dtype)
         pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
-        cos, sin = _rope(positions, self.inv_freq, x.dtype)
+        ropes = self._ropes(positions, x.dtype)
         ring = use_ring(c, cache)
         decode = cache is not None and T == 1
         full_mask = sliding_mask = decode_pos = write_valid = None
@@ -295,7 +297,7 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             # window shorter than the step.
             ok = causal0 and (not sliding or c.sliding_window >= T) and not lring
             x, _ = layer(
-                x, cos, sin, sliding_mask if sliding else full_mask, layer_cache, cache_pos, decode_pos,
+                x, *ropes[sliding], sliding_mask if sliding else full_mask, layer_cache, cache_pos, decode_pos,
                 causal_ok=ok, ring=lring, write_valid=write_valid,
                 window=c.sliding_window if sliding and not lring else None,
             )
@@ -305,6 +307,11 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         if cap is not None:
             logits = torch.tanh(logits / cap) * cap
         return logits, cache
+
+    def _ropes(self, positions: torch.Tensor, dtype):
+        """(cos, sin) of the full layers and of the sliding ones: one table (Gemma-3 has two)."""
+        cos_sin = _rope(positions, self.inv_freq, dtype)
+        return cos_sin, cos_sin
 
     def init_kv_cache(self, batch: int, max_len: int, dtype=None, kv_quant=None, sliding_ring: bool = True):
         """Per layer a cache on the model's device (JAX `gemma2.py:325-349`):

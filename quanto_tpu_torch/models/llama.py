@@ -129,12 +129,7 @@ class LlamaConfig:
             # JAX's llama.py reads no `use_sliding_window` and runs such a config fully causal;
             # the port refuses it rather than serve a window the checkpoint was trained with.
             raise NotImplementedError("use_sliding_window: a Llama-family sliding window is not supported")
-        rope = hf.get("rope_scaling") or None
-        if rope is not None:
-            rope_type = rope.get("rope_type", rope.get("type", "default"))
-            if rope_type not in _ROPE_TYPES:
-                _not_ported(f"rope_scaling type {rope_type!r}")
-            rope = tuple(sorted((k, tuple(v) if isinstance(v, list) else v) for k, v in rope.items()))
+        rope = freeze_rope_scaling(hf.get("rope_scaling"))
         return cls(
             vocab_size=hf["vocab_size"],
             hidden_size=hf["hidden_size"],
@@ -200,6 +195,18 @@ class LlamaConfig:
             "tie_word_embeddings": self.tie_word_embeddings,
             "torch_dtype": str(self.dtype).removeprefix("torch."),
         }
+
+
+def freeze_rope_scaling(rope: Optional[Mapping[str, Any]]):
+    """A Hugging Face `rope_scaling` dict as sorted (key, value) pairs, hashable
+    in a frozen config (None for none); raises `NotImplementedError` on a rope
+    type other than those `rope_params` computes."""
+    if not rope:
+        return None
+    rope_type = rope.get("rope_type", rope.get("type", "default"))
+    if rope_type not in _ROPE_TYPES:
+        _not_ported(f"rope_scaling type {rope_type!r}")
+    return tuple(sorted((k, tuple(v) if isinstance(v, list) else v) for k, v in rope.items()))
 
 
 def rope_params(
@@ -419,11 +426,13 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, c: LlamaConfig, **kw):
+    def __init__(self, c: LlamaConfig, intermediate_size: Optional[int] = None, **kw):
+        """`intermediate_size`: in place of the config's (an MoE expert's)."""
         super().__init__()
-        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
-        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size, bias=c.mlp_bias, **kw)
-        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size, bias=c.mlp_bias, **kw)
+        inter = intermediate_size or c.intermediate_size
+        self.gate_proj = nn.Linear(c.hidden_size, inter, bias=c.mlp_bias, **kw)
+        self.up_proj = nn.Linear(c.hidden_size, inter, bias=c.mlp_bias, **kw)
+        self.down_proj = nn.Linear(inter, c.hidden_size, bias=c.mlp_bias, **kw)
         self.hidden_act = c.hidden_act
 
     def forward(self, x):
@@ -433,7 +442,7 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, **kw):
+    def __init__(self, c: LlamaConfig, layer_idx: int = 0, **kw):
         super().__init__()
         self.self_attn = LlamaAttention(c, **kw)
         self.mlp = LlamaMLP(c, **kw)
@@ -453,7 +462,8 @@ class LlamaModel(nn.Module):
     def __init__(self, c: LlamaConfig, layer_cls=LlamaDecoderLayer, **kw):
         super().__init__()
         self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
-        self.layers = nn.ModuleList([layer_cls(c, **kw) for _ in range(c.num_hidden_layers)])
+        # A family whose layers differ by depth (Qwen3-MoE's dense layers) reads `layer_idx`.
+        self.layers = nn.ModuleList([layer_cls(c, layer_idx=i, **kw) for i in range(c.num_hidden_layers)])
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.rms_norm_unit_offset, **kw)
 
 

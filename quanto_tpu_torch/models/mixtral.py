@@ -52,13 +52,16 @@ class MixtralConfig(LlamaConfig):
         }
 
 
-def route(gate: nn.Module, x: torch.Tensor, top_k: int):
+def route(gate: nn.Module, x: torch.Tensor, top_k: int, norm_topk_prob: bool = True):
     """The mixtral router (`quanto_tpu/models/mixtral.py:84-89`): float32
-    softmax over the gate's logits, top-k, renormalized. x [..., H] ->
-    (top_i [..., K] int64, top_p [..., K] float32)."""
+    softmax over the gate's logits, top-k, renormalized; Qwen3-MoE's
+    renormalizes only with `norm_topk_prob` (`quanto_tpu/parallel/moe.py:580-592`).
+    x [..., H] -> (top_i [..., K] int64, top_p [..., K] float32)."""
     probs = torch.softmax(_deq(gate(x)).float(), dim=-1)
     top_p, top_i = torch.topk(probs, top_k, dim=-1)
-    return top_i, top_p / top_p.sum(dim=-1, keepdim=True)
+    if norm_topk_prob:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return top_i, top_p
 
 
 def routing_mask(top_i: torch.Tensor, top_p: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -101,7 +104,7 @@ class MixtralSparseMoeBlock(nn.Module):
 
 
 class MixtralDecoderLayer(nn.Module):
-    def __init__(self, c: MixtralConfig, **kw):
+    def __init__(self, c: MixtralConfig, layer_idx: int = 0, **kw):
         super().__init__()
         self.self_attn = LlamaAttention(c, **kw)
         self.block_sparse_moe = MixtralSparseMoeBlock(c, **kw)

@@ -608,7 +608,8 @@ class PagedEngine(BatchedEngine):
         if self._ring_hybrid and not self._accepts_write_len:
             raise NotImplementedError(
                 "PagedEngine's paged+ring hybrid needs a model that runs ring caches (takes write_len, as "
-                "Gemma-2 does); other sliding-window families wait for ROADMAP.md Queue 1, item 8"
+                "Gemma-2 and Gemma-3 do); a sliding Qwen3 attends by mask over flat caches, and the other "
+                "sliding-window families wait for ROADMAP.md Queue 1, item 8 (gpt_oss: item 7)"
             )
         attn = self.model.model.layers[0].self_attn
         Hkv, D = attn.num_kv_heads, attn.head_dim

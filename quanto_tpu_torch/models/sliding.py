@@ -7,6 +7,8 @@ p % W, `tensor/kv_cache.py:kv_ring_update`) instead of max_len:
 
 - `use_ring(config, cache)`: whether the sliding layers' caches are rings;
 - `layer_cache_len(config, i, max_len, sliding_ring)`: layer i's capacity;
+- `flat_masks(positions, slots, w)`: the causal and windowed masks over flat
+  caches (or none), which Qwen3's sliding tails use alone;
 - `ring_mask(positions, q_pos, cache_pos, w, B, neg)`: the [B, 1, T, W + T]
   mask over [pre-write ring | chunk] keys by their absolute positions;
 - `write_valid_mask(write_len, T)`: the real columns of an engine's padded chunk;
@@ -35,7 +37,7 @@ from ..tensor.kv_cache import (
 from ..tensor.paged_kv import PagedKVLayer
 
 
-__all__ = ["use_ring", "layer_cache_len", "ring_mask", "write_valid_mask", "ring_attention_inputs"]
+__all__ = ["use_ring", "layer_cache_len", "flat_masks", "ring_mask", "write_valid_mask", "ring_attention_inputs"]
 
 
 def use_ring(config, cache) -> bool:
@@ -59,6 +61,25 @@ def layer_cache_len(config, i: int, max_len: int, sliding_ring: bool) -> int:
     if sliding_ring and w is not None and max_len > w and config.layer_types[i] == "sliding_attention":
         return w
     return max_len
+
+
+def flat_masks(positions: torch.Tensor, slots, w):
+    """(full, sliding) additive float32 masks of a T > 1 step over flat
+    caches: causal, and causal within the window (q - w < k <= q, the
+    current token included; None when `w` is None). With no cache (`slots`
+    None) [1, 1, T, T] from position 0; over `slots` slots [B, 1, T, slots]
+    at `positions` [B, T] (JAX `gemma2.py:244-275`, `qwen3.py:262-274`)."""
+    T, dev = positions.shape[1], positions.device
+    neg = torch.finfo(torch.float32).min
+    if slots is None:
+        q_pos = torch.arange(T, device=dev)[None, None, :, None]
+        k_pos = torch.arange(T, device=dev)[None, None, None, :]
+    else:
+        q_pos = positions[:, None, :, None]
+        k_pos = torch.arange(slots, device=dev)[None, None, None, :]
+    causal = k_pos <= q_pos
+    full = torch.where(causal, 0.0, neg)
+    return full, None if w is None else torch.where(causal & (k_pos > q_pos - w), 0.0, neg)
 
 
 def ring_mask(positions: torch.Tensor, q_pos: torch.Tensor, cache_pos, w: int, B: int, neg: float) -> torch.Tensor:

@@ -8,20 +8,23 @@ package wrote it: the tensor names, their order, the packing and the file
 bytes are the JAX package's.
 
 The model families are the port's own (`models/llama.py`,
-`models/gemma2.py`, `models/mixtral.py`), chosen by `model_type` in
-`config.json`, which is read and written as plain JSON (no `transformers` on
-the card's machine); the port writes one that `transformers.AutoConfig`
-reads. `llama`, `mistral`, `qwen2` (`models/llama.py` with q/k/v biases),
-`gemma` (`models/llama.py` with Gemma's options), `gemma2` and `mixtral` are
-ported.
+`models/gemma2.py`, `models/gemma3.py`, `models/qwen3.py`,
+`models/mixtral.py`), chosen by `model_type` in `config.json`, which is read
+and written as plain JSON (no `transformers` on the card's machine); the port
+writes one that `transformers.AutoConfig` reads. `llama`, `mistral`, `qwen2`
+(`models/llama.py` with q/k/v biases), `gemma` (`models/llama.py` with
+Gemma's options), `gemma2`, `gemma3_text`, `gemma3` (its `text_config`, the
+language model of the multimodal config), `qwen3`, `qwen3_moe` and `mixtral`
+are ported.
 
 Where it differs from JAX: JAX builds the float model and then swaps in the
 quantized modules (`transformers_models.py:403-417`); Mixtral-8x7B is 93 GB
 in bf16, more than the card holds. The port builds the model on "meta",
 swaps in the quantized modules there, and allocates each tensor on the
 device as it is read from its shard (`serialization.load_tensors_into`): the
-device never holds a float copy of a quantized weight. A Mixtral loads with
-per-expert modules (`block_sparse_moe.experts.{e}.w1/w2/w3`); the caller
+device never holds a float copy of a quantized weight. A Mixtral or
+Qwen3-MoE loads with per-expert modules (`block_sparse_moe.experts.{e}.w1/w2/w3`,
+`mlp.experts.{e}.gate_proj/up_proj/down_proj`); the caller
 converts it with `convert_moe_to_stacked`, as in JAX, and a stacked model
 cannot be saved (quanto's names hold per-expert weights).
 
@@ -43,9 +46,11 @@ from ..quantize import quantization_map, quantize, requantize
 from ..utils.safetensors_io import LazySafetensors, save_sharded
 from .hub import resolve_model_path
 from .gemma2 import Gemma2Config, Gemma2ForCausalLM
+from .gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from .llama import LlamaConfig, LlamaForCausalLM
 from .loading import hf_state_dict, load_hf_state_dict
 from .mixtral import MixtralConfig, MixtralForCausalLM
+from .qwen3 import Qwen3Config, Qwen3ForCausalLM, Qwen3MoeConfig, Qwen3MoeForCausalLM
 
 
 __all__ = ["QMAP_NAME", "QuantizedModelForCausalLM", "build_model", "from_pretrained_float"]
@@ -59,19 +64,27 @@ _FAMILIES = {
     "qwen2": (LlamaConfig, LlamaForCausalLM),
     "gemma": (LlamaConfig, LlamaForCausalLM),
     "gemma2": (Gemma2Config, Gemma2ForCausalLM),
+    "gemma3_text": (Gemma3TextConfig, Gemma3ForCausalLM),
+    "gemma3": (Gemma3TextConfig, Gemma3ForCausalLM),  # reads `text_config`
+    "qwen3": (Qwen3Config, Qwen3ForCausalLM),
+    "qwen3_moe": (Qwen3MoeConfig, Qwen3MoeForCausalLM),
     "mixtral": (MixtralConfig, MixtralForCausalLM),
 }
 
 
 def build_model(hf_config: dict, dtype=torch.bfloat16):
-    """The port's model for a `config.json` dict, on "meta" (no memory)."""
+    """The port's model for a `config.json` dict, on "meta" (no memory); a
+    gemma3 config's language model from its `text_config` (JAX
+    `transformers_models.py:52-57`)."""
     model_type = hf_config.get("model_type")
     if model_type not in _FAMILIES:
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP.md Queue 1, item 8); "
+            f"model_type {model_type!r} is not ported yet (ROADMAP.md Queue 1, item 8; MoE families: item 7); "
             f"ported: {', '.join(_FAMILIES)}"
         )
     config_cls, model_cls = _FAMILIES[model_type]
+    if model_type == "gemma3":
+        hf_config = hf_config.get("text_config") or hf_config
     return model_cls(config_cls.from_hf(hf_config, dtype=dtype), device="meta")
 
 
@@ -108,7 +121,7 @@ def _finish(model, report: dict, directory: str, device, hf_config: dict):
 def from_pretrained_float(
     name_or_path: str, dtype=torch.bfloat16, device="cuda", revision=None, cache_dir=None
 ):
-    """A float Hugging Face checkpoint (llama, mistral, qwen2, gemma, gemma2, mixtral) in the
+    """A float Hugging Face checkpoint (a family of `_FAMILIES`) in the
     port's model, allocated on `device` a tensor at a time; a tied one needs
     no `lm_head.weight`."""
     directory = resolve_model_path(name_or_path, revision=revision, cache_dir=cache_dir)

@@ -81,10 +81,7 @@ def qbits_moe_plain(
     x3 [U, M, K] -> float32 [U, M, N]."""
     U = x3.shape[0]
     ids = eids.long() if eids is not None else torch.arange(U, device=x3.device)
-    w = torch.stack([
-        dequantize_k_codes(p, s, z, group_size, bits)
-        for p, s, z in zip(packed[ids], scale_t[ids], shift_t[ids])
-    ])
+    w = dequantize_k_codes(packed[ids], scale_t[ids], shift_t[ids], group_size, bits)
     out = torch.bmm(x3.float(), w.transpose(1, 2))
     if nslots is not None:
         live = torch.arange(U, device=x3.device) < nslots.reshape(())

@@ -118,21 +118,23 @@ def pack_k_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def unpack_k_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
-    """Inverse of `pack_k_codes`: uint8 [N, K * bits / 8] -> uint8 codes [N, K]."""
+    """Inverse of `pack_k_codes`: uint8 [..., N, K * bits / 8] -> uint8 codes [..., N, K]."""
     mask = (1 << bits) - 1
     parts = [(packed >> (bits * i)) & mask for i in range(8 // bits)]
-    return torch.stack(parts, dim=-1).reshape(packed.shape[0], -1)
+    return torch.stack(parts, dim=-1).reshape(*packed.shape[:-1], -1)
 
 
 def dequantize_k_codes(
     packed: torch.Tensor, scale_t: torch.Tensor, shift_t: torch.Tensor, group_size: int, bits: int
 ) -> torch.Tensor:
-    """The Hopper layout dequantized in float32: [N, K], scale * code - shift."""
+    """The Hopper layout dequantized in float32: [..., N, K], scale * code -
+    shift (leading dims: a stack of experts, scale_t / shift_t [..., G, N])."""
     codes = unpack_k_codes(packed, bits).float()
-    N, K = codes.shape
+    *lead, N, K = codes.shape
     G = K // group_size
-    w = codes.view(N, G, group_size) * scale_t.t().unsqueeze(-1) - shift_t.t().unsqueeze(-1)
-    return w.view(N, K)
+    scale, shift = scale_t.transpose(-1, -2).unsqueeze(-1), shift_t.transpose(-1, -2).unsqueeze(-1)
+    w = codes.view(*lead, N, G, group_size) * scale - shift
+    return w.view(*lead, N, K)
 
 
 def qbits_mm_plain(

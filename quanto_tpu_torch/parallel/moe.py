@@ -2,8 +2,9 @@
 
 Counterpart of the single-device half of `quanto_tpu/parallel/moe.py`:
 `_stack_expert_projs` (`:468`), `StackedSparseMoeBlock` (`:484-802`) and
-`convert_moe_to_stacked` (`:1047`) for Mixtral blocks. Each projection of the
-experts (gate w1, up w3, down w2) is stacked along a leading expert axis in
+`convert_moe_to_stacked` (`:1047`) for Mixtral and Qwen3-MoE blocks. Each
+projection of the experts (gate, up, down: Mixtral's w1, w3, w2, Qwen3-MoE's
+gate_proj, up_proj, down_proj) is stacked along a leading expert axis in
 the Hopper layout, and the expert index lives in the kernels' grid
 (`ops/cuda/moe_mm.py`), so no expert is sliced or copied per step and a small
 decode batch reads only the routed experts' weights.
@@ -24,8 +25,10 @@ kernels skip the slots past the count. That is the result of both JAX
 branches (unrouted experts carry zero weight) with no host sync in any layer
 of any step. JAX's dense fallback and its kernel-envelope probe have no
 counterpart: the converter refuses experts off the kernels' envelope, and a
-CUDA tensor always reaches a kernel. The gathered and expert-parallel blocks
-and the other MoE families wait for later slices (ROADMAP.md, Queue 1).
+CUDA tensor always reaches a kernel. The router renormalizes the top-k
+weights where the block's `norm_topk_prob` says so (Mixtral's always does;
+`:580-592`). The gathered and expert-parallel blocks and the other MoE
+families wait for later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.mixtral import MixtralSparseMoeBlock, route, routing_mask
+from ..models.qwen3 import Qwen3MoeSparseBlock
 from ..nn.qmodule import QModuleMixin
 from ..ops.cuda import moe_mm
 from ..ops.cuda.qbits_mm import MAX_M
@@ -88,17 +92,20 @@ def _stack_expert_projs(experts, names, who: str):
 
 
 class StackedSparseMoeBlock(nn.Module):
-    """Drop-in replacement for a dense-mask `MixtralSparseMoeBlock` (module
-    docstring). Keeps the block's `gate`; stores the experts stacked only."""
+    """Drop-in replacement for a dense-mask `MixtralSparseMoeBlock` or
+    `Qwen3MoeSparseBlock` (module docstring). Keeps the block's `gate`;
+    stores the experts stacked only."""
 
-    def __init__(self, block: MixtralSparseMoeBlock, *, capacity_factor: Optional[float] = 2.0):
+    def __init__(self, block, *, capacity_factor: Optional[float] = 2.0):
         super().__init__()
         self.capacity_factor = capacity_factor
         self.num_experts = len(block.experts)
         self.top_k = block.top_k
+        self.norm_topk_prob = getattr(block, "norm_topk_prob", True)
         self.gate = block.gate
+        names = ("w1", "w3", "w2") if hasattr(block.experts[0], "w1") else ("gate_proj", "up_proj", "down_proj")
         self.proj_gate, self.proj_up, self.proj_down = _stack_expert_projs(
-            list(block.experts), ("w1", "w3", "w2"), "StackedSparseMoeBlock"
+            list(block.experts), names, "StackedSparseMoeBlock"
         )
 
     def _capacity(self, n_tokens: int) -> int:
@@ -111,7 +118,7 @@ class StackedSparseMoeBlock(nn.Module):
 
     def forward(self, x):
         B, T, H = x.shape
-        top_i, top_p = route(self.gate, x, self.top_k)
+        top_i, top_p = route(self.gate, x, self.top_k, self.norm_topk_prob)
         return self._dispatch(x, top_i.reshape(B * T, -1), top_p.reshape(B * T, -1)).reshape(B, T, H)
 
     def _all_math(self, xf, top_i, top_p, uids=None, nuniq=None):
@@ -178,10 +185,12 @@ class StackedSparseMoeBlock(nn.Module):
 
 
 def convert_moe_to_stacked(model: nn.Module, *, capacity_factor: Optional[float] = 2.0) -> int:
-    """Replace every dense-mask `MixtralSparseMoeBlock` under `model` with a
-    `StackedSparseMoeBlock`, in place; returns how many were replaced. Apply
-    after quantize + freeze (or loading), as `quanto_tpu`'s converter."""
-    blocks = [(name, m) for name, m in model.named_modules() if isinstance(m, MixtralSparseMoeBlock)]
+    """Replace every dense-mask `MixtralSparseMoeBlock` and
+    `Qwen3MoeSparseBlock` under `model` with a `StackedSparseMoeBlock`, in
+    place; returns how many were replaced. Apply after quantize + freeze (or
+    loading), as `quanto_tpu`'s converter (`:1007-1061`)."""
+    types = (MixtralSparseMoeBlock, Qwen3MoeSparseBlock)
+    blocks = [(name, m) for name, m in model.named_modules() if isinstance(m, types)]
     for name, block in blocks:
         if not name:
             raise ValueError("convert_moe_to_stacked replaces blocks inside a model, not the model itself")

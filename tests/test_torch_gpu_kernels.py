@@ -76,7 +76,12 @@ body) at M in {1, 4, 16} with each slot's own rows, a table and dead slots,
 int4 and int2, counted in `launches_small_m`. Float32 outputs within 1e-4 *
 max|ref| (sums in another order; f32 x seen as a bf16 high + low pair) and
 cosine > 1 - 1e-5; skipped slots exactly zero; two launches bit-identical; one
-launch counted a call.
+launch counted a call. At Qwen3-30B-A3B's 128 experts of 2048 x 768 and 768 x
+2048 (random codes): a decode step's 32 selective pairs, the unique-expert
+route over a routed-first table of all 128 slots with a device count (gate and
+up over 16 shared rows; the down projection over each slot's own 16 rows, the
+M <= 16 arm) and the capacity route's 128 slabs of 512 rows. `flash_decode`
+and `flash_prefill` also run Qwen3-30B-A3B's 4 kv heads x 8 of 128.
 
 The int2 arms of the four float-x kernels, with the tolerances of their int4
 arms: `qbits_mm_small_m` and `qbits_mm_tiled` over M in 1..1024 (the int2
@@ -451,6 +456,16 @@ GEMMA2_CACHES = [("bfloat16", "bfloat16", False), ("qint4", "qint4", False), ("q
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("cache", GEMMA2_CACHES, ids=cache_id)
+def test_flash_decode_qwen3_heads(cuda_device, cache, dtype):
+    """Qwen3-30B-A3B's decode: 4 kv heads of 128, G = 8, over the 1056 slots
+    of a B = 4 x 1024 + 32 run, rows at the end, mid-way, one past a tile
+    and at 0."""
+    check_flash_decode(cuda_device, cache, 1056, 128, dtype, G=8, Hkv=4, positions=[1055, 1030, 1024, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
 @pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("case", list(GEMMA2_DECODE))
 @pytest.mark.parametrize("cache", GEMMA2_CACHES, ids=cache_id)
@@ -671,6 +686,49 @@ def test_moe_tiled_bit_identical_and_dead_slots(cuda_device, m, dtype, bits):
             before[0] + 1, before[1] + (bits == 2), before[2] + small, before[3] + (small and bits == 2))
         assert not out[n:].any()
         assert torch.equal(out[:n], full[:n])
+
+
+# Qwen3-30B-A3B's experts (128 of 2048 -> 768 and 768 -> 2048, top-8) on the three routes its
+# stacked block takes: a B = 4 decode step's 32 (token, expert) pairs (the selective route at
+# SEL_MAX), a B = 16 step's unique-expert route over a routed-first table of all 128 slots with the
+# routed count on the device (gate and up through the small-M kernel, the down projection through
+# the batched-expert kernel's M <= 16 arm), and a B = 4 x 1024 prefill's 128 capacity slabs of 512
+# rows. Random codes and scales (`random_experts`) at group size 128.
+QWEN3_MOE_SHAPES = [(768, 2048), (2048, 768)]
+
+
+def qwen3_routed_first(device, routed: int, seed: int):
+    """A routed-first table of the 128 experts (`routed` chosen at random,
+    ascending, then the others ascending) and the routed count, on `device`."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(128, bool)
+    mask[rng.choice(128, routed, replace=False)] = True
+    table = np.concatenate([np.flatnonzero(mask), np.flatnonzero(~mask)]).astype(np.int32)
+    return torch.from_numpy(table).to(device), torch.tensor(routed, dtype=torch.int32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,k", QWEN3_MOE_SHAPES)
+@pytest.mark.parametrize("route", ["sel32", "uniq128", "uniq128-down16", "capacity512"])
+def test_moe_qwen3_routes_match_plain(cuda_device, route, n, k, dtype):
+    weights = random_experts(cuda_device, n, k, 128, 4, seed=n + len(route), E=128)
+    rng = np.random.default_rng(n + len(route))
+    if route == "sel32":
+        x = torch.from_numpy(rng.standard_normal((32, k)).astype(np.float32)).to(cuda_device, dtype)
+        eids = torch.from_numpy(rng.integers(0, 128, 32).astype(np.int32)).to(cuda_device)
+        check_moe(MM.qbits_moe_small_m, x[:, None, :], weights, eids=eids)
+    elif route == "uniq128":
+        x = torch.from_numpy(rng.standard_normal((16, k)).astype(np.float32)).to(cuda_device, dtype)
+        check_moe(MM.qbits_moe_small_m, x.expand(128, *x.shape), weights, *qwen3_routed_first(cuda_device, 77, n))
+    elif route == "uniq128-down16":
+        xg = torch.from_numpy(rng.standard_normal((128, 16, k)).astype(np.float32)).to(cuda_device, dtype)
+        small = MM.qbits_moe_tiled.launches_small_m
+        check_moe(MM.qbits_moe_tiled, xg, weights, *qwen3_routed_first(cuda_device, 91, k))
+        assert MM.qbits_moe_tiled.launches_small_m == small + 1
+    else:
+        xg = torch.from_numpy(rng.standard_normal((128, 512, k)).astype(np.float32)).to(cuda_device, dtype)
+        check_moe(MM.qbits_moe_tiled, xg, weights)
 
 
 # --- the int2 arms -----------------------------------------------------------------------------
@@ -1255,7 +1313,8 @@ def test_flash_decode_small_model_heads(cuda_device, cache, heads, dtype):
 # Gemma-2B's (1 x 8 of 256), a softcap, the least T of the envelope and T off a 64-key tile; long
 # prompts at Llama's heads (walks of 16 and 32 key tiles through the bf16 arm's ring, and work
 # items of very different lengths), Mixtral's B = 16 x 256 prefill (many short items), G = 8 at
-# D = 128, and T = 384 and 640 at G = 1 (2 and 4 work items of 192 rows a (b, h) at D = 128, the
+# D = 128 (also Qwen3-30B-A3B's 4 x 8 of 128 at B = 4 x 1024 and 16 x 256: items of 24 query
+# positions, so the causal edge falls inside packed rows), and T = 384 and 640 at G = 1 (2 and 4 work items of 192 rows a (b, h) at D = 128, the
 # last ragged at 640; 3 and 5 of 128 rows at D = 256).
 PREFILL = {
     "llama-d128-g4": (2, 1024, 8, 4, 128, None),
@@ -1270,6 +1329,8 @@ PREFILL = {
     "g8-d128": (2, 512, 2, 8, 128, None),
     "t384-d128-g1": (2, 384, 3, 1, 128, None),
     "t640-d256-g1": (1, 640, 2, 1, 256, None),
+    "qwen3-30b-a3b-d128-g8": (4, 1024, 4, 8, 128, None),
+    "qwen3-30b-a3b-b16-t256": (16, 256, 4, 8, 128, None),
 }
 
 
