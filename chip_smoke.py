@@ -890,6 +890,88 @@ FD_QK_NORM_ROWS = [
 # each slot's own 16 rows: TPU #15), and the B = 4 x 1024 prefill's capacity slabs of 512 rows.
 QWEN3_MOE_SHAPES = [(768, 2048), (2048, 768)]
 QWEN3_ROUTED = 96
+# openai/gpt-oss-20b config.json (24 layers of 64 heads over 8 kv heads of 64, sinks, window 128 on the
+# even layers, 32 experts of 2880 top-4, yarn x 32 over 4096, untied head; the keys the model reads, its
+# mxfp4 quantization_config left out: the weights are random, quantized here). Phase 26 runs it at full
+# depth and width.
+GPT_OSS_20B = {
+    "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss", "attention_bias": True, "head_dim": 64,
+    "hidden_act": "silu", "hidden_size": 2880, "intermediate_size": 2880,
+    "layer_types": ["sliding_attention", "full_attention"] * 12, "max_position_embeddings": 131072,
+    "num_attention_heads": 64, "num_experts_per_tok": 4, "experts_per_token": 4, "num_hidden_layers": 24,
+    "num_key_value_heads": 8, "num_local_experts": 32, "rms_norm_eps": 1e-05,
+    "rope_scaling": {"beta_fast": 32.0, "beta_slow": 1.0, "factor": 32.0, "original_max_position_embeddings": 4096,
+                     "rope_type": "yarn", "truncate": False},
+    "rope_theta": 150000, "sliding_window": 128, "swiglu_limit": 7.0, "tie_word_embeddings": False,
+    "vocab_size": 201088, "torch_dtype": "bfloat16",
+}
+# Phase 26: (a) B = 4 x 1024 + GO_NEW over bf16 rings; (b) B16 x T16 + GO_B16_NEW (the unique-expert
+# route, S·K = 64 = 2E); (c) (a)'s prompts over flat caches, GO_FLAT_NEW new; (d) the engines:
+# GO_ENGINE_PROMPTS through chunks of 512 (each prompt's last chunk partial, longer than W), 16 new,
+# over caches of two whole chunks (a shorter max_len sends the padded chunks that would spill past it
+# through serial admission at their own length).
+GO_NEW, GO_B16_NEW, GO_FLAT_NEW = 32, 16, 16
+GO_ENGINE_PROMPTS = (300, 410, 520, 600)
+GO_ENGINE_CHUNK, GO_ENGINE_NEW, GO_ENGINE_MAX_LEN = 512, 16, 1024
+# Phase 3's rows at gpt-oss-20b's heads (8 kv heads, G = 8, D = 64) with its sinks (GO_SINKS_RANGE):
+# (label, cache, S, positions, sinks, transforms, ring, q's dtype). Phase 26(a)'s full layers over
+# T + GO_NEW slots, the same bf16 call without sinks beside them, qint4, the 128-slot ring (positions
+# past W, clamped to W - 1), the flat sliding layer's window of 128 and float32 q (the CUDA-core arm);
+# then the paged arm (GO_PAGED: bf16 pages of 64 over T + 64 slots, with the sinks).
+GO_HEADS = (8, 8, 64)
+GO_SINKS_RANGE = 4.0
+FD_GPT_OSS_ROWS = [
+    ("sinks", "bf16", T + GO_NEW, [T + GO_NEW - 1] * B, True, {}, False, torch.bfloat16),
+    ("no-sinks", "bf16", T + GO_NEW, [T + GO_NEW - 1] * B, False, {}, False, torch.bfloat16),
+    ("sinks", "qint4", T + GO_NEW, [T + GO_NEW - 1] * B, True, {}, False, torch.bfloat16),
+    ("ring", "bf16", 128, [T + GO_NEW - 1] * B, True, {}, True, torch.bfloat16),
+    ("window", "bf16", T + GO_NEW, [T + GO_NEW - 1] * B, True, dict(window=128), False, torch.bfloat16),
+    ("f32-q", "bf16", T + GO_NEW, [T + GO_NEW - 1] * B, True, {}, False, torch.float32),
+]
+GO_PAGED = [("bf16", T + 64, 64, torch.bfloat16)]
+# Phase 3's MoE rows at gpt-oss-20b's experts: gate, up and down all [2944, 3072] after the padding
+# (2880 rounded up to 128 and to 1024), 32 experts; a B = 16 step routes 64 pairs, about 28 experts.
+GO_MOE_SHAPE = (2944, 3072)
+GO_ROUTED = 28
+# Phase 3's rows of #1 and #2 at gpt-oss-20b's attention, true (N, K, group size): q at K = 2880 in the
+# auto group size 96 (padded to groups of 128 over K 3840), k and v, and o_proj's N = 2880 (to 2944);
+# #1 at the B = 4 decode step's M = 4, #2 at the B = 4 x 1024 prefill's M = 4096.
+GO_LINEAR_SHAPES = {"gpt-oss-20b": [(4096, 2880, 96), (512, 2880, 96), (2880, 4096, 128)]}
+GO_LINEAR_M = {"qbits_mm_small_m": 4, "qbits_mm_tiled": 4096}
+# Phases 23(a), 24(a) and 25(a): the tokens held against the plain path, the first PLAIN_NEW of the
+# kernel run's (64, 64 and 32 before the plain runs' decode was cut to make room for phase 26; the
+# prefill logits held to their cosine limits are unchanged, so the limits stand).
+PLAIN_NEW = 16
+# Phase 26's limits. On random weights gpt-oss-20b parts from any computation that sums in another
+# order: a bf16 router tie at one of 4096 prompt positions swaps that token's expert (a quarter of
+# its MoE output, about as large as the residual), attention carries it to every later position, and
+# 24 layers compound it (read: a 6-layer cut's last-position logits at cosine 0.87 against the plain
+# path, each block within 4e-3 of max|ref| of the plain block on one input; PERF.md section 6). So
+# two computations are held (1) by their routing over every position: the first layer where any
+# position's top-4 experts part must hold a routing tie at every such position, both computations'
+# 4th and 5th probabilities over the 32 experts within GPT_OSS_ROUTE_TIE (`first_parting_ties`), and
+# (2) with one computation forced through the other's tokens and replaying its expert choices
+# (`RoutingTape`): every step's logits within GPT_OSS_E2E_COS of the other's, and where the two top-1
+# tokens differ, a logit tie (`check_forced`). Read at full
+# depth against the plain path (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): layer 0 parts first,
+# at 22 of (a)'s 4096 positions (13 of (b)'s), margins up to 1.23e-3 (1.68e-3), then thousands of
+# positions a layer; forced and replayed, cosine 0.99867-0.99934 over (a)'s 32 steps and 0.99949-0.99967
+# over (b)'s 16, ties at relative gaps <= 0.0256; (d)'s serial arm against `generate` on the plain
+# versions 0.99943-0.99963, its capacity arm against the same engine on the plain versions
+# 0.99939-0.99956 (ties <= 0.0166). The limits: about 2.4x the largest margin and 3x the largest
+# 1 - cosine.
+GPT_OSS_E2E_COS = 0.996
+GPT_OSS_ROUTE_TIE = 0.004
+# Phase 26 (c) against (a), forced through (a)'s tokens with its choices replayed: the sliding layers
+# attend through the flat window's mask in (c) and the ring's concatenation in (a), one f32 chain over
+# other key sets. Read: no position's routing parts at any layer; cosine 0.99975-0.99983 over 16 steps.
+# The limit: 2x 1 - cosine.
+GPT_OSS_RING_COS = 0.9995
+# Phase 26(d)'s batch engine against `generate`'s computation on the kernels, forced through the
+# engine's tokens and replaying its expert choices: [4, 512] chunks over rings against a [1, n] prefill.
+# Read: cosine 0.99961-0.99986 over 16 steps, ties at relative gaps <= 0.0067 (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 6). The limit: 3x the largest 1 - cosine.
+GPT_OSS_ENGINE_COS = 0.9988
 
 # Phase 3's W8A8 rows: the route of `ops/qbytes_mm.py` (`torch._int_mm` for int8, JAX's convert
 # formula on bf16 operands for e4m3fn) at these M over the four linear shapes of Llama-3.1-8B.
@@ -1417,36 +1499,70 @@ def phase_moe_qwen3(flush):
     128 stacked experts of random int4 codes, bf16 x): each route of the
     stacked block against the plain version, held and timed as `phase_moe`'s
     rows (rows marked `qwen3`)."""
+    return phase_moe_family(flush, "qwen3", 128, QWEN3_MOE_SHAPES, QWEN3_ROUTED, B * 8, 512, 2525)
+
+
+def phase_moe_gpt_oss(flush):
+    """Phase 3, the MoE kernels at gpt-oss-20b's padded experts (GO_MOE_SHAPE
+    for gate, up and down, 32 stacked experts, top-4): the B = 4 decode step's
+    16 selective pairs, the B = 16 step's 32-slot routed-first table
+    (GO_ROUTED live), the B = 4 x 1024 prefill's 32 capacity slabs of 1024 rows
+    and the engines' serial [1, GO_ENGINE_CHUNK] chunks, which take the
+    all-experts route (gate and up through #12 over 512 shared rows, down
+    through #14 over 32 slabs of 512) (rows marked `gpt_oss`)."""
+    return phase_moe_family(flush, "gpt_oss", 32, [GO_MOE_SHAPE], GO_ROUTED, B * 4, 1024, 2626,
+                            all_m=GO_ENGINE_CHUNK)
+
+
+def phase_moe_family(flush, tag: str, E: int, shapes, routed: int, pairs: int, slab: int, seed: int,
+                     all_m=None):
+    """A model family's MoE rows: over `E` stacked experts of random int4 codes
+    at each (N, K) of `shapes`, bf16 x, the selective form over `pairs` pairs,
+    the unique-expert form over an E-slot routed-first table with `routed`
+    live (gate/up over B16 shared rows; down, TPU #15, over each slot's own
+    B16 rows), the capacity form over E slabs of `slab` rows and, with
+    `all_m`, the all-experts form (all E slots over `all_m` shared rows, then
+    the down projection over E slabs of `all_m` rows), each against
+    the plain version (cosine > 1 - 1e-5, max abs error <= 1e-4 max|ref|) and
+    timed beside its bound, the plain version and `torch.bmm` over the live
+    experts dequantized to bf16 (rows marked `tag`)."""
     from quanto_tpu_torch.ops.cuda import moe_mm as MM
     from quanto_tpu_torch.ops.cuda.qbits_mm import dequantize_k_codes
 
-    dev, E, bits = torch.device("cuda"), 128, 4
-    g = torch.Generator(device=dev).manual_seed(2525)
+    dev, bits = torch.device("cuda"), 4
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for N, K in QWEN3_MOE_SHAPES:
+    for N, K in shapes:
         G = K // GS
         packed = torch.randint(0, 256, (E, N, K * bits // 8), dtype=torch.uint8, device=dev, generator=g)
         scale_t = torch.rand((E, G, N), device=dev, generator=g) * 0.01 + 0.001
         shift_t = scale_t * (2**bits - 1) / 2
         weights = (packed, scale_t, shift_t, GS, bits)
         perm = torch.randperm(E, device=dev, generator=g)
-        live = perm[:QWEN3_ROUTED].sort().values
-        table = torch.cat([live, perm[QWEN3_ROUTED:].sort().values]).to(torch.int32)
-        count = torch.tensor(QWEN3_ROUTED, dtype=torch.int32, device=dev)
+        live = perm[:routed].sort().values
+        table = torch.cat([live, perm[routed:].sort().values]).to(torch.int32)
+        count = torch.tensor(routed, dtype=torch.int32, device=dev)
         x16 = torch.randn((B16, K), device=dev, generator=g, dtype=torch.bfloat16)
         # (route, kernel, x3 [U, M, K], eids, nslots)
         cases = [
-            ("sel", MM.qbits_moe_small_m, torch.randn((B * 8, 1, K), device=dev, generator=g, dtype=torch.bfloat16),
-             torch.randint(0, E, (B * 8,), device=dev, generator=g, dtype=torch.int32), None),
+            ("sel", MM.qbits_moe_small_m, torch.randn((pairs, 1, K), device=dev, generator=g, dtype=torch.bfloat16),
+             torch.randint(0, E, (pairs,), device=dev, generator=g, dtype=torch.int32), None),
             ("uniq", MM.qbits_moe_small_m, x16.expand(E, B16, K), table, count),
             ("uniq", MM.qbits_moe_tiled, torch.randn((E, B16, K), device=dev, generator=g, dtype=torch.bfloat16),
              table, count),
-            ("experts", MM.qbits_moe_tiled, torch.randn((E, 512, K), device=dev, generator=g, dtype=torch.bfloat16),
+            ("experts", MM.qbits_moe_tiled, torch.randn((E, slab, K), device=dev, generator=g, dtype=torch.bfloat16),
              None, None),
         ]
+        if all_m is not None:
+            xs = torch.randn((all_m, K), device=dev, generator=g, dtype=torch.bfloat16)
+            cases += [
+                ("all", MM.qbits_moe_small_m, xs.expand(E, all_m, K), None, None),
+                ("experts", MM.qbits_moe_tiled,
+                 torch.randn((E, all_m, K), device=dev, generator=g, dtype=torch.bfloat16), None, None),
+            ]
         for form, kernel, x3, eids, nslots in cases:
             U, M = x3.shape[:2]
-            n_live = U if nslots is None else QWEN3_ROUTED
+            n_live = U if nslots is None else routed
             ids = (eids.long() if eids is not None else torch.arange(U, device=dev))[:n_live]
             experts = sorted(set(ids.tolist()))
             w_lib = torch.stack([dequantize_k_codes(packed[e], scale_t[e], shift_t[e], GS, bits).to(torch.bfloat16)
@@ -1459,14 +1575,14 @@ def phase_moe_qwen3(flush):
             ref_max = ref.abs().max().item()
             cos = cosine(out, ref)
             if not (cos > 1 - 1e-5 and err <= 1e-4 * ref_max):
-                raise RuntimeError(f"{kernel.__name__} qwen3 {form} U={U} M={M} N={N} K={K}: cosine {cos} "
+                raise RuntimeError(f"{kernel.__name__} {tag} {form} U={U} M={M} N={N} K={K}: cosine {cos} "
                                    f"max_abs_err {err} (max|ref| {ref_max})")
             x_bytes = (M if x3.stride(0) == 0 else n_live * M) * K * 2
             nbytes = x_bytes + len(experts) * (N * K * bits // 8 + 2 * G * N * 4) + U * M * N * 4
             ops = 2 * n_live * M * N * K
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOPS * 1e3
             row = dict(
-                name=kernel.__name__, qwen3=True, form=form, U=U, nslots=None if nslots is None else QWEN3_ROUTED,
+                name=kernel.__name__, **{tag: True}, form=form, U=U, nslots=None if nslots is None else routed,
                 M=M, N=N, K=K, experts=len(experts), max_abs_err=err, cosine=cos,
                 ms=time_ms(lambda: kernel(x3, *weights, eids=eids, nslots=nslots), flush),
                 plain_ms=time_ms(lambda: MM.qbits_moe_plain(x3, *weights, eids=eids, nslots=nslots), flush),
@@ -1592,7 +1708,7 @@ def phase_flash_decode(flush, heads=FD_HEADS, kinds=None):
     return rows
 
 
-def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
+def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None, tf=None, tag=None):
     """Phase 3, the paged arm of flash_decode (`flash_decode_paged`): at
     Llama-3.1-8B's heads, B = 8 rows at their last slot over FD_PAGED_SLOTS
     slots a row, in pages of FD_PAGE_SIZES slots behind a table that is a
@@ -1606,7 +1722,8 @@ def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
     cache dequantized to bf16 (the yardstick), and the plain version. Bound:
     the visible K/V bytes and factors at 3.35 TB/s (the table's 4 bytes a
     page beside them). With other `heads` (Hkv, G, D), the given `cases`
-    (cache, slots a row, page size, q's dtype)."""
+    (cache, slots a row, page size, q's dtype); `tf` (gpt-oss's sinks) goes to
+    every call of the kernel and its plain version, and `tag` marks the rows."""
     from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_paged, flash_decode_paged_plain
     from quanto_tpu_torch.tensor import kv_cache as tkv
     from quanto_tpu_torch.tensor import paged_kv as tpk
@@ -1632,17 +1749,17 @@ def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
         pos = torch.full((nb,), S - 1, dtype=torch.int32, device="cuda")
         c = layer
         args = (q, c._k_pages, c._v_pages, c._k_scale, c._v_scale, c._table, pos)
-        kw = dict(k_shift=c._k_shift, v_shift=c._v_shift)
+        kw = dict(k_shift=c._k_shift, v_shift=c._v_shift, **(tf or {}))
         out = flash_decode_paged(*args, **kw)
         gathered = tpk.paged_gather(layer, nb)
         kg, vg, ks, vs, km, vm = gathered
 
         def dense():
-            return flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm)
+            return flash_decode(q, kg, vg, ks, vs, pos, k_shift=km, v_shift=vm, **(tf or {}))
 
         def gather_dense():
             g_ = tpk.paged_gather(layer, nb)
-            return flash_decode(q, *g_[:4], pos, k_shift=g_[4], v_shift=g_[5])
+            return flash_decode(q, *g_[:4], pos, k_shift=g_[4], v_shift=g_[5], **(tf or {}))
 
         dense_out = dense()
         ref = flash_decode_paged_plain(*args, **kw)
@@ -1673,7 +1790,8 @@ def phase_flash_decode_paged(flush, heads=FD_HEADS, cases=None):
         per_slot = 0 if spec is None else (8 if c._k_shift is None else 16)
         b_ms, b_by = fd_bound(nb * S, nb, k_row, v_row, per_slot, q.element_size(), heads)
         row = dict(
-            name="flash_decode_paged", cache=kind, S=S, B=nb, page_size=ps, Hkv=Hkv, G=G, D=D,
+            name="flash_decode_paged", **({tag: True} if tag else {}), cache=kind, S=S, B=nb, page_size=ps,
+            Hkv=Hkv, G=G, D=D,
             q="f32" if q_dtype == torch.float32 else "bf16", max_abs_err=err, cosine=cos,
             sdpa_cosine=cosine(sdpa().reshape(nb, Hkv, G, D), ref),
             ms=time_ms(lambda: flash_decode_paged(*args, **kw), flush),
@@ -2968,8 +3086,7 @@ def check_same_tokens(label: str, model, prompts, got, want, kv_quant=None, max_
         ctx = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
         ids = torch.tensor(ctx[None], device="cuda")
         logits, _ = readback_prefill(model, ids, make_cache(model, 1, max_len, kv_quant=kv_quant))
-        lv = logits[0, -1].float()
-        gap = abs((lv[b[j]] - lv[a[j]]).item()) / lv.abs().max().item()
+        gap = relative_gap(logits[0, -1], b[j], a[j])
         ties.append({"request": i, "index": j, "want": b[j], "got": a[j], "relative_gap": gap})
         log(json.dumps({"token_tie": label, **ties[-1]}))
         if gap > tie_gap:
@@ -4538,7 +4655,7 @@ def phase_w8a8(flush):
     return rows
 
 
-def phase_padded(K_mod, flush):
+def phase_padded(K_mod, flush, shapes=None, m=None):
     """Phase 3, TPU #1, #2 (both arms) and #4 at the linears of SmolLM2-360M
     and Qwen2.5-0.5B that are off the envelope (`PADDED_SHAPES`): a random
     bf16 weight quantized qint4 with its group size and repacked by
@@ -4547,16 +4664,18 @@ def phase_padded(K_mod, flush):
     at the M of `PADDED_M`. The bound counts the true bytes and operations;
     `padded_bytes_ratio` is what the kernel reads beside them, `pad_ms` the
     time of `pad_activations`. Yardstick `torch.matmul` on the true operands
-    in bf16."""
+    in bf16. Other `shapes` ({model: [(N, K, group size)]}) and `m`
+    ({kernel: M}) in their place (gpt-oss-20b's attention, phase 3)."""
     import quanto_tpu_torch as qtt
     from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6789)
+    shapes, m = shapes or PADDED_SHAPES, m or PADDED_M
     sx = torch.tensor(0.0173, device=dev)
     rows = []
-    for model_name, shapes in PADDED_SHAPES.items():
-        for N, K, gs in shapes:
+    for model_name, model_shapes in shapes.items():
+        for N, K, gs in model_shapes:
             w = torch.randn((N, K), device=dev, generator=g, dtype=torch.bfloat16) * 0.02
             scale, shift = qtt.MaxOptimizer()(w, qtt.qint4, axis=0, group_size=gs)
             hw = WeightQBitsHopperArray.from_generic(qtt.quantize_weight(w, qtt.qint4, 0, scale, shift=shift,
@@ -4567,7 +4686,7 @@ def phase_padded(K_mod, flush):
             side = 2 * (K // gs) * N * 4
             ratio = (Np * Kp // 2 + 2 * (Kp // gsp) * Np * 4) / (N * K // 2 + side)
             w_bf16 = hw.dequantize()
-            for name, M in PADDED_M.items():
+            for name, M in m.items():
                 kernel = getattr(K_mod, name)
                 int8 = "int8" in name
                 if int8:
@@ -5639,11 +5758,11 @@ def phase_gemma2() -> dict:
     tally, handles = attention_tally(model)
     out = {}
 
-    def run(batch_ids, max_len, kv=None, sliding_ring=True):
+    def run(batch_ids, max_len, kv=None, sliding_ring=True, n_steps=steps):
         cache = make_cache(model, batch_ids.shape[0], max_len, kv_quant=kv, sliding_ring=sliding_ring)
         logits, cache = prefill(model, batch_ids, cache, last_only=True)
         first = greedy(logits[:, -1]).to(batch_ids.dtype)[:, None]
-        rest, cache = decode(model, first, cache, batch_ids.shape[1], steps)
+        rest, cache = decode(model, first, cache, batch_ids.shape[1], n_steps)
         return logits, torch.cat([first, rest], dim=1), cache
 
     # (a) B = 4 x 1024 over a bf16 cache of T + NEW slots: no ring.
@@ -5657,17 +5776,17 @@ def phase_gemma2() -> dict:
         raise RuntimeError(f"{label}: decode attention {dec_tally}, want {half * steps} with the window, none over rings")
     launches_a = read_counts()
     with plain_versions():
-        plain_logits, plain_tokens, _ = run(ids, T + NEW)
+        plain_logits, plain_tokens, _ = run(ids, T + NEW, n_steps=PLAIN_NEW - 1)
         torch.cuda.synchronize()
         if read_counts() != launches_a:
             raise RuntimeError(f"{label}: the plain forward launched a kernel")
         cos = F.cosine_similarity(logits[:, -1].float(), plain_logits[:, -1].float(), dim=-1)
-        ties = check_same_tokens(f"phase 23(a) {label}", model, ids.cpu().numpy(), tokens.tolist(),
+        ties = check_same_tokens(f"phase 23(a) {label}", model, ids.cpu().numpy(), tokens[:, :PLAIN_NEW].tolist(),
                                  plain_tokens.tolist(), max_len=T + NEW)
     if read_counts() != launches_a:
         raise RuntimeError(f"{label}: the plain tie check launched a kernel")
     rec.update({"cosine_vs_plain": cos.tolist(), "token_ties": ties,
-                "tokens_equal_plain": bool(torch.equal(tokens, plain_tokens))})
+                "tokens_equal_plain": bool(torch.equal(tokens[:, :PLAIN_NEW], plain_tokens))})
     log(json.dumps(rec))
     if not bool((cos > GEMMA2_E2E_COS).all()):
         raise RuntimeError(f"{label}: kernel vs plain prefill logits cosine {cos.tolist()} <= {GEMMA2_E2E_COS}")
@@ -5862,17 +5981,17 @@ def phase_gemma3() -> dict:
                            f"cache slots {rec['cache_slots']}")
     launches_a = read_counts()
     with plain_versions():
-        plain_logits, plain_tokens = run(ids, T + NEW, steps)
+        plain_logits, plain_tokens = run(ids, T + NEW, PLAIN_NEW - 1)
         torch.cuda.synchronize()
         if read_counts() != launches_a:
             raise RuntimeError(f"{label}: the plain forward launched a kernel")
         cos = F.cosine_similarity(logits[:, -1].float(), plain_logits[:, -1].float(), dim=-1)
-        ties = check_same_tokens(f"phase 24(a) {label}", model, ids.cpu().numpy(), tokens.tolist(),
+        ties = check_same_tokens(f"phase 24(a) {label}", model, ids.cpu().numpy(), tokens[:, :PLAIN_NEW].tolist(),
                                  plain_tokens.tolist(), max_len=T + NEW)
     if read_counts() != launches_a:
         raise RuntimeError(f"{label}: the plain tie check launched a kernel")
     rec.update({"cosine_vs_plain": cos.tolist(), "token_ties": ties,
-                "tokens_equal_plain": bool(torch.equal(tokens, plain_tokens)), "build_s": build_s})
+                "tokens_equal_plain": bool(torch.equal(tokens[:, :PLAIN_NEW], plain_tokens)), "build_s": build_s})
     log(json.dumps(rec))
     if not bool((cos > GEMMA3_E2E_COS).all()):
         raise RuntimeError(f"{label}: kernel vs plain prefill logits cosine {cos.tolist()} <= {GEMMA3_E2E_COS}")
@@ -6030,22 +6149,10 @@ def routing_tie_behind(what: str, model, ids, top: int) -> dict:
         for h in handles:
             h.remove()
     route_k, route_o = torch.stack(records[:L])[:, 0], torch.stack(records[L:])[:, 0]  # [L, n, E]
-    differ = (route_k.topk(top, dim=-1).indices.sort(dim=-1).values
-              != route_o.topk(top, dim=-1).indices.sort(dim=-1).values).any(dim=-1)  # [L, n]
-    layers = differ.any(dim=-1).nonzero().flatten().tolist()
-    if not layers:
+    read = first_parting_ties(what, route_k, route_o, top, QWEN3_ROUTE_TIE)
+    if "first_layer" not in read:
         raise RuntimeError(f"{what}: both paths route alike at every layer and position, so no routing tie "
                            f"explains a gap past SERVE_TOP1_GAP")
-    first = layers[0]
-    positions = differ[first].nonzero().flatten().tolist()
-    p_k = route_k[first].sort(dim=-1, descending=True).values
-    p_o = route_o[first].sort(dim=-1, descending=True).values
-    margins = [[(p[t, top - 1] - p[t, top]).item() for p in (p_k, p_o)] for t in positions]
-    read = {"tokens": n, "layers_parting": layers, "first_layer": first, "positions": positions, "margins": margins}
-    log(json.dumps({"qwen3_routing_behind_token_tie": what, **read}))
-    if max(max(m) for m in margins) > QWEN3_ROUTE_TIE:
-        raise RuntimeError(f"{what}: the paths' routing first parts in layer {first} with no routing tie: "
-                           f"margins {margins}")
     return read
 
 
@@ -6065,10 +6172,10 @@ def qwen3_run(label: str, model, ids, new: int, want_pre: dict, want_step: dict,
     batch, prompt = ids.shape
     steps = new - 1
 
-    def run():
+    def run(n_steps=steps):
         logits, cache = prefill(model, ids, make_cache(model, batch, prompt + new), last_only=True)
         first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
-        rest, _ = decode(model, first, cache, prompt, steps)
+        rest, _ = decode(model, first, cache, prompt, n_steps)
         return logits, torch.cat([first, rest], dim=1)
 
     run()  # warm-up
@@ -6116,7 +6223,8 @@ def qwen3_run(label: str, model, ids, new: int, want_pre: dict, want_step: dict,
             route_k, route_o = torch.stack(records[:n]), torch.stack(records[n:])
             for h in handles:
                 h.remove()
-        plain_logits, plain_tokens = run()
+        plain_new = min(new, PLAIN_NEW)
+        plain_logits, plain_tokens = run(plain_new - 1)
         torch.cuda.synchronize()
         if read_counts() != counts:
             raise RuntimeError(f"{label}: the plain forward launched a kernel")
@@ -6129,8 +6237,9 @@ def qwen3_run(label: str, model, ids, new: int, want_pre: dict, want_step: dict,
             if not bool((cos > QWEN3_E2E_COS).all()):
                 raise RuntimeError(f"{label}: kernel vs plain prefill logits cosine {cos.tolist()} <= "
                                    f"{QWEN3_E2E_COS}")
-        rec["token_ties"] = check_same_tokens(f"phase 25 {label}", model, ids.cpu().numpy(), tokens.tolist(),
-                                              plain_tokens.tolist(), max_len=prompt + new,
+        rec["token_ties"] = check_same_tokens(f"phase 25 {label}", model, ids.cpu().numpy(),
+                                              tokens[:, :plain_new].tolist(), plain_tokens.tolist(),
+                                              max_len=prompt + new,
                                               tie_gap=QWEN3_TOP1_GAP if route_top else SERVE_TOP1_GAP)
     if read_counts() != counts:
         raise RuntimeError(f"{label}: the plain tie check launched a kernel")
@@ -6139,7 +6248,7 @@ def qwen3_run(label: str, model, ids, new: int, want_pre: dict, want_step: dict,
             i, j = tie["request"], tie["index"]
             tie["routing"] = routing_tie_behind(f"phase 25 {label}, request {i}, token {j}", model,
                                                 torch.cat([ids[i], plain_tokens[i, :j]])[None], route_top)
-    rec["tokens_equal_plain"] = bool(torch.equal(tokens, plain_tokens))
+    rec["tokens_equal_plain"] = bool(torch.equal(tokens[:, :plain_new], plain_tokens))
     rec["plain_check_s"] = time.perf_counter() - t_plain
     return launches, rec
 
@@ -6220,6 +6329,709 @@ def phase_qwen3() -> dict:
     torch.cuda.empty_cache()
     log(f"qwen3: phase 25 took {time.perf_counter() - t_start:.1f} s")
     return out
+
+
+def go_sinks(g: torch.Generator, heads=GO_HEADS) -> torch.Tensor:
+    """float32 [Hkv * G] sink logits, uniform in +-GO_SINKS_RANGE (about the
+    logits' scale: some rows mostly sink, some barely)."""
+    H = heads[0] * heads[1]
+    return (torch.rand(H, device="cuda", generator=g) * 2 - 1) * GO_SINKS_RANGE
+
+
+def phase_flash_decode_gpt_oss(flush):
+    """Phase 3, flash_decode with gpt-oss's sinks (FD_GPT_OSS_ROWS) at 8 kv
+    heads, G = 8, D = 64, B = 4: the kernel against its plain version (bf16 q:
+    cosine > 1 - 1e-4, max abs error <= 1e-2 max|ref|; float32 q: <= 1e-5
+    max|ref|) and the model's dispatch (`decode_attention`, with `ring` for
+    the ring row) equal to the direct call; timed beside its bound (the slots
+    each row sees; the sinks' 4 bytes a head), the plain version and SDPA
+    (the cache dequantized to bf16, the same visible slots, WITHOUT the
+    sinks, which it does not take). Then the paged arm with the sinks
+    (`phase_flash_decode_paged`, GO_PAGED). Logs the bf16 call with sinks
+    over the one without."""
+    from quanto_tpu_torch.ops.attention import decode_attention
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
+    from quanto_tpu_torch.tensor.kv_cache import kv_read
+
+    Hkv, G, D = GO_HEADS
+    g = torch.Generator(device="cuda").manual_seed(2626)
+    rows = []
+    for label, kind, S, positions, with_sinks, tf, ring, q_dtype in FD_GPT_OSS_ROWS:
+        nb = len(positions)
+        cache = fd_cache(kind, S, g, nb, GO_HEADS)
+        q = (torch.randn((nb, Hkv, G, D), device="cuda", generator=g) * 2).to(q_dtype)
+        tf = dict(tf, sinks=go_sinks(g)) if with_sinks else dict(tf)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        kpos = pos.clamp(max=S - 1) if ring else pos  # what the ring arm hands the kernel
+        if kind == "bf16":
+            args, kw = (q, *cache, None, None, kpos), dict(tf)
+            k_row = v_row = 2 * D
+            per_slot = 0
+        else:
+            c = cache
+            args = (q, c._k_data, c._v_data, c._k_scale, c._v_scale, kpos)
+            kw = dict(k_shift=c._k_shift, v_shift=c._v_shift, **tf)
+            k_row, v_row = c._k_data[0, 0, 0].numel(), c._v_data[0, 0, 0].numel()
+            per_slot = 8 if c._k_shift is None else 16
+        out = flash_decode(*args, **kw)
+        ref = flash_decode_plain(*args, **kw)
+        out2 = decode_attention(q.reshape(nb, 1, Hkv * G, D), cache, pos, ring=ring, **tf)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        cos = cosine(out, ref)
+        what = f"flash_decode gpt_oss {label} {kind} S={S} q={q_dtype}"
+        ok = err <= 1e-5 * ref_max if q_dtype == torch.float32 else (cos > 1 - 1e-4 and err <= 1e-2 * ref_max)
+        if not ok or not torch.equal(out2.reshape(out.shape), out):
+            raise RuntimeError(f"{what}: cosine {cos} max_abs_err {err} (max|ref| {ref_max})")
+        s_ = torch.arange(S, device="cuda")[None, :]
+        visible = s_ <= kpos[:, None]
+        if tf.get("window"):
+            visible &= s_ > kpos[:, None] - tf["window"]
+        kd, vd = cache if kind == "bf16" else kv_read(cache, torch.bfloat16)
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qs = q.reshape(nb, Hkv * G, 1, D).to(torch.bfloat16)
+        mask = visible[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        b_ms, b_by = fd_bound(int(visible.sum()), nb, k_row, v_row, per_slot, q.element_size(), GO_HEADS)
+        b_ms += (4 * Hkv * G / PEAK_BYTES_PER_S * 1e3) if with_sinks and b_by == "bytes" else 0.0
+        row = dict(
+            name="flash_decode", gpt_oss=label, cache=kind, S=S, B=nb, engine_arm=None, positions=positions,
+            Hkv=Hkv, G=G, D=D, q="f32" if q_dtype == torch.float32 else "bf16", sinks=with_sinks,
+            window=tf.get("window"), ring=ring, max_abs_err=err, cosine=cos,
+            ms=time_ms(lambda: flash_decode(*args, **kw), flush),
+            plain_ms=time_ms(lambda: flash_decode_plain(*args, **kw), flush),
+            library_ms=time_ms(sdpa, flush),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del cache, kd, vd, kt, vt, out, ref, out2
+        torch.cuda.empty_cache()
+    by = {r["gpt_oss"]: r for r in rows if r["cache"] == "bf16" and r["q"] == "bf16"}
+    log(json.dumps({"flash_decode_sinks_vs_none": by["sinks"]["ms"] / by["no-sinks"]["ms"],
+                    "sinks_ms": by["sinks"]["ms"], "no_sinks_ms": by["no-sinks"]["ms"]}))
+    rows += phase_flash_decode_paged(flush, GO_HEADS, GO_PAGED, tf=dict(sinks=go_sinks(g)), tag="gpt_oss")
+    return rows
+
+
+def go_random_extras(layer, g: torch.Generator) -> None:
+    """Phase 26's draws beyond Hugging Face's initializer, so that every term
+    of the model moves its outputs: the sinks in +-GO_SINKS_RANGE (HF draws them
+    at 0.02), and the router's, experts' and attention's biases (HF's zeros)
+    normal at 0.02."""
+    attn, mlp = layer.self_attn, layer.mlp
+    attn.sinks.copy_(go_sinks(g, (1, attn.num_heads)).to(attn.sinks.dtype))
+    biases = [attn.q_proj.bias, attn.k_proj.bias, attn.v_proj.bias, attn.o_proj.bias,
+              mlp.experts.gate_up_proj_bias, mlp.experts.down_proj_bias]
+    for b in biases:
+        b.copy_((torch.randn(b.shape, device=b.device, generator=g) * 0.02).to(b.dtype))
+
+
+def build_gpt_oss(seed: int):
+    """Phase 26's model: openai/gpt-oss-20b's config.json through
+    `GptOssConfig.from_hf`, built on "meta" and materialized on the card one
+    decoder layer at a time: each layer's weights drawn (`go_random_extras`
+    beside them), its q/k/v/o quantized to qint4 (the auto group size: 96 at
+    K = 2880, padded onto the envelope; o_proj's N = 2880 padded to 2944) and
+    frozen, and its experts quantized to qint4 at group size 128 as they are
+    stacked (`convert_gpt_oss_moe_to_stacked`: padded to [2944, 3072] first),
+    before the next layer is drawn. The router, the embedding and the head
+    stay bf16. Returns (model, build seconds)."""
+    from quanto_tpu_torch import freeze, quantize
+    from quanto_tpu_torch.models import GptOssConfig, GptOssForCausalLM
+    from quanto_tpu_torch.parallel import convert_gpt_oss_moe_to_stacked
+
+    t0 = time.perf_counter()
+    config = GptOssConfig.from_hf(GPT_OSS_20B, dtype=torch.bfloat16)
+    if config != GptOssConfig(dtype=torch.bfloat16):
+        raise RuntimeError(f"GptOssConfig.from_hf did not read openai/gpt-oss-20b's config.json: {config}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def per_layer(layer):
+        go_random_extras(layer, g)
+        quantize(layer, weights="qint4")
+        freeze(layer)
+        if convert_gpt_oss_moe_to_stacked(layer, weights="qint4", group_size=128) != 1:
+            raise RuntimeError("convert_gpt_oss_moe_to_stacked did not convert the layer's MoE MLP")
+
+    model = GptOssForCausalLM(config, device="meta")
+    model.materialize_("cuda", torch.Generator("cuda").manual_seed(seed), layer_fn=per_layer)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def check_gpt_oss_build(model) -> None:
+    """96 qint4 attention linears in the Hopper layout, every one padded onto
+    the envelope (q/k/v at K = 2880 to [N, 3840] in groups of 128, o_proj to
+    [2944, 4096]); 24 stacked blocks of 32 experts [2944, 3072] at group size
+    128; the router, embedding and head in bf16."""
+    from quanto_tpu_torch.nn import QLinear
+    from quanto_tpu_torch.parallel import StackedGptOssMoE
+    from quanto_tpu_torch.tensor.weights import WeightQBitsHopperArray
+
+    c = model.config
+    qlinears = [m for m in model.modules() if isinstance(m, QLinear)]
+    shapes = sorted({m.weight.kernel_shape for m in qlinears})
+    blocks = [layer.mlp for layer in model.model.layers]
+    ok = (len(qlinears) == 4 * c.num_hidden_layers
+          and all(isinstance(m.weight, WeightQBitsHopperArray) and m.weight.bits == 4 and m.weight.pad is not None
+                  for m in qlinears)
+          and shapes == [(512, 3840), (2944, 4096), (4096, 3840)]
+          and all(isinstance(b, StackedGptOssMoE) and tuple(b.proj_gate.packed.shape) == (32, 2944, 1536)
+                  and tuple(b.proj_down.packed.shape) == (32, 2944, 1536) and b.gate.weight.dtype == torch.bfloat16
+                  for b in blocks)
+          and model.lm_head is not None and model.lm_head.weight.dtype == torch.bfloat16)
+    if not ok:
+        raise RuntimeError(f"gpt-oss-20b: unexpected build: {len(qlinears)} linears of kernel shapes {shapes}")
+
+
+class RoutingTape:
+    """The expert choices of a gpt-oss model's stacked MoE blocks, keyed by
+    (row, position, layer): recorded from one computation (`use("record")`)
+    and replayed into another (`use("replay")`), whose blocks then take the
+    recorded experts, weighed by a softmax of their own router logits at them
+    (as `router.topk` weighs its own choice). With the same choices two
+    computations differ by the order of their sums alone; otherwise a routing
+    flip at a tie (the router's logits are bf16; 4 of 32 experts) swaps a
+    token's expert, and 24 random-weight layers carry that to every later
+    position (`PERF.md` section 6). A row is a batch row, or what `rows(B)`
+    names for the current forward of B rows (an engine's slots:
+    `engine_rows`). Where nothing was recorded (an engine chunk's pad
+    columns), a replaying block takes its own choice."""
+
+    def __init__(self, model):
+        self.model = model
+        self.choices = {}
+
+    @contextlib.contextmanager
+    def use(self, mode: str, rows=None):
+        blocks = [layer.mlp for layer in self.model.model.layers]
+        state = {}
+
+        def pre(_mod, args, kwargs):  # the forward's positions, real columns and row keys
+            ids = args[0]
+            pos = args[2] if len(args) > 2 else kwargs.get("cache_pos", 0)
+            B, T = ids.shape
+            p0 = torch.as_tensor(pos).reshape(-1, 1).cpu().long()
+            state["pos"] = (p0 + torch.arange(T)[None, :]).expand(B, T).tolist()
+            wl = kwargs.get("write_len")
+            state["n"] = [T] * B if wl is None else torch.as_tensor(wl).reshape(-1).cpu().expand(B).tolist()
+            state["rows"] = list(range(B)) if rows is None else rows(B)
+
+        def make(layer, block):
+            def _route(x):
+                B, T = x.shape[:2]
+                if mode == "record":
+                    top_i, top_p = type(block)._route(block, x)
+                    ti = top_i.reshape(B, T, -1).cpu().tolist()
+                    for b, r in enumerate(state["rows"]):
+                        for t in range(state["n"][b]):
+                            self.choices[(r, state["pos"][b][t], layer)] = ti[b][t]
+                    return top_i, top_p
+                own = type(block)._route(block, x)[0].reshape(B, T, -1).cpu().tolist()
+                idx = torch.tensor([self.choices.get((r, state["pos"][b][t], layer), own[b][t])
+                                    for b, r in enumerate(state["rows"]) for t in range(T)], device=x.device)
+                logits = block.gate(x).reshape(B * T, -1)
+                return idx, torch.softmax(logits.gather(1, idx), dim=-1)
+            return _route
+
+        handle = self.model.register_forward_pre_hook(pre, with_kwargs=True)
+        for i, block in enumerate(blocks):
+            block._route = make(i, block)
+        try:
+            yield self
+        finally:
+            handle.remove()
+            for block in blocks:
+                del block._route
+
+
+@torch.no_grad()
+def greedy_steps(model, ids, new: int, cache, forced=None):
+    """`generate`'s computation (a prefill at the int 0, last position only,
+    then greedy steps) over `cache`, returning (tokens [B, new], each token's
+    logits [B, new, V]). With `forced` [B, new], each step takes forced's
+    token in place of its own (teacher forcing), and the tokens returned are
+    forced's."""
+    from quanto_tpu_torch.models.serve import prefill
+
+    logits, cache = prefill(model, ids, cache, last_only=True)
+    out, toks = [logits[:, -1]], []
+    for i in range(new):
+        toks.append(out[-1].argmax(-1)[:, None] if forced is None else forced[:, i : i + 1])
+        if i < new - 1:
+            step, cache = model(toks[-1], cache, ids.shape[1] + i)
+            out.append(step[:, -1])
+    return torch.cat(toks, dim=1), torch.stack(out, dim=1)
+
+
+def relative_gap(logits, a: int, b: int) -> float:
+    """Tokens a and b apart in `logits` [V], relative to its largest |logit|."""
+    lv = logits.float()
+    return abs((lv[a] - lv[b]).item()) / lv.abs().max().item()
+
+
+def check_forced(what: str, tokens, logits, ref_logits, min_cos: float) -> dict:
+    """A computation's greedy tokens [R, n] and their logits [R, n, V] against
+    another computation's logits over the same contexts (forced through
+    `tokens`, replaying the first's expert choices: `RoutingTape`): every
+    step's logits within `min_cos` of the other's and, where the other's top-1
+    token is not the first's, a logit tie (the two tokens within
+    SERVE_TOP1_GAP of the other's largest |logit|). Returns what it read."""
+    cos = F.cosine_similarity(logits.float(), ref_logits.float(), dim=-1)  # [R, n]
+    read = {"rows": tokens.shape[0], "steps": tokens.shape[1], "cosine_min": cos.min(dim=1).values.tolist(),
+            "ties": []}
+    if not bool((cos > min_cos).all()):
+        r, j = divmod(int(cos.argmin()), cos.shape[1])
+        raise RuntimeError(f"{what}: row {r}'s step {j} logits at cosine {cos[r, j].item()} <= {min_cos} "
+                           f"of the reference's")
+    ref_top = ref_logits.argmax(-1)
+    for r, j in (ref_top != tokens).nonzero().tolist():
+        gap = relative_gap(ref_logits[r, j], tokens[r, j].item(), ref_top[r, j].item())
+        read["ties"].append({"row": r, "index": j, "relative_gap": gap})
+        if gap > SERVE_TOP1_GAP:
+            raise RuntimeError(f"{what}: row {r}'s token {j} is not the reference's top-1 and no logit tie "
+                               f"(relative gap {gap})")
+    log(json.dumps({"forced_replay": what, **read}))
+    return read
+
+
+class EngineTap:
+    """An engine's sampler (`sample_fn`) that keeps each call's logits: greedy,
+    or, given another run's tap (`forced`), that run's tokens call by call
+    (teacher forcing an engine that makes the same calls)."""
+
+    def __init__(self, forced=None):
+        self.forced, self.logits, self.ids = forced, [], []
+
+    def __call__(self, logits, generator=None):
+        ids = logits.argmax(-1) if self.forced is None else self.forced.ids[len(self.ids)]
+        self.logits.append(logits.to(torch.float32, copy=True))
+        self.ids.append(ids)
+        return ids
+
+    def per_request(self, slots) -> torch.Tensor:
+        """Each request's logits [R, n, V] where the engine admitted R requests
+        first (one [1, V] call each, in order) and then stepped them all
+        (a [max_batch, V] call a step): request i's first call, then its
+        slot's row of every step."""
+        first, steps = self.logits[: len(slots)], self.logits[len(slots) :]
+        if any(f.shape[0] != 1 for f in first) or len({s.shape[0] for s in steps}) != 1:
+            raise RuntimeError(f"EngineTap: calls of {[t.shape[0] for t in self.logits]} rows, not R admissions "
+                               f"and then steps")
+        return torch.stack([torch.cat([f] + [s[slot : slot + 1] for s in steps]) for f, slot in zip(first, slots)])
+
+
+def engine_rows(engine):
+    """`RoutingTape`'s rows for an engine's forwards: every slot for a forward
+    over the pool, the slot being prefilled for a one-row forward (wraps the
+    engine's `_prefill_into`)."""
+    current = {}
+    inner = engine._prefill_into
+
+    def prefill_into(slot, *args, **kw):
+        current["slot"] = slot
+        return inner(slot, *args, **kw)
+
+    engine._prefill_into = prefill_into
+    return lambda B: list(range(B)) if B == engine.max_batch else [current["slot"]]
+
+
+@torch.no_grad()
+def hold_to_generate(what: str, model, prompts, engine, rids, tap, tape, min_cos: float, plain: bool) -> dict:
+    """An engine's requests (their logits in `tap`, their expert choices in
+    `tape`, recorded by slot) against `generate`'s computation of each prompt
+    alone, forced through the request's tokens and replaying its choices
+    (`greedy_steps`, `check_forced` within `min_cos`); with `plain`, on the
+    plain versions (no kernel launched)."""
+    from quanto_tpu_torch.models.serve import make_cache
+
+    slots = [engine._requests[r].slot for r in rids]
+    tokens = torch.tensor([engine.result(r) for r in rids], device="cuda")
+    new, ref = tokens.shape[1], []
+    counts = read_counts()
+    with plain_versions() if plain else contextlib.nullcontext():
+        for p, slot, toks in zip(prompts, slots, tokens):
+            with tape.use("replay", rows=lambda B, slot=slot: [slot]):
+                ref.append(greedy_steps(model, torch.tensor(p[None], device="cuda"), new,
+                                        make_cache(model, 1, len(p) + new), forced=toks[None])[1])
+        torch.cuda.synchronize()
+    if plain and read_counts() != counts:
+        raise RuntimeError(f"{what}: the plain forward launched a kernel")
+    return check_forced(what, tokens, tap.per_request(slots), torch.cat(ref), min_cos)
+
+
+def first_parting_ties(what: str, route_a, route_b, top: int, tie: float) -> dict:
+    """Two computations' routing probabilities [L, N, E] over the same N
+    positions: the first layer where any position's top-`top` experts part
+    must hold a routing tie at every position where they part (both
+    computations' top-th and (top+1)-th probabilities within `tie`): before
+    it both computations route alike everywhere, so nothing but the order of
+    their sums moves that layer's input. Later layers are logged. Returns what
+    it read (none parting is fine)."""
+    differ = (route_a.topk(top, dim=-1).indices.sort(dim=-1).values
+              != route_b.topk(top, dim=-1).indices.sort(dim=-1).values).any(dim=-1)  # [L, N]
+    per_layer = differ.sum(dim=-1).tolist()
+    layers = [i for i, n in enumerate(per_layer) if n]
+    read = {"positions": route_a.shape[1], "parting_per_layer": per_layer}
+    if layers:
+        first = layers[0]
+        pos = differ[first].nonzero().flatten()
+        p_a = route_a[first, pos].sort(dim=-1, descending=True).values
+        p_b = route_b[first, pos].sort(dim=-1, descending=True).values
+        margins = torch.stack([p_a[:, top - 1] - p_a[:, top], p_b[:, top - 1] - p_b[:, top]], dim=1)
+        read.update(first_layer=first, first_layer_max_margin=margins.max().item(),
+                    first_layer_margins=margins.max(dim=1).values.tolist()[:16])
+        if margins.max().item() > tie:
+            raise RuntimeError(f"{what}: the routing first parts in layer {first} with no routing tie at "
+                               f"{int((margins.max(dim=1).values > tie).sum())} of {len(pos)} positions "
+                               f"(largest margin {margins.max().item()})")
+    log(json.dumps({"routing_first_parting": what, **read}))
+    return read
+
+
+@torch.no_grad()
+def prefill_routes(model, ids, cache):
+    """One prefill of `ids` from 0 over `cache`: the last position's logits
+    [B, V] and every layer's routing probabilities at every position [L, B T, E]."""
+    records, handles = route_record(model, last_only=False)
+    try:
+        logits, _ = model(ids, cache, 0, logits_indices=ids.shape[1] - 1)
+    finally:
+        for h in handles:
+            h.remove()
+    L = model.config.num_hidden_layers
+    return logits[:, -1], torch.stack(records[:L]).flatten(1, 2)
+
+
+@torch.no_grad()
+def gpt_oss_run(label: str, model, ids, new: int, want_pre: dict, want_step: dict, sliding_ring: bool = True,
+                tally=None, plain: bool = True, record: bool = True) -> tuple:
+    """`measured_run` of phase 26 over a bf16 cache of T' + new slots (rings
+    where `sliding_ring`) after a warm-up, with the attention tally, times and
+    peak memory beside their bounds; then the kernel path once more recording
+    its expert choices (a `RoutingTape`; its tokens EQUAL to the measured
+    run's). With `plain`, against the plain versions: the routing of one
+    prefill of each path over every position (`first_parting_ties`), then the
+    plain path forced through the kernel path's tokens, replaying its choices
+    (`check_forced`, within GPT_OSS_E2E_COS), the plain path's own
+    last-position cosine logged. Without `record` (nor `plain`) no tape. Returns (launches,
+    record, tape, the recorded tokens and logits)."""
+    from quanto_tpu_torch.models.sampling import greedy
+    from quanto_tpu_torch.models.serve import decode, make_cache, prefill
+
+    t_run = time.perf_counter()
+    config = model.config
+    batch, prompt = ids.shape
+    steps = new - 1
+    top = config.num_experts_per_tok
+
+    def new_cache():
+        return make_cache(model, batch, prompt + new, sliding_ring=sliding_ring)
+
+    def run():
+        logits, cache = prefill(model, ids, new_cache(), last_only=True)
+        first = greedy(logits[:, -1]).to(ids.dtype)[:, None]
+        decode(model, first, cache, prompt, steps)
+
+    run()  # warm-up
+    logits, tokens, cache, measured = measured_run(
+        label, model, ids, new_cache, steps, want_pre, {n: c * steps for n, c in want_step.items()}, tally)
+    del cache, logits
+    launches = read_counts()
+    # Limits: the prefill's operations at 989 TFLOP/s (the quantized linears at their true shapes, each
+    # token through its top-4 experts' three projections, attention over its visible keys: the window's
+    # on the sliding layers); a step's bytes at 3.35 TB/s (the linears, the routers and the head, the
+    # routed experts' stacked bytes between top-4 and min(32, 4 B) experts a layer, the visible cache).
+    L, H, D, W = config.num_hidden_layers, config.num_attention_heads, config.head_dim, config.sliding_window
+    blocks = [layer.mlp for layer in model.model.layers]
+    per_expert = sum(t[0].numel() * t.element_size() for proj in (blocks[0].proj_gate, blocks[0].proj_up,
+                                                                  blocks[0].proj_down)
+                     for t in (proj.packed, proj.scale_t, proj.shift_t))
+    router_bytes = sum(b.gate.weight.numel() * b.gate.weight.element_size() for b in blocks)
+    expert_ops = 2 * batch * prompt * top * 3 * config.hidden_size * config.intermediate_size * L
+    keys = sum(min(t + 1, W) if lt == "sliding_attention" else t + 1 for lt in config.layer_types
+               for t in range(prompt))
+    prefill_ops = linears_operations(model, batch * prompt) + expert_ops + 4 * batch * H * D * keys
+    mean_pos = prompt + (steps - 1) / 2
+    kv_bytes = batch * 2 * config.num_key_value_heads * D * 2 * sum(
+        min(mean_pos + 1, W) if lt == "sliding_attention" else mean_pos + 1 for lt in config.layer_types)
+    step_bytes = [step_weight_bytes(model) + router_bytes + kv_bytes + n * per_expert * L
+                  for n in (top, min(config.num_local_experts, batch * top))]
+    rec = {
+        "gpt_oss": label, "batch": batch, "prompt": prompt, "new_tokens": new, "decode_steps": steps,
+        "sliding_ring": sliding_ring,
+        "prefill_ms": measured["prefill_s"] * 1e3, "prefill_operations": prefill_ops,
+        "prefill_bound_ms": prefill_ops / PEAK_BF16_FLOPS * 1e3, "decode_step_bytes": step_bytes,
+        "decode_step_bound_ms": [b / PEAK_BYTES_PER_S * 1e3 for b in step_bytes],
+        "decode_ms_per_step": measured["decode_s"] / steps * 1e3,
+        "decode_tok_s": batch * steps / measured["decode_s"], "peak_memory_gb": measured["peak_gb"],
+        "model_bytes": torch.cuda.memory_allocated(),
+        "prefill_launches": {n: c for n, c in measured["pre"].items() if c},
+        "decode_launches": {n: c for n, c in measured["dec"].items() if c},
+        "prefill_attention": measured["pre_tally"], "decode_attention": measured["dec_tally"],
+        "measured_s": time.perf_counter() - t_run,  # the warm-up and the measured run
+    }
+    t_check = time.perf_counter()
+    if not record:
+        return launches, rec, None, None, None
+    tape = RoutingTape(model)
+    with tape.use("record"):
+        rec_tokens, rec_logits = greedy_steps(model, ids, new, new_cache())
+    if not torch.equal(rec_tokens, tokens):
+        raise RuntimeError(f"{label}: the recorded kernel run's tokens are not the measured run's")
+    if plain:
+        logits_k, route_k = prefill_routes(model, ids, new_cache())
+        counts = read_counts()
+        with plain_versions():
+            logits_o, route_o = prefill_routes(model, ids, new_cache())
+            rec["routing_vs_plain"] = first_parting_ties(label, route_k, route_o, top, GPT_OSS_ROUTE_TIE)
+            with tape.use("replay"):
+                _, p_logits = greedy_steps(model, ids, new, new_cache(), forced=rec_tokens)
+            torch.cuda.synchronize()
+            if read_counts() != counts:
+                raise RuntimeError(f"{label}: the plain forward launched a kernel")
+        rec["vs_plain_replayed"] = check_forced(f"phase 26 {label}: plain, forced, the kernel path's experts",
+                                                rec_tokens, rec_logits, p_logits, GPT_OSS_E2E_COS)
+        rec["plain_own_routing"] = {  # the plain path on its own choices: logged, not held
+            "cosine_last_prefill": F.cosine_similarity(logits_k.float(), logits_o.float(), dim=-1).tolist()}
+        del route_k, route_o, p_logits
+    rec["check_s"] = time.perf_counter() - t_check
+    return launches, rec, tape, rec_tokens, rec_logits
+
+
+@torch.no_grad()
+def phase_gpt_oss() -> dict:
+    """Phase 26: openai/gpt-oss-20b (GPT_OSS_20B: 24 layers of 64 heads over 8
+    kv heads of 64 with sinks, a window of 128 on the 12 even layers, 32
+    experts of 2880 top-4 with biases and the clamped SwiGLU, yarn rope,
+    untied head) at full depth and width, random weights (seed 26),
+    attention and experts qint4 (`build_gpt_oss`; router, embedding and head
+    bf16).
+
+    (a) B = 4 x 1024 + GO_NEW over bf16 caches with 128-slot rings on the
+    sliding layers: after a warm-up, exact launches: the prefill 96
+    `qbits_mm_tiled` (q/k/v/o, padded, TPU #2) and 72 `qbits_moe_tiled` (the
+    capacity gather, TPU #14: 32 slabs of 1024 rows a projection), no
+    `flash_prefill` (JAX's gpt-oss never calls splash); each step 96
+    `qbits_mm_small_m` (#1), 72 `qbits_moe_small_m` (the selective route:
+    16 pairs, #11) and 24 `flash_decode` with the sinks (#8-#10), 12 of them
+    over rings. One block's decode forward at B = 1, 4, 16 with no host sync.
+    Against the plain versions (`gpt_oss_run`): the routing first parts at a
+    tie, and forced through the kernel path's tokens with its expert choices
+    the plain path's logits agree at every step (cosine, logit ties). (b) B16 x T16 + GO_B16_NEW: each
+    step's blocks take the unique-expert route (S·K = 64 = 2E): 48
+    `qbits_moe_small_m` (gate and up over the routed-first table, #13) and 24
+    `qbits_moe_tiled` at M = 16 (#15), held to the plain versions as (a).
+    (c) (a)'s prompts over flat caches, GO_FLAT_NEW new: each step's 12
+    sliding layers through `flash_decode` with the window of 128; against (a):
+    the routing first parts at a tie, and forced through (a)'s tokens with its
+    expert choices within GPT_OSS_RING_COS, logit ties. (d) the engines past
+    W, chunks of 512 over 128-slot rings, first with the blocks' dispatch
+    exact (`capacity_factor=None`): `BatchedEngine` over GO_ENGINE_PROMPTS
+    (batched [4, 512] chunks, their last ones masked by `write_len`), each
+    request's logits at every step against `generate`'s computation forced
+    through its tokens and replaying its expert choices (`hold_to_generate`,
+    GPT_OSS_ENGINE_COS); serial admission ([1, 512] chunks: #12 over 512
+    rows) held so to `generate` on the plain versions (GPT_OSS_E2E_COS), and
+    in `PagedEngine` (the paged+ring hybrid, pages of 64), one computation,
+    tokens equal (or logit ties); then the batch arm at capacity 2.0 (the
+    pad columns kept out of the slabs by `valid`) against the same engine on
+    the plain versions, forced and replayed. Prints prefill ms, decode ms/step and peak memory beside their
+    bounds. Returns each arm's launch counts."""
+    from quanto_tpu_torch.models import BatchedEngine, PagedEngine
+    from quanto_tpu_torch.models.serve import generate, make_cache
+
+    t_start = time.perf_counter()
+    model, build_s = build_gpt_oss(26)
+    check_gpt_oss_build(model)
+    config = model.config
+    L, W = config.num_hidden_layers, config.sliding_window
+    half, top = L // 2, config.num_experts_per_tok
+    log(f"gpt-oss: built on meta, then {L} layers materialized + quantized + frozen + stacked one at a time in "
+        f"{build_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    check_no_sync(model)
+    lin, moe = 4 * L, 3 * L
+    out = {}
+    tally, handles = attention_tally(model)
+    ids = torch.randint(0, config.vocab_size, (B, T), generator=torch.Generator().manual_seed(26)).cuda()
+
+    # (a) rings: max_len T + GO_NEW passes W.
+    label = "gpt-oss-20b qint4 (router, head bf16), stacked MoE, bf16 cache with rings, B = 4 x 1024"
+    out["a"], rec, tape_a, tokens_a, logits_a = gpt_oss_run(
+        label, model, ids, GO_NEW, {"qbits_mm_tiled": lin, "qbits_moe_tiled": moe},
+        {"qbits_mm_small_m": lin, "qbits_moe_small_m": moe, "flash_decode": L}, tally=tally)
+    steps = GO_NEW - 1
+    want_tally = {"decode": L * steps, "decode_ring": half * steps, "decode_window": 0, "chunk_ring": 0}
+    if {k: rec["decode_attention"].get(k, 0) for k in want_tally} != want_tally or \
+            rec["prefill_attention"].get("chunk_ring") != half:
+        raise RuntimeError(f"{label}: decode attention {rec['decode_attention']}, prefill {rec['prefill_attention']}")
+    log(json.dumps({**rec, "build_s": build_s}))
+
+    # (b) the unique-expert decode.
+    ids16 = torch.randint(0, config.vocab_size, (B16, T16), generator=torch.Generator().manual_seed(260)).cuda()
+    label = f"gpt-oss-20b qint4, stacked MoE, bf16 cache with rings, B = {B16} x {T16}"
+    out["b"], rec, *_ = gpt_oss_run(
+        label, model, ids16, GO_B16_NEW, {"qbits_mm_tiled": lin, "qbits_moe_tiled": moe},
+        {"qbits_mm_small_m": lin, "qbits_moe_small_m": 2 * L, "qbits_moe_tiled": L, "qbits_moe_tiled_small_m": L,
+         "flash_decode": L}, tally=tally)
+    log(json.dumps(rec))
+
+    # (c) flat caches: the sliding layers' decode through the window.
+    label = f"gpt-oss-20b qint4, bf16 flat caches, B = 4 x 1024 + {GO_FLAT_NEW}"
+    out["c"], rec, *_ = gpt_oss_run(
+        label, model, ids, GO_FLAT_NEW, {"qbits_mm_tiled": lin, "qbits_moe_tiled": moe},
+        {"qbits_mm_small_m": lin, "qbits_moe_small_m": moe, "flash_decode": L}, sliding_ring=False, tally=tally,
+        plain=False, record=False)
+    steps_c = GO_FLAT_NEW - 1
+    want_tally = {"decode": L * steps_c, "decode_ring": 0, "decode_window": half * steps_c, "chunk_ring": 0}
+    if {k: rec["decode_attention"].get(k, 0) for k in want_tally} != want_tally:
+        raise RuntimeError(f"{label}: decode attention {rec['decode_attention']}, want {want_tally}")
+    ring_cache, flat_cache = (make_cache(model, B, T + GO_NEW, sliding_ring=r) for r in (True, False))
+    _, route_ring = prefill_routes(model, ids, ring_cache)
+    _, route_flat = prefill_routes(model, ids, flat_cache)
+    del ring_cache, flat_cache
+    rec["routing_vs_rings"] = first_parting_ties(label + " vs (a)", route_flat, route_ring, top, GPT_OSS_ROUTE_TIE)
+    del route_ring, route_flat
+    with tape_a.use("replay"):
+        _, logits_c = greedy_steps(model, ids, GO_FLAT_NEW, make_cache(model, B, T + GO_NEW, sliding_ring=False),
+                                   forced=tokens_a[:, :GO_FLAT_NEW])
+    rec["vs_rings_replayed"] = check_forced(f"phase 26 {label}: forced, (a)'s experts", tokens_a[:, :GO_FLAT_NEW],
+                                            logits_a[:, :GO_FLAT_NEW], logits_c, GPT_OSS_RING_COS)
+    log(json.dumps(rec))
+    del logits_a, logits_c, tape_a
+    for h in handles:
+        h.remove()
+
+    # (d) the engines: chunks of 512 over 128-slot rings. First every block's dispatch exact (no capacity):
+    # with one, an expert keeps the top-capacity tokens of the forward it runs in, so a [4, 512] chunk and
+    # `generate`'s [1, 300] prefill drop other tokens and compute two functions.
+    for layer in model.model.layers:
+        layer.mlp.capacity_factor = None
+    rng = np.random.default_rng(261)
+    prompts = [rng.integers(0, config.vocab_size, n).astype(np.int64) for n in GO_ENGINE_PROMPTS]
+    C, new, max_len = GO_ENGINE_CHUNK, GO_ENGINE_NEW, GO_ENGINE_MAX_LEN
+    n_chunks = [-(-n // C) for n in GO_ENGINE_PROMPTS]
+    kw = dict(max_batch=len(prompts), max_len=max_len, prefill_chunk=C)
+    dec_steps = new - 1
+
+    def serve(engine, batched: bool, tape=None):
+        """The prompts through `engine` (recording its expert choices by slot in
+        `tape`); returns (tokens, launches, seconds with the tape's host copies,
+        request ids)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tape.use("record", rows=engine_rows(engine)) if tape else contextlib.nullcontext():
+            rids = engine.add_batch(prompts, new) if batched else [engine.add(p, new) for p in prompts]
+            engine.run_to_completion()
+        torch.cuda.synchronize()
+        return [engine.result(r) for r in rids], read_counts(), time.perf_counter() - t0, rids
+
+    engine = BatchedEngine(model, sample_fn=(tap := EngineTap()), **kw)
+    if not isinstance(engine._cache[0], tuple) or engine._cache[0][0].shape[1] != W:
+        raise RuntimeError("phase 26(d): the dense engine's sliding layers hold no rings")
+    got_batch, counts_batch, s_batch, rids = serve(engine, True, tape := RoutingTape(model))
+    # [4, 512] chunks: M = 2048 through #2 and the gather (#14, slabs of 2048); decode steps of 4 rows:
+    # selective.
+    want_batch = {"qbits_mm_tiled": lin * max(n_chunks), "qbits_moe_tiled": moe * max(n_chunks),
+                  "qbits_mm_small_m": lin * dec_steps, "qbits_moe_small_m": moe * dec_steps,
+                  "flash_decode": L * dec_steps}
+    check_counts("phase 26(d) batch arm", counts_batch, want_batch)
+    # Each request through `generate`'s computation on the kernels, forced through the batch arm's tokens
+    # and replaying its expert choices: every step's logits against the engine's.
+    ties_batch = hold_to_generate("phase 26(d) batch arm vs generate (its tokens and experts)", model, prompts,
+                                  engine, rids, tap, tape, GPT_OSS_ENGINE_COS, plain=False)
+    want = [generate(model, torch.tensor(p[None], device="cuda"), new)[0, len(p):].tolist() for p in prompts]
+    del engine, tape, tap
+    engine = BatchedEngine(model, sample_fn=(tap := EngineTap()), **kw)
+    got_serial, counts_serial, s_serial, rids = serve(engine, False, tape := RoutingTape(model))
+    # [1, 512] chunks: M = 512 through #1 and the all-experts route (gate and up #12, down #14).
+    chunk_moe = {"qbits_moe_small_m": 2 * L * sum(n_chunks) + moe * dec_steps, "qbits_moe_all": 2 * L * sum(n_chunks),
+                 "qbits_moe_tiled": L * sum(n_chunks)}
+    check_counts("phase 26(d) serial arm", counts_serial, {
+        "qbits_mm_small_m": lin * (sum(n_chunks) + dec_steps), **chunk_moe, "flash_decode": L * dec_steps})
+    # The serial arm against `generate`'s computation on the plain versions, forced and replayed as the
+    # batch arm: this holds #12 at M = 512 and #14 over slabs of 512 to their plain versions end to end.
+    ties_serial = hold_to_generate("phase 26(d) serial arm vs generate on the plain versions (its tokens and "
+                                   "experts)", model, prompts, engine, rids, tap, tape, GPT_OSS_E2E_COS, plain=True)
+    del engine, tape, tap
+    paged = PagedEngine(model, n_pages=1 + len(prompts) * -(-max_len // 64), page_size=64, **kw)
+    if paged.prefix_sharing or not isinstance(paged._cache[0], tuple) or \
+            paged._cache[0][0].shape[1] != W or not hasattr(paged._cache[1], "_table"):
+        raise RuntimeError("phase 26(d): PagedEngine did not build the paged+ring hybrid")
+    got_paged, counts_paged, s_paged, _ = serve(paged, False)
+    # The serial arm's launches, the 12 full layers' decode through the paged arm.
+    check_counts("phase 26(d) paged arm", counts_paged, {
+        "qbits_mm_small_m": lin * (sum(n_chunks) + dec_steps), **chunk_moe, "flash_decode": half * dec_steps,
+        "flash_decode_paged": half * dec_steps})
+    ties_paged = check_same_tokens("phase 26(d) paged arm vs the dense serial arm", model, prompts, got_paged,
+                                   got_serial, max_len=max_len)
+    del paged
+    # The batch arm at the blocks' default capacity (2.0: slabs of 512 of a [4, 512] chunk's 2048 rows), where
+    # `valid` gives the chunks' pad columns (and the finished rows' columns) no routing weight, so that they
+    # take no slab row from a real token; against the same engine on the plain versions, forced through its
+    # tokens and replaying its expert choices.
+    for layer in model.model.layers:
+        layer.mlp.capacity_factor = 2.0
+    engine = BatchedEngine(model, sample_fn=(tap := EngineTap()), **kw)
+    got_cap, counts_cap, s_cap, rids = serve(engine, True, tape := RoutingTape(model))
+    check_counts("phase 26(d) capacity arm", counts_cap, want_batch)
+    counts = read_counts()
+    plain_engine = BatchedEngine(model, sample_fn=(plain_tap := EngineTap(forced=tap)), **kw)
+    with plain_versions(), tape.use("replay", rows=engine_rows(plain_engine)):
+        plain_rids = plain_engine.add_batch(prompts, new)
+        plain_engine.run_to_completion()
+    torch.cuda.synchronize()
+    if read_counts() != counts or len(plain_tap.ids) != len(tap.ids):
+        raise RuntimeError("phase 26(d) capacity arm: the plain engine launched a kernel or sampled otherwise")
+    slots = [engine._requests[r].slot for r in rids]
+    if [plain_engine._requests[r].slot for r in plain_rids] != slots:
+        raise RuntimeError("phase 26(d) capacity arm: the plain engine took other slots")
+    ties_cap = check_forced("phase 26(d) capacity arm vs the same engine on the plain versions (its tokens and "
+                            "experts)", torch.tensor(got_cap, device="cuda"), tap.per_request(slots),
+                            plain_tap.per_request(slots), GPT_OSS_E2E_COS)
+    del engine, plain_engine, tape, tap, plain_tap
+    log(json.dumps({"gpt_oss_engines": {
+        "prompts": GO_ENGINE_PROMPTS, "chunk": C, "new_tokens": new, "max_len": max_len,
+        "batch_s": s_batch, "serial_s": s_serial, "paged_s": s_paged, "capacity_s": s_cap,
+        "batch_vs_generate": ties_batch, "serial_vs_plain_generate": ties_serial,
+        "capacity_vs_plain_engine": ties_cap, "paged_vs_serial_ties": ties_paged,
+        "paged_equal_serial": got_paged == got_serial, "capacity_equal_exact": got_cap == got_batch,
+        # `generate` on its own expert choices: logged, not held (a flip at a tie moves every later token).
+        "batch_equal_generate": [a == b for a, b in zip(got_batch, want)],
+        "serial_equal_generate": [a == b for a, b in zip(got_serial, want)],
+        "launches": {arm: {n: c for n, c in counts.items() if c} for arm, counts in
+                     (("batch", counts_batch), ("serial", counts_serial), ("paged", counts_paged),
+                      ("capacity", counts_cap))},
+    }}))
+    out["d_batch"], out["d_paged"] = counts_batch, counts_paged
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gpt-oss: phase 26 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def only_gpt_oss(K_mod, card: str) -> int:
+    """`--only gpt_oss`: phase 3's rows at gpt-oss-20b's heads (with sinks)
+    and experts, then phase 26."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    phase_flash_decode_gpt_oss(flush)
+    phase_padded(K_mod, flush, GO_LINEAR_SHAPES, GO_LINEAR_M)
+    phase_moe_gpt_oss(flush)
+    del flush
+    torch.cuda.empty_cache()
+    phase_gpt_oss()
+    log(card)
+    log(json.dumps({"ok": True, "only": "gpt_oss", "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def only_gemma3(card: str) -> int:
@@ -6616,9 +7428,9 @@ def main() -> int:
         return 1
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     if only not in (None, "sweep,serving", "prefill", "qbytes,moe", "decode", "checkpoint", "numerics", "paged",
-                    "speculative", "gemma", "gemma2", "gemma3", "qwen3"):
+                    "speculative", "gemma", "gemma2", "gemma3", "qwen3", "gpt_oss"):
         print(f"chip_smoke: --only takes sweep,serving, prefill, qbytes,moe, decode, checkpoint, numerics, "
-              f"paged, speculative, gemma, gemma2, gemma3 or qwen3, got {only}", file=sys.stderr)
+              f"paged, speculative, gemma, gemma2, gemma3, qwen3 or gpt_oss, got {only}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -6659,6 +7471,8 @@ def main() -> int:
         return only_gemma3(card)
     if only == "qwen3":
         return only_qwen3(card)
+    if only == "gpt_oss":
+        return only_gpt_oss(K_mod, card)
     if only:
         return only_sweep_and_serving(K_mod, card)
 
@@ -6669,8 +7483,10 @@ def main() -> int:
             + phase_flash_decode(flush, heads=FD_GEMMA_HEADS, kinds=FD_CACHES)
             + phase_flash_decode_paged(flush, heads=FD_GEMMA_HEADS, cases=FD_GEMMA_PAGED)
             + phase_flash_decode_gemma2(flush) + phase_flash_decode_gemma2(flush, FD_QK_NORM_ROWS, tag="qk_norm")
+            + phase_flash_decode_gpt_oss(flush)
             + phase_qbytes(flush)
             + phase_w4a8(K_mod, flush) + phase_requant(K_mod, flush) + phase_moe(flush) + phase_moe_qwen3(flush)
+            + phase_moe_gpt_oss(flush) + phase_padded(K_mod, flush, GO_LINEAR_SHAPES, GO_LINEAR_M)
             + phase_kernels(K_mod, flush, bits=2) + phase_moe(flush, bits=2)
             + phase_w4a8(K_mod, flush, bits=2) + phase_requant(K_mod, flush, bits=2) + phase_partitioned(flush)
             + numerics_rows(K_mod, flush))
@@ -6837,6 +7653,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     qwen3 = phase_qwen3()
 
+    # Phase 26: openai/gpt-oss-20b (32 experts, top-4; sinks; 128-slot rings) at full depth and width.
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_oss = phase_gpt_oss()
+
     # Phase 21: speculative decoding (greedy and sampled, a qint4 draft and a layer-skip draft).
     gc.collect()
     torch.cuda.empty_cache()
@@ -6939,10 +7760,20 @@ def main() -> int:
                 for r in mine}
         if name == "qbits_mm_partitioned":  # ms: the rank-local product; the row shard's all_reduce beside it
             extra = {"all_reduce_ms": {k: v / 1e3 for k, v in tp["all_reduce_us"].items()}, "note": TP_LABEL}
-        for phase, runs in (("24", gemma3), ("25", qwen3)):  # Gemma-3-12B; Qwen3-30B-A3B and Qwen3-8B
+        for phase, runs in (("24", gemma3), ("25", qwen3), ("26", gpt_oss)):  # Gemma-3; Qwen3; gpt-oss-20b
             got = {arm: c[name] for arm, c in runs.items() if c.get(name)}
             if got:
                 extra[f"launches_phase{phase}"] = got
+        # Phase 3's rows at gpt-oss-20b's heads (sinks), padded attention linears and experts.
+        go_rows = [r for r in mine if r.get("gpt_oss") or r.get("padded") == "gpt-oss-20b"]
+        if go_rows:
+            extra["gpt_oss_rows"] = {
+                (f"{r['gpt_oss']} {r['cache']} S={r['S']} q={r['q']}" if name == "flash_decode" else
+                 f"paged {r['cache']} S={r['S']} ps={r['page_size']}" if name == "flash_decode_paged" else
+                 f"M={r['M']} {r['N']}x{r['K']} gs {r['group_size']}" if r.get("padded") else
+                 f"{r['form']} U={r['U']} M={r['M']} {r['N']}x{r['K']}"): dict(
+                        ms=r["ms"], bound_ms=r["bound_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                    for r in go_rows}
         if name == "flash_decode" or name.startswith("qbits_moe"):  # phase 3's rows at the new shapes
             new_rows = [r for r in mine if r.get("qk_norm") or r.get("qwen3")]
             if new_rows:

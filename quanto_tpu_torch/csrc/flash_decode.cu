@@ -94,6 +94,12 @@
 // tiles at its first visible slot, max(0, pos - window + 1), so a row reads its window and no more.
 // The tensor-core arm is built by one source per head dim (flash_decode_tc{64,128,256}.cu).
 //
+// gpt-oss (attention sinks: a learned logit per query head that joins every softmax's denominator
+// as a valueless slot, after the scale, the softcap and the mask): the sinks are a runtime pointer,
+// null for none, so they too add no instantiation. Only the last store of a row reads its sink
+// (flash_decode.cuh:store_out), on both arms: the plan, the tiles, the partials and the merge order
+// are those of the call without sinks.
+//
 // The entry points have a plain C interface (bound with ctypes in ops/cuda/flash_decode.py).
 // flash_decode_workspace gives the float32 elements of the partials' workspace and the query
 // groups a head is cut into (the wrapper caches both per device and shapes); flash_decode launches
@@ -147,14 +153,15 @@ extern "C" int flash_decode_workspace(int device, int G, int D, int k_type, int 
 // counters: int32 [B, Hkv, groups], zero (the kernel leaves them zero). table: null for a dense
 // cache, else the int32 [B, pages_per_slot] page table of a paged one, S = pages_per_slot *
 // page_size. scale: the query scale (> 0); softcap: c of c tanh(x / c), <= 0 none; window: slot s of
-// row b visible iff pos[b] - window < s <= pos[b], <= 0 none.
+// row b visible iff pos[b] - window < s <= pos[b], <= 0 none. sinks: null, or float32 [Hkv * G] sink
+// logits (flash_decode.cuh:store_out).
 extern "C" int flash_decode(int device, const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale, const void* k_shift,
                             const void* v_shift, const void* positions, const void* k_lut,
                             const void* v_lut, void* ws, void* counters, void* out, int B, int Hkv,
                             int G, int S, int D, int k_type, int v_type, int mode, int q_bf16,
                             const void* table, int pages_per_slot, int page_size, float scale,
-                            float softcap, int window, void* stream) {
+                            float softcap, int window, const void* sinks, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if ((D != 64 && D != 128 && D != 256) || B < 1 || Hkv < 1 || G < 1 || S < 1 || !valid_types(k_type, v_type, mode) ||
@@ -185,6 +192,7 @@ extern "C" int flash_decode(int device, const void* q, const void* k, const void
   a.cap_k = softcap > 0.0f ? 2.0f * fd::LOG2E / softcap : 0.0f;
   a.scale = softcap > 0.0f ? scale : fd::LOG2E * scale;  // base 2 after the cap (fd::logit2)
   a.window = window > 0 ? window : 0;
+  a.sinks = static_cast<const float*>(sinks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tensor_cores(k_type, v_type, q_bf16) ? tc_launch(device, a, k_type, v_type, D, s)
                                               : fd::cc_launch(device, a, k_type, v_type, D, s);

@@ -77,6 +77,9 @@ struct Args {
   // (logits in base 2); with one, scale is the query scale, cap the softcap c and cap_k 2 log2(e) / c.
   float scale, cap, cap_k;
   int window;             // the sliding window, 0: none
+  // Attention sinks (gpt-oss): float32 [Hkv * G], one learned logit per query head that joins the
+  // softmax's denominator and carries no value; null: none. Not scaled, capped or masked.
+  const float* sinks;
 };
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -302,10 +305,21 @@ __device__ __forceinline__ void issue_part(const Args& a, unsigned char* st, con
 // ---------------------------------------------------------------------------------------------
 
 // EPT (4 or 8) output values: row `row` of out [B * Hkv * G, D], columns d .. d + EPT - 1, in q's
-// dtype.
+// dtype, from the merged (max mx, sum l, out v) of the row's visible slots (base 2). Under sinks the
+// row's head's sink s joins here, and only here, as one more valueless slot: with s2 = s log2(e) and
+// mn = max(mx, s2), out = v 2^(mx - mn) / (l 2^(mx - mn) + 2^(s2 - mn)). A row that saw no visible
+// slot (mx = -inf, l = 0, v = 0) still gives zeros.
 template <int D, int EPT>
-__device__ __forceinline__ void store_out(const Args& a, size_t row, int d, const float (&v)[EPT], float l) {
-  const float inv = 1.0f / l;
+__device__ __forceinline__ void store_out(const Args& a, size_t row, int d, const float (&v)[EPT], float l,
+                                          float mx) {
+  float inv;
+  if (a.sinks != nullptr) {
+    const float s2 = __ldg(a.sinks + row % ((size_t)a.Hkv * a.G)) * LOG2E;
+    const float mn = fmaxf(mx, s2), f = exp2f(mx - mn);
+    inv = f / fmaf(l, f, exp2f(s2 - mn));
+  } else {
+    inv = 1.0f / l;
+  }
   if (a.q_bf16) {
     uint32_t p[EPT / 2];
 #pragma unroll
@@ -386,7 +400,7 @@ __device__ __forceinline__ void finish_segment(const Args& a, const Split& sp, c
     float mx, l, v[EPT];
     merge_rows<GR, D, EPT, WARPS, false>(WARPS, [&](int k) { return part + k * PS; }, g, d, mx, l, v);
     if (i0 == i1) {  // the block saw the whole pair
-      store_out<D, EPT>(a, row0 + g, d, v, l);
+      store_out<D, EPT>(a, row0 + g, d, v, l, mx);
     } else {
       if (d == 0) {
         mine[g] = mx;
@@ -415,7 +429,7 @@ __device__ __forceinline__ void finish_segment(const Args& a, const Split& sp, c
     const int g = e / D, d = e - g * D;
     float mx, l, v[EPT];
     merge_rows<GR, D, EPT, 16, true>(i1 - i0 + 1, partial, g, d, mx, l, v);
-    store_out<D, EPT>(a, row0 + g, d, v, l);
+    store_out<D, EPT>(a, row0 + g, d, v, l, mx);
   }
   if (threadIdx.x == 0) *counter = 0;  // ready for the next call
 }

@@ -2,6 +2,7 @@
 
 from .gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
+from .gpt_oss import GptOssConfig, GptOssForCausalLM
 from .qwen3 import Qwen3Config, Qwen3ForCausalLM, Qwen3MoeConfig, Qwen3MoeForCausalLM
 from .serving import BatchedEngine, PagedEngine
 from .speculative import (
@@ -19,6 +20,8 @@ __all__ = [
     "Gemma2ForCausalLM",
     "Gemma3ForCausalLM",
     "Gemma3TextConfig",
+    "GptOssConfig",
+    "GptOssForCausalLM",
     "PagedEngine",
     "Qwen3Config",
     "Qwen3ForCausalLM",

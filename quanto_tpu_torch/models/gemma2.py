@@ -180,13 +180,14 @@ class Gemma2Attention(nn.Module):
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         tf = dict(scale=self.scaling, softcap=self.softcap)
+        sinks = self._sinks()
         k_scale = v_scale = k_shift = v_shift = None
         if layer_cache is not None and T == 1:
             if ring:
                 kv_ring_update(layer_cache, k, v, cache_pos)
             else:
                 kv_update(layer_cache, k, v, cache_pos)
-            out = decode_attention(q, layer_cache, decode_pos, window=window, ring=ring, **tf)
+            out = decode_attention(q, layer_cache, decode_pos, window=window, ring=ring, sinks=sinks, **tf)
             return _deq(self.o_proj(out)), layer_cache
         if layer_cache is not None and ring:
             k, v, k_scale, v_scale, k_shift, v_shift = ring_attention_inputs(
@@ -204,9 +205,14 @@ class Gemma2Attention(nn.Module):
         q5 = q.view(B, T, self.num_kv_heads, self.num_heads // self.num_kv_heads, self.head_dim)
         out = gqa_attention(
             q5, k, v, mask, self.scaling, k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift,
-            softcap=self.softcap,
+            softcap=self.softcap, sinks=sinks,
         )
         return _deq(self.o_proj(out)), layer_cache
+
+    def _sinks(self):
+        """float32 [H] per-head sink logits that join every softmax (gpt-oss's
+        subclass), or None."""
+        return None
 
 
 class Gemma2MLP(nn.Module):
@@ -248,6 +254,10 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
     "meta" until `materialize_`), with Gemma-2's decoder layer."""
 
     layer_cls = Gemma2DecoderLayer
+    # Gemma's normalizer sqrt(hidden_size) on the embeddings, and the flash-prefill route of a step
+    # causal from 0 (gpt-oss, which reuses this forward, has neither: JAX's never calls splash).
+    normalize_embeddings = True
+    flash_prefill = True
 
     def _masks(self, B, T, cache, cache_pos, positions, ring):
         """(full, sliding) additive float32 masks [B or 1, 1, T, S] of a T > 1
@@ -274,8 +284,8 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         B, T = input_ids.shape
         dev = input_ids.device
         x = self.model.embed_tokens(input_ids.long())
-        # Gemma's normalizer, rounded to the activation dtype first (JAX :289).
-        x = x * torch.tensor(c.hidden_size**0.5, dtype=x.dtype)
+        if self.normalize_embeddings:  # Gemma's normalizer, rounded to the activation dtype first (JAX :289)
+            x = x * torch.tensor(c.hidden_size**0.5, dtype=x.dtype)
         pos0 = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1)
         positions = (pos0 + torch.arange(T, device=dev)[None, :]).expand(B, T)
         ropes = self._ropes(positions, x.dtype)
@@ -286,9 +296,9 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             decode_pos = positions[:, 0].to(torch.int32).contiguous()
         else:
             full_mask, sliding_mask = self._masks(B, T, cache, cache_pos, positions, ring)
-            if ring:
-                write_valid = write_valid_mask(write_len, T, dev)
-        causal0 = static_zero_pos(cache_pos)
+            # Read by a ring layer's write, and by gpt-oss's MoE blocks (pad columns take no capacity).
+            write_valid = write_valid_mask(write_len, T, dev)
+        causal0 = self.flash_prefill and static_zero_pos(cache_pos)
         for i, layer in enumerate(self.model.layers):
             sliding = c.layer_types[i] == SLIDING
             lring = ring and sliding
@@ -309,8 +319,9 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         return logits, cache
 
     def _ropes(self, positions: torch.Tensor, dtype):
-        """(cos, sin) of the full layers and of the sliding ones: one table (Gemma-3 has two)."""
-        cos_sin = _rope(positions, self.inv_freq, dtype)
+        """(cos, sin) of the full layers and of the sliding ones: one table (Gemma-3 has two),
+        times the rope's attention factor (yarn's, for gpt-oss; 1 for Gemma-2)."""
+        cos_sin = _rope(positions, self.inv_freq, dtype, self.attn_scale)
         return cos_sin, cos_sin
 
     def init_kv_cache(self, batch: int, max_len: int, dtype=None, kv_quant=None, sliding_ring: bool = True):

@@ -476,6 +476,8 @@ def _init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, RMSNorm):
             m.weight.fill_(0.0 if m.unit_offset else 1.0)
+        elif hasattr(m, "init_weights_"):  # a family's own parameters (gpt-oss's sinks, router, experts)
+            m.init_weights_(generator)
 
 
 class LlamaForCausalLM(nn.Module):

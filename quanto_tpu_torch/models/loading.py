@@ -9,7 +9,11 @@ frozen, and repacked into the Hopper layout on a CUDA device), from torch
 tensors, numpy arrays (`quanto_tpu.models.loading.hf_state_dict` after
 `np.asarray`) or a lazily read checkpoint. A model built on "meta" is
 allocated a tensor at a time on `device`, so a checkpoint larger than the
-device in float loads within its own bytes. `qkv_layer_from_numpy` turns the
+device in float loads within its own bytes. The names are the modules' own,
+Hugging Face's, so a family's own parameters load like any other: gpt-oss's
+`self_attn.sinks`, `mlp.router.weight` and `.bias`, and the fused
+`mlp.experts.gate_up_proj`, `gate_up_proj_bias`, `down_proj` and
+`down_proj_bias` (`models/gpt_oss.py`). `qkv_layer_from_numpy` turns the
 fields of a JAX `QKVCacheLayer`, as numpy arrays, into the port's cache
 layer.
 """

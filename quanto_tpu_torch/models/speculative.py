@@ -18,7 +18,7 @@ are never cleaned: both caches are rewritten by the next round's write
 window before any query attends them (the write offset only moves forward,
 and the causal mask hides every slot at or beyond the query's position).
 The caches are flat (`serve.make_cache(..., sliding_ring=False)`), also for
-a sliding-window target such as Gemma-2, where JAX builds rings: a round
+a sliding-window target such as Gemma-2 or gpt-oss, where JAX builds rings: a round
 rewrites slots that a rejected draft wrote, which a flat cache allows and a
 ring, whose slots alias positions W apart, would not. Past W the window
 bites through `flash_decode`'s `window` and the verify's sliding mask.

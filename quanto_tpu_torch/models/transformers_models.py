@@ -77,10 +77,17 @@ def build_model(hf_config: dict, dtype=torch.bfloat16):
     gemma3 config's language model from its `text_config` (JAX
     `transformers_models.py:52-57`)."""
     model_type = hf_config.get("model_type")
+    if model_type == "gpt_oss":
+        # JAX's build_model has no gpt_oss either (no quanto checkpoint route for the family).
+        raise NotImplementedError(
+            "model_type 'gpt_oss' has no quanto checkpoint route, as in quanto_tpu: build the model from "
+            "quanto_tpu_torch.models.GptOssConfig (GptOssConfig.from_hf(config.json)) and fill it with "
+            "models.loading.load_hf_state_dict"
+        )
     if model_type not in _FAMILIES:
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP.md Queue 1, item 8; MoE families: item 7); "
-            f"ported: {', '.join(_FAMILIES)}"
+            f"model_type {model_type!r} is not ported yet (ROADMAP.md Queue 1, item 8; MoE families qwen2_moe and "
+            f"deepseek_v3: item 7); ported: {', '.join(_FAMILIES)}"
         )
     config_cls, model_cls = _FAMILIES[model_type]
     if model_type == "gemma3":

@@ -14,7 +14,8 @@ PyTorch counterpart of `quanto_tpu/ops/attention.py`:
   (`static_zero_pos`), inside JAX's envelope, attends to its raw K/V through
   `flash_prefill`, the counterpart of JAX's splash kernel; None elsewhere.
 - `decode_attention`, the counterpart of `try_flash_decode` (`:278-343`) and
-  of `decode_attention` (`:176-201`, scale, softcap and a sliding window): a
+  of `decode_attention` (`:176-201`, scale, softcap, a sliding window and
+  gpt-oss's sinks, which JAX's einsum chain takes at every T): a
   T == 1 step over any cache of `tensor/kv_cache.py`, a ring included, goes to `flash_decode`,
   whose kernel takes every cache the port has (float, int8, int4, fp8, mixed
   K/V types, shifts, any S), so there is no envelope to fall back from. A
@@ -177,10 +178,12 @@ def try_flash_prefill(
 def decode_attention(
     q: torch.Tensor, layer_cache, positions: torch.Tensor, *, scale: Optional[float] = None,
     softcap: Optional[float] = None, window: Optional[int] = None, ring: bool = False,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step's attention over the just-updated cache (JAX
     `attention.py:176-201` and Gemma-2's T == 1 step): logits times `scale`
-    (default D**-0.5), then `softcap` (None: none), then the mask.
+    (default D**-0.5), then `softcap` (None: none), then the mask, then
+    gpt-oss's `sinks` (float32 [H] per-head sink logits, None: none).
 
     q [B, 1, H, D] post-rope queries; `layer_cache` a float (k, v) tuple, a
     `QKVCacheLayer` or a `PagedKVLayer`; positions int32 [B]: slot s is
@@ -194,7 +197,7 @@ def decode_attention(
     the ring has wrapped, slots 0..positions[b] before. Returns [B, 1, H*D]
     in q's dtype."""
     B, _, H, D = q.shape
-    tf = dict(scale=scale, softcap=softcap, window=window)
+    tf = dict(scale=scale, softcap=softcap, window=window, sinks=sinks)
     if isinstance(layer_cache, PagedKVLayer):
         c = layer_cache
         Hkv = c._k_pages.shape[2]

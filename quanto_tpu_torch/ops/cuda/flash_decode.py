@@ -15,8 +15,13 @@ sliding window:
     out      = softmax(logit) . (s_v * c_v + m_v)
 
 `scale` defaults to D**-0.5; `softcap` (None: none) and `window` (None: none)
-are Gemma-2's attention softcap and sliding window. The three are runtime
-arguments of one kernel; under a window a row reads only its window's slots.
+are Gemma-2's attention softcap and sliding window. `sinks` (None: none),
+float32 [Hkv * G], are gpt-oss's attention sinks: one learned logit per query
+head that joins the softmax as a slot without a value, after the scale, the
+softcap and the mask (m = max(max_s logit, sink), the denominator gains
+exp(sink - m); JAX's `gqa_attention(..., sinks=)`). The four are runtime
+arguments of one kernel; under a window a row reads only its window's slots,
+and only the last store of a row reads its sink.
 
 The wrapper's contract is JAX's `flash_decode_call`, widened to the port's
 caches (`tensor/kv_cache.py`): q [B, Hkv, G, D] (bfloat16 or float32, D 64,
@@ -89,12 +94,13 @@ def flash_decode_plain(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the kernel: `gqa_attention`'s factored float32 chain
-    over the decoded payloads (scale, then softcap, then the mask, JAX's
-    order), slots past positions[b] and, under a window, at or before
-    positions[b] - window masked, the PV product kept in float32 as the kernel
-    keeps it, the output cast to q's dtype."""
+    over the decoded payloads (scale, then softcap, then the mask, then the
+    sinks, JAX's order), slots past positions[b] and, under a window, at or
+    before positions[b] - window masked, the PV product kept in float32 as
+    the kernel keeps it, the output cast to q's dtype."""
     from ..attention import gqa_attention  # ops/attention.py imports this module
 
     B, Hkv, G, D = q.shape
@@ -107,12 +113,18 @@ def flash_decode_plain(
     mask = torch.zeros((B, 1, 1, S), device=q.device).masked_fill(hidden[:, None, None, :], float("-inf"))
     out = gqa_attention(
         q[:, None], _codes_f32(k), _codes_f32(v), mask, D**-0.5 if scale is None else scale,
-        k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift, softcap=softcap, f32_pv=True,
+        k_scale=k_scale, v_scale=v_scale, k_shift=k_shift, v_shift=v_shift, softcap=softcap, sinks=sinks,
+        f32_pv=True,
     )
     return out.reshape(B, Hkv, G, D)
 
 
-def _check_transforms(scale, softcap, window) -> None:
+def _check_transforms(q, scale, softcap, window, sinks) -> None:
+    if sinks is not None:
+        H = q.shape[1] * q.shape[2]
+        if sinks.dtype != torch.float32 or tuple(sinks.shape) != (H,) or sinks.device != q.device:
+            raise ValueError(f"flash_decode: sinks must be float32 [{H}] on q's device, got "
+                             f"{sinks.dtype} {tuple(sinks.shape)} on {sinks.device}")
     if scale is not None and not scale > 0:
         raise ValueError(f"flash_decode: scale must be positive, got {scale}")
     if softcap is not None and not softcap > 0:
@@ -182,7 +194,7 @@ def _fp8_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 # C signatures of `flash_decode_workspace` and `flash_decode` in csrc/flash_decode.cu.
 _WS_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,12 +224,12 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: int, table=None, page_size: int = 0,
-            scale=None, softcap=None, window=None):
+            scale=None, softcap=None, window=None, sinks=None):
     """One launch of the kernel on q's CUDA device, dense (`table` None) or
     paged; returns the output. `types`: `_check`'s (k_type, v_type, mode)."""
     k_type, v_type, mode = types
     B, Hkv, G, D = q.shape
-    tensors = [t for t in (q, k, v, k_scale, v_scale, k_shift, v_shift, positions, table) if t is not None]
+    tensors = [t for t in (q, k, v, k_scale, v_scale, k_shift, v_shift, positions, table, sinks) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode: all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -247,7 +259,7 @@ def _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, S: in
         ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale), ptr(k_shift), ptr(v_shift),
         ptr(positions), ptr(k_lut), ptr(v_lut), ptr(ws), ptr(counters), ptr(out),
         B, Hkv, G, S, D, k_type, v_type, mode, int(q_bf16), ptr(table), P, page_size,
-        D**-0.5 if scale is None else float(scale), float(softcap or 0.0), int(window or 0), stream,
+        D**-0.5 if scale is None else float(scale), float(softcap or 0.0), int(window or 0), ptr(sinks), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
@@ -267,13 +279,14 @@ def flash_decode(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention out [B, Hkv, G, D] in q's dtype (see the module
     docstring). Replaces `quanto_tpu/ops/pallas/flash_decode.py:_kernel`,
     `flash_decode2.py:_kernel` and `flash_decode3.py:_kernel`."""
     types = _check(q, k, v, k_scale, v_scale, k_shift, v_shift, positions)
-    _check_transforms(scale, softcap, window)
-    tf = dict(scale=scale, softcap=softcap, window=window)
+    _check_transforms(q, scale, softcap, window, sinks)
+    tf = dict(scale=scale, softcap=softcap, window=window, sinks=sinks)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, **tf)
     out = _launch(q, k, v, k_scale, v_scale, positions, k_shift, v_shift, types, k.shape[1], **tf)
@@ -298,12 +311,13 @@ def flash_decode_paged_plain(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the paged arm, JAX's route: the pages gathered
     through the table into the dense view, then `flash_decode_plain`."""
     g = [gather_pages(t, table) for t in (k_pages, v_pages, k_scale, v_scale, k_shift, v_shift)]
     return flash_decode_plain(q, g[0], g[1], g[2], g[3], positions, g[4], g[5], scale=scale, softcap=softcap,
-                              window=window)
+                              window=window, sinks=sinks)
 
 
 def flash_decode_paged(
@@ -320,13 +334,14 @@ def flash_decode_paged(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention out [B, Hkv, G, D] over a paged cache, reading the
     pages through `table` (int32 [B, P]; see the module docstring). Replaces
     the same TPU kernels as `flash_decode`, which JAX runs on the gathered view."""
     types = _check(q, k_pages, v_pages, k_scale, v_scale, k_shift, v_shift, positions, paged=True)
-    _check_transforms(scale, softcap, window)
-    tf = dict(scale=scale, softcap=softcap, window=window)
+    _check_transforms(q, scale, softcap, window, sinks)
+    tf = dict(scale=scale, softcap=softcap, window=window, sinks=sinks)
     B = q.shape[0]
     if table.dim() != 2 or table.shape[0] != B or table.dtype != torch.int32:
         raise ValueError(f"flash_decode_paged: table must be int32 [{B}, P], got {table.dtype} {tuple(table.shape)}")

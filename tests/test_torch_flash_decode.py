@@ -23,6 +23,11 @@
   clamped to W - 1) against JAX's read-concat over the pre-write ring
   (2e-5 * max|ref| + 1e-6); the paged arm with the three equal to the dense
   call on the gathered view.
+- gpt-oss's sinks: `decode_attention(..., sinks=)` at G = 8, D = 64 against
+  JAX's `gqa_attention(..., sinks=)` over float, int8, int4 and asymmetric
+  int4 caches, with and without a window, and over a ring (2e-5 * max|ref| +
+  1e-6); the paged arm with sinks equal to the dense call on the gathered
+  view.
 
 The CUDA kernel itself is held against `flash_decode_plain` on the card by
 `tests/test_torch_gpu_kernels.py`.
@@ -277,3 +282,102 @@ def test_wrapper_rejects_bad_transforms():
     for bad in (dict(scale=0.0), dict(softcap=-1.0), dict(window=0), dict(window=2.5)):
         with pytest.raises(ValueError):
             flash_decode(q, k, v, None, None, pos, **bad)
+
+
+# gpt-oss's attention sinks: one logit per query head joins every softmax without a value.
+SINK_CACHES = [None, "qint8", "qint4", "qint4a"]
+
+
+@pytest.mark.parametrize("window", [None, 16], ids=["full", "window16"])
+@pytest.mark.parametrize("spec", SINK_CACHES, ids=["float", "qint8", "qint4", "qint4a"])
+def test_sinks_match_jax_gqa_attention(spec, window):
+    """`decode_attention(..., sinks=)` (flash_decode_plain on the CPU) at
+    gpt-oss's G = 8, D = 64 against JAX's `gqa_attention(..., sinks=)` with
+    the mask of the row's visible slots (a window's too), within 2e-5 *
+    max|ref| + 1e-6 (`near`); rows at positions 39, 17 and 0, sinks from -4
+    to 4 about the logits' scale, so that some rows are mostly sink."""
+    B, S, Hkv, G, D = 3, 40, 2, 8, 64
+    rng = np.random.default_rng(31)
+    pos = np.array([39, 17, 0], np.int32)
+    q = rng.standard_normal((B, 1, Hkv * G, D)).astype(np.float32) * 2
+    sinks = rng.uniform(-4.0, 4.0, Hkv * G).astype(np.float32)
+    if spec is None:
+        k = (rng.standard_normal((B, S, Hkv, D)) * 1.5 + 0.3).astype(np.float32)
+        v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+        jk, jv, ks, vs, km, vm = jnp.asarray(k), jnp.asarray(v), None, None, None, None
+        cache = port(k, v)
+    else:
+        layer = jax_cache(spec, B, S, Hkv, D, seed=len(spec) + 30)
+        jk, jv, ks, vs, km, vm = jkv.kv_read_raw(layer, jnp.float32)
+        cache = bridge(layer, spec)
+    s = np.arange(S)[None, :]
+    ok = s <= pos[:, None]
+    if window:
+        ok &= s > pos[:, None] - window
+    mask = np.where(ok, 0.0, np.finfo(np.float32).min)[:, None, None, :].astype(np.float32)
+    ref = jax_gqa_attention(
+        jnp.asarray(q).reshape(B, 1, Hkv, G, D), jk, jv, jnp.asarray(mask), D**-0.5,
+        k_scale=ks, v_scale=vs, k_shift=km, v_shift=vm, sinks=jnp.asarray(sinks),
+    )
+    out = decode_attention(torch.from_numpy(q), cache, torch.from_numpy(pos), window=window,
+                           sinks=torch.from_numpy(sinks))
+    near(out, ref)
+    # The sinks move every row: without them the same call is another function.
+    assert not torch.allclose(out, decode_attention(torch.from_numpy(q), cache, torch.from_numpy(pos), window=window))
+
+
+@pytest.mark.parametrize("spec", [None, "qint8"], ids=["float", "qint8"])
+def test_ring_decode_with_sinks_matches_jax_read_concat(spec):
+    """A decode step over a W = 16 ring with sinks at G = 8, D = 64, one row
+    before it wraps (position 9) and one after (position 40): the post-write
+    ring against JAX's pre-write ring joined with the new key under
+    `ring_mask` (2e-5 * max|ref| + 1e-6)."""
+    from quanto_tpu.models import sliding as jsl
+
+    B, Wr, Hkv, G, D = 2, 16, 2, 8, 64
+    rng = np.random.default_rng(13)
+    k0, v0 = (rng.standard_normal((B, Wr, Hkv, D)).astype(np.float32) for _ in range(2))
+    knew, vnew = (rng.standard_normal((B, 1, Hkv, D)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((B, 1, Hkv * G, D)).astype(np.float32) * 2
+    sinks = rng.uniform(-2.0, 2.0, Hkv * G).astype(np.float32)
+    pos = np.array([9, 40], np.int32)
+    jring = (jnp.asarray(k0), jnp.asarray(v0)) if spec is None else jkv.kv_update(
+        jkv.init_quantized_kv_cache(1, B, Wr, Hkv, D, spec)[0], jnp.asarray(k0), jnp.asarray(v0), 0)
+    kc, vc, ks, vs, km, vm, _ = jsl.ring_attention_inputs(jring, jnp.asarray(knew), jnp.asarray(vnew),
+                                                          jnp.asarray(pos), None, jnp.float32, B)
+    neg = float(np.finfo(np.float32).min)
+    mask = jsl.ring_mask(jnp.asarray(pos)[:, None], jnp.asarray(pos)[:, None, None, None], jnp.asarray(pos), Wr, B,
+                         neg)
+    ref = jax_gqa_attention(jnp.asarray(q).reshape(B, 1, Hkv, G, D), kc, vc, mask, D**-0.5, k_scale=ks,
+                            v_scale=vs, sinks=jnp.asarray(sinks))
+    ring = port(k0, v0) if spec is None else bridge(jring, spec)
+    tkv.kv_ring_update(ring, torch.from_numpy(knew), torch.from_numpy(vnew), torch.from_numpy(pos))
+    out = decode_attention(torch.from_numpy(q), ring, torch.from_numpy(pos), ring=True,
+                           sinks=torch.from_numpy(sinks))
+    near(out, ref)
+
+
+def test_paged_sinks_equal_dense_sinks():
+    """The paged arm's plain version with sinks and a window equals the
+    dense call on the gathered view, bit for bit."""
+    from quanto_tpu_torch.ops.cuda.flash_decode import flash_decode_paged
+    from quanto_tpu_torch.tensor.paged_kv import gather_pages
+
+    rng = np.random.default_rng(14)
+    B, Hkv, G, D, ps, P = 2, 2, 8, 64, 4, 6
+    pages = [torch.from_numpy(rng.standard_normal((13, ps, Hkv, D)).astype(np.float32)) for _ in range(2)]
+    table = torch.from_numpy(rng.permutation(np.arange(1, 13))[: B * P].reshape(B, P).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((B, Hkv, G, D)).astype(np.float32))
+    pos = torch.tensor([22, 9], dtype=torch.int32)
+    tf = dict(window=8, sinks=torch.from_numpy(rng.uniform(-2.0, 2.0, Hkv * G).astype(np.float32)))
+    out = flash_decode_paged(q, *pages, None, None, table, pos, **tf)
+    want = flash_decode(q, gather_pages(pages[0], table), gather_pages(pages[1], table), None, None, pos, **tf)
+    assert torch.equal(out, want)
+
+
+def test_wrapper_rejects_bad_sinks():
+    q, k, v, _, _ = port(*inputs(1, 2, 4, 16, 64, False, seed=0))
+    pos = torch.zeros(1, dtype=torch.int32)
+    for bad in (torch.zeros(8, dtype=torch.float64), torch.zeros(4), torch.zeros(2, 4)):
+        with pytest.raises(ValueError):
+            flash_decode(q, k, v, None, None, pos, sinks=bad)

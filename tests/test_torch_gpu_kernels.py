@@ -476,6 +476,47 @@ def test_flash_decode_gemma2_transforms(cuda_device, cache, case, D, dtype):
     check_flash_decode(cuda_device, cache, S, D, dtype, G=2, positions=positions, seed=len(case), q_mul=4.0, **tf)
 
 
+# gpt-oss's attention sinks (float32 [Hkv * G], one logit per query head in every softmax) at its
+# G = 8 over 8 kv heads: (S, positions, tf). Its full layers over the 1056 slots of a B = 4 x 1024 +
+# 32 run; a flat sliding layer with the window of 128; a 128-slot ring (positions clamped to W - 1,
+# rows before and after it wraps).
+GPT_OSS_DECODE = {
+    "full": (1056, [1055, 1030, 1024, 0], {}),
+    "window128": (1056, [1055, 600, 128, 3], dict(window=128)),
+    "ring128": (128, [127, 127, 60, 0], {}),
+}
+
+
+def sinks_for(device, H: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).uniform(-4.0, 4.0, H).astype(np.float32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", list(GPT_OSS_DECODE))
+@pytest.mark.parametrize("cache", GEMMA2_CACHES, ids=cache_id)
+def test_flash_decode_sinks_match_plain(cuda_device, cache, case, D, dtype):
+    """The sinks on both arms (bf16 q: tensor cores; float32 q: CUDA cores)
+    against the plain version at G = 8 over 8 kv heads (q x 2, sinks from -4
+    to 4, so that some rows are mostly sink)."""
+    S, positions, tf = GPT_OSS_DECODE[case]
+    check_flash_decode(cuda_device, cache, S, D, dtype, G=8, Hkv=8, positions=positions, seed=S + D, q_mul=2.0,
+                       sinks=sinks_for(cuda_device, 64, S + D), **tf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["q_bf16", "q_f32"])
+@pytest.mark.parametrize("case", ["ps16_bf16", "ps16_k8v4", "ps64_qint4a"])
+def test_flash_decode_paged_sinks(cuda_device, case, dtype):
+    """The paged arm with sinks and a window: EQUAL to the dense arm on the
+    gathered view, near its plain version."""
+    ps, S, B, spec, D = PAGED[case]
+    Hkv = 8 if ps == 64 else 2
+    check_flash_decode_paged(cuda_device, ps, S, B, spec, D, dtype, Hkv=Hkv, seed=2, window=S // 3,
+                             sinks=sinks_for(cuda_device, Hkv * 4, ps))
+
+
 @pytest.mark.gpu
 def test_flash_decode_window_reads_its_window_only(cuda_device):
     """Slots outside a row's window never change its output (bit for bit)."""
@@ -728,6 +769,53 @@ def test_moe_qwen3_routes_match_plain(cuda_device, route, n, k, dtype):
         assert MM.qbits_moe_tiled.launches_small_m == small + 1
     else:
         xg = torch.from_numpy(rng.standard_normal((128, 512, k)).astype(np.float32)).to(cuda_device, dtype)
+        check_moe(MM.qbits_moe_tiled, xg, weights)
+
+
+# gpt-oss-20b's experts, padded before quantization: gate, up and down all [2944, 3072] (N = 2880 and
+# K = 2880 rounded up to 128 and 1024), 32 experts, top-4. A B = 4 decode step's 16 selective pairs;
+# a B = 16 step's unique-expert route over a 32-slot routed-first table (gate/up over 16 shared rows,
+# down over each slot's own 16 rows: TPU #15); a B = 4 x 1024 prefill's 32 capacity slabs of 1024 rows;
+# an engine's serial chunk of 512 on the all-experts route (gate/up: all 32 slots over 512 shared
+# rows, TPU #12; down: 32 slabs of 512 rows).
+GPT_OSS_MOE_SHAPE = (2944, 3072)
+
+
+def routed_first(device, E: int, routed: int, seed: int):
+    """A routed-first table of E experts (`routed` chosen at random, ascending,
+    then the others ascending) and the routed count, on `device`."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(E, bool)
+    mask[rng.choice(E, routed, replace=False)] = True
+    table = np.concatenate([np.flatnonzero(mask), np.flatnonzero(~mask)]).astype(np.int32)
+    return torch.from_numpy(table).to(device), torch.tensor(routed, dtype=torch.int32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("route", ["sel16", "uniq32", "uniq32-down16", "capacity1024", "all512", "all512-down"])
+def test_moe_gpt_oss_routes_match_plain(cuda_device, route, dtype):
+    n, k = GPT_OSS_MOE_SHAPE
+    weights = random_experts(cuda_device, n, k, 128, 4, seed=len(route), E=32)
+    rng = np.random.default_rng(len(route))
+    if route == "sel16":
+        x = torch.from_numpy(rng.standard_normal((16, k)).astype(np.float32)).to(cuda_device, dtype)
+        eids = torch.from_numpy(rng.integers(0, 32, 16).astype(np.int32)).to(cuda_device)
+        check_moe(MM.qbits_moe_small_m, x[:, None, :], weights, eids=eids)
+    elif route == "uniq32":
+        x = torch.from_numpy(rng.standard_normal((16, k)).astype(np.float32)).to(cuda_device, dtype)
+        check_moe(MM.qbits_moe_small_m, x.expand(32, *x.shape), weights, *routed_first(cuda_device, 32, 27, 1))
+    elif route == "uniq32-down16":
+        xg = torch.from_numpy(rng.standard_normal((32, 16, k)).astype(np.float32)).to(cuda_device, dtype)
+        small = MM.qbits_moe_tiled.launches_small_m
+        check_moe(MM.qbits_moe_tiled, xg, weights, *routed_first(cuda_device, 32, 30, 2))
+        assert MM.qbits_moe_tiled.launches_small_m == small + 1
+    elif route == "all512":
+        x = torch.from_numpy(rng.standard_normal((512, k)).astype(np.float32)).to(cuda_device, dtype)
+        check_moe(MM.qbits_moe_small_m, x.expand(32, *x.shape), weights)
+    else:
+        rows = 512 if route == "all512-down" else 1024
+        xg = torch.from_numpy(rng.standard_normal((32, rows, k)).astype(np.float32)).to(cuda_device, dtype)
         check_moe(MM.qbits_moe_tiled, xg, weights)
 
 
